@@ -8,6 +8,8 @@ Random123 known-answer vectors. The CUDA kernels themselves are held against
 the plain versions in tests/test_torch_kernels_gpu.py.
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -79,7 +81,7 @@ def test_mixture_chain_plain_matches_jax_interpret(d, k, n_steps, thin, sched, c
     jkw = {key: _jax(v) if isinstance(v, np.ndarray) else v for key, v in kw_np.items()}
     tkw = {key: _torch(v) if isinstance(v, np.ndarray) else v for key, v in kw_np.items()}
     jargs = (jnp.asarray(x0), jnp.asarray(means), n_steps, _jax(h), _jax(ns))
-    counts = tfl.launch_counts()
+    counts = _build.launch_counts()
     targs = (torch.from_numpy(x0), torch.from_numpy(means), n_steps, _torch(h), _torch(ns))
     if thin is None:
         ref = jfl.mixture_langevin_chain(
@@ -97,7 +99,7 @@ def test_mixture_chain_plain_matches_jax_interpret(d, k, n_steps, thin, sched, c
         assert traj.shape == (n_steps // thin, N_CHAINS, d)
         _close(traj, ref_traj)
         _close(final, ref_final)
-    assert tfl.launch_counts() == counts  # the CPU path launches no kernel
+    assert _build.launch_counts() == counts  # the CPU path launches no kernel
 
 
 # (shape, n_steps, thin, schedule, clamp)
@@ -230,3 +232,44 @@ def test_library_path_is_keyed_by_sources():
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("torchebm_kernels_") and path.suffix == ".so"
     assert path == _build.library_path()
+
+
+def test_library_path_follows_every_source_and_header(monkeypatch, tmp_path):
+    """The library's name hashes the ``*.cuh`` headers too: editing the shared
+    header alone names a new library, so it is rebuilt; a file of another
+    kind does not."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build.library_path()
+    assert sorted(p.name for p in _build._sources()) == [
+        "fused_hmc.cu", "fused_langevin.cu", "fused_mala.cu"]
+    (csrc / "notes.txt").write_text("not a source")
+    assert _build.library_path() == before
+    header = csrc / "tebm_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = _build.library_path()
+    assert edited != before
+    (csrc / "fused_mala.cu").write_text((csrc / "fused_mala.cu").read_text() + "\n")
+    assert _build.library_path() not in (before, edited)
+
+
+def test_launch_counts_cover_every_kernel_wrapper():
+    from torchebm_tpu_torch import ops
+
+    assert set(ops.launch_counts()) == {
+        "mixture_langevin_chain", "mixture_langevin_chain_trajectory",
+        "doublewell_langevin_chain", "doublewell_langevin_chain_trajectory",
+        "mixture_mala_chain", "mixture_mala_chain_trajectory",
+        "mixture_hmc_chain", "mixture_hmc_chain_trajectory",
+    }
+    saved = ops.launch_counts()
+    try:
+        tfl.doublewell_langevin_chain.launches += 2
+        assert ops.launch_counts()["doublewell_langevin_chain"] == saved[
+            "doublewell_langevin_chain"] + 2
+        ops.reset_launch_counts()
+        assert set(ops.launch_counts().values()) == {0}
+    finally:
+        for fn in _build._COUNTED:
+            fn.launches = saved[fn.__name__]

@@ -112,7 +112,9 @@ class _ImplicitEuler(ti.BaseSDERungeKuttaIntegrator):
 def test_registry_names_and_probes():
     for name in ("euler", "euler_maruyama", "EULER"):
         assert isinstance(ti.get_integrator(name), ti.EulerMaruyamaIntegrator)
-    assert sorted(ti.INTEGRATOR_REGISTRY) == ["euler", "euler_maruyama"]
+    assert sorted(ti.INTEGRATOR_REGISTRY) == ["euler", "euler_maruyama", "leapfrog"]
+    assert isinstance(ti.get_integrator("leapfrog"), ti.LeapfrogIntegrator)
+    assert ti.get_integrator("leapfrog").family == ji.get_integrator("leapfrog").family
     # a name the JAX package knows but the port has not ported yet
     assert isinstance(ji.get_integrator("heun"), ji.HeunIntegrator)
     with pytest.raises(ValueError, match="Unknown integrator 'heun'"):
@@ -127,6 +129,23 @@ def test_registry_names_and_probes():
     em = ti.EulerMaruyamaIntegrator()
     assert ti.resolve_integrator(em, default="euler", families=("sde",)) is em
     assert isinstance(ti.resolve_integrator(None, default="euler"), ti.EulerMaruyamaIntegrator)
+
+
+def test_hmc_rejects_a_non_symplectic_integrator_as_jax_does():
+    from torchebm_tpu.core import GaussianEnergy as JGaussian
+    from torchebm_tpu.samplers import HamiltonianMonteCarlo as JHMC
+    from torchebm_tpu_torch.core import GaussianEnergy as TGaussian
+    from torchebm_tpu_torch.samplers import HamiltonianMonteCarlo as THMC
+
+    with pytest.raises(ValueError, match="family 'sde'"):
+        JHMC(JGaussian.standard(2), integrator="euler")
+    with pytest.raises(ValueError, match="family 'sde'"):
+        THMC(TGaussian.standard(2), integrator="euler")
+    # the Langevin sampler refuses the symplectic leapfrog the same way
+    from torchebm_tpu_torch.samplers import LangevinDynamics
+
+    with pytest.raises(ValueError, match="family 'symplectic'"):
+        LangevinDynamics(TGaussian.standard(2), integrator="leapfrog")
 
 
 def test_registry_rejects_wrong_family():

@@ -8,13 +8,24 @@ JAX nor the JAX package, so it also runs where JAX is not installed:
 The tolerance is atol 1e-4 (float32): the kernels contract multiply-adds and
 take the mixture softmax online in one pass, the plain versions do neither;
 the chains contract at these step sizes, so rounding does not grow.
+
+The MALA and HMC chains take a Metropolis decision per step: where the
+uniform lies within rounding of the acceptance probability, kernel and plain
+version may decide differently and that chain then differs by a whole
+proposal. Those checks count the chains beyond the tolerance (state,
+trajectory or acceptance) and allow at most 0.1% of the chains to flip; every
+other chain must agree to atol 1e-4.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from torchebm_tpu_torch.ops import fused_hmc as thmc
 from torchebm_tpu_torch.ops import fused_langevin as tfl
+from torchebm_tpu_torch.ops import fused_mala as tmala
+
+TOL = 1e-4
 
 
 def _rng(seed):
@@ -88,3 +99,91 @@ def test_doublewell_kernels_match_plain_on_card(cuda, inject):
     )
     torch.testing.assert_close(gt.cpu(), wt, rtol=0, atol=1e-4)
     torch.testing.assert_close(gf.cpu(), wf, rtol=0, atol=1e-4)
+
+
+def _flipped_chains(got, want, n) -> int:
+    """Chains whose state, trajectory or acceptance differ by more than TOL;
+    every output is finite."""
+    bad = torch.zeros(n, dtype=torch.bool)
+    for g, w in zip(got, want):
+        g = g.cpu()
+        assert torch.isfinite(g).all()
+        diff = (g - w).abs()
+        if diff.ndim == 3:  # trajectory (n_kept, n, d)
+            diff = diff.amax(dim=(0, 2))
+        elif diff.ndim == 2:
+            diff = diff.amax(dim=1)
+        bad |= diff > TOL
+    return int(bad.sum())
+
+
+#: the correlated 2-D Gaussian of the ESS protocol (cov [[1, .8], [.8, 1]])
+CORR_COV = np.array([[1.0, 0.8], [0.8, 1.0]])
+
+
+def _metropolis_case(rng, target):
+    """``(n, d, x0, means, kwargs)`` on the CPU for an 8-component mixture at
+    d=2, a d=32 full-covariance Gaussian, or the correlated 2-D Gaussian."""
+    n = 4096
+    if target == "corr2":
+        # the ESS protocol's target, started at exact draws of it
+        x0 = _normal(rng, n, 2) @ np.linalg.cholesky(CORR_COV).T.astype(np.float32)
+        kw = dict(seed=42, precision=torch.from_numpy(np.linalg.inv(CORR_COV).astype(np.float32)))
+        return n, 2, torch.from_numpy(x0).contiguous(), torch.zeros(1, 2), kw
+    k, d = (1, 32) if target == "gaussian" else (8, 2)
+    means = torch.from_numpy(_normal(rng, k, d, scale=2.0))
+    # start at draws of the target, where the chains contract
+    x0 = means[torch.from_numpy(rng.integers(0, k, n))] + torch.from_numpy(
+        _normal(rng, n, d, scale=1.0 if target == "gaussian" else 0.4))
+    kw = dict(scale=0.4, seed=42)
+    if target == "gaussian":
+        a = _normal(rng, d, d, scale=0.1)
+        kw = dict(seed=42, precision=torch.from_numpy((a @ a.T + np.eye(d)).astype(np.float32)))
+    return n, d, x0.contiguous(), means, kw
+
+
+#: (step, thin): small steps on the mixture and the d=32 Gaussian; on the
+#: correlated Gaussian the ESS protocol's steps (MALA's pilot step, HMC's
+#: adapted step with a material share of rejections) and its thin of 4
+MALA_STEP = {"mixture": (0.02, 3), "gaussian": (0.02, 3), "corr2": (0.25, 4)}
+HMC_STEP = {"mixture": (0.05, 3), "gaussian": (0.05, 3), "corr2": (0.6, 4)}
+TARGETS = ["mixture", "gaussian", "corr2"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inject", [True, False], ids=["noise", "philox"])
+@pytest.mark.parametrize("target", TARGETS)
+def test_mala_kernels_match_plain_on_card(cuda, inject, target):
+    rng = _rng(2)
+    n, d, x0, means, kw = _metropolis_case(rng, target)
+    n_steps, (step, thin) = 20, MALA_STEP[target]
+    if inject:
+        kw["noise"] = torch.from_numpy(_normal(rng, n_steps, n, d))
+        kw["uniforms"] = torch.from_numpy(rng.uniform(size=(n_steps, n)).astype(np.float32))
+    kw = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    for fn, extra in ((tmala.mixture_mala_chain, {}),
+                      (tmala.mixture_mala_chain_trajectory, dict(thin=thin))):
+        got, want = _kernel_and_plain(fn, cuda, x0.to(cuda), means.to(cuda), n_steps, step,
+                                      **extra, **kw)
+        assert _flipped_chains(got, want, n) <= n // 1000
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inject", [True, False], ids=["noise", "philox"])
+@pytest.mark.parametrize("target", TARGETS)
+@pytest.mark.parametrize("mass", [False, True], ids=["unit", "diag-mass"])
+def test_hmc_kernels_match_plain_on_card(cuda, inject, target, mass):
+    rng = _rng(3)
+    n, d, x0, means, kw = _metropolis_case(rng, target)
+    n_draws, (step, thin) = 10, HMC_STEP[target]
+    if mass:
+        kw["mass"] = torch.from_numpy(rng.uniform(0.5, 2.0, d).astype(np.float32))
+    if inject:
+        kw["noise"] = torch.from_numpy(_normal(rng, n_draws, n, d))
+        kw["uniforms"] = torch.from_numpy(rng.uniform(size=(n_draws, n)).astype(np.float32))
+    kw = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    for fn, extra in ((thmc.mixture_hmc_chain, {}),
+                      (thmc.mixture_hmc_chain_trajectory, dict(thin=thin))):
+        got, want = _kernel_and_plain(fn, cuda, x0.to(cuda), means.to(cuda), n_draws, step, 8,
+                                      **extra, **kw)
+        assert _flipped_chains(got, want, n) <= n // 1000

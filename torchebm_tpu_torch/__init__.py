@@ -4,12 +4,14 @@ A second package beside the JAX one, with the same module layout, so each
 module's counterpart is found under the same name. It imports ``torch`` and
 never ``jax``. Energies are ``nn.Module``\\ s with their parameters as buffers,
 randomness comes from explicit ``torch.Generator``\\ s, and the device is the
-generator's. The whole-chain Langevin kernels are hand-written CUDA for
-Hopper (``ops/csrc``), built at first use.
+generator's. The whole-chain Langevin, MALA and HMC kernels are
+hand-written CUDA for Hopper (``ops/csrc``), built at first use.
 
 Ported so far: the Langevin sampling path (energies, schedulers,
 Euler–Maruyama, the sampling loop, ``LangevinDynamics`` with its dispatch
-rows and kernels) and parameter conversion from the JAX package.
+rows and kernels), the gradient-MCMC slice (gradient descent, Nesterov,
+MALA, leapfrog, HMC with dual-averaging warmup, R̂/ESS diagnostics) and
+parameter and sampler conversion from the JAX package.
 
 Subpackages and symbols load lazily through module ``__getattr__``.
 """
@@ -49,8 +51,19 @@ _LAZY_SYMBOLS = {
     "get_integrator": "integrators",
     "resolve_integrator": "integrators",
     "EulerMaruyamaIntegrator": "integrators",
+    "LeapfrogIntegrator": "integrators",
     # samplers
     "LangevinDynamics": "samplers",
+    "GradientDescentSampler": "samplers",
+    "NesterovSampler": "samplers",
+    "MetropolisAdjustedLangevin": "samplers",
+    "HamiltonianMonteCarlo": "samplers",
+    "DualAveragingState": "samplers",
+    "dual_averaging_update": "samplers",
+    "potential_scale_reduction": "samplers",
+    "effective_sample_size": "samplers",
+    "tail_effective_sample_size": "samplers",
+    "summarize_chains": "samplers",
 }
 
 __all__ = list(_SUBMODULES) + list(_LAZY_SYMBOLS) + ["__version__"]

@@ -1,4 +1,4 @@
-r"""Integrator contracts: explicit Runge-Kutta and additive-noise SDE families.
+r"""Integrator contracts: explicit Runge-Kutta, additive-noise SDE and symplectic families.
 
 PyTorch counterpart of the explicit part of :mod:`torchebm_tpu.integrators.base`.
 Integrators are frozen, tensor-free dataclasses; the Butcher tableau is a
@@ -7,7 +7,8 @@ class-level tuple unrolled in Python. Noise comes from an explicit
 The adaptive controller and the implicit (DIRK) stages come with the
 integrators that need them.
 
-State is a plain dict: ``{"x": position}``.
+State is a plain dict: ``{"x": position}`` (and ``"p"``, the momentum, for the
+symplectic family).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ __all__ = [
     "BaseIntegrator",
     "BaseRungeKuttaIntegrator",
     "BaseSDERungeKuttaIntegrator",
+    "BaseSymplecticIntegrator",
 ]
 
 
@@ -160,3 +162,33 @@ class BaseSDERungeKuttaIntegrator(BaseRungeKuttaIntegrator):
                 noise_scale=noise_scale, diffusion=diffusion, t=grid[i],
             )["x"]
         return {"x": x}
+
+
+@dataclass(frozen=True)
+class BaseSymplecticIntegrator(BaseIntegrator):
+    """Symplectic family base.
+
+    ``separable`` subclasses take ``drift(x, t)`` (the force) and ``mass``.
+    ``safe`` mode clamps forces to ±:attr:`SAFE_CLAMP` and replaces NaN and
+    infinities, so a diverging trajectory is rejected by the Metropolis test
+    instead of poisoning the chain.
+    """
+
+    family: ClassVar[str] = "symplectic"
+    separable: ClassVar[bool] = True
+
+    SAFE_CLAMP: ClassVar[float] = 1e6
+
+    @staticmethod
+    def _safe_clamp(v: Tensor) -> Tensor:
+        c = BaseSymplecticIntegrator.SAFE_CLAMP
+        return torch.nan_to_num(torch.clamp(v, -c, c), nan=0.0, posinf=c, neginf=-c)
+
+    @staticmethod
+    def _broadcast_mass(mass, x: Tensor) -> Tensor:
+        """A scalar or per-dimension mass, floored at 1e-10, shaped to
+        broadcast against ``x`` (its last axis)."""
+        mass = torch.as_tensor(mass, dtype=x.dtype, device=x.device)
+        if mass.ndim == 0:
+            return torch.clamp(mass, min=1e-10)
+        return torch.clamp(mass.reshape((1,) * (x.ndim - 1) + (-1,)), min=1e-10)

@@ -10,12 +10,14 @@ from typing import Optional, Sequence, Union
 
 from .base import BaseIntegrator
 from .euler_maruyama import EulerMaruyamaIntegrator
+from .leapfrog import LeapfrogIntegrator
 
 __all__ = ["INTEGRATOR_REGISTRY", "get_integrator", "resolve_integrator"]
 
 INTEGRATOR_REGISTRY = {
     "euler": EulerMaruyamaIntegrator,
     "euler_maruyama": EulerMaruyamaIntegrator,
+    "leapfrog": LeapfrogIntegrator,
 }
 
 

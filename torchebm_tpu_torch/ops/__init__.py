@@ -5,20 +5,26 @@ first launch on a CUDA tensor (see :mod:`._build`). CPU tensors take the
 kernels' plain PyTorch versions.
 """
 
+from . import fused_hmc, fused_langevin, fused_mala
+from ._build import launch_counts, reset_launch_counts
+from .fused_hmc import mixture_hmc_chain, mixture_hmc_chain_trajectory
 from .fused_langevin import (
     doublewell_langevin_chain,
     doublewell_langevin_chain_trajectory,
-    launch_counts,
     mixture_langevin_chain,
     mixture_langevin_chain_trajectory,
-    reset_launch_counts,
 )
+from .fused_mala import mixture_mala_chain, mixture_mala_chain_trajectory
 
 __all__ = [
     "doublewell_langevin_chain",
     "doublewell_langevin_chain_trajectory",
     "mixture_langevin_chain",
     "mixture_langevin_chain_trajectory",
+    "mixture_mala_chain",
+    "mixture_mala_chain_trajectory",
+    "mixture_hmc_chain",
+    "mixture_hmc_chain_trajectory",
     "launch_counts",
     "reset_launch_counts",
 ]

@@ -1,0 +1,186 @@
+// Device helpers shared by the chain kernels of ops/csrc/*.cu (sm_90a).
+//
+// Randomness: hand-written Philox4x32-10 (Salmon et al., SC'11; Random123
+// constants), key (seed lo, seed hi). The counters of one chain (or element)
+// `idx` at step `t` are
+//   normals:  (idx lo, t, j, idx hi) for coordinates 4j..4j+3, j < 16 (d <= 64);
+//             the four words feed two Box-Muller transforms, both outputs used;
+//   uniform:  (idx lo, t, 0xFFFFFFFF, idx hi); the top 24 bits of the first
+//             word times 2^-24, in [0, 1) (the JAX kernels' _uniform_from_bits).
+// The block index 0xFFFFFFFF is never a normals block, so the two streams are
+// disjoint. The plain PyTorch twins in ops/fused_langevin.py (philox4x32_10,
+// philox_normals, philox_uniforms) draw the same numbers bit for bit.
+//
+// Target evaluator: grad_logp<DMAX, GAUSS> returns the unnormalised
+// log-density and writes the energy gradient, for an isotropic Gaussian
+// mixture (the JAX _mixture_grad_logp) or a full-covariance Gaussian
+// (_gaussian_grad_logp, torchebm_tpu/ops/fused_langevin.py:121-180).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <float.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 64;
+// K*d <= 1024 and d*d <= 1024 (d <= 32), the wrappers' caps; 8 KB of static
+// shared memory per block.
+constexpr int kMaxParams = 1024;
+constexpr int kMaxDim = 64;
+constexpr float kTwoPi = 6.28318530717958647692f;
+constexpr uint32_t kUniformBlock = 0xFFFFFFFFu;
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint32_t k0, uint32_t k1) {
+  constexpr uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
+  constexpr uint32_t W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += W0;
+      k1 += W1;
+    }
+    const uint32_t hi0 = __umulhi(M0, ctr.x), lo0 = M0 * ctr.x;
+    const uint32_t hi1 = __umulhi(M1, ctr.z), lo1 = M1 * ctr.z;
+    ctr = make_uint4(hi1 ^ ctr.y ^ k0, lo1, hi0 ^ ctr.w ^ k1, lo0);
+  }
+  return ctr;
+}
+
+// Two standard normals from two 32-bit words: the top 24 bits of `a` give
+// u1 in (0, 1], those of `b` give u2 in [0, 1).
+__device__ __forceinline__ void box_muller(uint32_t a, uint32_t b, float& z0, float& z1) {
+  const float u1 = (float)(a >> 8) * 0x1p-24f + 0x1p-25f;
+  const float u2 = (float)(b >> 8) * 0x1p-24f;
+  const float r = sqrtf(-2.0f * logf(u1));
+  const float t = kTwoPi * u2;
+  z0 = r * cosf(t);
+  z1 = r * sinf(t);
+}
+
+// Normals for coordinates 4j..4j+3 of chain `idx` at step `t`.
+__device__ __forceinline__ void normals4(uint64_t idx, int t, int j, uint32_t k0, uint32_t k1,
+                                         float z[4]) {
+  const uint4 o = philox4x32_10(
+      make_uint4((uint32_t)idx, (uint32_t)t, (uint32_t)j, (uint32_t)(idx >> 32)), k0, k1);
+  box_muller(o.x, o.y, z[0], z[1]);
+  box_muller(o.z, o.w, z[2], z[3]);
+}
+
+// The Metropolis uniform of chain `idx` at step `t`, in [0, 1).
+__device__ __forceinline__ float uniform01(uint64_t idx, int t, uint32_t k0, uint32_t k1) {
+  const uint4 o = philox4x32_10(
+      make_uint4((uint32_t)idx, (uint32_t)t, kUniformBlock, (uint32_t)(idx >> 32)), k0, k1);
+  return (float)(o.x >> 8) * 0x1p-24f;
+}
+
+__device__ __forceinline__ float clampf(float v, int use_clamp, float lo, float hi) {
+  return use_clamp ? fminf(fmaxf(v, lo), hi) : v;
+}
+
+// Stage the target in shared memory. Mixture: params_a = means (K, d)
+// row-major, params_b = log-weights (K,). Gaussian: params_a = precision
+// (d, d), params_b = mean (d,). The caller synchronises the block.
+template <bool GAUSS>
+__device__ __forceinline__ void stage_target(float* s_a, float* s_b, const float* params_a,
+                                             const float* params_b, int d, int k) {
+  const int na = GAUSS ? d * d : k * d;
+  const int nb = GAUSS ? d : k;
+  for (int i = threadIdx.x; i < na; i += blockDim.x) s_a[i] = params_a[i];
+  for (int i = threadIdx.x; i < nb; i += blockDim.x) s_b[i] = params_b[i];
+}
+
+// Energy gradient g and unnormalised log-density at x, both held in
+// registers (arrays sized by the bucket DMAX >= d; entries i >= d of x are 0
+// and come back 0 in g). Constants that cancel in Metropolis ratios are
+// dropped from the log-density.
+//
+// Mixture:  g_i = (x_i - sum_k r_k mu_ki) / sigma^2 with r = softmax(logit),
+//           logit_k = logw_k - |x - mu_k|^2 / (2 sigma^2); log p = log sum_k
+//           exp(logit_k). The softmax is taken online in one pass: one
+//           exponential per component, the running sums rescaled only when
+//           the running maximum m moves; log p = m + log(den).
+// Gaussian: g_i = sum_j P_ij (x_j - mu_j); log p = -1/2 sum_i (x_i - mu_i) g_i.
+template <int DMAX, bool GAUSS>
+__device__ __forceinline__ float grad_logp(const float (&x)[DMAX], float (&g)[DMAX],
+                                           const float* s_a, const float* s_b, int d, int k,
+                                           float inv_var) {
+  if (GAUSS) {
+    float diff[DMAX];
+#pragma unroll
+    for (int j = 0; j < DMAX; ++j) diff[j] = j < d ? x[j] - s_b[j] : 0.0f;
+    float quad = 0.0f;
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i) {
+      float acc = 0.0f;
+      if (i < d) {
+#pragma unroll
+        for (int j = 0; j < DMAX; ++j)
+          if (j < d) acc = fmaf(s_a[i * d + j], diff[j], acc);
+      }
+      g[i] = acc;
+      quad = fmaf(diff[i], acc, quad);
+    }
+    return -0.5f * quad;
+  }
+  // g accumulates sum_k w_k mu_k relative to the running maximum m.
+  float m = -FLT_MAX, den = 0.0f;
+#pragma unroll
+  for (int i = 0; i < DMAX; ++i) g[i] = 0.0f;
+  for (int kk = 0; kk < k; ++kk) {
+    const float* mu = s_a + kk * d;
+    float sq = 0.0f;
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i)
+      if (i < d) {
+        const float df = x[i] - mu[i];
+        sq = fmaf(df, df, sq);
+      }
+    const float logit = s_b[kk] - 0.5f * inv_var * sq;
+    if (logit > m) {
+      const float a = expf(m - logit);
+      den = fmaf(den, a, 1.0f);
+#pragma unroll
+      for (int i = 0; i < DMAX; ++i)
+        if (i < d) g[i] = fmaf(g[i], a, mu[i]);
+      m = logit;
+    } else {
+      const float w = expf(logit - m);
+      den += w;
+#pragma unroll
+      for (int i = 0; i < DMAX; ++i)
+        if (i < d) g[i] = fmaf(w, mu[i], g[i]);
+    }
+  }
+  const float inv_den = 1.0f / den;
+#pragma unroll
+  for (int i = 0; i < DMAX; ++i) g[i] = (x[i] - g[i] * inv_den) * inv_var;
+  return m + logf(den);
+}
+
+// One launch of KERNEL<DMAX, GAUSS, TRAJ> over `n` chains with the bucket
+// DMAX >= d picked at run time: d <= 64 for the mixture, d <= 32 for the
+// full-covariance Gaussian. Returns cudaGetLastError() as an int.
+#define TEBM_DISPATCH_BUCKETS(LAUNCH)                              \
+  do {                                                             \
+    if (gaussian) {                                                \
+      if (d <= 2) LAUNCH(2, true);                                 \
+      else if (d <= 4) LAUNCH(4, true);                            \
+      else if (d <= 8) LAUNCH(8, true);                            \
+      else if (d <= 16) LAUNCH(16, true);                          \
+      else if (d <= 32) LAUNCH(32, true);                          \
+      else return (int)cudaErrorInvalidValue;                      \
+    } else {                                                       \
+      if (d <= 2) LAUNCH(2, false);                                \
+      else if (d <= 4) LAUNCH(4, false);                           \
+      else if (d <= 8) LAUNCH(8, false);                           \
+      else if (d <= 16) LAUNCH(16, false);                         \
+      else if (d <= 32) LAUNCH(32, false);                         \
+      else if (d <= 64) LAUNCH(64, false);                         \
+      else return (int)cudaErrorInvalidValue;                      \
+    }                                                              \
+    return (int)cudaGetLastError();                                \
+  } while (0)
+
+}  // namespace

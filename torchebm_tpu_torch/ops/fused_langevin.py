@@ -23,25 +23,27 @@ the card.
 ``step_size`` and ``noise_scale`` are each a float or a ``(n_steps,)``
 per-step schedule. ``noise`` (``(n_steps, *x0.shape)``) injects the normals;
 without it they come from the Philox4x32-10 stream keyed by ``seed``, which
-:func:`philox4x32_10` reproduces bit for bit in plain PyTorch. The
+:func:`philox4x32_10` reproduces bit for bit in plain PyTorch
+(:func:`philox_normals`; :func:`philox_uniforms` draws the Metropolis
+uniforms of the MALA and HMC kernels from the same stream). The
 ``*_trajectory`` variants also return every ``thin``-th state as an
 ``(n_steps // thin, *x0.shape)`` tensor; the trailing ``n_steps % thin``
 steps still run and land in ``final``.
 
 Every wrapper carries an integer ``launches`` attribute, raised by one each
-time it launches its kernel (never on the plain path).
+time it launches its kernel (never on the plain path); ``ops.launch_counts``
+reads them.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 from typing import Optional, Tuple, Union
 
 import torch
 
 from . import _build
+from ._build import ptr as _ptr
 
 Tensor = torch.Tensor
 Schedule = Union[float, Tensor]
@@ -57,8 +59,7 @@ __all__ = [
     "mixture_langevin_chain_trajectory_plain",
     "philox4x32_10",
     "philox_normals",
-    "launch_counts",
-    "reset_launch_counts",
+    "philox_uniforms",
 ]
 
 #: the JAX package's caps (unrolled K x d components, d^2 precision terms);
@@ -66,6 +67,21 @@ __all__ = [
 MAX_DIM = 64
 MAX_COMPONENTS_X_DIM = 1024
 MAX_PRECISION_DIM = 32
+
+_P, _I, _F, _U, _LL = _build.PTR, _build.INT, _build.FLOAT, _build.U32, _build.I64
+#: C entry point (``tebm_<name>``) -> its argument types before the stream
+_SIGNATURES = {
+    "mixture_langevin_chain": (_P,) * 6 + (_I,) * 5 + (_F, _I, _F, _F, _U, _U),
+    "mixture_langevin_chain_trajectory": (_P,) * 7 + (_I,) * 6 + (_F, _I, _F, _F, _U, _U),
+    "doublewell_langevin_chain": (_P,) * 4 + (_LL, _I, _F, _F, _I, _F, _F, _U, _U),
+    "doublewell_langevin_chain_trajectory":
+        (_P,) * 5 + (_LL, _I, _I, _F, _F, _I, _F, _F, _U, _U),
+}
+
+
+def _launch(name: str, device, *args) -> None:
+    _build.launch(name, _SIGNATURES[name], device, *args)
+
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
@@ -124,6 +140,20 @@ def philox_normals(index: Tensor, step: int, n_coords: int, seed: int) -> Tensor
     return torch.stack(zs[:n_coords], dim=-1)
 
 
+#: the Philox block index of the Metropolis uniforms; normals use blocks
+#: 0..ceil(d/4)-1, so the two streams never share a counter.
+UNIFORM_BLOCK = _MASK32
+
+
+def philox_uniforms(index: Tensor, step: int, seed: int) -> Tensor:
+    """Uniforms in [0, 1) of ``index.shape`` for chain ``index`` at ``step``:
+    the top 24 bits of the first word of counter ``(index lo, step,
+    0xFFFFFFFF, index hi)`` times 2^-24, as the kernels draw them."""
+    index = index.to(torch.int64)
+    o = philox4x32_10(index & _MASK32, step, UNIFORM_BLOCK, index >> 32, seed, seed >> 32)
+    return (o[0] >> 8).to(torch.float32) * 2.0**-24
+
+
 # ---------------------------------------------------------------------------
 # shared argument handling
 # ---------------------------------------------------------------------------
@@ -175,6 +205,17 @@ def _check_common(x0: Tensor, n_steps: int, noise: Optional[Tensor]) -> None:
         _check_tensor("noise", noise, x0.device, (int(n_steps), *x0.shape))
 
 
+def _check_metropolis(x0: Tensor, n_steps: int, noise: Optional[Tensor],
+                      uniforms: Optional[Tensor]) -> None:
+    """The checks of the Metropolis chains (MALA, HMC): ``noise`` and
+    ``uniforms`` injected together or not at all, with their shapes."""
+    if (noise is None) != (uniforms is None):
+        raise ValueError("noise and uniforms must be supplied together")
+    _check_common(x0, n_steps, noise)
+    if uniforms is not None:
+        _check_tensor("uniforms", uniforms, x0.device, (int(n_steps), x0.shape[0]))
+
+
 def _check_thin(n_steps: int, thin: int) -> int:
     if thin < 1:
         raise ValueError("thin must be >= 1")
@@ -197,58 +238,29 @@ def _seed_words(seed: int) -> Tuple[int, int]:
     return seed & _MASK32, seed >> 32
 
 
-@functools.cache
-def _kernels() -> ctypes.CDLL:
-    """The built library with every entry point's C signature declared."""
-    lib = _build.load_library()
-    p, i, f, u, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32,
-                      ctypes.c_longlong)
-    sigs = {
-        "tebm_mixture_langevin_chain":
-            [p, p, p, p, p, p, i, i, i, i, i, f, i, f, f, u, u, p],
-        "tebm_mixture_langevin_chain_trajectory":
-            [p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, f, f, u, u, p],
-        "tebm_doublewell_langevin_chain":
-            [p, p, p, p, ll, i, f, f, i, f, f, u, u, p],
-        "tebm_doublewell_langevin_chain_trajectory":
-            [p, p, p, p, p, ll, i, i, f, f, i, f, f, u, u, p],
-    }
-    for name, argtypes in sigs.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.tebm_error_string.argtypes = [ctypes.c_int]
-    lib.tebm_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _launch(name: str, device: torch.device, *args) -> None:
-    """Call C entry ``tebm_<name>`` on ``device``'s current stream; raise on
-    a non-zero ``cudaGetLastError``."""
-    lib = _kernels()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, f"tebm_{name}")(*args, stream)
-    if rc != 0:
-        msg = lib.tebm_error_string(rc).decode()
-        raise RuntimeError(f"{name}: CUDA kernel launch failed with error {rc} ({msg})")
-
-
-def _ptr(t: Optional[Tensor]):
-    return None if t is None else t.data_ptr()
-
-
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
 
 
-def _mixture_grad(x: Tensor, means: Tensor, log_weights: Tensor, inv_var: float) -> Tensor:
+def _mixture_grad_logp(x: Tensor, means: Tensor, log_weights: Tensor,
+                       inv_var: float) -> Tuple[Tensor, Tensor]:
+    """Energy gradient and unnormalised log-density ``log Σ_k exp(logit_k)``
+    of an isotropic mixture (the kernels' evaluator)."""
     diff = x[:, None, :] - means[None, :, :]
     logits = log_weights - 0.5 * inv_var * torch.sum(diff * diff, dim=-1)
-    w = torch.exp(logits - torch.amax(logits, dim=-1, keepdim=True))
-    inv_den = 1.0 / torch.sum(w, dim=-1, keepdim=True)
-    return (x - (w @ means) * inv_den) * inv_var
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    w = torch.exp(logits - m)
+    den = torch.sum(w, dim=-1, keepdim=True)
+    inv_den = 1.0 / den
+    return (x - (w @ means) * inv_den) * inv_var, (m + torch.log(den))[:, 0]
+
+
+def _gaussian_grad_logp(x: Tensor, mean: Tensor, precision: Tensor) -> Tuple[Tensor, Tensor]:
+    """Energy gradient ``P (x − μ)`` and log-density ``−½ (x − μ)·∇E``."""
+    diff = x - mean
+    grad = diff @ precision.T
+    return grad, -0.5 * torch.sum(diff * grad, dim=-1)
 
 
 def _run_plain(x0: Tensor, grad_fn, sched: Tensor, n_coords: int, clamp, seed: int,
@@ -276,10 +288,11 @@ def _run_plain(x0: Tensor, grad_fn, sched: Tensor, n_coords: int, clamp, seed: i
 # ---------------------------------------------------------------------------
 
 
-def _mixture_args(x0, means, n_steps, step_size, noise_scale, scale, log_weights,
-                  precision, noise):
-    """Validate, then return ``(grad_fn, params_a, params_b, gaussian, sched, inv_var)``."""
-    _check_common(x0, n_steps, noise)
+def _target(x0, means, scale, log_weights, precision):
+    """Validate a mixture (or, with ``precision``, full-covariance Gaussian)
+    target for the ``(n_chains, d)`` state ``x0``; return
+    ``(grad_logp, params_a, params_b, gaussian, inv_var)``, ``grad_logp(x)``
+    giving the energy gradient and the unnormalised log-density."""
     if x0.ndim != 2:
         raise ValueError(f"x0 must have shape (n_chains, d), got {tuple(x0.shape)}")
     n, d = x0.shape
@@ -292,7 +305,6 @@ def _mixture_args(x0, means, n_steps, step_size, noise_scale, scale, log_weights
             f"the mixture chain holds K*d={k * d}, d={d}; supported sizes are "
             f"d <= {MAX_DIM} and K*d <= {MAX_COMPONENTS_X_DIM}"
         )
-    sched = _schedule_table(step_size, noise_scale, int(n_steps), x0.device)
     inv_var = 1.0 / float(scale) ** 2
     if precision is not None:
         if k != 1:
@@ -303,14 +315,23 @@ def _mixture_args(x0, means, n_steps, step_size, noise_scale, scale, log_weights
             )
         _check_tensor("precision", precision, x0.device, (d, d))
         mean = means[0]
-        return (lambda x: (x - mean) @ precision.T), precision, mean, 1, sched, inv_var
+        return (lambda x: _gaussian_grad_logp(x, mean, precision)), precision, mean, 1, inv_var
     if log_weights is None:
         log_weights = torch.full((k,), -math.log(k), dtype=torch.float32, device=x0.device)
     _check_tensor("log_weights", log_weights, x0.device, (k,))
     return (
-        lambda x: _mixture_grad(x, means, log_weights, inv_var),
-        means, log_weights, 0, sched, inv_var,
+        lambda x: _mixture_grad_logp(x, means, log_weights, inv_var),
+        means, log_weights, 0, inv_var,
     )
+
+
+def _mixture_args(x0, means, n_steps, step_size, noise_scale, scale, log_weights,
+                  precision, noise):
+    """Validate, then return ``(grad_fn, params_a, params_b, gaussian, sched, inv_var)``."""
+    _check_common(x0, n_steps, noise)
+    grad_logp, pa, pb, gaussian, inv_var = _target(x0, means, scale, log_weights, precision)
+    sched = _schedule_table(step_size, noise_scale, int(n_steps), x0.device)
+    return (lambda x: grad_logp(x)[0]), pa, pb, gaussian, sched, inv_var
 
 
 def mixture_langevin_chain_plain(x0, means, n_steps, step_size, noise_scale=1.0, *, scale=1.0,
@@ -338,6 +359,7 @@ def mixture_langevin_chain_trajectory_plain(x0, means, n_steps, step_size, noise
     return _run_plain(x0, grad_fn, sched, x0.shape[1], clamp, seed, noise, int(thin))
 
 
+@_build.counted
 def mixture_langevin_chain(
     x0: Tensor,
     means: Tensor,
@@ -376,6 +398,7 @@ def mixture_langevin_chain(
     return out
 
 
+@_build.counted
 def mixture_langevin_chain_trajectory(
     x0: Tensor,
     means: Tensor,
@@ -453,6 +476,7 @@ def doublewell_langevin_chain_trajectory_plain(x0, n_steps, step_size, noise_sca
     return _run_plain(x0, grad_fn, sched, 1, clamp, seed, noise, int(thin))
 
 
+@_build.counted
 def doublewell_langevin_chain(
     x0: Tensor,
     n_steps: int,
@@ -484,6 +508,7 @@ def doublewell_langevin_chain(
     return out
 
 
+@_build.counted
 def doublewell_langevin_chain_trajectory(
     x0: Tensor,
     n_steps: int,
@@ -516,23 +541,3 @@ def doublewell_langevin_chain_trajectory(
     )
     doublewell_langevin_chain_trajectory.launches += 1
     return traj, out
-
-
-_WRAPPERS = (
-    mixture_langevin_chain,
-    mixture_langevin_chain_trajectory,
-    doublewell_langevin_chain,
-    doublewell_langevin_chain_trajectory,
-)
-for _fn in _WRAPPERS:
-    _fn.launches = 0
-
-
-def launch_counts() -> dict:
-    """``{wrapper name: kernel launches so far}``."""
-    return {fn.__name__: fn.launches for fn in _WRAPPERS}
-
-
-def reset_launch_counts() -> None:
-    for fn in _WRAPPERS:
-        fn.launches = 0

@@ -1,7 +1,31 @@
-"""MCMC samplers (counterpart of ``torchebm_tpu.samplers``): the shared loop and
-Langevin dynamics with its whole-chain kernel dispatch."""
+"""MCMC samplers (counterpart of ``torchebm_tpu.samplers``): the shared loop,
+Langevin dynamics with its whole-chain kernel dispatch, gradient descent and
+Nesterov, MALA, HMC with dual-averaging warmup, and the R̂/ESS diagnostics."""
 
 from .base import BaseSampler
+from .diagnostics import (
+    effective_sample_size,
+    potential_scale_reduction,
+    summarize_chains,
+    tail_effective_sample_size,
+)
+from .gradient_descent import GradientDescentSampler, NesterovSampler
+from .hmc import DualAveragingState, HamiltonianMonteCarlo, dual_averaging_update
 from .langevin import FUSED_DISPATCH, LangevinDynamics
+from .mala import MetropolisAdjustedLangevin
 
-__all__ = ["BaseSampler", "LangevinDynamics", "FUSED_DISPATCH"]
+__all__ = [
+    "BaseSampler",
+    "LangevinDynamics",
+    "FUSED_DISPATCH",
+    "GradientDescentSampler",
+    "NesterovSampler",
+    "MetropolisAdjustedLangevin",
+    "HamiltonianMonteCarlo",
+    "DualAveragingState",
+    "dual_averaging_update",
+    "potential_scale_reduction",
+    "effective_sample_size",
+    "tail_effective_sample_size",
+    "summarize_chains",
+]

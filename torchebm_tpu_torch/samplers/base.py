@@ -22,6 +22,7 @@ inherit the loop :func:`_sample_impl`.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -68,6 +69,43 @@ def _gaussian_target(model):
     if model.mean.ndim != 1 or model.mean.shape[-1] > 32:
         return None
     return model.mean[None, :], model.cov_inv
+
+
+def _metropolis_target(sampler, device: torch.device, return_diagnostics: bool, model_kwargs):
+    """The gate of the MALA and HMC whole-chain kernels: ``(means, target
+    kwargs)`` when the call may take a kernel, else None (the loop).
+
+    A CUDA generator (or ``fused="force"``, which sends CPU calls to the
+    kernels' plain versions), no diagnostics, no conditioning, a constant step
+    size, and a target the kernels hold: a full-covariance
+    :class:`~torchebm_tpu_torch.core.energies.GaussianEnergy` with d ≤ 32 or a
+    :class:`~torchebm_tpu_torch.core.energies.GaussianMixtureEnergy` with
+    d ≤ 64 and K·d ≤ 1024.
+    """
+    from ..core.energies import GaussianMixtureEnergy
+
+    if sampler.fused == "off":
+        return None
+    if sampler.fused != "force" and device.type != "cuda":
+        return None
+    if return_diagnostics or model_kwargs or not _concrete_scalar(sampler.step_size):
+        return None
+    gt = _gaussian_target(sampler.model)
+    if gt is not None:
+        return gt[0], dict(precision=gt[1].contiguous())
+    if type(sampler.model) is not GaussianMixtureEnergy:
+        return None
+    k, d = sampler.model.means.shape
+    if d > 64 or k * d > 1024:
+        return None
+    return sampler.model.means, dict(
+        scale=float(sampler.model.scale), log_weights=sampler.model.log_weights
+    )
+
+
+def _kernel_seed(generator: torch.Generator) -> int:
+    """The Philox seed of a whole-chain kernel, drawn from ``generator``."""
+    return int(torch.randint(0, 2**63 - 1, (), generator=generator, device=generator.device))
 
 
 def _sample_impl(
@@ -159,6 +197,11 @@ class BaseSampler:
         return self.model.gradient(x, **self._step_kwargs(model_kwargs, step))
 
     # ------------------------------------------------------------------ API
+    def replace(self, **changes) -> "BaseSampler":
+        """A copy with ``changes`` applied to its fields, validated again, as
+        in ``hmc.replace(step_size=eps)`` after :meth:`warmup`."""
+        return dataclasses.replace(self, **changes)
+
     def _init_state(
         self,
         generator: torch.Generator,

@@ -28,7 +28,13 @@ import torch
 from ..core.energies import DoubleWellEnergy, Energy, GaussianEnergy, GaussianMixtureEnergy
 from ..core.schedulers import BaseScheduler, sched_value
 from ..integrators import EulerMaruyamaIntegrator, resolve_integrator
-from .base import BaseSampler, _concrete_scalar, _gaussian_target, _sample_impl
+from .base import (
+    BaseSampler,
+    _concrete_scalar,
+    _gaussian_target,
+    _kernel_seed,
+    _sample_impl,
+)
 
 Tensor = torch.Tensor
 
@@ -120,6 +126,14 @@ def _mixture_kwargs(s: "LangevinDynamics", x0: Tensor) -> Optional[dict]:
     if x0.ndim != 2 or x0.shape[-1] != m.means.shape[-1]:
         return None
     return dict(means=m.means, scale=float(m.scale), log_weights=m.log_weights)
+
+
+def _claiming_row(sampler) -> Optional[_FusedRow]:
+    """The :data:`FUSED_DISPATCH` row claiming ``sampler.model``, if any."""
+    for row in FUSED_DISPATCH:
+        if type(sampler.model) is row.model_type and row.supports(sampler):
+            return row
+    return None
 
 
 def _fused_gates_ok(sampler, device: torch.device, model_kwargs, *, schedulables,
@@ -225,13 +239,6 @@ class LangevinDynamics(BaseSampler):
 
     # -------------------------------------------------------- fused fast path
 
-    def _fused_row(self) -> Optional[_FusedRow]:
-        """The :data:`FUSED_DISPATCH` row claiming this sampler's model, if any."""
-        for row in FUSED_DISPATCH:
-            if type(self.model) is row.model_type and row.supports(self):
-                return row
-        return None
-
     def _dispatch_row(self, device: torch.device, model_kwargs) -> Optional[_FusedRow]:
         """Generic fused gates and row lookup in one pass (None = loop)."""
         if not _fused_gates_ok(
@@ -240,7 +247,7 @@ class LangevinDynamics(BaseSampler):
             integrator=self.integrator,
         ):
             return None
-        return self._fused_row()
+        return _claiming_row(self)
 
     @torch.no_grad()
     def sample(
@@ -266,9 +273,6 @@ class LangevinDynamics(BaseSampler):
             if kargs is not None and (
                 not (return_trajectory or return_diagnostics) or n_steps // thin >= 1
             ):
-                seed = int(torch.randint(
-                    0, 2**63 - 1, (), generator=generator, device=generator.device
-                ))
                 return _call_fused_row(
                     row, x0.contiguous(), self.model,
                     n_steps=n_steps, thin=thin,
@@ -277,7 +281,7 @@ class LangevinDynamics(BaseSampler):
                     kargs=kargs,
                     step_size=_sched_table_arg(self.step_size, n_steps, x0.device),
                     noise_scale=_sched_table_arg(self.noise_scale, n_steps, x0.device),
-                    seed=seed,
+                    seed=_kernel_seed(generator),
                     clamp=self.clamp,
                 )
             # unsupported state shape or dtype, or n_steps < thin: the loop takes the call

@@ -7,6 +7,8 @@ packages can be run on one set of parameters:
 
     energy_from_arrays("GaussianMixtureEnergy",
                        {"means": m, "scale": s, "log_weights": lw}, device)
+    sampler_from_fields("HamiltonianMonteCarlo",
+                        {"step_size": 0.3, "n_leapfrog_steps": 8, "mass": mass}, energy)
 """
 
 from __future__ import annotations
@@ -16,9 +18,10 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
+from .. import samplers
 from ..core import energies, schedulers
 
-__all__ = ["energy_from_arrays", "scheduler_from_fields"]
+__all__ = ["energy_from_arrays", "sampler_from_fields", "scheduler_from_fields"]
 
 #: energy name -> the names of its tensor buffers; every other field is a float
 _BUFFERS = {
@@ -68,3 +71,34 @@ def scheduler_from_fields(name: str, fields: Mapping[str, Any]) -> schedulers.Ba
         for f, v in fields.items()
     }
     return cls(**kwargs)
+
+
+#: the samplers :func:`sampler_from_fields` builds
+_SAMPLERS = (
+    "LangevinDynamics", "MetropolisAdjustedLangevin", "HamiltonianMonteCarlo",
+    "GradientDescentSampler",
+)
+
+
+def sampler_from_fields(name: str, fields: Mapping[str, Any],
+                        energy: energies.Energy) -> samplers.BaseSampler:
+    """The port's sampler ``name`` on ``energy``, built from the JAX
+    sampler's field values.
+
+    Numbers and strings pass as they are; a numpy array (an HMC ``mass``)
+    becomes a float32 tensor on the device of ``energy``'s buffers (the CPU
+    when it has none); a scheduler is given as a ``(name, fields)`` pair, as
+    in :func:`scheduler_from_fields`.
+    """
+    if name not in _SAMPLERS:
+        raise ValueError(f"Unknown sampler '{name}'. Available: {sorted(_SAMPLERS)}")
+    device = next(iter(energy.buffers()), torch.empty(0)).device
+
+    def convert(v):
+        if isinstance(v, np.ndarray):
+            return torch.tensor(v.astype(np.float32), device=device)
+        if isinstance(v, tuple) and len(v) == 2 and isinstance(v[0], str):
+            return scheduler_from_fields(*v)
+        return v
+
+    return getattr(samplers, name)(model=energy, **{f: convert(v) for f, v in fields.items()})
