@@ -16,12 +16,18 @@ not 0:
    covariance, with and without schedule, clamp, diagonal mass and thinning;
    MALA and HMC also at the ESS protocol's own instances and steps (the
    correlated Gaussian at MALA's pilot step and HMC's adapted steps and
-   mass, thin 4), with each check's mean acceptance.
-   The MALA and HMC chains take a Metropolis decision per step; a chain whose
+   mass, thin 4), with each check's mean acceptance; parallel tempering
+   (R = 4) from the ring's modes and on a Gaussian; AIS at the main path's
+   shapes (the ring from its modes at 16,384 chains, the two Gaussians at
+   65,536, a 201-entry beta table); the one-step op at 4,096 x 32 and 16M
+   elements.
+   The MALA, HMC and AIS chains take a Metropolis decision per step, the
+   tempering ladder an exchange decision per pair and sweep; a chain whose
    uniform lies within rounding of its acceptance probability may decide
    differently in kernel and plain version and then differs by a whole
-   proposal, so those checks allow at most 0.1% of the chains to differ
-   (printed as "flipped") and hold every other chain to the tolerance;
+   proposal, so those checks allow at most 0.1% of each check's chains to
+   differ (printed as "flipped") and hold every other chain to the
+   tolerance;
 4. main path, each path with the launch counts set to 0 just before it and
    read just after:
    - Langevin: ``LangevinDynamics(GaussianMixtureEnergy.eight_gaussians(),
@@ -35,14 +41,34 @@ not 0:
      ``summarize_chains``, again with ``warmup(adapt_mass=True)``;
    - MALA: the same two calls (pilot-tuned step on the correlated Gaussian);
    - gradient descent on the Langevin mixture row at noise 0;
+   - parallel tempering (the JAX package's headline configuration,
+     ``benchmarks/headline.py:178-220``): ``ParallelTemperingLangevin(
+     eight_gaussians, temperatures=(1.0, 1.6, 2.56, 4.1), step_size=0.05,
+     swap_every=5).sample(..., n_samples=10_000, n_steps=1_000)``, with
+     ``return_trajectory=True``, and ``run_replicas`` on a (4, 10,000, 2)
+     ladder; cold-chain radius and last-sweep swap acceptance against the loop;
+   - AIS (``headline.py:223-289``): ``annealed_importance_sampling(generator,
+     eight_gaussians, base=GaussianEnergy(0, 9 I), n_samples=16_384,
+     n_rungs=200, step_size=0.05)``, |log Z| < 0.02, and the same call on a
+     full-covariance and an isotropic Gaussian, log Z within 0.02 of
+     ``log_z()``, each against the loop;
+   - ``ops.fused_langevin_step`` at the JAX self-test's 4,096 x 32 double well
+     and at 16M elements;
    with the ring's mean radius and the Metropolis acceptance against the
    generic loop (``fused="off"``), and the correlated Gaussian's covariance,
    R-hat and ESS (over consecutive draws, R-hat within 0.005 of the loop's);
 5. timing: CUDA events, medians after warm-up: each kernel against its
-   plain version, and the sampler paths, beside the card's name and power
-   limit;
+   plain version, PT per ladder step, AIS per rung, the one-step op in GB/s
+   beside ``torch.add`` (device time per call in batches queued behind a
+   spin, and per call with the host's launch work), and the sampler paths,
+   beside the card's name and power limit;
 6. profile: wall time, device busy time (``torch.profiler``) and idle share
-   of the sampler paths, the HMC warmup and ``summarize_chains``.
+   of the sampler paths, the HMC warmup and ``summarize_chains``;
+7. bound: for each kernel the least time the card could take for the timed
+   call: the larger of its bytes (inputs read once, outputs written once)
+   over 3.35 TB/s and, per instruction class counted from the CUDA source
+   (``torchebm_tpu_torch/ops/_counts.py``), the count over the class's rate
+   at the card's maximum SM clock.
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script raises
@@ -67,8 +93,6 @@ CHECK_STEPS = 50
 N_CHAINS, N_STEPS = 10_000, 1_000
 DW_SHAPE = (4096, 32)
 
-#: the most chains a Metropolis check may flip (0.1% of N_CHAINS)
-MAX_FLIPPED = N_CHAINS // 1000
 HMC_LEAPFROG = 8
 CORR_COV = ((1.0, 0.8), (0.8, 1.0))
 #: the ESS protocol's R-hat gate reads 1,000 draws kept of 4,000 (thin 4):
@@ -98,7 +122,36 @@ KERNELS = {
         ("fused_hmc", _CSRC + "fused_hmc.cu", "torchebm_tpu/ops/fused_hmc.py:370"),
     "mixture_hmc_chain_trajectory":
         ("fused_hmc", _CSRC + "fused_hmc.cu", "torchebm_tpu/ops/fused_hmc.py:238"),
+    "pt_langevin_chain":
+        ("fused_pt", _CSRC + "fused_pt.cu", "torchebm_tpu/ops/fused_pt.py:382"),
+    "pt_langevin_chain_trajectory":
+        ("fused_pt", _CSRC + "fused_pt.cu", "torchebm_tpu/ops/fused_pt.py:492"),
+    "mixture_ais_run":
+        ("fused_ais", _CSRC + "fused_ais.cu", "torchebm_tpu/ops/fused_ais.py:199"),
+    "fused_langevin_step":
+        ("fused_langevin", _CSRC + "fused_step.cu", "torchebm_tpu/ops/fused_langevin.py:316"),
 }
+
+#: the parallel-tempering and AIS configurations of the JAX package's headline
+#: benchmarks (benchmarks/headline.py:178-289), at full width
+PT_TEMPS, PT_SWAP_EVERY = (1.0, 1.6, 2.56, 4.1), 5
+AIS_CHAINS, AIS_RUNGS, AIS_BASE_VAR = 16_384, 200, 9.0
+#: the Gaussian AIS gates read 4x the ring's chains: the estimator's
+#: Monte-Carlo error (a standard deviation of about 0.008 at 16,384 chains on
+#: these targets, read from six seeds of the plain version on a CPU) halves,
+#: so a 0.02 gate sits at 5 sigma
+AIS_GAUSS_CHAINS = 4 * AIS_CHAINS
+#: the one-step op at 16M elements (64 MB per tensor), where it is bound by memory
+STEP_ELEMS = 1 << 24
+#: the step op's timing: (warm-up, readings, calls per reading), each reading
+#: a batch queued behind a device spin of SPIN_CYCLES (about 1 ms at 1.98 GHz)
+STEP_REPS, SPIN_CYCLES = (20, 50, 10), 2_000_000
+
+#: the card's memory rate, and the per-SM instruction rates per clock of its
+#: FP32 lanes, INT32 lanes and special-function units (H100 SXM)
+HBM_BYTES_PER_S = 3.35e12
+RATE_PER_SM_CLOCK = {"fp32": 128, "int32": 64, "sfu": 16}
+N_SMS = 132
 
 
 def card_line() -> str:
@@ -109,8 +162,12 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, warmup: int, reps: int) -> float:
-    """Median milliseconds of ``fn()`` between two CUDA events."""
+def cuda_times(fn, warmup: int, reps: int, batch: int = 0) -> list:
+    """Milliseconds of ``fn()`` between two CUDA events, ``reps`` readings
+    after ``warmup`` calls. With ``batch`` > 0 each reading is ``batch``
+    back-to-back calls queued behind a 1 ms device spin, over ``batch``: the
+    device time per call, without the host's launch work (which a reading of
+    one call includes while the device waits for it)."""
     import torch
 
     for _ in range(warmup):
@@ -119,12 +176,15 @@ def cuda_ms(fn, warmup: int, reps: int) -> float:
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if batch:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
-        fn()
+        for _ in range(max(batch, 1)):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        times.append(start.elapsed_time(end) / max(batch, 1))
+    return times
 
 
 def max_err(got, want) -> float:
@@ -150,8 +210,8 @@ def phase_build(build_mod) -> None:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"((?:mixture|doublewell|mala|hmc)_chain_kernel)I(\w*?)EEv",
-                          m.group(1))
+            k = re.search(r"((?:mixture|doublewell|mala|hmc|pt)_chain_kernel|ais_kernel"
+                          r"|langevin_step_kernel)I(\w*?)EEv", m.group(1))
             entry = f"{k.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', k.group(2)))}>" \
                 if k else m.group(1)
             continue
@@ -226,6 +286,18 @@ def phase_check(fl, dev, errors: dict) -> None:
             check("doublewell_langevin_chain" + suffix, (xdw, steps, sched / 5, 0.7),
                   dict(**tkw, seed=14, clamp=(-1.5, 1.5), noise=noisedw),
                   f"{dw_label} sched+clamp, {label}")
+        # the one-step op at the double-well shape and at 16M elements
+        xs, gs = randn(*DW_SHAPE), randn(*DW_SHAPE)
+        big_x, big_g = randn(STEP_ELEMS), randn(STEP_ELEMS)
+        check("fused_langevin_step", (xs, gs, 0.01, 1.0),
+              dict(seed=15, noise=noisedw if noisedw is None else noisedw[0]),
+              f"{dw_label}, {label}")
+        check("fused_langevin_step", (xs, gs, 0.01, 0.7),
+              dict(seed=16, clamp=(-1.0, 1.0), noise=noisedw if noisedw is None else noisedw[1]),
+              f"{dw_label} clamp, {label}")
+        check("fused_langevin_step", (big_x, big_g, 0.05, 1.0 if noisedw is None else 0.0),
+              dict(seed=17), f"{STEP_ELEMS} elements, noise scale "
+              f"{1.0 if noisedw is None else 0.0}")
 
 
 def path_langevin(ops, dev, card: str) -> dict:
@@ -251,7 +323,7 @@ def path_langevin(ops, dev, card: str) -> dict:
                         n_samples=DW_SHAPE[0], n_steps=N_STEPS, thin=10,
                         return_trajectory=True)
     launches = read_counts(ops, "Langevin", [k for k, v in KERNELS.items()
-                                             if v[0] == "fused_langevin"])
+                                             if v[1].endswith("fused_langevin.cu")])
 
     shapes = {k: tuple(v.shape) for k, v in diag.items()}
     if shapes != {"mean": (N_STEPS, 2), "var": (N_STEPS, 2), "energy": (N_STEPS,)}:
@@ -320,6 +392,46 @@ def _hmc_warmup(dev, adapt_mass: bool):
                               adapt_mass=adapt_mass)
 
 
+def _check_flips(ops, name, args, kwargs, label, errors: dict, n: int) -> None:
+    """A kernel with a Metropolis or exchange decision per step against its
+    plain version (flip rule in the module docstring), over ``n`` chains. A
+    0-d output (the ladder's acceptance, a mean over chains) may move by
+    1/n for each flipped chain beyond the tolerance."""
+    import torch
+
+    module = getattr(ops, KERNELS[name][0])
+    kernel = getattr(module, name)
+    before = kernel.launches
+    got = kernel(*args, **kwargs)
+    torch.cuda.synchronize()
+    if kernel.launches != before + 1:
+        raise AssertionError(f"{name} did not launch its kernel")
+    want = getattr(module, name + "_plain")(*args, **kwargs)
+    flipped = torch.zeros(n, dtype=torch.bool, device=got[0].device)
+    diffs, scalars = [], []
+    for gt, wt in zip(got, want):
+        if not torch.isfinite(gt).all():
+            raise AssertionError(f"{name} [{label}]: kernel output is not finite")
+        d = (gt - wt).abs()
+        if d.ndim == 0:
+            scalars.append(float(d))
+            continue
+        d = d.amax(dim=(0, 2)) if d.ndim == 3 else (d.amax(dim=1) if d.ndim == 2 else d)
+        diffs.append(d)
+        flipped |= d > TOL
+    n_flipped, max_flipped = int(flipped.sum()), n // 1000
+    err = max(float(torch.where(flipped, 0.0, d).max()) for d in diffs)
+    scalar_ok = all(s <= TOL + n_flipped / n for s in scalars)
+    errors[name] = max(errors.get(name, 0.0), err, *(s for s in scalars if n_flipped == 0))
+    print(f"check: {name} [{label}] max|kernel - plain| = {err:.3e} over the "
+          f"{n - n_flipped} chains that agree (tol {TOL:g}); flipped chains {n_flipped} "
+          f"(at most {max_flipped})"
+          + (f"; |acceptance kernel - plain| {max(scalars):.3e}" if scalars else "")
+          + f"; mean acceptance {float(want[-1].mean()):.4f}")
+    if not err <= TOL or n_flipped > max_flipped or not scalar_ok:
+        raise AssertionError(f"{name} [{label}] disagrees with its plain version")
+
+
 def phase_check_metropolis(ops, dev, errors: dict) -> None:
     """The MALA and HMC kernels against their plain versions (flip rule in
     the module docstring), each with the plain version's mean acceptance."""
@@ -334,32 +446,7 @@ def phase_check_metropolis(ops, dev, errors: dict) -> None:
         return scale * torch.randn(shape, generator=g, device=dev)
 
     def check(name, args, kwargs, label):
-        module = getattr(ops, KERNELS[name][0])
-        kernel = getattr(module, name)
-        before = kernel.launches
-        got = kernel(*args, **kwargs)
-        torch.cuda.synchronize()
-        if kernel.launches != before + 1:
-            raise AssertionError(f"{name} did not launch its kernel")
-        want = getattr(module, name + "_plain")(*args, **kwargs)
-        n = args[0].shape[0]
-        flipped = torch.zeros(n, dtype=torch.bool, device=dev)
-        diffs = []
-        for gt, wt in zip(got, want):
-            if not torch.isfinite(gt).all():
-                raise AssertionError(f"{name} [{label}]: kernel output is not finite")
-            d = (gt - wt).abs()
-            d = d.amax(dim=(0, 2)) if d.ndim == 3 else (d.amax(dim=1) if d.ndim == 2 else d)
-            diffs.append(d)
-            flipped |= d > TOL
-        n_flipped = int(flipped.sum())
-        err = max(float(torch.where(flipped, 0.0, d).max()) for d in diffs)
-        errors[name] = max(errors.get(name, 0.0), err)
-        print(f"check: {name} [{label}] max|kernel - plain| = {err:.3e} over the "
-              f"{n - n_flipped} chains that agree (tol {TOL:g}); flipped chains {n_flipped} "
-              f"(at most {MAX_FLIPPED}); mean acceptance {float(want[-1].mean()):.4f}")
-        if not err <= TOL or n_flipped > MAX_FLIPPED:
-            raise AssertionError(f"{name} [{label}] disagrees with its plain version")
+        _check_flips(ops, name, args, kwargs, label, errors, args[0].shape[0])
 
     mix = GaussianMixtureEnergy.eight_gaussians().to(dev)
     steps = CHECK_STEPS
@@ -420,6 +507,107 @@ def phase_check_metropolis(ops, dev, errors: dict) -> None:
                 check("mixture_hmc_chain" + sfx, (xc, corr_means, steps, eps, HMC_LEAPFROG),
                       dict(**corr_kw, **tkw, mass=m, **rand_kw(2, 37)),
                       f"corr-Gaussian, {mass_label}, {label}")
+
+
+def phase_check_tempering(ops, dev, errors: dict) -> None:
+    """The parallel-tempering and AIS kernels against their plain versions
+    (flip rule in the module docstring). The ring checks start at exact
+    draws of the ring: PT at noise scale 0.5, so that even the hottest
+    replica (T = 4.1, effective temperature about 1) stays in its mode, and
+    AIS at step 0.005 (at 0.01 the chains that the weak early-rung target
+    lets reach a saddle grew rounding to 9.7e-5 over 50 rungs). AIS runs at
+    the main path's shapes, with the arguments the sampler passes: the ring
+    at AIS_CHAINS chains, the full-covariance (``precision=``) and the
+    isotropic Gaussian (a one-component mixture) at AIS_GAUSS_CHAINS from
+    draws of the base, where they contract everywhere, all with the
+    AIS_RUNGS + 1 entry beta table; the d=32 Gaussians at N_CHAINS."""
+    import torch
+
+    from torchebm_tpu_torch.core import GaussianMixtureEnergy
+    from torchebm_tpu_torch.samplers.ais import _fused_target_kwargs
+
+    g = torch.Generator(dev).manual_seed(2468)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g, device=dev)
+
+    mix = GaussianMixtureEnergy.eight_gaussians().to(dev)
+    mix_kw = dict(scale=float(mix.scale), log_weights=mix.log_weights)
+    n_rep, steps, n = len(PT_TEMPS), CHECK_STEPS, N_CHAINS
+    betas = tuple(1.0 / t for t in PT_TEMPS)
+    d = 32
+    a = randn(d, d, scale=0.1)
+    gauss_kw = dict(precision=(a @ a.T + torch.eye(d, device=dev)).contiguous())
+    mean32 = randn(1, d)
+    ring = mix.sample(g, n_rep * n).view(n_rep, n, 2)
+    ladder32 = (mean32 + randn(n_rep, n, d, scale=0.7)).contiguous()
+    zero2 = torch.zeros(2, device=dev)
+    ais_betas = torch.linspace(0.0, 1.0, AIS_RUNGS + 1, device=dev)
+
+    def ais_target(target):
+        """The kernel's ``means`` and keywords, as the sampler passes them."""
+        kw = _fused_target_kwargs(target)
+        return kw.pop("means"), kw
+
+    for label, inject in (("injected", True), ("philox", False)):
+        def pt_rand(dim, seed):
+            if not inject:
+                return dict(seed=seed)
+            return dict(noise=randn(steps, n_rep, n, dim), swap_uniform=torch.rand(
+                (steps // PT_SWAP_EVERY, n_rep - 1, n), generator=g, device=dev))
+
+        def ais_rand(n_ais, dim, seed, n_tr=1):
+            if not inject:
+                return dict(seed=seed)
+            return dict(noise=randn(AIS_RUNGS * n_tr, n_ais, dim), uniforms=torch.rand(
+                (AIS_RUNGS * n_tr, n_ais), generator=g, device=dev))
+
+        for traj in (False, True):
+            name = "pt_langevin_chain" + ("_trajectory" if traj else "")
+            tkw = dict(thin=3) if traj else {}
+            _check_flips(ops, name, (ring, mix.means, steps, 0.05, 0.5, betas, PT_SWAP_EVERY),
+                         dict(**mix_kw, **tkw, **pt_rand(2, 41)), f"8gauss R=4, {label}",
+                         errors, n)
+            if not inject:
+                _check_flips(ops, name, (ring, mix.means, steps, 0.05, 0.5, betas, 3),
+                             dict(**mix_kw, **tkw, clamp=(-4.5, 4.5), seed=42),
+                             "8gauss R=4 swap every 3 + clamp, philox", errors, n)
+            _check_flips(ops, name, (ladder32, mean32, steps, 0.02, 1.0, betas, PT_SWAP_EVERY),
+                         dict(**gauss_kw, **tkw, **pt_rand(d, 43)), f"d=32 full cov R=4, {label}",
+                         errors, n)
+        for target_name, (target, n_ais) in _ais_targets(dev).items():
+            ring_target = isinstance(target, GaussianMixtureEnergy)
+            x0 = (target.sample(g, n_ais) if ring_target
+                  else AIS_BASE_VAR ** 0.5 * randn(n_ais, 2))
+            step = 0.005 if ring_target else 0.05
+            means, target_kw = ais_target(target)
+            for n_tr in ((1, 2) if ring_target else (1,)):
+                _check_flips(ops, "mixture_ais_run",
+                             (x0, zero2, AIS_BASE_VAR ** 0.5, means, ais_betas, step),
+                             dict(n_transitions=n_tr, **ais_rand(n_ais, 2, 44, n_tr),
+                                  **target_kw),
+                             f"{target_name} {n_ais}x{AIS_RUNGS} rungs, step {step}, {n_tr} "
+                             f"transitions, {label}", errors, n_ais)
+        _check_flips(ops, "mixture_ais_run",
+                     (ladder32[0], mean32[0], 2.0, mean32, ais_betas, 0.02),
+                     dict(**gauss_kw, **ais_rand(n, d, 47)),
+                     f"d=32 full cov {n}x{AIS_RUNGS} rungs, {label}", errors, n)
+
+
+def _ais_targets(dev) -> dict:
+    """The AIS main path's targets: ``{name: (energy, chains)}``."""
+    import torch
+
+    from torchebm_tpu_torch.core import GaussianEnergy, GaussianMixtureEnergy
+
+    return {
+        "8gauss ring": (GaussianMixtureEnergy.eight_gaussians().to(dev), AIS_CHAINS),
+        "full-cov Gaussian": (GaussianEnergy.create(
+            torch.tensor([0.5, -0.5]), torch.tensor([[2.0, 1.6], [1.6, 2.0]])).to(dev),
+            AIS_GAUSS_CHAINS),
+        "isotropic Gaussian": (GaussianEnergy.create(
+            torch.tensor([1.0, -1.0]), 2.0 * torch.eye(2)).to(dev), AIS_GAUSS_CHAINS),
+    }
 
 
 def read_counts(ops, path: str, expected) -> dict:
@@ -594,85 +782,288 @@ def path_gradient_descent(ops, dev, card: str) -> dict:
     return launches
 
 
-def phase_timing(ops, dev, card: str) -> dict:
+def _radius(x) -> float:
+    return float(x.norm(dim=-1).mean())
+
+
+def path_pt(ops, dev, card: str) -> dict:
+    """The PT configuration: ``sample`` (ladder kernel), ``sample(...,
+    return_trajectory=True)`` (trajectory kernel) and ``run_replicas`` on a
+    (4, 10,000, 2) ladder, against the generic loop: cold-chain mean radius
+    within 0.05 and last-sweep swap acceptance within 0.02 (its standard
+    error over 10,000 chains is about 0.003)."""
     import torch
 
     from torchebm_tpu_torch.core import GaussianMixtureEnergy
-    from torchebm_tpu_torch.samplers import LangevinDynamics
+    from torchebm_tpu_torch.samplers import ParallelTemperingLangevin
+
+    mix = GaussianMixtureEnergy.eight_gaussians().to(dev)
+    pt = ParallelTemperingLangevin(mix, temperatures=PT_TEMPS, step_size=0.05,
+                                   swap_every=PT_SWAP_EVERY)
+    ladder0 = torch.randn((len(PT_TEMPS), N_CHAINS, 2),
+                          generator=torch.Generator(dev).manual_seed(100), device=dev)
+    ops.reset_launch_counts()
+    cold = pt.sample(torch.Generator(dev).manual_seed(101), dim=2, n_samples=N_CHAINS,
+                     n_steps=N_STEPS)
+    traj = pt.sample(torch.Generator(dev).manual_seed(102), dim=2, n_samples=N_CHAINS,
+                     n_steps=N_STEPS, return_trajectory=True)
+    ladder, acc = pt.run_replicas(torch.Generator(dev).manual_seed(103), ladder0, N_STEPS)
+    launches = read_counts(ops, "parallel tempering",
+                           ["pt_langevin_chain", "pt_langevin_chain_trajectory"])
+    loop = pt.replace(fused="off")
+    cold_loop = loop.sample(torch.Generator(dev).manual_seed(101), dim=2, n_samples=N_CHAINS,
+                            n_steps=N_STEPS)
+    ladder_loop, acc_loop = loop.run_replicas(torch.Generator(dev).manual_seed(103), ladder0,
+                                              N_STEPS)
+    if (cold.shape, traj.shape, ladder.shape) != ((N_CHAINS, 2), (N_CHAINS, N_STEPS, 2),
+                                                  (len(PT_TEMPS), N_CHAINS, 2)):
+        raise AssertionError("parallel tempering outputs have the wrong shapes")
+    for name, t in (("cold", cold), ("trajectory", traj), ("ladder", ladder)):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"parallel tempering {name} is not finite")
+    r, r_traj, r_ladder = _radius(cold), _radius(traj[:, N_STEPS // 2:]), _radius(ladder[0])
+    r_loop, r_ladder_loop = _radius(cold_loop), _radius(ladder_loop[0])
+    print(f"main path: PT 8gauss {N_CHAINS}x{N_STEPS}, R={len(PT_TEMPS)}: cold mean radius "
+          f"{r:.4f} (kernel) {r_loop:.4f} (generic loop), trajectory's last {N_STEPS // 2} "
+          f"steps {r_traj:.4f}; run_replicas cold radius {r_ladder:.4f} (kernel) "
+          f"{r_ladder_loop:.4f} (generic loop), last-sweep swap acceptance {float(acc):.4f} "
+          f"(kernel) {float(acc_loop):.4f} (generic loop) | {card}")
+    if not 3.0 < r < 5.0:
+        raise AssertionError(f"PT cold chain off-distribution: mean radius {r}")
+    if max(abs(r - r_loop), abs(r_traj - r_loop), abs(r_ladder - r_ladder_loop)) > 0.05:
+        raise AssertionError("PT kernel path and generic loop disagree on the mean radius")
+    if abs(float(acc) - float(acc_loop)) > 0.02:
+        raise AssertionError("PT kernel path and generic loop disagree on the swap acceptance")
+    return launches
+
+
+def path_ais(ops, dev, card: str) -> dict:
+    """The AIS configuration on the ring (true log Z = 0), and the same call
+    on a full-covariance (``precision=``) and an isotropic Gaussian, whose
+    ``log_z()`` is exact: each estimate within 0.02 of the truth, and the
+    kernel within 0.03 of the generic loop (two independent estimates)."""
+    import torch
+
+    from torchebm_tpu_torch.core import GaussianEnergy, GaussianMixtureEnergy
+    from torchebm_tpu_torch.samplers import annealed_importance_sampling
+
+    base = GaussianEnergy.create(torch.zeros(2), AIS_BASE_VAR * torch.eye(2)).to(dev)
+    targets = _ais_targets(dev)
+
+    def run(fused):
+        return {name: annealed_importance_sampling(
+            torch.Generator(dev).manual_seed(110 + i), t, base=base, n_samples=n,
+            n_rungs=AIS_RUNGS, step_size=0.05, fused=fused)
+            for i, (name, (t, n)) in enumerate(targets.items())}
+
+    ops.reset_launch_counts()
+    kernel = run("auto")
+    launches = read_counts(ops, "AIS", ["mixture_ais_run"])
+    loop = run("off")
+    for name, (t, n) in targets.items():
+        truth = 0.0 if isinstance(t, GaussianMixtureEnergy) else float(t.log_z())
+        k, lp = kernel[name], loop[name]
+        if k.samples.shape != (n, 2) or not torch.isfinite(k.log_weights).all():
+            raise AssertionError(f"AIS {name}: malformed output")
+        print(f"main path: AIS {name} {n} chains x {AIS_RUNGS} rungs: log Z {float(k.log_z):.5f} "
+              f"(kernel) {float(lp.log_z):.5f} (generic loop) {truth:.5f} (exact); ESS "
+              f"{float(k.ess):.1f} ({float(lp.ess):.1f}); acceptance "
+              f"{float(k.acceptance_rate):.4f} ({float(lp.acceptance_rate):.4f}) | {card}")
+        if abs(float(k.log_z) - truth) >= 0.02 or abs(float(lp.log_z) - truth) >= 0.02:
+            raise AssertionError(f"AIS {name}: log Z off the truth by 0.02 or more")
+        if abs(float(k.log_z) - float(lp.log_z)) > 0.03:
+            raise AssertionError(f"AIS {name}: kernel and generic loop disagree")
+    return launches
+
+
+def path_step(ops, dev, card: str) -> dict:
+    """``fused_langevin_step`` at the JAX self-test (4,096 x 32 double well,
+    injected noise, against the eager update to 1e-6, ``fused_langevin.py:1617-1628``)
+    and at 16M elements on the Philox stream (the normals it added have mean 0
+    and variance 1 to 6 standard errors)."""
+    import math
+
+    import torch
+
+    from torchebm_tpu_torch.core import DoubleWellEnergy
+
+    g = torch.Generator(dev).manual_seed(120)
+    x = torch.randn(DW_SHAPE, generator=g, device=dev)
+    grad = DoubleWellEnergy().gradient(x)
+    eps = torch.randn(DW_SHAPE, generator=g, device=dev)
+    big_x = torch.randn(STEP_ELEMS, generator=g, device=dev)
+    big_g = torch.randn(STEP_ELEMS, generator=g, device=dev)
+    ops.reset_launch_counts()
+    fused = ops.fused_langevin_step(x, grad, 0.01, 1.0, noise=eps)
+    drawn = ops.fused_langevin_step(big_x, big_g, 0.01, 1.0, seed=7)
+    launches = read_counts(ops, "one step", ["fused_langevin_step"])
+    err = float((fused - (x - 0.01 * grad + math.sqrt(0.02) * eps)).abs().max())
+    z = ((drawn - (big_x - 0.01 * big_g)) / math.sqrt(0.02)).double()
+    mean, var = float(z.mean()), float(z.var())
+    print(f"main path: fused_langevin_step {DW_SHAPE[0]}x{DW_SHAPE[1]} max|fused - eager| "
+          f"{err:.3e}; {STEP_ELEMS} elements on the Philox stream: normals mean {mean:.2e} "
+          f"variance {var:.5f} | {card}")
+    if not err < 1e-6:
+        raise AssertionError("fused_langevin_step disagrees with the eager update")
+    se = 1.0 / math.sqrt(STEP_ELEMS)
+    if abs(mean) > 6 * se or abs(var - 1.0) > 6 * math.sqrt(2.0) * se:
+        raise AssertionError("fused_langevin_step's normals are not standard")
+    return launches
+
+
+def phase_timing(ops, dev, card: str) -> dict:
+    """Each kernel against its plain version (CUDA events), with its work
+    (``ops._counts.work``); PT per ladder step, AIS per rung, the one-step op
+    in GB/s beside ``torch.add(x, g, alpha=-eta)`` (the one PyTorch call that
+    computes the op at noise scale 0 without clamp); and the sampler paths
+    against their generic loops."""
+    import torch
+
+    from torchebm_tpu_torch.core import GaussianEnergy, GaussianMixtureEnergy
+    from torchebm_tpu_torch.ops._counts import work
+    from torchebm_tpu_torch.samplers import (
+        HamiltonianMonteCarlo,
+        LangevinDynamics,
+        MetropolisAdjustedLangevin,
+        ParallelTemperingLangevin,
+        annealed_importance_sampling,
+    )
 
     mix = GaussianMixtureEnergy.eight_gaussians().to(dev)
     g = torch.Generator(dev).manual_seed(5)
     x2 = torch.randn((N_CHAINS, 2), generator=g, device=dev)
     xdw = 0.5 * torch.randn(DW_SHAPE, generator=g, device=dev)
-    mix_args = (x2, mix.means, N_STEPS, 0.05)
+    ladder = torch.randn((len(PT_TEMPS), N_CHAINS, 2), generator=g, device=dev)
+    x_ais = AIS_BASE_VAR ** 0.5 * torch.randn((AIS_CHAINS, 2), generator=g, device=dev)
+    big_x = torch.randn(STEP_ELEMS, generator=g, device=dev)
+    big_g = torch.randn(STEP_ELEMS, generator=g, device=dev)
     mix_kw = dict(scale=float(mix.scale), log_weights=mix.log_weights, seed=21)
-    dw_args, dw_kw = (xdw, N_STEPS, 0.01), dict(seed=22)
-    calls = {
-        "mixture_langevin_chain": (mix_args, mix_kw, N_CHAINS),
-        "mixture_langevin_chain_trajectory": (mix_args, dict(mix_kw, thin=1), N_CHAINS),
-        "doublewell_langevin_chain": (dw_args, dw_kw, xdw.numel()),
-        "doublewell_langevin_chain_trajectory": (dw_args, dict(dw_kw, thin=10), xdw.numel()),
-    }
+    mix_args, dw_args = (x2, mix.means, N_STEPS, 0.05), (xdw, N_STEPS, 0.01)
     hmc_args = (x2, mix.means, N_STEPS, 0.3, HMC_LEAPFROG)
-    mh_kw = dict(scale=float(mix.scale), log_weights=mix.log_weights, seed=23)
-    metropolis = {
-        "mixture_mala_chain": ((x2, mix.means, N_STEPS, 0.05), mh_kw, N_CHAINS),
-        "mixture_mala_chain_trajectory":
-            ((x2, mix.means, N_STEPS, 0.05), dict(mh_kw, thin=1), N_CHAINS),
-        "mixture_hmc_chain": (hmc_args, mh_kw, N_CHAINS),
-        "mixture_hmc_chain_trajectory": (hmc_args, dict(mh_kw, thin=1), N_CHAINS),
+    pt_args = (ladder, mix.means, N_STEPS, 0.05, 1.0, tuple(1.0 / t for t in PT_TEMPS),
+               PT_SWAP_EVERY)
+    ais_args = (x_ais, torch.zeros(2, device=dev), AIS_BASE_VAR ** 0.5, mix.means,
+                torch.linspace(0.0, 1.0, AIS_RUNGS + 1, device=dev), 0.05)
+    # name -> (args, kwargs, (updates per call, their unit), plain version's
+    # (warm-up, repetitions)): the plain MALA, HMC, PT and AIS versions take
+    # seconds per call, so one repetition
+    chain_updates, fast, slow = (N_CHAINS * N_STEPS, "chain-updates"), (1, 3), (1, 1)
+    calls = {
+        "mixture_langevin_chain": (mix_args, mix_kw, chain_updates, fast),
+        "mixture_langevin_chain_trajectory": (mix_args, dict(mix_kw, thin=1), chain_updates,
+                                              fast),
+        "doublewell_langevin_chain": (dw_args, dict(seed=22),
+                                      (xdw.numel() * N_STEPS, "element-updates"), fast),
+        "doublewell_langevin_chain_trajectory": (dw_args, dict(seed=22, thin=10),
+                                                 (xdw.numel() * N_STEPS, "element-updates"),
+                                                 fast),
+        "mixture_mala_chain": (mix_args, mix_kw, chain_updates, slow),
+        "mixture_mala_chain_trajectory": (mix_args, dict(mix_kw, thin=1), chain_updates, slow),
+        "mixture_hmc_chain": (hmc_args, mix_kw, (N_CHAINS * N_STEPS, "draws"), slow),
+        "mixture_hmc_chain_trajectory": (hmc_args, dict(mix_kw, thin=1),
+                                         (N_CHAINS * N_STEPS, "draws"), slow),
+        "pt_langevin_chain": (pt_args, mix_kw, (ladder.numel() // 2 * N_STEPS,
+                                                "replica-updates"), slow),
+        "pt_langevin_chain_trajectory": (pt_args, dict(mix_kw, thin=1),
+                                         (ladder.numel() // 2 * N_STEPS, "replica-updates"),
+                                         slow),
+        "mixture_ais_run": (ais_args, mix_kw, (AIS_CHAINS * AIS_RUNGS, "chain-rungs"), slow),
+        # the function torch.add computes: noise scale 0, no clamp
+        "fused_langevin_step": ((big_x, big_g, 0.05, 0.0), {}, (STEP_ELEMS, "elements"), fast),
     }
     times = {}
-    for name, (args, kw, n) in {**calls, **metropolis}.items():
+    for name, (args, kw, (updates, unit), plain_reps) in calls.items():
         module = getattr(ops, KERNELS[name][0])
         kernel, plain = getattr(module, name), getattr(module, name + "_plain")
-        ms = cuda_ms(lambda: kernel(*args, **kw), warmup=2, reps=10)
-        # the plain MALA and HMC versions take seconds per call: one warm-up, one repetition
-        plain_reps = (1, 3) if name in calls else (1, 1)
-        plain_ms = cuda_ms(lambda: plain(*args, **kw), *plain_reps)
-        times[name] = (ms, plain_ms)
-        unit = "draws" if "hmc" in name else "steps"
-        print(f"timing: {name} {n}x{N_STEPS} {unit}: kernel {ms:.3f} ms "
-              f"({n * N_STEPS / ms * 1e3:.4e} chain-updates/s), plain {plain_ms:.3f} ms "
-              f"({n * N_STEPS / plain_ms * 1e3:.4e} chain-updates/s; warm-up "
+        reps = STEP_REPS if name == "fused_langevin_step" else (2, 10)
+        ms = statistics.median(cuda_times(lambda: kernel(*args, **kw), *reps))
+        plain_ms = statistics.median(cuda_times(lambda: plain(*args, **kw), *plain_reps))
+        times[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                           work=work(name, args, kw, kernel(*args, **kw)))
+        print(f"timing: {name}: kernel {ms:.4f} ms ({updates / ms * 1e3:.4e} {unit}/s), plain "
+              f"{plain_ms:.3f} ms ({updates / plain_ms * 1e3:.4e} {unit}/s; warm-up "
               f"{plain_reps[0]}, repetitions {plain_reps[1]}) | {card}")
 
-    def sampler_call(fused, diagnostics):
-        s = LangevinDynamics(mix, step_size=0.05, fused=fused)
-        return lambda: s.sample(g, dim=2, n_samples=N_CHAINS, n_steps=N_STEPS,
-                                return_diagnostics=diagnostics)
-
-    for label, fused, diagnostics in (
-        ("sample() kernel path", "auto", False),
-        ("sample() kernel path + diagnostics", "auto", True),
-        ("sample() generic loop", "off", False),
-        ("sample() generic loop + diagnostics", "off", True),
+    for name in ("pt_langevin_chain", "pt_langevin_chain_trajectory"):
+        print(f"timing: {name} {N_CHAINS} chains x {len(PT_TEMPS)} replicas: "
+              f"{times[name]['ms'] / N_STEPS * 1e3:.3f} us per ladder step | {card}")
+    print(f"timing: mixture_ais_run {AIS_CHAINS} chains: "
+          f"{times['mixture_ais_run']['ms'] / AIS_RUNGS * 1e3:.3f} us per rung | {card}")
+    # the step op and torch.add as device time per call (STEP_REPS: batches
+    # queued behind a spin) and, below, per call with the host's launch work
+    lib_times = cuda_times(lambda: torch.add(big_x, big_g, alpha=-0.05), *STEP_REPS)
+    times["fused_langevin_step"]["library_ms"] = statistics.median(lib_times)
+    small = DW_SHAPE[0] * DW_SHAPE[1]
+    for label, fn, n_elems in (
+        ("fused_langevin_step, noise scale 0",
+         lambda: ops.fused_langevin_step(big_x, big_g, 0.05, 0.0), STEP_ELEMS),
+        ("torch.add(x, g, alpha=-eta)", lambda: torch.add(big_x, big_g, alpha=-0.05),
+         STEP_ELEMS),
+        ("fused_langevin_step, Philox noise",
+         lambda: ops.fused_langevin_step(big_x, big_g, 0.05, 1.0, seed=3), STEP_ELEMS),
+        (f"fused_langevin_step {DW_SHAPE[0]}x{DW_SHAPE[1]}, Philox noise",
+         lambda: ops.fused_langevin_step(big_x[:small], big_g[:small], 0.05, 1.0, seed=3),
+         small),
     ):
-        ms = cuda_ms(sampler_call(fused, diagnostics), warmup=1, reps=3)
-        print(f"timing: {label} {N_CHAINS}x{N_STEPS}: {ms:.3f} ms "
-              f"({N_CHAINS * N_STEPS / ms * 1e3:.4e} chain-updates/s) | {card}")
+        nbytes = 3 * 4 * n_elems
+        ts = cuda_times(fn, *STEP_REPS)
+        q1, med, q3 = statistics.quantiles(ts, n=4)
+        host = statistics.median(cuda_times(fn, STEP_REPS[0], STEP_REPS[1]))
+        print(f"timing: {label} {n_elems} elements: device {med:.4f} ms per call (quartiles "
+              f"{q1:.4f}-{q3:.4f}, {STEP_REPS[1]} batches of {STEP_REPS[2]}), "
+              f"{nbytes / med / 1e6:.1f} GB/s (bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+              f"at 3.35 TB/s); {host:.4f} ms with the host's launch work | {card}")
 
-    from torchebm_tpu_torch.samplers import HamiltonianMonteCarlo, MetropolisAdjustedLangevin
-
-    for label, sampler in (
-        ("MALA sample()", MetropolisAdjustedLangevin(mix, step_size=0.05)),
+    # the sampler paths, kernel against generic loop
+    pt = ParallelTemperingLangevin(mix, temperatures=PT_TEMPS, step_size=0.05,
+                                   swap_every=PT_SWAP_EVERY)
+    base = GaussianEnergy.create(torch.zeros(2), AIS_BASE_VAR * torch.eye(2)).to(dev)
+    lang = LangevinDynamics(mix, step_size=0.05)
+    for label, sampler, kw in (
+        ("Langevin sample()", lang, {}),
+        ("Langevin sample() + diagnostics", lang, dict(return_diagnostics=True)),
+        ("MALA sample()", MetropolisAdjustedLangevin(mix, step_size=0.05), {}),
         ("HMC sample()", HamiltonianMonteCarlo(mix, step_size=0.3,
-                                               n_leapfrog_steps=HMC_LEAPFROG)),
+                                               n_leapfrog_steps=HMC_LEAPFROG), {}),
+        (f"PT sample() R={len(PT_TEMPS)}", pt, {}),
     ):
-        for fused in ("auto", "off"):
+        for fused, path, reps in (("auto", "kernel path", 3), ("off", "generic loop", 1)):
             s = sampler.replace(fused=fused)
-            ms = cuda_ms(lambda: s.sample(g, x=x2, n_steps=N_STEPS), warmup=1,
-                         reps=3 if fused == "auto" else 1)
-            path = "kernel path" if fused == "auto" else "generic loop, one repetition"
+            ms = statistics.median(cuda_times(lambda: s.sample(g, x=x2, n_steps=N_STEPS, **kw),
+                                              1, reps))
             print(f"timing: {label} {path} {N_CHAINS}x{N_STEPS}: {ms:.3f} ms "
-                  f"({N_CHAINS * N_STEPS / ms * 1e3:.4e} chain-updates/s) | {card}")
+                  f"({N_CHAINS * N_STEPS / ms * 1e3:.4e} chain-updates/s), repetitions "
+                  f"{reps} | {card}")
+    for fused, path, reps in (("auto", "kernel path", 3), ("off", "generic loop", 1)):
+        ms = statistics.median(cuda_times(lambda: annealed_importance_sampling(
+            g, mix, base=base, n_samples=AIS_CHAINS, n_rungs=AIS_RUNGS, step_size=0.05,
+            fused=fused), 1, reps))
+        print(f"timing: annealed_importance_sampling {path} {AIS_CHAINS}x{AIS_RUNGS}: "
+              f"{ms:.3f} ms, repetitions {reps} | {card}")
     hmc = HamiltonianMonteCarlo(_corr_gaussian(dev), step_size=0.2,
                                 n_leapfrog_steps=HMC_LEAPFROG)
-    ms = cuda_ms(lambda: hmc.warmup(g, dim=2, n_warmup=200, n_samples=N_CHAINS), warmup=1,
-                 reps=1)
+    ms = statistics.median(cuda_times(
+        lambda: hmc.warmup(g, dim=2, n_warmup=200, n_samples=N_CHAINS), 1, 1))
     print(f"timing: HMC warmup (generic loop, dual averaging) {N_CHAINS} chains x 200: "
           f"{ms:.3f} ms, one repetition | {card}")
     return times
+
+
+def bound_of(work: dict, clock_mhz: float):
+    """``(bound_ms, bound_by)``: the larger of the bytes over the memory rate
+    and, per instruction class, the count over its rate at ``clock_mhz``."""
+    byte_ms = work["bytes"] / HBM_BYTES_PER_S * 1e3
+    op_ms = max(v / (RATE_PER_SM_CLOCK[k] * N_SMS * clock_mhz * 1e6) * 1e3
+                for k, v in work["ops"].items())
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def max_sm_clock_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout
+    return float(out.strip().splitlines()[0])
 
 
 def device_busy_ms(fn) -> float:
@@ -695,11 +1086,13 @@ def phase_profile(dev, card: str) -> None:
     the idle share 1 - busy / wall of the sampler paths and the diagnostics."""
     import torch
 
-    from torchebm_tpu_torch.core import GaussianMixtureEnergy
+    from torchebm_tpu_torch.core import GaussianEnergy, GaussianMixtureEnergy
     from torchebm_tpu_torch.samplers import (
         HamiltonianMonteCarlo,
         LangevinDynamics,
         MetropolisAdjustedLangevin,
+        ParallelTemperingLangevin,
+        annealed_importance_sampling,
         summarize_chains,
     )
 
@@ -713,6 +1106,10 @@ def phase_profile(dev, card: str) -> None:
     corr = corr.replace(step_size=eps)
     traj = corr.sample(g, x=x0, n_steps=ESS_DRAWS, thin=ESS_THIN, return_trajectory=True)
     n, loop_steps = N_CHAINS, 200
+    pt = ParallelTemperingLangevin(mix, temperatures=PT_TEMPS, step_size=0.05,
+                                   swap_every=PT_SWAP_EVERY)
+    ais_kw = dict(base=GaussianEnergy.create(torch.zeros(2), AIS_BASE_VAR * torch.eye(2)).to(dev),
+                  n_samples=AIS_CHAINS, n_rungs=AIS_RUNGS, step_size=0.05)
     calls = {
         f"Langevin sample() kernel path {n}x{N_STEPS}":
             lambda: lang.sample(g, x=x2, n_steps=N_STEPS),
@@ -732,6 +1129,14 @@ def phase_profile(dev, card: str) -> None:
         f"HMC ESS trajectory kernel path {n}x{ESS_DRAWS} thin {ESS_THIN}":
             lambda: corr.sample(g, x=x0, n_steps=ESS_DRAWS, thin=ESS_THIN,
                                 return_trajectory=True),
+        f"PT sample() kernel path {n}x{N_STEPS}, R={len(PT_TEMPS)}":
+            lambda: pt.sample(g, x=x2, n_steps=N_STEPS),
+        f"PT sample() generic loop {n}x{loop_steps}, R={len(PT_TEMPS)}":
+            lambda: pt.replace(fused="off").sample(g, x=x2, n_steps=loop_steps),
+        f"AIS kernel path {AIS_CHAINS}x{AIS_RUNGS} rungs":
+            lambda: annealed_importance_sampling(g, mix, **ais_kw),
+        f"AIS generic loop {AIS_CHAINS}x{AIS_RUNGS} rungs":
+            lambda: annealed_importance_sampling(g, mix, fused="off", **ais_kw),
         f"summarize_chains {tuple(traj.shape)}": lambda: summarize_chains(traj),
         f"summarize_chains(rank_normalized=True) {tuple(traj.shape)}":
             lambda: summarize_chains(traj, rank_normalized=True),
@@ -772,19 +1177,31 @@ def main() -> None:
     errors: dict = {}
     phase_check(ops.fused_langevin, dev, errors)
     phase_check_metropolis(ops, dev, errors)
+    phase_check_tempering(ops, dev, errors)
     launches = {name: 0 for name in KERNELS}
-    for path in (path_langevin, path_hmc, path_mala, path_gradient_descent):
+    for path in (path_langevin, path_hmc, path_mala, path_gradient_descent, path_pt, path_ais,
+                 path_step):
         for name, n in path(ops, dev, card).items():
             launches[name] += n
     times = phase_timing(ops, dev, card)
     phase_profile(dev, card)
 
-    summary = {"kernels": [
-        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": launches[name], "max_abs_err": errors[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
-        for name, (_, source, replaces) in KERNELS.items()
-    ]}
+    clock = max_sm_clock_mhz()
+    print(f"bound: {N_SMS} SMs at {clock:.0f} MHz (nvidia-smi clocks.max.sm), per-SM rates "
+          f"per clock {RATE_PER_SM_CLOCK}, memory {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    rows = []
+    for name, (_, source, replaces) in KERNELS.items():
+        t = times[name]
+        bound_ms, bound_by = bound_of(t["work"], clock)
+        ops_counts = {k: f"{v:.3e}" for k, v in t["work"]["ops"].items()}
+        print(f"bound: {name}: {bound_ms:.4f} ms by {bound_by} (instructions {ops_counts}, "
+              f"bytes {t['work']['bytes']:.3e}); kernel {t['ms']:.4f} ms, "
+              f"{bound_ms / t['ms']:.3f} of the bound's rate | {card}")
+        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launches[name], "max_abs_err": errors[name],
+                     "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": t["library_ms"]})
+    summary = {"kernels": rows}
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,74 @@
+"""The kernels' instruction counts (``torchebm_tpu_torch.ops._counts``) stay
+tied to the CUDA sources they were counted from, and cover every kernel."""
+
+import hashlib
+
+import pytest
+import torch
+
+from torchebm_tpu_torch import ops
+from torchebm_tpu_torch.ops import _build, _counts
+
+SOURCES = sorted(p.name for p in _build.CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def test_every_source_has_counts():
+    assert sorted(_counts.COUNTED_SOURCES) == SOURCES
+
+
+@pytest.mark.parametrize("source", SOURCES)
+def test_counts_were_checked_against_the_current_source(source):
+    """A source edited after its counts were taken fails here: recount its
+    kernels' instructions in ``_counts.work``, then record the new hash."""
+    digest = hashlib.sha256((_build.CSRC / source).read_bytes()).hexdigest()[:16]
+    assert _counts.COUNTED_SOURCES.get(source) == digest, (
+        f"{source} changed since its instruction counts were checked")
+
+
+def _calls():
+    """``{wrapper name: (args, kwargs)}``: one small CPU call per kernel wrapper."""
+    g = torch.Generator().manual_seed(0)
+    x0, means = torch.randn(4, 2, generator=g), torch.randn(3, 2, generator=g)
+    ladder = torch.randn(2, 4, 2, generator=g)
+    mix = dict(scale=0.5, seed=1)
+    return {
+        "mixture_langevin_chain": ((x0, means, 5, 0.05), mix),
+        "mixture_langevin_chain_trajectory": ((x0, means, 5, 0.05), dict(mix, thin=1)),
+        "doublewell_langevin_chain": ((torch.randn(4, 3, generator=g), 5, 0.01), {}),
+        "doublewell_langevin_chain_trajectory":
+            ((torch.randn(4, 3, generator=g), 5, 0.01), dict(thin=1)),
+        "mixture_mala_chain": ((x0, means, 5, 0.05), mix),
+        "mixture_mala_chain_trajectory": ((x0, means, 5, 0.05), dict(mix, thin=1)),
+        "mixture_hmc_chain": ((x0, means, 5, 0.05, 3), mix),
+        "mixture_hmc_chain_trajectory": ((x0, means, 5, 0.05, 3), dict(mix, thin=1)),
+        "pt_langevin_chain": ((ladder, means, 6, 0.05, 1.0, (1.0, 0.5), 2), mix),
+        "pt_langevin_chain_trajectory":
+            ((ladder, means, 6, 0.05, 1.0, (1.0, 0.5), 2), dict(mix, thin=1)),
+        "mixture_ais_run":
+            ((x0, torch.zeros(2), 3.0, means, torch.linspace(0.0, 1.0, 4), 0.05), mix),
+        "fused_langevin_step": ((x0, torch.randn(4, 2, generator=g), 0.01, 1.0), {}),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(ops.launch_counts()))
+def test_every_kernel_has_work_counts(name):
+    calls = _calls()
+    assert sorted(calls) == sorted(ops.launch_counts())
+    args, kw = calls[name]
+    result = getattr(ops, name)(*args, **kw)
+    work = _counts.work(name, args, kw, result)
+    assert set(work["ops"]) == {"fp32", "int32", "sfu"}
+    assert work["ops"]["fp32"] > 0 and work["bytes"] > 0
+    # every kernel draws Philox numbers on these calls
+    assert work["ops"]["int32"] > 0
+
+
+def test_work_scales_with_the_chain_length():
+    args, kw = _calls()["mixture_langevin_chain"]
+    once = _counts.work("mixture_langevin_chain", args, kw, ops.mixture_langevin_chain(*args, **kw))
+    longer = (*args[:2], 2 * args[2], *args[3:])
+    twice = _counts.work("mixture_langevin_chain", longer, kw,
+                         ops.mixture_langevin_chain(*longer, **kw))
+    assert twice["ops"] == {k: 2 * v for k, v in once["ops"].items()}
+    with pytest.raises(KeyError):
+        _counts.work("no_such_kernel", args, kw, None)

@@ -138,6 +138,65 @@ def test_doublewell_chain_plain_matches_jax_interpret(shape, n_steps, thin, sche
         _close(final, ref_final)
 
 
+# ------------------------------------------------------------------ one step
+
+
+@pytest.mark.parametrize("shape", [(4096, 32), (5, 7, 3), (13,)], ids=["4096x32", "5x7x3", "13"])
+@pytest.mark.parametrize("clamp", [None, (-1.0, 1.0)], ids=["free", "clamp"])
+def test_fused_step_plain_matches_jax_interpret(shape, clamp):
+    """``fused_langevin_step`` with injected noise: the JAX kernel's
+    self-test shape (4,096 x 32, ``fused_langevin.py:1617-1625``) and shapes
+    whose size is not a multiple of 4, at atol 1e-6 (one multiply-add)."""
+    rng = _rng(sum(shape))
+    x, g, eps = (_normal(rng, *shape) for _ in range(3))
+    ref = jfl.fused_langevin_step(jnp.asarray(x), jnp.asarray(g), 0.01, 0.8, clamp=clamp,
+                                  noise=jnp.asarray(eps), interpret=True)
+    counts = _build.launch_counts()
+    out = tfl.fused_langevin_step(torch.from_numpy(x), torch.from_numpy(g), 0.01, 0.8,
+                                  clamp=clamp, noise=torch.from_numpy(eps))
+    assert out.shape == shape
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-6)
+    # the update the JAX self-test holds its kernel to, in float64
+    want = np.asarray(x, np.float64) - 0.01 * g + 0.8 * np.sqrt(0.02) * eps
+    if clamp is not None:
+        want = np.clip(want, *clamp)
+    np.testing.assert_allclose(out.numpy(), want, rtol=0, atol=1e-6)
+    assert _build.launch_counts() == counts
+
+
+def test_fused_step_philox_layout_is_reproducible_and_seeded():
+    """Elements 4q..4q+3 take the four normals of counter (q, 0, 0), whatever
+    the shape; the stream depends on the seed."""
+    x, g = torch.zeros(6, 5), torch.zeros(6, 5)
+    a = tfl.fused_langevin_step(x, g, 0.5, seed=9)
+    torch.testing.assert_close(a, tfl.fused_langevin_step(x, g, 0.5, seed=9), rtol=0, atol=0)
+    assert not torch.equal(a, tfl.fused_langevin_step(x, g, 0.5, seed=10))
+    z = tfl.philox_normals(torch.arange(8), 0, 4, 9).reshape(-1)[:30]
+    torch.testing.assert_close(a.reshape(-1), z, rtol=0, atol=0)  # √(2·0.5) = 1
+    torch.testing.assert_close(tfl.fused_langevin_step_plain(x, g, 0.5, seed=9), a,
+                               rtol=0, atol=0)
+    # noise_scale 0 is plain gradient descent
+    big = torch.randn(1000)
+    torch.testing.assert_close(tfl.fused_langevin_step(big, big, 0.1, 0.0), big - 0.1 * big,
+                               rtol=0, atol=0)
+
+
+def test_fused_step_rejects_bad_inputs():
+    x = torch.zeros(4, 3)
+    with pytest.raises(ValueError, match="grad must have shape"):
+        tfl.fused_langevin_step(x, torch.zeros(3, 4), 0.1)
+    with pytest.raises(ValueError, match="noise must have shape"):
+        tfl.fused_langevin_step(x, x, 0.1, noise=torch.zeros(12))
+    with pytest.raises(TypeError, match="float32"):
+        tfl.fused_langevin_step(x.double(), x, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfl.fused_langevin_step(x.T, x.T, 0.1)
+    with pytest.raises(ValueError, match="at least one"):
+        tfl.fused_langevin_step(torch.zeros(0), torch.zeros(0), 0.1)
+    with pytest.raises(ValueError, match="only CPU"):
+        tfl.fused_langevin_step(torch.zeros(4, device="meta"), torch.zeros(4, device="meta"), 0.1)
+
+
 # ------------------------------------------------------------------ Philox
 
 
@@ -243,7 +302,8 @@ def test_library_path_follows_every_source_and_header(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "CSRC", csrc)
     before = _build.library_path()
     assert sorted(p.name for p in _build._sources()) == [
-        "fused_hmc.cu", "fused_langevin.cu", "fused_mala.cu"]
+        "fused_ais.cu", "fused_hmc.cu", "fused_langevin.cu", "fused_mala.cu", "fused_pt.cu",
+        "fused_step.cu"]
     (csrc / "notes.txt").write_text("not a source")
     assert _build.library_path() == before
     header = csrc / "tebm_common.cuh"
@@ -262,6 +322,8 @@ def test_launch_counts_cover_every_kernel_wrapper():
         "doublewell_langevin_chain", "doublewell_langevin_chain_trajectory",
         "mixture_mala_chain", "mixture_mala_chain_trajectory",
         "mixture_hmc_chain", "mixture_hmc_chain_trajectory",
+        "pt_langevin_chain", "pt_langevin_chain_trajectory", "mixture_ais_run",
+        "fused_langevin_step",
     }
     saved = ops.launch_counts()
     try:

@@ -9,7 +9,8 @@ The tolerance is atol 1e-4 (float32): the kernels contract multiply-adds and
 take the mixture softmax online in one pass, the plain versions do neither;
 the chains contract at these step sizes, so rounding does not grow.
 
-The MALA and HMC chains take a Metropolis decision per step: where the
+The MALA, HMC, AIS and parallel-tempering chains take a Metropolis (or
+exchange) decision per step: where the
 uniform lies within rounding of the acceptance probability, kernel and plain
 version may decide differently and that chain then differs by a whole
 proposal. Those checks count the chains beyond the tolerance (state,
@@ -21,9 +22,11 @@ import numpy as np
 import pytest
 import torch
 
+from torchebm_tpu_torch.ops import fused_ais as tais
 from torchebm_tpu_torch.ops import fused_hmc as thmc
 from torchebm_tpu_torch.ops import fused_langevin as tfl
 from torchebm_tpu_torch.ops import fused_mala as tmala
+from torchebm_tpu_torch.ops import fused_pt as tpt
 
 TOL = 1e-4
 
@@ -187,3 +190,93 @@ def test_hmc_kernels_match_plain_on_card(cuda, inject, target, mass):
         got, want = _kernel_and_plain(fn, cuda, x0.to(cuda), means.to(cuda), n_draws, step, 8,
                                       **extra, **kw)
         assert _flipped_chains(got, want, n) <= n // 1000
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4096, 32), (3, 5461), (1000, 7), (5, 7, 3), (1,)],
+                         ids=["4096x32", "3x5461", "1000x7", "5x7x3", "1"])
+@pytest.mark.parametrize("inject", [True, False], ids=["noise", "philox"])
+def test_fused_langevin_step_matches_plain_on_card(cuda, shape, inject):
+    rng = _rng(4)
+    x, g = (torch.from_numpy(_normal(rng, *shape)).to(cuda) for _ in range(2))
+    kw = dict(seed=17, clamp=(-1.0, 1.0))
+    if inject:
+        kw["noise"] = torch.from_numpy(_normal(rng, *shape)).to(cuda)
+    got, want = _kernel_and_plain(tfl.fused_langevin_step, cuda, x, g, 0.01, 0.8, **kw)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
+    # a state that is not 16-byte aligned takes the scalar path
+    flat = torch.from_numpy(_normal(rng, 4 * 1000 + 2)).to(cuda)
+    xs, gs = flat[1:-1], flat[2:]
+    got, want = _kernel_and_plain(tfl.fused_langevin_step, cuda, xs, gs, 0.01, 0.0, seed=3)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
+
+
+def _pt_case(rng, target, n_rep, n):
+    """``(replicas, means, kwargs)`` on the CPU: the ring-like mixture started
+    at its modes (noise 0.5 keeps every replica there), or a d=32 Gaussian."""
+    if target == "gaussian":
+        d = 32
+        a = _normal(rng, d, d, scale=0.1)
+        means = torch.from_numpy(_normal(rng, 1, d))
+        reps = means + torch.from_numpy(_normal(rng, n_rep, n, d, scale=0.7))
+        prec = torch.from_numpy((a @ a.T + np.eye(d)).astype(np.float32))
+        return reps.contiguous(), means, dict(precision=prec)
+    means = torch.from_numpy(_normal(rng, 6, 2, scale=3.0))
+    comp = torch.from_numpy(rng.integers(0, 6, (n_rep, n)))
+    reps = means[comp] + torch.from_numpy(_normal(rng, n_rep, n, 2, scale=0.4))
+    return reps.contiguous(), means, dict(scale=0.4)
+
+
+#: (R, n chains, n_steps, swap_every): R = 5 leaves three idle lanes in a
+#: group of 8, 1001 chains end in a partial group and a partial block,
+#: n_steps < swap_every runs no sweep
+PT_CASES = [(2, 4096, 20, 5), (4, 1001, 23, 5), (5, 1001, 20, 3), (3, 600, 4, 5)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inject", [True, False], ids=["noise", "philox"])
+@pytest.mark.parametrize("target", ["mixture", "gaussian"])
+@pytest.mark.parametrize("n_rep, n, n_steps, swap_every", PT_CASES)
+def test_pt_kernels_match_plain_on_card(cuda, inject, target, n_rep, n, n_steps, swap_every):
+    rng = _rng(5)
+    reps, means, kw = _pt_case(rng, target, n_rep, n)
+    betas = tuple(1.6 ** -r for r in range(n_rep))
+    kw.update(seed=8, clamp=(-9.0, 9.0))
+    if inject:
+        d = reps.shape[-1]
+        kw["noise"] = torch.from_numpy(_normal(rng, n_steps, n_rep, n, d))
+        kw["swap_uniform"] = torch.from_numpy(
+            rng.uniform(size=(n_steps // swap_every, n_rep - 1, n)).astype(np.float32))
+    kw = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    args = (reps.to(cuda), means.to(cuda), n_steps, 0.02, 0.5, betas, swap_every)
+    for fn, extra in ((tpt.pt_langevin_chain, {}),
+                      (tpt.pt_langevin_chain_trajectory, dict(thin=2))):
+        got, want = _kernel_and_plain(fn, cuda, *args, **extra, **kw)
+        flipped = _flipped_chains(got[:-1], want[:-1], n)
+        assert flipped <= n // 1000
+        # the acceptance is a mean over chains: a flipped chain moves it by at most 1/n
+        assert abs(float(got[-1]) - float(want[-1])) <= TOL + flipped / n
+        if n_steps < swap_every:
+            assert float(got[-1]) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inject", [True, False], ids=["noise", "philox"])
+@pytest.mark.parametrize("target", ["mixture", "gaussian"])
+@pytest.mark.parametrize("n_transitions", [1, 2])
+def test_ais_kernel_matches_plain_on_card(cuda, inject, target, n_transitions):
+    rng = _rng(6)
+    n, n_rungs = 4096, 25
+    reps, means, kw = _pt_case(rng, target, 1, n)
+    x0, d = reps[0], reps.shape[-1]
+    base_mean = torch.from_numpy(_normal(rng, d))
+    betas = torch.linspace(0.0, 1.0, n_rungs + 1)
+    kw.update(seed=9, n_transitions=n_transitions)
+    if inject:
+        kw["noise"] = torch.from_numpy(_normal(rng, n_rungs * n_transitions, n, d))
+        kw["uniforms"] = torch.from_numpy(
+            rng.uniform(size=(n_rungs * n_transitions, n)).astype(np.float32))
+    kw = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    got, want = _kernel_and_plain(tais.mixture_ais_run, cuda, x0.to(cuda), base_mean.to(cuda),
+                                  2.0, means.to(cuda), betas.to(cuda), 0.01, **kw)
+    assert _flipped_chains(got, want, n) <= n // 1000

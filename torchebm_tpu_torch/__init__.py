@@ -4,14 +4,17 @@ A second package beside the JAX one, with the same module layout, so each
 module's counterpart is found under the same name. It imports ``torch`` and
 never ``jax``. Energies are ``nn.Module``\\ s with their parameters as buffers,
 randomness comes from explicit ``torch.Generator``\\ s, and the device is the
-generator's. The whole-chain Langevin, MALA and HMC kernels are
-hand-written CUDA for Hopper (``ops/csrc``), built at first use.
+generator's. The whole-chain Langevin, MALA, HMC, parallel-tempering and
+AIS kernels and the one-step Langevin kernel are hand-written CUDA for
+Hopper (``ops/csrc``), built at first use.
 
 Ported so far: the Langevin sampling path (energies, schedulers,
 Euler–Maruyama, the sampling loop, ``LangevinDynamics`` with its dispatch
 rows and kernels), the gradient-MCMC slice (gradient descent, Nesterov,
-MALA, leapfrog, HMC with dual-averaging warmup, R̂/ESS diagnostics) and
-parameter and sampler conversion from the JAX package.
+MALA, leapfrog, HMC with dual-averaging warmup, R̂/ESS diagnostics),
+replica exchange (``ParallelTemperingLangevin``) and annealed importance
+sampling, the public ``ops.fused_langevin_step``, and parameter and sampler
+conversion from the JAX package.
 
 Subpackages and symbols load lazily through module ``__getattr__``.
 """
@@ -64,6 +67,9 @@ _LAZY_SYMBOLS = {
     "effective_sample_size": "samplers",
     "tail_effective_sample_size": "samplers",
     "summarize_chains": "samplers",
+    "ParallelTemperingLangevin": "samplers",
+    "AISResult": "samplers",
+    "annealed_importance_sampling": "samplers",
 }
 
 __all__ = list(_SUBMODULES) + list(_LAZY_SYMBOLS) + ["__version__"]

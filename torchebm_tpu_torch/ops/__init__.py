@@ -5,18 +5,22 @@ first launch on a CUDA tensor (see :mod:`._build`). CPU tensors take the
 kernels' plain PyTorch versions.
 """
 
-from . import fused_hmc, fused_langevin, fused_mala
+from . import fused_ais, fused_hmc, fused_langevin, fused_mala, fused_pt
 from ._build import launch_counts, reset_launch_counts
+from .fused_ais import mixture_ais_run
 from .fused_hmc import mixture_hmc_chain, mixture_hmc_chain_trajectory
 from .fused_langevin import (
     doublewell_langevin_chain,
     doublewell_langevin_chain_trajectory,
+    fused_langevin_step,
     mixture_langevin_chain,
     mixture_langevin_chain_trajectory,
 )
 from .fused_mala import mixture_mala_chain, mixture_mala_chain_trajectory
+from .fused_pt import pt_langevin_chain, pt_langevin_chain_trajectory
 
 __all__ = [
+    "fused_langevin_step",
     "doublewell_langevin_chain",
     "doublewell_langevin_chain_trajectory",
     "mixture_langevin_chain",
@@ -25,6 +29,9 @@ __all__ = [
     "mixture_mala_chain_trajectory",
     "mixture_hmc_chain",
     "mixture_hmc_chain_trajectory",
+    "pt_langevin_chain",
+    "pt_langevin_chain_trajectory",
+    "mixture_ais_run",
     "launch_counts",
     "reset_launch_counts",
 ]

@@ -1,0 +1,116 @@
+"""Work of one kernel call: instructions by class and bytes moved.
+
+A kernel's least time on a card is the larger of its bytes over the memory
+rate and, per instruction class, its instruction count over the class's
+rate. The counts here are taken by hand from the CUDA sources under
+``csrc/``, per unit of work (one chain-step, one transition, one quad of
+elements), and are an approximation: the compiler's own instruction mix is
+not read. Classes: ``"fp32"`` adds, multiplies, FMAs, min/max and compares;
+``"int32"`` Philox's multiplies, xors and key adds; ``"sfu"`` ex2, lg2, rsq,
+rcp, sin, cos and int-to-float conversions.
+
+:data:`COUNTED_SOURCES` holds the SHA-256 prefix of each source the counts
+were last checked against; a test fails when a source changes, so that an
+edited kernel has its counts checked again before its hash is updated.
+"""
+
+from __future__ import annotations
+
+__all__ = ["COUNTED_SOURCES", "work"]
+
+#: ``{file under csrc/: sha256 hexdigest[:16]}`` of the sources counted here
+COUNTED_SOURCES = {
+    "fused_ais.cu": "bbb0be8b07f58a41",
+    "fused_hmc.cu": "a21525becda3a215",
+    "fused_langevin.cu": "12b514afc98a6858",
+    "fused_mala.cu": "5c281c546e39a99a",
+    "fused_pt.cu": "749b05b3dce2d4d8",
+    "fused_step.cu": "45698a16da6ceaad",
+    "tebm_common.cuh": "915894584e01ad9d",
+}
+
+# tebm_common.cuh: one Philox4x32-10 block; normals4 (one block, two
+# Box-Muller pairs); uniform01 (one block, one conversion and scale)
+_PHILOX = {"int32": 84}
+_NORMALS4 = {"int32": 84, "fp32": 60, "sfu": 12}
+_UNIFORM = {"int32": 84, "fp32": 2, "sfu": 1}
+
+
+def _add(*parts, times=1) -> dict:
+    total = {"fp32": 0.0, "int32": 0.0, "sfu": 0.0}
+    for p in parts:
+        for k, v in p.items():
+            total[k] += v * times
+    return total
+
+
+def _eval(d: int, k: int, gaussian: bool) -> dict:
+    """One gradient + log-density evaluation (``grad_logp``, tebm_common.cuh)
+    of a ``k``-component mixture or a full-covariance Gaussian in ``d``
+    dimensions."""
+    if gaussian:
+        return {"fp32": d * d + 3 * d + 2}
+    return {"fp32": k * (3 * d + 8) + 2 * d + 6, "sfu": k + 2}
+
+
+def work(name: str, args, kw, result) -> dict:
+    """``{"ops": {class: instructions}, "bytes": n}`` of one call of the
+    kernel wrapper ``name`` with positional ``args`` and keywords ``kw``
+    that returned ``result``: every tensor among them read or written once."""
+    import torch
+
+    def nbytes(xs):
+        return sum(t.numel() * t.element_size() for t in xs if isinstance(t, torch.Tensor))
+
+    flat = result if isinstance(result, tuple) else (result,)
+    moved = nbytes([*args, *kw.values()]) + nbytes(flat)
+
+    def normals(d):
+        return _add(_NORMALS4, times=-(-d // 4))
+
+    gaussian = kw.get("precision") is not None
+    if name.startswith("mixture_langevin"):  # fused_langevin.cu, per chain-step
+        x0, means, n_steps = args[:3]
+        n, d = x0.shape
+        per = _add(_eval(d, means.shape[0], gaussian), normals(d), {"fp32": 4 * d})
+        ops = _add(per, times=n * n_steps)
+    elif name.startswith("doublewell"):  # fused_langevin.cu, per element-step
+        x0, n_steps = args[:2]
+        ops = _add(_PHILOX, {"fp32": 31, "sfu": 5}, times=x0.numel() * n_steps)
+    elif name.startswith("mixture_mala"):  # fused_mala.cu, per chain-step
+        x0, means, n_steps = args[:3]
+        n, d = x0.shape
+        per = _add(_eval(d, means.shape[0], gaussian), normals(d), _UNIFORM,
+                   {"fp32": 8 * d + 12, "sfu": 2})
+        ops = _add(per, times=n * n_steps)
+    elif name.startswith("mixture_hmc"):  # fused_hmc.cu, per chain-draw
+        x0, means, n_draws, _, n_leap = args[:5]
+        n, d = x0.shape
+        ev = _eval(d, means.shape[0], gaussian)
+        per = _add(_add(ev, {"fp32": 4 * d}, times=n_leap), ev, normals(d), _UNIFORM,
+                   {"fp32": 6 * d + 12, "sfu": 2})
+        ops = _add(per, times=n * n_draws)
+    elif name.startswith("pt_langevin"):  # fused_pt.cu, per replica-step and sweep
+        ladder, means, n_steps, _, _, betas, swap_every = args[:7]
+        n_rep, n, d = ladder.shape
+        per_step = _add(_eval(d, means.shape[0], gaussian), normals(d), {"fp32": 4 * d})
+        # per lane and sweep: the exchange shuffles and, on the lower lane, a decision
+        per_sweep = _add(_UNIFORM, {"fp32": 8, "sfu": 1, "int32": 4 * d + 6})
+        ops = _add(_add(per_step, times=n_rep * n * n_steps),
+                   _add(per_sweep, times=n_rep * n * (n_steps // swap_every)))
+    elif name == "mixture_ais_run":  # fused_ais.cu, per chain-transition and rung
+        x0, _, _, means, betas = args[:5]
+        n, d = x0.shape
+        n_tr = kw.get("n_transitions", 1)
+        rungs = betas.shape[0] - 1
+        per = _add(_eval(d, 1, False), _eval(d, means.shape[0], gaussian), normals(d), _UNIFORM,
+                   {"fp32": 12 * d + 12, "sfu": 2})
+        ops = _add(_add(per, times=n * n_tr * rungs), {"fp32": 4 * n * rungs})
+    elif name == "fused_langevin_step":  # fused_step.cu, per quad of elements
+        x, _, _, noise_scale = args[:4]
+        quads = -(-x.numel() // 4)
+        drawn = noise_scale and kw.get("noise") is None
+        ops = _add(_NORMALS4 if drawn else {}, {"fp32": 12}, times=quads)
+    else:
+        raise KeyError(f"no instruction counts for kernel {name!r}")
+    return {"ops": ops, "bytes": moved}

@@ -1,0 +1,195 @@
+r"""Whole-run annealed importance sampling kernel: wrapper, plain version, launch count.
+
+PyTorch counterpart of :mod:`torchebm_tpu.ops.fused_ais`. The wrapper runs an
+entire AIS anneal along :math:`E_\beta = (1-\beta)E_0 + \beta E_1`,
+:math:`0 = \beta_0 < \dots < \beta_K = 1`: at each rung the weight update
+
+.. math::
+    \log w \mathrel{+}= (\beta - \beta_{\text{prev}})
+    \big(\log p_1(x) - \log p_0(x) - \text{log\_norm\_t}\big),
+
+then ``n_transitions`` MALA steps invariant for :math:`e^{-E_\beta}`, in one
+launch of a hand-written CUDA kernel (``csrc/fused_ais.cu``) when ``x0`` lies
+on a CUDA device, and in its plain PyTorch version when ``x0`` lies on the CPU;
+any other device raises. The base is the isotropic Gaussian
+:math:`N(\mu_0, \sigma_0^2 I)`; the target that of :mod:`.fused_mala`
+(isotropic mixture, or ``precision=``). :math:`\log p_0`, :math:`\log p_1` are
+the evaluators' unnormalised log-densities (:math:`-E_0` exactly for the
+base); ``log_norm_t`` is the constant the target's energy holds beyond
+:math:`-\log p_1`. By default it follows the JAX kernel:
+:math:`d\log\sigma + \tfrac d2\log 2\pi` for the mixture form (the
+normalised :class:`GaussianMixtureEnergy`) and 0 for ``precision=``. A caller
+whose isotropic target is an unnormalised Gaussian energy passes 0, as
+:func:`torchebm_tpu_torch.samplers.annealed_importance_sampling` does; the
+JAX sampler does not, and its kernel path is biased by
+:math:`-\text{log\_norm\_t}` there.
+
+The β table lives in device memory: schedules of any length run in one
+launch (the JAX kernel's SMEM table stops at 60,000 rungs).
+
+``noise`` (``(n_rungs·n_transitions, n_chains, d)``) and ``uniforms``
+(``(n_rungs·n_transitions, n_chains)``) are injected together or not at all;
+without them both come from the Philox stream at ``(chain, rung·n_transitions
++ j)``. The wrapper's ``launches`` attribute counts its kernel launches.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+from .fused_langevin import (
+    _check_metropolis,
+    _check_tensor,
+    _mixture_grad_logp,
+    _seed_words,
+    _target,
+    philox_normals,
+    philox_uniforms,
+)
+
+Tensor = torch.Tensor
+
+__all__ = ["mixture_ais_run", "mixture_ais_run_plain"]
+
+#: ``tebm_mixture_ais_run``'s argument types before the stream: x0, out, logw,
+#: accept, base_mean, params_a, params_b, betas, noise, uniforms, n, d, k,
+#: gaussian, n_rungs, n_transitions, inv_var0, inv_var, eta, noise_coef,
+#: four_eta, log_norm_t, seed lo, seed hi
+_SIGNATURE = (_build.PTR,) * 10 + (_build.INT,) * 6 + (_build.FLOAT,) * 6 + (_build.U32,) * 2
+
+
+def _ais_args(x0, base_mean, base_scale, means, betas, step_size, n_transitions, scale,
+              log_weights, precision, seed, noise, uniforms, log_norm_t):
+    """Validate; return ``(base_logp, target_logp, params_a, params_b,
+    gaussian, inv_var0, inv_var, betas, eta, log_norm_t)``."""
+    if not isinstance(betas, Tensor):
+        betas = torch.as_tensor(betas, dtype=torch.float32, device=x0.device)
+    if betas.ndim != 1 or betas.shape[0] < 2:
+        raise ValueError("betas must be a 1D schedule with at least 2 entries")
+    _check_tensor("betas", betas, x0.device)
+    n_tr = int(n_transitions)
+    if n_tr < 1:
+        raise ValueError("n_transitions must be >= 1")
+    _check_metropolis(x0, (betas.shape[0] - 1) * n_tr, noise, uniforms)
+    target_logp, pa, pb, gaussian, inv_var = _target(x0, means, scale, log_weights, precision)
+    d = x0.shape[1]
+    _check_tensor("base_mean", base_mean, x0.device, (d,))
+    inv_var0 = 1.0 / float(base_scale) ** 2
+    base_means, zero = base_mean[None, :], torch.zeros(1, dtype=torch.float32, device=x0.device)
+    eta = float(step_size)
+    if not eta > 0.0:
+        raise ValueError(f"step_size must be > 0, got {eta}")
+    if log_norm_t is None:
+        log_norm_t = (0.0 if precision is not None
+                      else d * math.log(float(scale)) + 0.5 * d * math.log(2 * math.pi))
+    _seed_words(seed)
+    return ((lambda x: _mixture_grad_logp(x, base_means, zero, inv_var0)), target_logp, pa, pb,
+            gaussian, inv_var0, inv_var, betas, eta, float(log_norm_t))
+
+
+def _run_plain(x0, base_logp, target_logp, betas, eta, n_transitions, log_norm_t, seed, noise,
+               uniforms):
+    """Plain version of the kernel: the same rung loop, Philox counters and
+    carried endpoint gradients and log-densities; ``(samples, logw, accept)``."""
+    n, d = x0.shape
+    index = torch.arange(n, device=x0.device)
+    noise_coef, four_eta = math.sqrt(2.0 * eta), 4.0 * eta
+    x = x0
+    g0, lp0 = base_logp(x)
+    gt, lpt = target_logp(x)
+    logw = torch.zeros(n, dtype=torch.float32, device=x0.device)
+    acc = torch.zeros(n, dtype=torch.float32, device=x0.device)
+    n_rungs = betas.shape[0] - 1
+    for rung in range(n_rungs):
+        bp, b = betas[rung], betas[rung + 1]
+        logw = logw + (b - bp) * (lpt - lp0 - log_norm_t)
+        one_m = 1.0 - b
+        for j in range(n_transitions):
+            t = rung * n_transitions + j
+            eps = noise[t] if noise is not None else philox_normals(index, t, d, seed)
+            u = uniforms[t] if uniforms is not None else philox_uniforms(index, t, seed)
+            gx = one_m * g0 + b * gt
+            y = x - eta * gx + noise_coef * eps
+            g0y, lp0y = base_logp(y)
+            gty, lpty = target_logp(y)
+            gy = one_m * g0y + b * gty
+            lpx = one_m * lp0 + b * lpt
+            lpy = one_m * lp0y + b * lpty
+            sq_xy = torch.sum(torch.square(x - y + eta * gy), dim=-1)
+            sq_yx = torch.sum(torch.square(y - x + eta * gx), dim=-1)
+            log_ratio = (lpy - lpx) + (sq_yx - sq_xy) / four_eta
+            alpha = torch.clamp(torch.exp(torch.clamp(log_ratio, -50.0, 50.0)), max=1.0)
+            take = u < alpha
+            x = torch.where(take[:, None], y, x)
+            g0 = torch.where(take[:, None], g0y, g0)
+            gt = torch.where(take[:, None], gty, gt)
+            lp0 = torch.where(take, lp0y, lp0)
+            lpt = torch.where(take, lpty, lpt)
+            acc = acc + alpha
+    return x, logw, acc * (1.0 / (n_rungs * n_transitions))
+
+
+def mixture_ais_run_plain(x0, base_mean, base_scale, means, betas, step_size, *,
+                          n_transitions=1, scale=1.0, log_weights=None, precision=None, seed=0,
+                          noise=None, uniforms=None,
+                          log_norm_t=None) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain PyTorch version of :func:`mixture_ais_run`, on ``x0``'s device."""
+    base_logp, target_logp, *_, betas, eta, log_norm_t = _ais_args(
+        x0, base_mean, base_scale, means, betas, step_size, n_transitions, scale, log_weights,
+        precision, seed, noise, uniforms, log_norm_t)
+    return _run_plain(x0, base_logp, target_logp, betas, eta, int(n_transitions), log_norm_t,
+                      seed, noise, uniforms)
+
+
+@_build.counted
+def mixture_ais_run(
+    x0: Tensor,
+    base_mean: Tensor,
+    base_scale: float,
+    means: Tensor,
+    betas,
+    step_size: float,
+    *,
+    n_transitions: int = 1,
+    scale: float = 1.0,
+    log_weights: Optional[Tensor] = None,
+    precision: Optional[Tensor] = None,
+    seed: int = 0,
+    noise: Optional[Tensor] = None,
+    uniforms: Optional[Tensor] = None,
+    log_norm_t: Optional[float] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    r"""Full AIS anneal in one kernel.
+
+    ``x0``: ``(n_chains, d)`` exact base draws; ``base_mean`` ``(d,)`` and the
+    scalar ``base_scale``: the base :math:`N(\mu_0, \sigma_0^2 I)`;
+    ``means`` with (``scale``, ``log_weights`` | ``precision``): the target;
+    ``betas``: the ``(K+1,)`` schedule from 0 to 1. Returns ``(samples,
+    log_weights, accept)`` per chain; ``logsumexp(log_weights) − log n``
+    estimates :math:`\log Z_1 / Z_0`.
+    """
+    base_logp, target_logp, pa, pb, gaussian, inv_var0, inv_var, betas, eta, log_norm_t = (
+        _ais_args(x0, base_mean, base_scale, means, betas, step_size, n_transitions, scale,
+                  log_weights, precision, seed, noise, uniforms, log_norm_t))
+    n_tr = int(n_transitions)
+    if x0.device.type == "cpu":
+        return _run_plain(x0, base_logp, target_logp, betas, eta, n_tr, log_norm_t, seed, noise,
+                          uniforms)
+    n, d = x0.shape
+    out = torch.empty_like(x0)
+    logw = torch.empty((n,), dtype=torch.float32, device=x0.device)
+    accept = torch.empty((n,), dtype=torch.float32, device=x0.device)
+    seed_lo, seed_hi = _seed_words(seed)
+    p = _build.ptr
+    _build.launch(
+        "mixture_ais_run", _SIGNATURE, x0.device,
+        p(x0), p(out), p(logw), p(accept), p(base_mean), p(pa), p(pb), p(betas), p(noise),
+        p(uniforms), n, d, means.shape[0], gaussian, betas.shape[0] - 1, n_tr, inv_var0, inv_var,
+        eta, math.sqrt(2.0 * eta), 4.0 * eta, log_norm_t, seed_lo, seed_hi,
+    )
+    mixture_ais_run.launches += 1
+    return out, logw, accept

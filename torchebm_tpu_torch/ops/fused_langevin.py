@@ -19,6 +19,8 @@ the card.
   d ≤ 32).
 - :func:`doublewell_langevin_chain` / :func:`doublewell_langevin_chain_trajectory`:
   elementwise :math:`\nabla E = 4h\,x(x^2-b^2)` over a state of any shape.
+- :func:`fused_langevin_step`: one model-agnostic step from a given gradient,
+  over a state of any shape (``csrc/fused_step.cu``).
 
 ``step_size`` and ``noise_scale`` are each a float or a ``(n_steps,)``
 per-step schedule. ``noise`` (``(n_steps, *x0.shape)``) injects the normals;
@@ -53,6 +55,8 @@ __all__ = [
     "doublewell_langevin_chain_trajectory",
     "mixture_langevin_chain",
     "mixture_langevin_chain_trajectory",
+    "fused_langevin_step",
+    "fused_langevin_step_plain",
     "doublewell_langevin_chain_plain",
     "doublewell_langevin_chain_trajectory_plain",
     "mixture_langevin_chain_plain",
@@ -76,6 +80,7 @@ _SIGNATURES = {
     "doublewell_langevin_chain": (_P,) * 4 + (_LL, _I, _F, _F, _I, _F, _F, _U, _U),
     "doublewell_langevin_chain_trajectory":
         (_P,) * 5 + (_LL, _I, _I, _F, _F, _I, _F, _F, _U, _U),
+    "fused_langevin_step": (_P,) * 4 + (_LL, _F, _F, _I, _F, _F, _U, _U),
 }
 
 
@@ -541,3 +546,66 @@ def doublewell_langevin_chain_trajectory(
     )
     doublewell_langevin_chain_trajectory.launches += 1
     return traj, out
+
+
+# ---------------------------------------------------------------------------
+# one fused step (model-agnostic)
+# ---------------------------------------------------------------------------
+
+
+def _step_args(x, grad, step_size, noise_scale, seed, noise):
+    _check_tensor("x", x, x.device)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"x is on {x.device}: only CPU (plain) and CUDA (kernel) run")
+    if x.numel() < 1:
+        raise ValueError("x must hold at least one element")
+    _check_tensor("grad", grad, x.device, x.shape)
+    if noise is not None:
+        _check_tensor("noise", noise, x.device, x.shape)
+    _seed_words(seed)
+    return float(step_size), float(noise_scale) * math.sqrt(2.0 * float(step_size))
+
+
+def _step_plain(x, grad, eta, coef, seed, clamp, noise):
+    if noise is None:
+        n = x.numel()
+        quads = torch.arange((n + 3) // 4, device=x.device)
+        noise = philox_normals(quads, 0, 4, seed).reshape(-1)[:n].reshape(x.shape)
+    out = x - eta * grad + coef * noise
+    return out if clamp is None else torch.clamp(out, clamp[0], clamp[1])
+
+
+def fused_langevin_step_plain(x, grad, step_size, noise_scale=1.0, *, seed=0, clamp=None,
+                              noise=None) -> Tensor:
+    """Plain PyTorch version of :func:`fused_langevin_step`, on ``x``'s device."""
+    eta, coef = _step_args(x, grad, step_size, noise_scale, seed, noise)
+    return _step_plain(x, grad, eta, coef, seed, clamp, noise)
+
+
+@_build.counted
+def fused_langevin_step(
+    x: Tensor,
+    grad: Tensor,
+    step_size: float,
+    noise_scale: float = 1.0,
+    *,
+    seed: int = 0,
+    clamp: Optional[Tuple[float, float]] = None,
+    noise: Optional[Tensor] = None,
+) -> Tensor:
+    r"""One fused Langevin update ``x − η·g + noise_scale·√(2η)·ε``, clamped
+    to ``clamp`` if given, over a state of any shape.
+
+    ``noise`` (``x``'s shape) injects ε; without it elements ``4q..4q+3``
+    take the four normals of Philox counter ``(q, 0, 0)``.
+    """
+    eta, coef = _step_args(x, grad, step_size, noise_scale, seed, noise)
+    if x.device.type == "cpu":
+        return _step_plain(x, grad, eta, coef, seed, clamp, noise)
+    out = torch.empty_like(x)
+    seed_lo, seed_hi = _seed_words(seed)
+    use_clamp, lo, hi = _clamp_args(clamp)
+    _launch("fused_langevin_step", x.device, _ptr(x), _ptr(grad), _ptr(noise), _ptr(out),
+            x.numel(), eta, coef, use_clamp, lo, hi, seed_lo, seed_hi)
+    fused_langevin_step.launches += 1
+    return out

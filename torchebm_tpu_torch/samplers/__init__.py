@@ -1,7 +1,9 @@
 """MCMC samplers (counterpart of ``torchebm_tpu.samplers``): the shared loop,
 Langevin dynamics with its whole-chain kernel dispatch, gradient descent and
-Nesterov, MALA, HMC with dual-averaging warmup, and the R̂/ESS diagnostics."""
+Nesterov, MALA, HMC with dual-averaging warmup, the R̂/ESS diagnostics,
+parallel tempering and annealed importance sampling."""
 
+from .ais import AISResult, annealed_importance_sampling
 from .base import BaseSampler
 from .diagnostics import (
     effective_sample_size,
@@ -13,6 +15,7 @@ from .gradient_descent import GradientDescentSampler, NesterovSampler
 from .hmc import DualAveragingState, HamiltonianMonteCarlo, dual_averaging_update
 from .langevin import FUSED_DISPATCH, LangevinDynamics
 from .mala import MetropolisAdjustedLangevin
+from .parallel_tempering import ParallelTemperingLangevin
 
 __all__ = [
     "BaseSampler",
@@ -28,4 +31,7 @@ __all__ = [
     "effective_sample_size",
     "tail_effective_sample_size",
     "summarize_chains",
+    "ParallelTemperingLangevin",
+    "AISResult",
+    "annealed_importance_sampling",
 ]

@@ -76,7 +76,7 @@ def scheduler_from_fields(name: str, fields: Mapping[str, Any]) -> schedulers.Ba
 #: the samplers :func:`sampler_from_fields` builds
 _SAMPLERS = (
     "LangevinDynamics", "MetropolisAdjustedLangevin", "HamiltonianMonteCarlo",
-    "GradientDescentSampler",
+    "GradientDescentSampler", "ParallelTemperingLangevin",
 )
 
 
