@@ -20,7 +20,9 @@ not 0:
    (R = 4) from the ring's modes and on a Gaussian; AIS at the main path's
    shapes (the ring from its modes at 16,384 chains, the two Gaussians at
    65,536, a 201-entry beta table); the one-step op at 4,096 x 32 and 16M
-   elements.
+   elements; the neural (SiLU-MLP) chain at the CD path's 256 x 2 on
+   MLP(128, 128), at 4,096 x 2, at d=32 with three hidden layers, with a
+   clamp, and at hidden (512, 512) (weights streamed), 10 steps.
    The MALA, HMC and AIS chains take a Metropolis decision per step, the
    tempering ladder an exchange decision per pair and sweep; a chain whose
    uniform lies within rounding of its acceptance probability may decide
@@ -54,16 +56,27 @@ not 0:
      ``log_z()``, each against the loop;
    - ``ops.fused_langevin_step`` at the JAX self-test's 4,096 x 32 double well
      and at 16M elements;
+   - CD training (BASELINE config 3, ``benchmarks/headline.py:474-491``):
+     ``ContrastiveDivergenceTrainer(ContrastiveDivergence(model=e,
+     sampler=LangevinDynamics(e, step_size=0.01, fused_neural="auto"),
+     k_steps=10), learning_rate=1e-4)`` on ``as_energy(MLPEnergy(2, (128,
+     128)))`` over ``EightGaussiansDataset`` batches of 256, 300 steps, one
+     neural chain launch per step, and the same with ``fused_neural="off"``,
+     none; the JAX e2e quality gate (two moons, CD-20, 250 steps) through the
+     kernel and through the loop; PCD with a 10,000-sample buffer warmed up
+     through the kernel, then 20 train steps;
    with the ring's mean radius and the Metropolis acceptance against the
    generic loop (``fused="off"``), and the correlated Gaussian's covariance,
    R-hat and ESS (over consecutive draws, R-hat within 0.005 of the loop's);
 5. timing: CUDA events, medians after warm-up: each kernel against its
    plain version, PT per ladder step, AIS per rung, the one-step op in GB/s
    beside ``torch.add`` (device time per call in batches queued behind a
-   spin, and per call with the host's launch work), and the sampler paths,
-   beside the card's name and power limit;
+   spin, and per call with the host's launch work), the neural chain also at
+   4,096 chains, the CD train step with the kernel and on the loop, and the
+   sampler paths, beside the card's name and power limit;
 6. profile: wall time, device busy time (``torch.profiler``) and idle share
-   of the sampler paths, the HMC warmup and ``summarize_chains``;
+   of the CD train step and the sampler paths, the HMC warmup and
+   ``summarize_chains``;
 7. bound: for each kernel the least time the card could take for the timed
    call: the larger of its bytes (inputs read once, outputs written once)
    over 3.35 TB/s and, per instruction class counted from the CUDA source
@@ -78,6 +91,7 @@ before it runs anything.
 from __future__ import annotations
 
 import json
+import math
 import re
 import shutil
 import statistics
@@ -130,6 +144,9 @@ KERNELS = {
         ("fused_ais", _CSRC + "fused_ais.cu", "torchebm_tpu/ops/fused_ais.py:199"),
     "fused_langevin_step":
         ("fused_langevin", _CSRC + "fused_step.cu", "torchebm_tpu/ops/fused_langevin.py:316"),
+    "mlp_langevin_chain":
+        ("fused_mlp_langevin", _CSRC + "fused_mlp_langevin.cu",
+         "torchebm_tpu/ops/fused_mlp_langevin.py:169"),
 }
 
 #: the parallel-tempering and AIS configurations of the JAX package's headline
@@ -146,6 +163,29 @@ STEP_ELEMS = 1 << 24
 #: the step op's timing: (warm-up, readings, calls per reading), each reading
 #: a batch queued behind a device spin of SPIN_CYCLES (about 1 ms at 1.98 GHz)
 STEP_REPS, SPIN_CYCLES = (20, 50, 10), 2_000_000
+
+#: CD/PCD training, BASELINE config 3 (the JAX headline benchmark,
+#: benchmarks/headline.py:474-491): MLPEnergy(128, 128) on 2-D data, batch
+#: 256, CD-10 with Langevin negatives at step 0.01, Adam; CD_STEPS train steps
+#: over EightGaussiansDataset batches
+CD_HIDDEN, CD_BATCH, CD_K, CD_STEP, CD_LR, CD_STEPS = (128, 128), 256, 10, 0.01, 1e-4, 300
+#: config 3 is run through the kernel and through the loop once per seed of
+#: the chains' draws (weights and batches alike): the two sets' means of the
+#: last-epoch data and negative energies agree within CD_SIGMAS standard
+#: errors of their difference (two sets of runs alike fall beyond with a
+#: chance of about 2e-5: Student's t with 30 degrees of freedom at 5)
+CD_NOISE_SEEDS, CD_SIGMAS = tuple(range(1, 17)), 5.0
+#: the neural chain's checks: (chains, widths (d, H_1, ...), clamp); the last
+#: three take the larger tiles the plan picks once the grid fills the card
+MLP_CHECKS = ((CD_BATCH, (2, *CD_HIDDEN), None), (4096, (2, *CD_HIDDEN), None),
+              (4096, (32, 64, 64, 64), None), (1000, (2, *CD_HIDDEN), (-1.0, 1.0)),
+              (1024, (2, 512, 512), None), (8192, (2, *CD_HIDDEN), None),
+              (16_900, (2, *CD_HIDDEN), None), (8190, (2, 512, 512), None))
+#: the quality gate: the JAX e2e recipe (tests/e2e/test_training_quality.py:90-125)
+#: at MLP(128, 128): two moons, step 0.05, CD-20, Adam 2e-3, 250 steps
+QG_STEP, QG_K, QG_LR, QG_STEPS = 0.05, 20, 2e-3, 250
+#: PCD: a 10,000-sample buffer warmed up by 100 steps, then PCD_STEPS train steps
+PCD_BUFFER, PCD_INIT_STEPS, PCD_CHUNK, PCD_STEPS = 10_000, 100, 1024, 20
 
 #: the card's memory rate, and the per-SM instruction rates per clock of its
 #: FP32 lanes, INT32 lanes and special-function units (H100 SXM)
@@ -210,7 +250,7 @@ def phase_build(build_mod) -> None:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"((?:mixture|doublewell|mala|hmc|pt)_chain_kernel|ais_kernel"
+            k = re.search(r"((?:mixture|doublewell|mala|hmc|pt|mlp)_chain_kernel|ais_kernel"
                           r"|langevin_step_kernel)I(\w*?)EEv", m.group(1))
             entry = f"{k.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', k.group(2)))}>" \
                 if k else m.group(1)
@@ -881,8 +921,6 @@ def path_step(ops, dev, card: str) -> dict:
     injected noise, against the eager update to 1e-6, ``fused_langevin.py:1617-1628``)
     and at 16M elements on the Philox stream (the normals it added have mean 0
     and variance 1 to 6 standard errors)."""
-    import math
-
     import torch
 
     from torchebm_tpu_torch.core import DoubleWellEnergy
@@ -908,6 +946,224 @@ def path_step(ops, dev, card: str) -> dict:
     se = 1.0 / math.sqrt(STEP_ELEMS)
     if abs(mean) > 6 * se or abs(var - 1.0) > 6 * math.sqrt(2.0) * se:
         raise AssertionError("fused_langevin_step's normals are not standard")
+    return launches
+
+
+def _mlp_layers(dev, widths, seed: int):
+    """The layers of a random ``MLPEnergy(widths[0], widths[1:])`` on the card
+    (flax's default init from ``seed``, biases drawn too so that the checks
+    cover them), as the sampler hands them to the kernel."""
+    import torch
+
+    from torchebm_tpu_torch.models import MLPEnergy
+    from torchebm_tpu_torch.ops.fused_mlp_langevin import extract_mlp_layers
+
+    torch.manual_seed(seed)
+    net = MLPEnergy(widths[0], widths[1:]).to(dev)
+    with torch.no_grad():
+        for layer in net.layers:
+            layer.bias.normal_(0.0, 0.1)
+    return extract_mlp_layers(net)
+
+
+def phase_check_mlp(ops, dev, errors: dict) -> None:
+    """The neural chain kernel against its plain version at MLP_CHECKS: the CD
+    path's 256 x 2 on MLP(128, 128), 4,096 chains (the knee of the JAX
+    package's batch study, BASELINE.md:256-258), d = 32 with three hidden
+    layers, a clamp on a ragged last tile, hidden (512, 512), whose weights
+    stream through shared memory, and the tiles of 16 and 32 chains
+    (resident and streamed, ragged last tiles); CD_K steps at CD_STEP, on
+    injected noise and on the Philox stream. Fails unless the checks cover
+    every tile and both routes. TOL holds: the kernel contracts its
+    multiply-adds (FMA) and sums in another order than the plain version's
+    matrix products, a rounding difference of about 1e-7 relative in each
+    gradient, which enters the state times the step size; ten steps of a
+    chain started in its basin do not grow it."""
+    import torch
+
+    mod = ops.fused_mlp_langevin
+    kernel = mod.mlp_langevin_chain
+    g = torch.Generator(dev).manual_seed(3579)
+    smem_bytes, n_sms = mod._card_limits(dev)
+    print(f"check: mlp_langevin_chain plans for {n_sms} SMs and {smem_bytes} bytes of shared "
+          f"memory per block")
+    plans = set()
+    for i, (n, widths, clamp) in enumerate(MLP_CHECKS):
+        layers = _mlp_layers(dev, widths, 40 + i)
+        d = widths[0]
+        x0 = torch.randn((n, d), generator=g, device=dev)
+        tile, resident = mod.launch_plan(n, widths, dev)
+        plans.add((tile, resident))
+        for label, noise in (("injected", torch.randn((CD_K, n, d), generator=g, device=dev)),
+                             ("philox", None)):
+            kw = dict(seed=50 + i, clamp=clamp, noise=noise)
+            before = kernel.launches
+            got = kernel(x0, layers, CD_K, CD_STEP, 1.0, **kw)
+            torch.cuda.synchronize()
+            if kernel.launches != before + 1:
+                raise AssertionError("mlp_langevin_chain did not launch its kernel")
+            err = max_err(got, mod.mlp_langevin_chain_plain(x0, layers, CD_K, CD_STEP, 1.0, **kw))
+            errors["mlp_langevin_chain"] = max(errors.get("mlp_langevin_chain", 0.0), err)
+            print(f"check: mlp_langevin_chain [{n}x{d}, hidden {widths[1:]}, clamp {clamp}, "
+                  f"{label}; tile {tile}, weights {'resident' if resident else 'streamed'}] "
+                  f"max|kernel - plain| = {err:.3e} (tol {TOL:g})")
+            if not err <= TOL:
+                raise AssertionError(f"mlp_langevin_chain disagrees with its plain version: {err}")
+    if {t for t, _ in plans} != {8, 16, 32} or {r for _, r in plans} != {True, False}:
+        raise AssertionError(f"the neural chain's checks miss a tile or a route: {sorted(plans)}")
+
+
+def _cd_trainer(dev, step_size: float, k_steps: int, lr: float, fused_neural: str, seed: int,
+                **cd_kw):
+    """``(trainer, net, energy)``: a ContrastiveDivergenceTrainer over a fresh
+    MLPEnergy(2, CD_HIDDEN) on the card, its weights from ``seed``."""
+    import torch
+
+    from torchebm_tpu_torch.core import as_energy
+    from torchebm_tpu_torch.core.trainer import ContrastiveDivergenceTrainer
+    from torchebm_tpu_torch.losses import ContrastiveDivergence
+    from torchebm_tpu_torch.models import MLPEnergy
+    from torchebm_tpu_torch.samplers import LangevinDynamics
+
+    torch.manual_seed(seed)
+    net = MLPEnergy(2, CD_HIDDEN).to(dev)
+    energy = as_energy(net)
+    sampler = LangevinDynamics(energy, step_size=step_size, fused_neural=fused_neural)
+    cd = ContrastiveDivergence(model=energy, sampler=sampler, k_steps=k_steps, **cd_kw)
+    return ContrastiveDivergenceTrainer(cd, learning_rate=lr), net, energy
+
+
+def _cd_batches(dev, g, n_steps: int, seed: int) -> list:
+    """``n_steps`` shuffled batches of CD_BATCH from an EightGaussiansDataset
+    on the card (epochs of 100 batches)."""
+    from torchebm_tpu_torch.datasets import EightGaussiansDataset
+
+    data = EightGaussiansDataset(n_samples=100 * CD_BATCH, seed=seed, device=dev)
+    batches = []
+    while len(batches) < n_steps:
+        batches.extend(data.batches(g, CD_BATCH))
+    return batches[:n_steps]
+
+
+def _cd_run(dev, fused_neural: str, n_steps: int, noise_seed: int = CD_NOISE_SEEDS[0]):
+    """Config 3 for ``n_steps`` train steps, from the same weights and
+    batches whatever ``noise_seed``, which seeds the chains' draws: ``(state,
+    mean metrics, ms per step)``, the host clock around the epoch, first step
+    included."""
+    import torch
+
+    trainer, net, _ = _cd_trainer(dev, CD_STEP, CD_K, CD_LR, fused_neural, seed=0)
+    batches = _cd_batches(dev, torch.Generator(dev).manual_seed(0), n_steps, seed=0)
+    g = torch.Generator(dev).manual_seed(noise_seed)
+    state = trainer.init_state(net, g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = trainer.train_epoch(state, batches)
+    torch.cuda.synchronize()
+    return state, metrics, (time.perf_counter() - t0) * 1e3 / n_steps
+
+
+def _quality_gate(ops, dev, fused_neural: str, card: str) -> None:
+    """The JAX e2e gate on the recipe of QG_*: after training, the mean
+    energy of two-moons data lies below that of uniform points on [-3, 3]^2
+    by more than 0.5. With the kernel, one launch per train step."""
+    import torch
+
+    from torchebm_tpu_torch.datasets import make_two_moons
+
+    trainer, net, energy = _cd_trainer(dev, QG_STEP, QG_K, QG_LR, fused_neural, seed=7)
+    g = torch.Generator(dev).manual_seed(8)
+    state = trainer.init_state(net, g)
+    ops.reset_launch_counts()
+    for _ in range(QG_STEPS):
+        state, _ = trainer.train_step(state, make_two_moons(g, CD_BATCH))
+    launches = ops.launch_counts()["mlp_langevin_chain"]
+    with torch.no_grad():
+        e_data = float(energy(make_two_moons(g, 512)).mean())
+        e_off = float(energy(torch.rand((512, 2), generator=g, device=dev) * 6 - 3).mean())
+    print(f"main path: CD quality gate, fused_neural={fused_neural!r}: two moons, MLP{CD_HIDDEN}, "
+          f"step {QG_STEP}, CD-{QG_K}, Adam {QG_LR}, {QG_STEPS} steps: mean energy on data "
+          f"{e_data:.4f}, on uniform off-manifold points {e_off:.4f} (gate: data < off - 0.5); "
+          f"mlp_langevin_chain launches {launches} | {card}")
+    if launches != (QG_STEPS if fused_neural == "auto" else 0):
+        raise AssertionError(f"quality gate: {launches} neural chain launches")
+    if not e_data < e_off - 0.5:
+        raise AssertionError(f"CD quality gate failed ({fused_neural}): {e_data} vs {e_off}")
+
+
+def path_cd(ops, dev, card: str) -> dict:
+    """CD/PCD training (BASELINE config 3) through the trainer: CD_STEPS train
+    steps with ``fused_neural="auto"``, exactly one neural chain launch per
+    step, and the same run with ``"off"``, none; both once more per seed of
+    CD_NOISE_SEEDS, and the kernel's last-epoch energies held to the loop's;
+    the quality gate through the kernel and through the loop; PCD with a
+    PCD_BUFFER buffer warmed up by the kernel (one launch per chunk), then
+    PCD_STEPS train steps."""
+    import torch
+
+    ops.reset_launch_counts()
+    state, metrics, ms = _cd_run(dev, "auto", CD_STEPS)
+    launches = read_counts(ops, "CD, config 3", ["mlp_langevin_chain"])
+    if launches["mlp_langevin_chain"] != CD_STEPS:
+        raise AssertionError(f"{launches['mlp_langevin_chain']} neural chain launches in "
+                             f"{CD_STEPS} CD steps, expected one per step")
+    ops.reset_launch_counts()
+    loop_runs = [_cd_run(dev, "off", CD_STEPS, s)[1:] for s in CD_NOISE_SEEDS]
+    off = ops.launch_counts()["mlp_langevin_chain"]
+    metrics_off, ms_off = loop_runs[0]
+    kernel_runs = [(metrics, ms)] + [_cd_run(dev, "auto", CD_STEPS, s)[1:]
+                                     for s in CD_NOISE_SEEDS[1:]]
+    print(f"main path: CD config 3 (MLP{CD_HIDDEN}, batch {CD_BATCH}, CD-{CD_K} at step "
+          f"{CD_STEP}, Adam {CD_LR}, 8 Gaussians), {CD_STEPS} steps: {ms:.3f} ms per train step "
+          f"with the kernel (launches {launches['mlp_langevin_chain']}), {ms_off:.3f} ms on the "
+          f"generic loop (launches {off}), first step included; last-epoch means kernel "
+          f"{metrics}, loop {metrics_off} | {card}")
+    if off != 0:
+        raise AssertionError("fused_neural='off' launched the neural chain kernel")
+    for m, _ in (*kernel_runs, *loop_runs):
+        if not all(torch.isfinite(torch.tensor(v)) for v in m.values()):
+            raise AssertionError(f"CD metrics are not finite: {m}")
+    for key in ("pos_energy", "neg_energy"):
+        kern, loop = (torch.tensor([m[key] for m, _ in runs], dtype=torch.float64)
+                      for runs in (kernel_runs, loop_runs))
+        gap = float(kern.mean() - loop.mean())
+        se = math.sqrt(float(kern.var()) / len(kern) + float(loop.var()) / len(loop))
+        print(f"main path: CD config 3, last-epoch mean {key} over {len(CD_NOISE_SEEDS)} seeds of "
+              f"the chains' draws: kernel {float(kern.mean()):.6f} (sd {float(kern.std()):.6f}, "
+              f"range {float(kern.min()):.6f}..{float(kern.max()):.6f}), loop "
+              f"{float(loop.mean()):.6f} (sd {float(loop.std()):.6f}, range "
+              f"{float(loop.min()):.6f}..{float(loop.max()):.6f}); kernel - loop {gap:.6f} = "
+              f"{gap / se:.2f} standard errors (bound {CD_SIGMAS:g}) | {card}")
+        if not abs(gap) <= CD_SIGMAS * se:
+            raise AssertionError(f"CD through the kernel drifts from the loop in {key}: "
+                                 f"{gap} at a standard error of {se}")
+    if not all(torch.isfinite(p).all() for p in state.model.parameters()):
+        raise AssertionError("CD parameters are not finite")
+
+    for mode in ("auto", "off"):
+        _quality_gate(ops, dev, mode, card)
+
+    trainer, net, _ = _cd_trainer(dev, CD_STEP, CD_K, CD_LR, "auto", seed=9, persistent=True,
+                                  buffer_size=PCD_BUFFER, init_steps=PCD_INIT_STEPS)
+    g = torch.Generator(dev).manual_seed(10)
+    batches = _cd_batches(dev, g, PCD_STEPS, seed=9)
+    ops.reset_launch_counts()
+    buf = trainer.loss_fn.init_buffer(g, (2,), chunk_size=PCD_CHUNK)
+    warm = ops.launch_counts()["mlp_langevin_chain"]
+    state = trainer.init_state(net, g, loss_state=buf)
+    for b in batches:
+        state, m = trainer.train_step(state, b)
+    pcd = read_counts(ops, "PCD", ["mlp_langevin_chain"])["mlp_langevin_chain"]
+    chunks = -(-PCD_BUFFER // PCD_CHUNK)
+    samples = state.loss_state.samples
+    print(f"main path: PCD buffer {PCD_BUFFER} warmed {PCD_INIT_STEPS} steps in {chunks} chunks: "
+          f"{warm} neural chain launches; then {PCD_STEPS} train steps: {pcd - warm} launches; "
+          f"buffer pointer {state.loss_state.ptr}, mean radius {float(samples.norm(dim=-1).mean()):.4f}, "
+          f"loss {float(m['loss']):.5f} | {card}")
+    if warm != chunks or pcd != chunks + PCD_STEPS:
+        raise AssertionError("PCD did not take one neural chain launch per chunk and step")
+    if state.loss_state.ptr != PCD_STEPS * CD_BATCH % PCD_BUFFER or not torch.isfinite(samples).all():
+        raise AssertionError("PCD buffer is malformed")
     return launches
 
 
@@ -944,6 +1200,8 @@ def phase_timing(ops, dev, card: str) -> dict:
                PT_SWAP_EVERY)
     ais_args = (x_ais, torch.zeros(2, device=dev), AIS_BASE_VAR ** 0.5, mix.means,
                 torch.linspace(0.0, 1.0, AIS_RUNGS + 1, device=dev), 0.05)
+    mlp_layers = _mlp_layers(dev, (2, *CD_HIDDEN), 60)
+    x_cd = torch.randn((CD_BATCH, 2), generator=g, device=dev)
     # name -> (args, kwargs, (updates per call, their unit), plain version's
     # (warm-up, repetitions)): the plain MALA, HMC, PT and AIS versions take
     # seconds per call, so one repetition
@@ -970,6 +1228,9 @@ def phase_timing(ops, dev, card: str) -> dict:
         "mixture_ais_run": (ais_args, mix_kw, (AIS_CHAINS * AIS_RUNGS, "chain-rungs"), slow),
         # the function torch.add computes: noise scale 0, no clamp
         "fused_langevin_step": ((big_x, big_g, 0.05, 0.0), {}, (STEP_ELEMS, "elements"), fast),
+        # the CD path's call: one batch of negatives, CD_K steps
+        "mlp_langevin_chain": ((x_cd, mlp_layers, CD_K, CD_STEP, 1.0), dict(seed=24),
+                               (CD_BATCH * CD_K, "chain-steps"), fast),
     }
     times = {}
     for name, (args, kw, (updates, unit), plain_reps) in calls.items():
@@ -1013,6 +1274,42 @@ def phase_timing(ops, dev, card: str) -> dict:
               f"{q1:.4f}-{q3:.4f}, {STEP_REPS[1]} batches of {STEP_REPS[2]}), "
               f"{nbytes / med / 1e6:.1f} GB/s (bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
               f"at 3.35 TB/s); {host:.4f} ms with the host's launch work | {card}")
+
+    # the neural chain at the knee of the JAX batch study: 4,096 chains
+    knee = (torch.randn((4096, 2), generator=g, device=dev), mlp_layers, CD_K, CD_STEP, 1.0)
+    mlp = ops.fused_mlp_langevin
+    k_ms = statistics.median(cuda_times(lambda: mlp.mlp_langevin_chain(*knee, seed=24), 2, 10))
+    p_ms = statistics.median(cuda_times(lambda: mlp.mlp_langevin_chain_plain(*knee, seed=24),
+                                        1, 3))
+    b_ms, b_by = bound_of(work("mlp_langevin_chain", knee, dict(seed=24),
+                               mlp.mlp_langevin_chain(*knee, seed=24)), max_sm_clock_mhz())
+    print(f"timing: mlp_langevin_chain 4096x2, MLP{CD_HIDDEN}, {CD_K} steps: kernel {k_ms:.4f} ms, "
+          f"plain {p_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by} ({b_ms / k_ms:.3f} of the bound's "
+          f"rate) | {card}")
+    # device time per call without the wrapper's host work (batches of 10
+    # queued behind a spin), at the CD path's shape and at the knee
+    for label, args in ((f"{CD_BATCH}x2", (x_cd, *knee[1:])), ("4096x2", knee)):
+        dev_ms = statistics.median(cuda_times(lambda: mlp.mlp_langevin_chain(*args, seed=24),
+                                              2, 10, batch=10))
+        print(f"timing: mlp_langevin_chain {label} device time {dev_ms:.4f} ms per call "
+              f"({dev_ms / CD_K * 1e3:.2f} us per step) | {card}")
+    # the CD train step (config 3), kernel against generic loop: host clock
+    # over 50 steps after 10 warm-up steps
+    for fused, path in (("auto", "kernel path"), ("off", "generic loop")):
+        trainer, net, _ = _cd_trainer(dev, CD_STEP, CD_K, CD_LR, fused, seed=11)
+        gg = torch.Generator(dev).manual_seed(12)
+        batches = _cd_batches(dev, gg, 60, seed=11)
+        state = trainer.init_state(net, gg)
+        for b in batches[:10]:
+            trainer.train_step(state, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches[10:]:
+            trainer.train_step(state, b)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 50
+        print(f"timing: CD train step config 3 {path}: {ms:.4f} ms per step (50 steps after 10 "
+              f"warm-up) | {card}")
 
     # the sampler paths, kernel against generic loop
     pt = ParallelTemperingLangevin(mix, temperatures=PT_TEMPS, step_size=0.05,
@@ -1110,7 +1407,17 @@ def phase_profile(dev, card: str) -> None:
                                    swap_every=PT_SWAP_EVERY)
     ais_kw = dict(base=GaussianEnergy.create(torch.zeros(2), AIS_BASE_VAR * torch.eye(2)).to(dev),
                   n_samples=AIS_CHAINS, n_rungs=AIS_RUNGS, step_size=0.05)
+    cd_steps = {}
+    for fused in ("auto", "off"):
+        trainer, net, _ = _cd_trainer(dev, CD_STEP, CD_K, CD_LR, fused, seed=13)
+        gg = torch.Generator(dev).manual_seed(14)
+        batch = _cd_batches(dev, gg, 1, seed=13)[0]
+        cd_steps[fused] = (trainer, trainer.init_state(net, gg), batch)
     calls = {
+        f"CD train step config 3 kernel path (batch {CD_BATCH}, CD-{CD_K})":
+            lambda: cd_steps["auto"][0].train_step(*cd_steps["auto"][1:]),
+        f"CD train step config 3 generic loop (batch {CD_BATCH}, CD-{CD_K})":
+            lambda: cd_steps["off"][0].train_step(*cd_steps["off"][1:]),
         f"Langevin sample() kernel path {n}x{N_STEPS}":
             lambda: lang.sample(g, x=x2, n_steps=N_STEPS),
         f"Langevin sample() kernel path + diagnostics {n}x{N_STEPS}":
@@ -1178,9 +1485,10 @@ def main() -> None:
     phase_check(ops.fused_langevin, dev, errors)
     phase_check_metropolis(ops, dev, errors)
     phase_check_tempering(ops, dev, errors)
+    phase_check_mlp(ops, dev, errors)
     launches = {name: 0 for name in KERNELS}
     for path in (path_langevin, path_hmc, path_mala, path_gradient_descent, path_pt, path_ais,
-                 path_step):
+                 path_step, path_cd):
         for name, n in path(ops, dev, card).items():
             launches[name] += n
     times = phase_timing(ops, dev, card)

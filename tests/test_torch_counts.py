@@ -47,6 +47,9 @@ def _calls():
         "mixture_ais_run":
             ((x0, torch.zeros(2), 3.0, means, torch.linspace(0.0, 1.0, 4), 0.05), mix),
         "fused_langevin_step": ((x0, torch.randn(4, 2, generator=g), 0.01, 1.0), {}),
+        "mlp_langevin_chain": ((x0, [(torch.randn(2, 8, generator=g), torch.zeros(8)),
+                                     (torch.randn(8, 1, generator=g), torch.zeros(1))], 5, 0.01),
+                               dict(seed=1)),
     }
 
 

@@ -1,0 +1,266 @@
+"""Parity of the port's neural (SiLU-MLP) Langevin chain with the JAX package.
+
+On the CPU the wrapper runs its plain PyTorch version; it is held against the
+JAX Pallas kernel's injected-noise path in interpret mode, on the same numpy
+inputs and the same flax ``MLPEnergy`` weights, at the shapes of
+tests/ops/test_mlp_chain_parity.py, to atol 2e-5 (float32: the same
+tolerance as that file, where the kernel is held to a plain ``jax.grad``
+chain). The Philox path is held to its twin, the dispatch of
+``LangevinDynamics(fused_neural=...)`` to the generic loop. The CUDA kernel
+is held against the plain version in tests/test_torch_kernels_gpu.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from torchebm_tpu.models import MLPEnergy as JaxMLPEnergy
+from torchebm_tpu.ops import fused_mlp_langevin as jmlp
+from torchebm_tpu_torch import core as tcore
+from torchebm_tpu_torch import ops as tops
+from torchebm_tpu_torch import samplers as ts
+from torchebm_tpu_torch.models import ConvEnergy2D, MLPEnergy
+from torchebm_tpu_torch.ops import fused_langevin as tfl
+from torchebm_tpu_torch.ops import fused_mlp_langevin as tmlp
+from torchebm_tpu_torch.utils import mlp_energy_from_flax
+
+torch.set_num_threads(1)
+
+ATOL = 2e-5
+
+
+def _flax_case(hidden, d, n, n_steps, seed=0):
+    """Flax params, the JAX layers, and numpy ``x0`` and ``noise``."""
+    params = JaxMLPEnergy(hidden_dims=hidden).init(jax.random.PRNGKey(seed), jnp.zeros((1, d)))
+    rng = np.random.default_rng(seed)
+    x0 = rng.standard_normal((n, d)).astype(np.float32)
+    noise = rng.standard_normal((n_steps, n, d)).astype(np.float32)
+    return params, jmlp.extract_mlp_layers(params), x0, noise
+
+
+def _torch_layers(layers):
+    return [(torch.tensor(np.asarray(w)), torch.tensor(np.asarray(b))) for w, b in layers]
+
+
+@pytest.mark.parametrize("hidden,d,n", [((32,), 2, 21), ((64, 64), 2, 37), ((32, 16), 5, 12)])
+def test_plain_matches_jax_interpret(hidden, d, n):
+    n_steps, h, ns = 9, 0.01, 0.8
+    _, layers, x0, noise = _flax_case(hidden, d, n, n_steps)
+    want = jmlp.mlp_langevin_chain(jnp.asarray(x0), layers, n_steps, h, ns,
+                                   noise=jnp.asarray(noise), interpret=True)
+    got = tops.mlp_langevin_chain(torch.tensor(x0), _torch_layers(layers), n_steps, h, ns,
+                                  noise=torch.tensor(noise))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
+
+
+def test_clamp_matches_jax_interpret():
+    n_steps, h, ns, clamp = 7, 0.05, 1.0, (-0.5, 0.5)
+    _, layers, x0, noise = _flax_case((32,), 2, 16, n_steps, seed=1)
+    want = jmlp.mlp_langevin_chain(jnp.asarray(x0), layers, n_steps, h, ns, clamp=clamp,
+                                   noise=jnp.asarray(noise), interpret=True)
+    got = tops.mlp_langevin_chain(torch.tensor(x0), _torch_layers(layers), n_steps, h, ns,
+                                  clamp=clamp, noise=torch.tensor(noise))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
+    assert float(got.abs().max()) <= 0.5
+
+
+def test_gradient_is_autograd_of_the_energy():
+    """The hand-written backward pass equals autograd of the converted module."""
+    params, layers, x0, _ = _flax_case((64, 32), 3, 50, 1)
+    net = mlp_energy_from_flax(params)
+    x = torch.tensor(x0, requires_grad=True)
+    (want,) = torch.autograd.grad(net(x).sum(), x)
+    got = tmlp._mlp_grad(torch.tensor(x0), tmlp.extract_mlp_layers(net))
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+def test_philox_path_is_the_twin_stream():
+    """Without ``noise`` the chain draws the Philox normals of chain c at
+    step t, the stream ``philox_normals`` reproduces: injecting those normals
+    gives the same chain bit for bit."""
+    _, layers, x0, _ = _flax_case((16,), 3, 10, 4, seed=2)
+    tl, x = _torch_layers(layers), torch.tensor(x0)
+    seed = 2**40 + 5
+    noise = torch.stack([tfl.philox_normals(torch.arange(10), t, 3, seed) for t in range(4)])
+    drawn = tops.mlp_langevin_chain(x, tl, 4, 0.02, 0.7, seed=seed)
+    injected = tops.mlp_langevin_chain(x, tl, 4, 0.02, 0.7, noise=noise)
+    assert torch.equal(drawn, injected)
+    assert not torch.equal(drawn, tops.mlp_langevin_chain(x, tl, 4, 0.02, 0.7, seed=seed + 1))
+
+
+def test_extract_reads_the_module_and_rejects_other_structures():
+    net = MLPEnergy(3, (8, 4))
+    layers = tmlp.extract_mlp_layers(net)
+    assert [tuple(w.shape) for w, _ in layers] == [(3, 8), (8, 4), (4, 1)]
+    assert all(not w.requires_grad for w, _ in layers)
+    assert tmlp.extract_mlp_layers(ConvEnergy2D(1, (8, 8), channels=(4,), dense_dim=8)) is None
+    assert tmlp.extract_mlp_layers(torch.nn.Sequential(torch.nn.Linear(2, 1))) is None
+
+    class NoBias(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.layers = torch.nn.ModuleList([torch.nn.Linear(2, 4, bias=False),
+                                               torch.nn.Linear(4, 1)])
+
+    assert tmlp.extract_mlp_layers(NoBias()) is None
+
+    class TwoOutputs(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.layers = torch.nn.ModuleList([torch.nn.Linear(2, 4), torch.nn.Linear(4, 2)])
+
+    assert tmlp.extract_mlp_layers(TwoOutputs()) is None
+    # the JAX helper rejects the same structures in its own tree form
+    assert jmlp.extract_mlp_layers({"params": {"Dense_0": {"kernel": jnp.zeros((2, 4)),
+                                                           "bias": jnp.zeros(4)}}}) is None
+
+
+@pytest.mark.parametrize("widths, ok", [
+    ((2, 128, 128), True), ((32, 64, 64, 64), True), ((2, 512, 512), True),
+    ((2, 1024), False), ((513, 8), False), ((2,), False), ((2,) + (8,) * 9, False),
+    ((2,) + (512,) * 8, True), ((512,) + (512,) * 8, False),
+])
+def test_width_and_depth_probes(widths, ok):
+    """Widths up to the JAX cap of 512 and up to eight hidden layers, when a
+    tile of 8 chains fits in shared memory (eight 512-wide layers do at d = 2,
+    not at d = 512); (512, 512) streams its weights."""
+    assert tmlp.supports(widths) is ok
+    if ok:
+        assert tmlp.launch_plan(4096, widths) is not None
+
+
+def test_launch_plan_keeps_weights_resident_and_fills_the_card():
+    """Planned for an H100 (a CPU state): 132 SMs, 227 KB per block."""
+    assert tmlp._card_limits(torch.device("cpu")) == tmlp._H100_LIMITS == (232_448, 132)
+    # MLP(128, 128) at d = 2: 68.6 KB of weights stay in shared memory
+    assert tmlp.launch_plan(256, (2, 128, 128)) == (8, True)
+    assert tmlp.launch_plan(4096, (2, 128, 128)) == (8, True)
+    # the largest tile that still gives two blocks per SM
+    assert tmlp.launch_plan(8192, (2, 128, 128)) == (16, True)
+    assert tmlp.launch_plan(16_900, (2, 128, 128)) == (32, True)
+    assert tmlp.launch_plan(100_000, (2, 128, 128)) == (32, True)
+    # (512, 512): 1 MB of weights, streamed
+    assert tmlp.launch_plan(512, (2, 512, 512)) == (8, False)
+    assert tmlp.launch_plan(8190, (2, 512, 512)) == (16, False)
+
+
+@pytest.mark.parametrize("widths, tile, resident", [
+    ((2, 128, 128), 8, True), ((2, 128, 128), 32, True), ((32, 64, 64, 64), 16, True),
+    ((2, 512, 512), 16, False),
+])
+def test_smem_layout_places_each_region_after_the_last(widths, tile, resident):
+    """The plan handed to the kernel: the weights (all of them, or one chunk of
+    rows with the padded pitch), then the tile's state, gradient, every
+    layer's pre-activations and the widest activations."""
+    chunk, x, g, act, h, end = tmlp._smem_layout(widths, tile, resident)
+    d, hidden = widths[0], widths[1:]
+    assert chunk == (0 if resident else tmlp._CHUNK_ROWS)
+    layers = [(torch.zeros(i, o), torch.zeros(o)) for i, o in zip(widths[:-1], widths[1:])]
+    packed = tmlp._pack(layers + [(torch.zeros(hidden[-1], 1), torch.zeros(1))]).numel()
+    assert x == (packed if resident else chunk * (max(hidden) + 1))
+    assert (g - x, act - g, h - act, end - h) == (tile * d, tile * d, tile * sum(hidden),
+                                                  tile * max(hidden))
+
+
+def test_wrapper_argument_checks():
+    x = torch.zeros(4, 2)
+    layers = [(torch.zeros(2, 8), torch.zeros(8)), (torch.zeros(8, 1), torch.zeros(1))]
+    with pytest.raises(ValueError, match="width"):
+        tops.mlp_langevin_chain(x, [(torch.zeros(2, 1024), torch.zeros(1024)),
+                                    (torch.zeros(1024, 1), torch.zeros(1))], 3, 0.01)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        tops.mlp_langevin_chain(torch.zeros(4, 3), layers, 3, 0.01)
+    with pytest.raises(ValueError, match="hidden layer"):
+        tops.mlp_langevin_chain(x, layers[1:], 3, 0.01)
+    with pytest.raises(ValueError, match="float32"):
+        tops.mlp_langevin_chain(x, [(w.double(), b) for w, b in layers], 3, 0.01)
+    with pytest.raises(TypeError, match="float32"):
+        tops.mlp_langevin_chain(x.double(), layers, 3, 0.01)
+    with pytest.raises(ValueError, match="noise"):
+        tops.mlp_langevin_chain(x, layers, 3, 0.01, noise=torch.zeros(2, 4, 2))
+    before = tops.mlp_langevin_chain.launches
+    tops.mlp_langevin_chain(x, layers, 3, 0.01)
+    assert tops.mlp_langevin_chain.launches == before  # the plain path counts nothing
+
+
+# --------------------------------------------------------------------------
+# dispatch through LangevinDynamics(fused_neural=...)
+# --------------------------------------------------------------------------
+
+
+def _energy(hidden=(16, 16), d=2):
+    torch.manual_seed(0)
+    return tcore.as_energy(MLPEnergy(d, hidden))
+
+
+def test_as_energy_tags_only_the_library_mlp():
+    assert _energy().arch == "silu_mlp"
+
+    class MLPEnergyLookalike(MLPEnergy):
+        pass
+
+    assert tcore.as_energy(MLPEnergyLookalike(2, (8,))).arch is None
+    assert tcore.as_energy(lambda x: x.sum(-1)).arch is None
+
+
+def test_force_reaches_the_plain_kernel_and_off_the_loop(monkeypatch):
+    energy = _energy()
+    calls = []
+    real = tmlp.mlp_langevin_chain
+
+    def spy(*args, **kwargs):
+        calls.append(args[0].shape)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tmlp, "mlp_langevin_chain", spy)
+    x0 = torch.randn(64, 2, generator=torch.Generator().manual_seed(1))
+    forced = ts.LangevinDynamics(energy, step_size=0.01, fused_neural="force")
+    out = forced.sample(torch.Generator().manual_seed(2), x=x0, n_steps=5)
+    assert calls == [(64, 2)] and out.shape == (64, 2)
+    for mode in ("off", "auto"):  # "auto" needs a CUDA state
+        ts.LangevinDynamics(energy, step_size=0.01, fused_neural=mode).sample(
+            torch.Generator().manual_seed(2), x=x0, n_steps=5)
+    assert len(calls) == 1
+    # a call the gate refuses takes the loop
+    forced.sample(torch.Generator().manual_seed(2), x=x0, n_steps=5, return_trajectory=True)
+    forced.replace(clamp=(-1.0, 1.0)).sample(torch.Generator().manual_seed(2), x=x0, n_steps=5)
+    assert len(calls) == 2
+
+
+def test_kernel_path_matches_the_loop_at_zero_noise():
+    """At noise 0 both paths run the same deterministic chain."""
+    energy = _energy((32, 16), d=3)
+    x0 = torch.randn(40, 3, generator=torch.Generator().manual_seed(3))
+    kw = dict(step_size=0.05, noise_scale=0.0)
+    kernel = ts.LangevinDynamics(energy, fused_neural="force", **kw).sample(
+        torch.Generator().manual_seed(4), x=x0, n_steps=20)
+    loop = ts.LangevinDynamics(energy, **kw).sample(
+        torch.Generator().manual_seed(4), x=x0, n_steps=20)
+    torch.testing.assert_close(kernel, loop, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("hidden, d, n_launch", [((16,), 2, 1), ((1024,), 2, 0),
+                                                  ((8,) * 9, 2, 0), ((16,), 3, 0)])
+def test_unsupported_shapes_fall_through_to_the_loop(monkeypatch, hidden, d, n_launch):
+    """Widths above the cap, more than eight hidden layers, or a state whose
+    width is not the net's input take the loop, decided before any launch."""
+    energy = _energy(hidden, d=2)
+    calls = []
+    monkeypatch.setattr(tmlp, "mlp_langevin_chain", lambda *a, **k: calls.append(1) or a[0])
+    sampler = ts.LangevinDynamics(energy, step_size=0.01, fused_neural="force")
+    x0 = torch.randn(8, d)
+    if d == 2:
+        sampler.sample(torch.Generator().manual_seed(0), x=x0, n_steps=2)
+    else:
+        with pytest.raises(RuntimeError):  # the loop evaluates the net on a wrong width
+            sampler.sample(torch.Generator().manual_seed(0), x=x0, n_steps=2)
+    assert len(calls) == n_launch
+
+
+def test_fused_neural_is_validated():
+    with pytest.raises(ValueError, match="fused_neural"):
+        ts.LangevinDynamics(_energy(), fused_neural="always")
+    assert ts.LangevinDynamics(_energy()).fused_neural == "off"

@@ -26,6 +26,7 @@ from torchebm_tpu_torch.ops import fused_ais as tais
 from torchebm_tpu_torch.ops import fused_hmc as thmc
 from torchebm_tpu_torch.ops import fused_langevin as tfl
 from torchebm_tpu_torch.ops import fused_mala as tmala
+from torchebm_tpu_torch.ops import fused_mlp_langevin as tmlp
 from torchebm_tpu_torch.ops import fused_pt as tpt
 
 TOL = 1e-4
@@ -280,3 +281,58 @@ def test_ais_kernel_matches_plain_on_card(cuda, inject, target, n_transitions):
     got, want = _kernel_and_plain(tais.mixture_ais_run, cuda, x0.to(cuda), base_mean.to(cuda),
                                   2.0, means.to(cuda), betas.to(cuda), 0.01, **kw)
     assert _flipped_chains(got, want, n) <= n // 1000
+
+
+def _mlp_layers(rng, widths):
+    """``[(W, b), ..., (w_out, b_out)]`` on the CPU: LeCun-scaled weights,
+    small biases."""
+    dims = list(widths) + [1]
+    return [(torch.from_numpy(_normal(rng, i, o, scale=i ** -0.5)),
+             torch.from_numpy(_normal(rng, o, scale=0.1))) for i, o in zip(dims[:-1], dims[1:])]
+
+
+#: (n chains, widths (d, H_1, ...), clamp): the CD path's 256 x 2 on MLP(128,
+#: 128) and 4,096 chains (resident weights, tile 8), d = 32 with three hidden
+#: layers, a ragged last tile, (512, 512), whose weights stream through shared
+#: memory; and the larger tiles the plan picks once the grid fills the card:
+#: 8,192 chains (tile 16, resident), 16,900 (tile 32, resident, a last tile of
+#: 4) and 8,190 on (512, 512) (tile 16, streamed, a last tile of 14)
+MLP_CASES = [
+    (256, (2, 128, 128), None),
+    (4096, (2, 128, 128), None),
+    (1000, (32, 64, 64, 64), None),
+    (37, (2, 128, 128), (-1.0, 1.0)),
+    (512, (2, 512, 512), None),
+    (8192, (2, 128, 128), None),
+    (16_900, (2, 128, 128), None),
+    (8190, (2, 512, 512), None),
+]
+MLP_IDS = ["256x2", "4096x2", "1000x32-3layers", "37x2-clamp", "512x2-wide", "8192x2-tile16",
+           "16900x2-tile32", "8190x2-wide-tile16"]
+
+
+@pytest.mark.gpu
+def test_mlp_cases_cover_every_tile_and_route(cuda):
+    plans = {tmlp.launch_plan(n, widths, cuda) for n, widths, _ in MLP_CASES}
+    assert {t for t, _ in plans} == {8, 16, 32}
+    assert {r for _, r in plans} == {True, False}
+    assert (16, False) in plans
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inject", [True, False], ids=["noise", "philox"])
+@pytest.mark.parametrize("n, widths, clamp", MLP_CASES, ids=MLP_IDS)
+def test_mlp_kernel_matches_plain_on_card(cuda, inject, n, widths, clamp):
+    rng = _rng(7)
+    n_steps = 10
+    x0 = torch.from_numpy(_normal(rng, n, widths[0])).to(cuda)
+    layers = [(w.to(cuda), b.to(cuda)) for w, b in _mlp_layers(rng, widths)]
+    kw = dict(seed=23, clamp=clamp)
+    if inject:
+        kw["noise"] = torch.from_numpy(_normal(rng, n_steps, n, widths[0])).to(cuda)
+    before = tmlp.mlp_langevin_chain.launches
+    got = tmlp.mlp_langevin_chain(x0, layers, n_steps, 0.01, 1.0, **kw)
+    assert tmlp.mlp_langevin_chain.launches == before + 1
+    want = tmlp.mlp_langevin_chain_plain(x0, layers, n_steps, 0.01, 1.0, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)

@@ -4,16 +4,19 @@ A second package beside the JAX one, with the same module layout, so each
 module's counterpart is found under the same name. It imports ``torch`` and
 never ``jax``. Energies are ``nn.Module``\\ s with their parameters as buffers,
 randomness comes from explicit ``torch.Generator``\\ s, and the device is the
-generator's. The whole-chain Langevin, MALA, HMC, parallel-tempering and
-AIS kernels and the one-step Langevin kernel are hand-written CUDA for
-Hopper (``ops/csrc``), built at first use.
+generator's. The whole-chain Langevin, MALA, HMC, parallel-tempering, AIS
+and neural (SiLU-MLP) Langevin kernels and the one-step Langevin kernel are
+hand-written CUDA for Hopper (``ops/csrc``), built at first use.
 
 Ported so far: the Langevin sampling path (energies, schedulers,
 Euler–Maruyama, the sampling loop, ``LangevinDynamics`` with its dispatch
 rows and kernels), the gradient-MCMC slice (gradient descent, Nesterov,
 MALA, leapfrog, HMC with dual-averaging warmup, R̂/ESS diagnostics),
 replica exchange (``ParallelTemperingLangevin``) and annealed importance
-sampling, the public ``ops.fused_langevin_step``, and parameter and sampler
+sampling, the public ``ops.fused_langevin_step``, CD/PCD training (the
+SiLU-MLP and conv energies, the synthetic datasets and image loading, the CD,
+PCD and PT-CD losses, the trainer with EMA, accumulation and checkpoints, and
+the whole-chain neural Langevin kernel), and parameter, sampler and network
 conversion from the JAX package.
 
 Subpackages and symbols load lazily through module ``__getattr__``.
@@ -25,7 +28,7 @@ import importlib
 
 __version__ = "0.5.0"
 
-_SUBMODULES = ("core", "integrators", "samplers", "ops", "utils")
+_SUBMODULES = ("core", "integrators", "samplers", "losses", "models", "datasets", "ops", "utils")
 
 # name -> submodule path for lazily re-exported symbols
 _LAZY_SYMBOLS = {
@@ -70,6 +73,20 @@ _LAZY_SYMBOLS = {
     "ParallelTemperingLangevin": "samplers",
     "AISResult": "samplers",
     "annealed_importance_sampling": "samplers",
+    # training
+    "BaseTrainer": "core.trainer",
+    "ContrastiveDivergenceTrainer": "core.trainer",
+    "TrainState": "core.trainer",
+    "ContrastiveDivergence": "losses",
+    "PersistentContrastiveDivergence": "losses",
+    "ParallelTemperingCD": "losses",
+    "ReplayBuffer": "losses",
+    # models
+    "MLPEnergy": "models",
+    "ConvEnergy2D": "models",
+    # datasets
+    "DATASET_REGISTRY": "datasets",
+    "load_mnist": "datasets",
 }
 
 __all__ = list(_SUBMODULES) + list(_LAZY_SYMBOLS) + ["__version__"]

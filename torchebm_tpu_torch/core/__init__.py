@@ -1,6 +1,10 @@
-"""Core contracts: energies and schedulers (counterpart of ``torchebm_tpu.core``)."""
+"""Core contracts: energies and schedulers (counterpart of ``torchebm_tpu.core``).
 
-from .module import warn_once
+The trainer lives in :mod:`.trainer`; ``BaseTrainer``,
+``ContrastiveDivergenceTrainer`` and ``TrainState`` are forwarded lazily, as
+the JAX package does, so importing ``core`` does not import the losses."""
+
+from .module import default_device, warn_once
 from .energies import (
     AckleyEnergy,
     DoubleWellEnergy,
@@ -49,3 +53,14 @@ __all__ = [
     "sched_value",
     "sched_init",
 ]
+
+
+_TRAINER = ("BaseTrainer", "ContrastiveDivergenceTrainer", "TrainState")
+
+
+def __getattr__(name):
+    if name in _TRAINER:
+        from . import trainer
+
+        return getattr(trainer, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

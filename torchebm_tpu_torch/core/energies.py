@@ -66,14 +66,17 @@ class Energy(nn.Module):
 
         Batch rows are independent, so differentiating ``sum(E)`` gives the
         per-sample gradient. When ``x`` itself requires grad the graph is
-        kept, so the gradient can be differentiated again.
+        kept, so the gradient can be differentiated again. An energy that
+        does not depend on ``x`` has a zero gradient, as under ``jax.grad``.
         """
         create = x.requires_grad
         with torch.enable_grad():
             xx = x if create else x.detach().requires_grad_(True)
             e = self.energy(xx, **kwargs)
-            (g,) = torch.autograd.grad(e.sum(), xx, create_graph=create)
-        return (e if create else e.detach()), g
+            g = None
+            if e.requires_grad:
+                (g,) = torch.autograd.grad(e.sum(), xx, create_graph=create, allow_unused=True)
+        return (e if create else e.detach()), (torch.zeros_like(xx) if g is None else g)
 
     def gradient(self, x: Tensor, **kwargs: Any) -> Tensor:
         r""":math:`\nabla_x E(x)`, same shape as ``x`` (autograd by default)."""
@@ -91,12 +94,21 @@ class Energy(nn.Module):
 class WrappedEnergy(Energy):
     """Adapts a callable ``fn(x) -> (B,)`` or ``fn(params, x) -> (B,)`` into an
     :class:`Energy`. An ``nn.Module`` given as ``fn`` or ``params`` is
-    registered as a submodule, so ``.to(device)`` moves it."""
+    registered as a submodule, so ``.to(device)`` and ``.parameters()`` reach
+    its weights.
 
-    def __init__(self, fn: Callable[..., Tensor], params: Any = None):
+    ``arch`` optionally names the exact compute graph of ``fn`` for kernel
+    fast paths: ``"silu_mlp"`` (``MLPEnergy``'s SiLU stack) lets
+    ``LangevinDynamics(fused_neural=...)`` run the neural chain kernel.
+    :func:`as_energy` sets it for the library's ``MLPEnergy``; set it yourself
+    only if ``fn`` really is that architecture.
+    """
+
+    def __init__(self, fn: Callable[..., Tensor], params: Any = None, arch: Optional[str] = None):
         super().__init__()
         self.fn = fn
         self.params = params
+        self.arch = arch
 
     def energy(self, x: Tensor, **kwargs: Any) -> Tensor:
         out = self.fn(x, **kwargs) if self.params is None else self.fn(self.params, x, **kwargs)
@@ -105,11 +117,20 @@ class WrappedEnergy(Energy):
 
 def as_energy(model: Any, params: Any = None) -> Energy:
     """Coerce ``model`` into an :class:`Energy`: an :class:`Energy` is returned
-    as it is, any other callable (an ``nn.Module`` included) is wrapped."""
+    as it is, any other callable (an ``nn.Module`` included) is wrapped.
+
+    The library's :class:`~torchebm_tpu_torch.models.MLPEnergy` gets
+    ``arch="silu_mlp"``. The match is on the class itself: a user class merely
+    *named* ``MLPEnergy``, or a subclass that may change the activation, gets
+    no tag, since the neural chain kernel computes a SiLU gradient.
+    """
     if isinstance(model, Energy):
         return model
     if callable(model):
-        return WrappedEnergy(fn=model, params=params)
+        from ..models.nets import MLPEnergy
+
+        arch = "silu_mlp" if type(model) is MLPEnergy and params is None else None
+        return WrappedEnergy(fn=model, params=params, arch=arch)
     raise TypeError(f"Cannot interpret {model!r} as an energy function.")
 
 

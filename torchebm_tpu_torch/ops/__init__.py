@@ -5,7 +5,7 @@ first launch on a CUDA tensor (see :mod:`._build`). CPU tensors take the
 kernels' plain PyTorch versions.
 """
 
-from . import fused_ais, fused_hmc, fused_langevin, fused_mala, fused_pt
+from . import fused_ais, fused_hmc, fused_langevin, fused_mala, fused_mlp_langevin, fused_pt
 from ._build import launch_counts, reset_launch_counts
 from .fused_ais import mixture_ais_run
 from .fused_hmc import mixture_hmc_chain, mixture_hmc_chain_trajectory
@@ -17,6 +17,7 @@ from .fused_langevin import (
     mixture_langevin_chain_trajectory,
 )
 from .fused_mala import mixture_mala_chain, mixture_mala_chain_trajectory
+from .fused_mlp_langevin import extract_mlp_layers, mlp_langevin_chain
 from .fused_pt import pt_langevin_chain, pt_langevin_chain_trajectory
 
 __all__ = [
@@ -32,6 +33,8 @@ __all__ = [
     "pt_langevin_chain",
     "pt_langevin_chain_trajectory",
     "mixture_ais_run",
+    "mlp_langevin_chain",
+    "extract_mlp_layers",
     "launch_counts",
     "reset_launch_counts",
 ]

@@ -4,7 +4,8 @@ A kernel's least time on a card is the larger of its bytes over the memory
 rate and, per instruction class, its instruction count over the class's
 rate. The counts here are taken by hand from the CUDA sources under
 ``csrc/``, per unit of work (one chain-step, one transition, one quad of
-elements), and are an approximation: the compiler's own instruction mix is
+elements), and are an approximation (shared-memory loads, the neural
+chain's main other instruction, are not counted): the compiler's own instruction mix is
 not read. Classes: ``"fp32"`` adds, multiplies, FMAs, min/max and compares;
 ``"int32"`` Philox's multiplies, xors and key adds; ``"sfu"`` ex2, lg2, rsq,
 rcp, sin, cos and int-to-float conversions.
@@ -24,6 +25,7 @@ COUNTED_SOURCES = {
     "fused_hmc.cu": "a21525becda3a215",
     "fused_langevin.cu": "12b514afc98a6858",
     "fused_mala.cu": "5c281c546e39a99a",
+    "fused_mlp_langevin.cu": "1c9df0ffe632ed07",
     "fused_pt.cu": "749b05b3dce2d4d8",
     "fused_step.cu": "45698a16da6ceaad",
     "tebm_common.cuh": "915894584e01ad9d",
@@ -106,6 +108,19 @@ def work(name: str, args, kw, result) -> dict:
         per = _add(_eval(d, 1, False), _eval(d, means.shape[0], gaussian), normals(d), _UNIFORM,
                    {"fp32": 12 * d + 12, "sfu": 2})
         ops = _add(_add(per, times=n * n_tr * rungs), {"fp32": 4 * n * rungs})
+    elif name == "mlp_langevin_chain":  # fused_mlp_langevin.cu, per chain-step
+        x0, layers, n_steps = args[:3]
+        n, d = x0.shape
+        widths = [d] + [w.shape[1] for w, _ in layers[:-1]]
+        fmas = sum(i * o for i, o in zip(widths[:-1], widths[1:]))
+        hidden = sum(widths[1:])
+        # forward and backward FMAs; per hidden unit the sigmoid (expf's range
+        # reduction, 1 + e, the reciprocal's refinement: ex2 and rcp on the
+        # SFU), silu and silu', the delta product and the next delta's scale;
+        # per coordinate the update and the clamp
+        per = _add(normals(d), {"fp32": 2 * fmas + 13 * hidden + 4 * d, "sfu": 2 * hidden})
+        ops = _add(per, times=n * n_steps)
+        moved += nbytes([t for pair in layers for t in pair])
     elif name == "fused_langevin_step":  # fused_step.cu, per quad of elements
         x, _, _, noise_scale = args[:4]
         quads = -(-x.numel() // 4)

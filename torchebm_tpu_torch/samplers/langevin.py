@@ -16,6 +16,13 @@ when the generator, and so the state, lives on a CUDA device
 where the kernels' plain PyTorch versions run; ``fused="off"`` always takes
 the generic loop. Every other energy and call takes the generic loop of
 :mod:`.base` over the integrator.
+
+``fused_neural`` does the same for the SiLU-MLP energy
+(``WrappedEnergy(arch="silu_mlp")``, what ``as_energy(MLPEnergy(...))``
+gives): the whole chain, forward and backward pass of the net included, runs
+as one CUDA kernel (:mod:`torchebm_tpu_torch.ops.fused_mlp_langevin`). It is
+off by default, as in the JAX package; ``"auto"`` takes the kernel for a
+CUDA state, ``"force"`` its plain version on the CPU as well.
 """
 
 from __future__ import annotations
@@ -25,7 +32,13 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from ..core.energies import DoubleWellEnergy, Energy, GaussianEnergy, GaussianMixtureEnergy
+from ..core.energies import (
+    DoubleWellEnergy,
+    Energy,
+    GaussianEnergy,
+    GaussianMixtureEnergy,
+    WrappedEnergy,
+)
 from ..core.schedulers import BaseScheduler, sched_value
 from ..integrators import EulerMaruyamaIntegrator, resolve_integrator
 from .base import (
@@ -214,12 +227,19 @@ class LangevinDynamics(BaseSampler):
     clamp: Optional[Tuple[float, float]] = None
     integrator: Any = None
     fused: str = "auto"
+    #: the whole-chain neural kernel for arch-tagged SiLU-MLP energies;
+    #: opt-in ("auto" or "force"), off by default as in the JAX package
+    fused_neural: str = "off"
 
     def __post_init__(self):
         if self.clamp is not None and self.clamp[0] >= self.clamp[1]:
             raise ValueError(f"clamp min must be < max, got {self.clamp}")
         if self.fused not in ("auto", "off", "force"):
             raise ValueError(f"fused must be 'auto', 'off' or 'force', got {self.fused!r}")
+        if self.fused_neural not in ("auto", "off", "force"):
+            raise ValueError(
+                f"fused_neural must be 'auto', 'off' or 'force', got {self.fused_neural!r}"
+            )
         self.integrator = resolve_integrator(
             self.integrator, default="euler_maruyama", families=("sde",)
         )
@@ -238,6 +258,40 @@ class LangevinDynamics(BaseSampler):
         return {"x": x}
 
     # -------------------------------------------------------- fused fast path
+
+    def _neural_fusable(self, device: torch.device, return_trajectory, return_diagnostics,
+                        thin, model_kwargs) -> bool:
+        """Whether this call may take the neural SiLU-MLP chain kernel: opted
+        in, a CUDA state (``"force"`` skips that check and runs the plain
+        version on the CPU), no conditioning, ``thin == 1`` with no trajectory
+        or diagnostics, the default Euler–Maruyama integrator, a constant
+        step and noise scale, and an arch-tagged :class:`WrappedEnergy`."""
+        if self.fused_neural == "off":
+            return False
+        if self.fused_neural != "force" and device.type != "cuda":
+            return False
+        if model_kwargs or thin != 1 or return_trajectory or return_diagnostics:
+            return False
+        if type(self.integrator) is not EulerMaruyamaIntegrator:
+            return False
+        if not (_concrete_scalar(self.step_size) and _concrete_scalar(self.noise_scale)):
+            return False
+        return isinstance(self.model, WrappedEnergy) and self.model.arch == "silu_mlp"
+
+    def _neural_layers(self, x0: Tensor):
+        """The MLP's layers when the kernel takes this state, else None: a
+        shape decision made before any launch (the loop takes the call)."""
+        from ..ops import fused_mlp_langevin as nops
+
+        if x0.ndim != 2 or x0.dtype != torch.float32:
+            return None
+        layers = nops.extract_mlp_layers(self.model.fn)
+        if layers is None or layers[0][0].shape[0] != x0.shape[1]:
+            return None
+        widths = [x0.shape[1]] + [w.shape[1] for w, _ in layers[:-1]]
+        if any(w.dtype != torch.float32 for w, _ in layers) or not nops.supports(widths, x0.device):
+            return None
+        return layers
 
     def _dispatch_row(self, device: torch.device, model_kwargs) -> Optional[_FusedRow]:
         """Generic fused gates and row lookup in one pass (None = loop)."""
@@ -263,10 +317,22 @@ class LangevinDynamics(BaseSampler):
         *,
         model_kwargs=None,
     ):
-        """Run the chain: a whole-chain kernel where a dispatch row claims the
-        call, the generic loop otherwise. The kernel's Philox seed is drawn
-        from ``generator`` after the initial state."""
+        """Run the chain: the neural chain kernel for a tagged SiLU-MLP energy
+        under ``fused_neural``, a whole-chain kernel where a dispatch row
+        claims the call, the generic loop otherwise. A kernel's Philox seed is
+        drawn from ``generator`` after the initial state."""
         x0 = self._start(generator, x, dim, n_samples, n_steps, thin)
+        if self._neural_fusable(generator.device, return_trajectory, return_diagnostics, thin,
+                                model_kwargs):
+            layers = self._neural_layers(x0)
+            if layers is not None:
+                from ..ops.fused_mlp_langevin import mlp_langevin_chain
+
+                return mlp_langevin_chain(
+                    x0.contiguous(), layers, int(n_steps), float(self.step_size),
+                    float(self.noise_scale), seed=_kernel_seed(generator), clamp=self.clamp,
+                )
+            # unsupported state, widths or depth: the loop takes the call
         row = self._dispatch_row(generator.device, model_kwargs)
         if row is not None:
             kargs = row.kernel_kwargs(self, x0) if x0.dtype == torch.float32 else None

@@ -9,6 +9,14 @@ packages can be run on one set of parameters:
                        {"means": m, "scale": s, "log_weights": lw}, device)
     sampler_from_fields("HamiltonianMonteCarlo",
                         {"step_size": 0.3, "n_leapfrog_steps": 8, "mass": mass}, energy)
+
+Networks come across from their flax parameter trees (numpy arrays under
+``Dense_i``/``Conv_i``): a flax ``Dense`` kernel is ``(in, out)`` where a
+``Linear`` weight is ``(out, in)``, and a flax ``Conv`` kernel is HWIO where
+``Conv2d`` takes OIHW:
+
+    mlp_energy_from_flax(params)                       # MLPEnergy
+    conv_energy_from_flax(params, image_size=(28, 28)) # ConvEnergy2D
 """
 
 from __future__ import annotations
@@ -20,8 +28,16 @@ import torch
 
 from .. import samplers
 from ..core import energies, schedulers
+from ..core.module import default_device
+from ..models.nets import ConvEnergy2D, MLPEnergy
 
-__all__ = ["energy_from_arrays", "sampler_from_fields", "scheduler_from_fields"]
+__all__ = [
+    "conv_energy_from_flax",
+    "energy_from_arrays",
+    "mlp_energy_from_flax",
+    "sampler_from_fields",
+    "scheduler_from_fields",
+]
 
 #: energy name -> the names of its tensor buffers; every other field is a float
 _BUFFERS = {
@@ -38,8 +54,10 @@ def energy_from_arrays(name: str, arrays: Mapping[str, Any],
     """The port's energy ``name`` with the JAX package's field values.
 
     Buffer fields (means, covariances, log-weights) become float32 tensors on
-    ``device``; scalar fields (barrier height, ...) become Python floats.
+    ``device`` (by default the current CUDA device when there is one, else
+    the CPU); scalar fields (barrier height, ...) become Python floats.
     """
+    device = default_device() if device is None else device
     if name in _BUFFERS:
         fields = _BUFFERS[name]
         missing = set(fields) - set(arrays)
@@ -102,3 +120,61 @@ def sampler_from_fields(name: str, fields: Mapping[str, Any],
         return v
 
     return getattr(samplers, name)(model=energy, **{f: convert(v) for f, v in fields.items()})
+
+
+def _flax_layers(params: Mapping[str, Any], prefix: str) -> list:
+    """``[(kernel, bias), ...]`` of ``<prefix>_0, <prefix>_1, ...`` as float32
+    numpy arrays, in index order."""
+    tree = params["params"] if "params" in params else params
+    names = sorted((n for n in tree if n.startswith(f"{prefix}_")),
+                   key=lambda n: int(n.split("_")[1]))
+    return [(np.array(tree[n]["kernel"], np.float32), np.array(tree[n]["bias"], np.float32))
+            for n in names]
+
+
+@torch.no_grad()
+def _load_linear(layer: torch.nn.Linear, kernel: np.ndarray, bias: np.ndarray) -> None:
+    if kernel.shape != (layer.in_features, layer.out_features):
+        raise ValueError(f"Dense kernel {kernel.shape} does not fit {layer}")
+    layer.weight.copy_(torch.from_numpy(kernel.T.copy()))
+    layer.bias.copy_(torch.from_numpy(bias))
+
+
+def mlp_energy_from_flax(params: Mapping[str, Any],
+                         device: Optional[torch.device] = None) -> MLPEnergy:
+    """The port's :class:`MLPEnergy` with the weights of the JAX package's
+    ``MLPEnergy`` parameter tree (``Dense_0 ... Dense_L``), on ``device``
+    (by default the current CUDA device when there is one, else the CPU)."""
+    dense = _flax_layers(params, "Dense")
+    if len(dense) < 1 or dense[-1][0].shape[1] != 1:
+        raise ValueError("an MLPEnergy tree is a Dense_0..Dense_L stack ending in one output")
+    net = MLPEnergy(dense[0][0].shape[0], [k.shape[1] for k, _ in dense[:-1]])
+    for layer, (kernel, bias) in zip(net.layers, dense):
+        _load_linear(layer, kernel, bias)
+    return net.to(default_device() if device is None else device)
+
+
+def conv_energy_from_flax(params: Mapping[str, Any], image_size=(28, 28),
+                          data_format: str = "NCHW",
+                          device: Optional[torch.device] = None) -> ConvEnergy2D:
+    """The port's :class:`ConvEnergy2D` with the weights of the JAX package's
+    ``ConvEnergy2D`` parameter tree (``Conv_0 ...``, ``Dense_0``, ``Dense_1``).
+    Both flatten the feature maps in H·W·C order, so the dense rows carry
+    across as they are. On ``device``, as :func:`mlp_energy_from_flax`."""
+    conv = _flax_layers(params, "Conv")
+    dense = _flax_layers(params, "Dense")
+    if not conv or len(dense) != 2:
+        raise ValueError("a ConvEnergy2D tree holds Conv_0..Conv_n, Dense_0 and Dense_1")
+    net = ConvEnergy2D(in_channels=conv[0][0].shape[2], image_size=tuple(image_size),
+                       channels=[k.shape[3] for k, _ in conv], dense_dim=dense[0][0].shape[1],
+                       data_format=data_format)
+    with torch.no_grad():
+        for layer, (kernel, bias) in zip(net.convs, conv):
+            w = torch.from_numpy(kernel).permute(3, 2, 0, 1)  # HWIO -> OIHW
+            if w.shape != layer.weight.shape:
+                raise ValueError(f"Conv kernel {kernel.shape} does not fit {layer}")
+            layer.weight.copy_(w)
+            layer.bias.copy_(torch.from_numpy(bias))
+    _load_linear(net.dense, *dense[0])
+    _load_linear(net.head, *dense[1])
+    return net.to(default_device() if device is None else device)
