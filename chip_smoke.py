@@ -22,7 +22,11 @@ not 0:
    65,536, a 201-entry beta table); the one-step op at 4,096 x 32 and 16M
    elements; the neural (SiLU-MLP) chain at the CD path's 256 x 2 on
    MLP(128, 128), at 4,096 x 2, at d=32 with three hidden layers, with a
-   clamp, and at hidden (512, 512) (weights streamed), 10 steps.
+   clamp, and at hidden (512, 512) (weights streamed), 10 steps; the
+   Sinkhorn kernel at (256, 256) with ``reg`` 0.05 (50 iterations at ``tol``
+   0, and gated at ``tol`` 1e-3), damped at (64, 192), at ragged shapes, at
+   (1,024, 1,024) and on the cost matrix of the flow path's own batch: equal
+   iteration counts, the log plan, and the gated plans' marginals.
    The MALA, HMC and AIS chains take a Metropolis decision per step, the
    tempering ladder an exchange decision per pair and sweep; a chain whose
    uniform lies within rounding of its acceptance probability may decide
@@ -65,6 +69,20 @@ not 0:
      none; the JAX e2e quality gate (two moons, CD-20, 250 steps) through the
      kernel and through the loop; PCD with a 10,000-sample buffer warmed up
      through the kernel, then 20 train steps;
+   - EqM training and generation (BASELINE config 5,
+     ``benchmarks/headline.py:617-710``): ``BaseTrainer(
+     EquilibriumMatchingLoss(model=MLPVelocityField(2, (128, 128, 128)),
+     interpolant=LinearInterpolant(), coupling=SinkhornCoupling(n_iters=50,
+     reg=0.05)), Adam 1e-3)`` on a batch of 256 draws of N((2, 0), I), 300
+     steps, one Sinkhorn kernel launch per step, and with ``fused="off"``,
+     none, the last 100 steps' mean loss both ways over seeds; then
+     ``FlowSampler(model, integrator="euler", negate_velocity=True)``, 4,096
+     samples x 50 steps, and one ``dopri5`` generation; the JAX e2e quality
+     gate (8 Gaussians, batch 512, Adam 2e-3, 800 steps,
+     ``coupling="sinkhorn"``) through the kernel and through the loop: the
+     energy distance of 1,024 generated samples to fresh data below 0.3 of the
+     prior's, through ``FlowSampler`` and through ``EqMEnergy.from_loss`` with
+     200 Langevin steps, every mode holding more than 10 samples;
    with the ring's mean radius and the Metropolis acceptance against the
    generic loop (``fused="off"``), and the correlated Gaussian's covariance,
    R-hat and ESS (over consecutive draws, R-hat within 0.005 of the loop's);
@@ -72,12 +90,18 @@ not 0:
    plain version, PT per ladder step, AIS per rung, the one-step op in GB/s
    beside ``torch.add`` (device time per call in batches queued behind a
    spin, and per call with the host's launch work), the neural chain also at
-   4,096 chains, the CD train step with the kernel and on the loop, and the
-   sampler paths, beside the card's name and power limit;
+   4,096 chains, the CD train step with the kernel and on the loop, the
+   Sinkhorn kernel at fixed work and gated, beside 100 ``torch.logsumexp``
+   calls, the EqM train step with the kernel, on the loop and with
+   ``IndependentCoupling``, the generation in samples/s, and the sampler
+   paths, beside the card's name and power limit;
 6. profile: wall time, device busy time (``torch.profiler``) and idle share
-   of the CD train step and the sampler paths, the HMC warmup and
-   ``summarize_chains``;
-7. bound: for each kernel the least time the card could take for the timed
+   of the CD and EqM train steps, the flow generation, the sampler paths,
+   the HMC warmup and ``summarize_chains``;
+7. syncs: the host's synchronising calls per EqM train step (none through
+   the Sinkhorn kernel), per auction and greedy assignment and per dopri5
+   generation (``torch.cuda.set_sync_debug_mode``);
+8. bound: for each kernel the least time the card could take for the timed
    call: the larger of its bytes (inputs read once, outputs written once)
    over 3.35 TB/s and, per instruction class counted from the CUDA source
    (``torchebm_tpu_torch/ops/_counts.py``), the count over the class's rate
@@ -90,6 +114,7 @@ before it runs anything.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import re
@@ -147,7 +172,11 @@ KERNELS = {
     "mlp_langevin_chain":
         ("fused_mlp_langevin", _CSRC + "fused_mlp_langevin.cu",
          "torchebm_tpu/ops/fused_mlp_langevin.py:169"),
+    "sinkhorn_log_fused":
+        ("fused_sinkhorn", _CSRC + "fused_sinkhorn.cu", "torchebm_tpu/ops/fused_sinkhorn.py:118"),
 }
+#: the plain versions that are not named ``<wrapper>_plain``
+PLAIN_NAMES = {"sinkhorn_log_fused": "sinkhorn_log_plain"}
 
 #: the parallel-tempering and AIS configurations of the JAX package's headline
 #: benchmarks (benchmarks/headline.py:178-289), at full width
@@ -186,6 +215,37 @@ MLP_CHECKS = ((CD_BATCH, (2, *CD_HIDDEN), None), (4096, (2, *CD_HIDDEN), None),
 QG_STEP, QG_K, QG_LR, QG_STEPS = 0.05, 20, 2e-3, 250
 #: PCD: a 10,000-sample buffer warmed up by 100 steps, then PCD_STEPS train steps
 PCD_BUFFER, PCD_INIT_STEPS, PCD_CHUNK, PCD_STEPS = 10_000, 100, 1024, 20
+
+#: EqM training and generation, BASELINE config 5 (the JAX headline benchmark,
+#: benchmarks/headline.py:617-710): MLPVelocityField(128, 128, 128) on 2-D
+#: data, one fixed batch of 256 draws of N((2, 0), I), the linear interpolant,
+#: SinkhornCoupling(n_iters=50, reg=0.05) at its default tol 1e-3, Adam 1e-3;
+#: then Euler generation of 4,096 samples in 50 steps
+FLOW_HIDDEN, FLOW_BATCH, FLOW_ITERS, FLOW_REG, FLOW_TOL = (128, 128, 128), 256, 50, 0.05, 1e-3
+FLOW_LR, FLOW_STEPS, GEN_SAMPLES, GEN_STEPS = 1e-3, 300, 4096, 50
+#: config 5 runs through the kernel and through the loop once per seed
+#: (weights and draws): the two sets' means of the last FLOW_TAIL steps' loss
+#: agree within CD_SIGMAS standard errors of their difference
+FLOW_SEEDS, FLOW_TAIL = tuple(range(1, 9)), 100
+#: the flow quality gate: the JAX e2e recipe
+#: (tests/e2e/test_training_quality.py:139-188): 8 Gaussians, batch 512, Adam
+#: 2e-3, 800 steps, coupling "sinkhorn" (reg 0.05, 100 iterations, tol 1e-3);
+#: 1,024 samples by 100 Euler steps, then 200 Langevin steps at 0.01, noise 0.3
+FQ_BATCH, FQ_LR, FQ_STEPS, FQ_SAMPLES, FQ_GEN_STEPS, FQ_MCMC_STEPS = 512, 2e-3, 800, 1024, 100, 200
+#: the Sinkhorn kernel's checks: (shape, reg, iterations, tol, damping): the
+#: training shape at fixed work and gated, the damped update of the unbalanced
+#: coupling (rho 0.5, reg 0.1), ragged shapes, and the largest matrix it takes
+SINKHORN_CHECKS = (
+    ((256, 256), 0.05, 50, 0.0, 1.0), ((256, 256), 0.05, 50, 1e-3, 1.0),
+    ((64, 192), 0.1, 80, 0.0, 0.5 / 0.6), ((8, 128), 0.05, 60, 0.0, 1.0),
+    ((17, 33), 0.05, 60, 0.0, 1.0), ((5, 200), 0.05, 60, 0.0, 1.0),
+    ((200, 333), 0.05, 60, 0.0, 1.0), ((200, 333), 0.05, 60, 1e-3, 1.0),
+    ((128, 128), 0.1, 500, 1e-4, 1.0),
+    ((1024, 1024), 0.05, 50, 0.0, 1.0), ((1024, 1024), 0.05, 100, 1e-3, 1.0),
+)
+#: a gated balanced plan's row and column sums, relative to 1/n and 1/m
+#: (tests/ops/test_sinkhorn_parity.py:44-55)
+MARGINAL_RTOL = 2e-3
 
 #: the card's memory rate, and the per-SM instruction rates per clock of its
 #: FP32 lanes, INT32 lanes and special-function units (H100 SXM)
@@ -253,7 +313,7 @@ def phase_build(build_mod) -> None:
             k = re.search(r"((?:mixture|doublewell|mala|hmc|pt|mlp)_chain_kernel|ais_kernel"
                           r"|langevin_step_kernel)I(\w*?)EEv", m.group(1))
             entry = f"{k.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', k.group(2)))}>" \
-                if k else m.group(1)
+                if k else ("sinkhorn_kernel" if "sinkhorn_kernel" in m.group(1) else m.group(1))
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
@@ -1167,6 +1227,248 @@ def path_cd(ops, dev, card: str) -> dict:
     return launches
 
 
+def _pair_cost(g, dev, n: int, m: int):
+    """A max-normalised squared-distance matrix between ``n`` standard normal
+    points and ``m`` shifted ones in 2-D, as the JAX package's parity tests
+    build theirs."""
+    import torch
+
+    x0 = torch.randn((n, 2), generator=g, device=dev)
+    x1 = torch.randn((m, 2), generator=g, device=dev) + 1.0
+    cost = torch.sum((x0[:, None, :] - x1[None, :, :]) ** 2, dim=-1)
+    return (cost / cost.max()).contiguous()
+
+
+def phase_check_sinkhorn(ops, dev, errors: dict) -> None:
+    """The Sinkhorn kernel against its plain version at SINKHORN_CHECKS and on
+    the cost matrix ``compute_cost`` gives the flow path's batch: the same
+    number of iterations, every entry of the log plan within TOL, and for a
+    gated balanced plan row and column sums within MARGINAL_RTOL of 1/n and
+    1/m. TOL holds: the kernel sums a row's exponentials across lanes and a
+    column's across bands, the plain version in ``logsumexp``'s order, a
+    rounding difference of about 1e-7 relative in each potential, of order 20
+    at these ``reg``; the fixed point contracts, so it does not grow over the
+    iterations (the entries of the log plan lie above -45 here)."""
+    import torch
+
+    from torchebm_tpu_torch.couplings import SinkhornCoupling
+
+    mod = ops.fused_sinkhorn
+    kernel = mod.sinkhorn_log_fused
+    g = torch.Generator(dev).manual_seed(2468)
+    x0 = torch.randn((FLOW_BATCH, 2), generator=g, device=dev)
+    x1 = torch.randn((FLOW_BATCH, 2), generator=g, device=dev) + torch.tensor([2.0, 0.0],
+                                                                              device=dev)
+    flow_cost = SinkhornCoupling().compute_cost(x0, x1).contiguous()
+    cases = [(_pair_cost(g, dev, *shape), "pair cost", reg, iters, tol, phi)
+             for shape, reg, iters, tol, phi in SINKHORN_CHECKS]
+    cases += [(flow_cost, "compute_cost of the flow batch", FLOW_REG, FLOW_ITERS, tol, 1.0)
+              for tol in (0.0, FLOW_TOL)]
+    for cost, label, reg, iters, tol, phi in cases:
+        n, m = cost.shape
+        before = kernel.launches
+        got, k_iters = kernel(cost, reg, iters, tol, phi, return_iters=True)
+        torch.cuda.synchronize()
+        if kernel.launches != before + 1:
+            raise AssertionError("sinkhorn_log_fused did not launch its kernel")
+        want, p_iters = mod.sinkhorn_log_plain(cost, reg, iters, tol, phi, return_iters=True)
+        err = max_err(got, want)
+        errors["sinkhorn_log_fused"] = max(errors.get("sinkhorn_log_fused", 0.0), err)
+        plan = mod.launch_plan(n, m)
+        rows = float((torch.exp(got).sum(1) * n - 1.0).abs().max())
+        cols = float((torch.exp(got).sum(0) * m - 1.0).abs().max())
+        print(f"check: sinkhorn_log_fused [{n}x{m} {label}, reg {reg}, cap {iters}, tol {tol:g}, "
+              f"damping {phi:.4f}; {plan.blocks} blocks, M "
+              f"{'in shared memory' if plan.resident else 'in L2'}] iterations kernel "
+              f"{int(k_iters)} plain {int(p_iters)}, max|kernel - plain| = {err:.3e} "
+              f"(tol {TOL:g}), "
+              f"lowest entry {float(want.min()):.1f}, marginals off by {rows:.2e} (rows) "
+              f"{cols:.2e} (columns)")
+        if int(k_iters) != int(p_iters):
+            raise AssertionError(f"sinkhorn_log_fused [{n}x{m}] ran {int(k_iters)} iterations, "
+                                 f"its plain version {int(p_iters)}")
+        if not err <= TOL:
+            raise AssertionError(f"sinkhorn_log_fused [{n}x{m}] disagrees with its plain "
+                                 f"version: {err}")
+        if tol > 0.0 and phi == 1.0:
+            if not int(k_iters) < iters:
+                raise AssertionError(f"sinkhorn_log_fused [{n}x{m}] did not converge in {iters}")
+            if not max(rows, cols) <= MARGINAL_RTOL:
+                raise AssertionError(f"sinkhorn_log_fused [{n}x{m}]: the gated plan's marginals "
+                                     f"are off by {rows} (rows), {cols} (columns)")
+
+
+def _flow_trainer(dev, seed: int, coupling, lr: float = FLOW_LR):
+    """``(trainer, net, loss)``: a BaseTrainer with Adam around the EqM loss of
+    a fresh MLPVelocityField(2, FLOW_HIDDEN) on the card, its weights from
+    ``seed``."""
+    import torch
+
+    from torchebm_tpu_torch.core.trainer import BaseTrainer
+    from torchebm_tpu_torch.interpolants import LinearInterpolant
+    from torchebm_tpu_torch.losses import EquilibriumMatchingLoss
+    from torchebm_tpu_torch.models import MLPVelocityField
+
+    torch.manual_seed(seed)
+    net = MLPVelocityField(2, FLOW_HIDDEN).to(dev)
+    loss = EquilibriumMatchingLoss(model=net, interpolant=LinearInterpolant(), coupling=coupling)
+    return BaseTrainer(loss, functools.partial(torch.optim.Adam, lr=lr)), net, loss
+
+
+def _config5_coupling(fused: str):
+    from torchebm_tpu_torch.couplings import SinkhornCoupling
+
+    return SinkhornCoupling(n_iters=FLOW_ITERS, reg=FLOW_REG, fused=fused)
+
+
+def _flow_batch(dev):
+    """Config 5's one batch: FLOW_BATCH draws of N((2, 0), I), from seed 0."""
+    import torch
+
+    g = torch.Generator(dev).manual_seed(0)
+    return torch.randn((FLOW_BATCH, 2), generator=g, device=dev) + torch.tensor([2.0, 0.0],
+                                                                                device=dev)
+
+
+def _flow_run(dev, fused: str, n_steps: int, seed: int):
+    """Config 5 for ``n_steps`` train steps from ``seed`` (weights and draws):
+    ``(net, mean loss of the last FLOW_TAIL steps, ms per step)``, the host
+    clock around the run, first step included."""
+    import torch
+
+    trainer, net, _ = _flow_trainer(dev, seed, _config5_coupling(fused))
+    state = trainer.init_state(net, torch.Generator(dev).manual_seed(seed))
+    data = _flow_batch(dev)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        state, metrics = trainer.train_step(state, data)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    return net, float(torch.stack(losses[-FLOW_TAIL:]).mean()), ms
+
+
+def _energy_distance(x, y) -> float:
+    """E-statistic 2 E|X-Y| - E|X-X'| - E|Y-Y'| (0 iff the laws agree)."""
+    import torch
+
+    def mean_pdist(a, b):
+        return torch.cdist(a, b).mean()
+
+    return float(2 * mean_pdist(x, y) - mean_pdist(x, x) - mean_pdist(y, y))
+
+
+def _flow_quality_gate(ops, dev, fused: str, card: str) -> None:
+    """The JAX e2e gate on the recipe of FQ_*: after training, the energy
+    distance of generated samples to fresh 8-Gaussians data lies below 0.3 of
+    the N(0, I) prior's, through FlowSampler on the field and through Langevin
+    on its EqMEnergy, and every mode holds more than 10 of the Langevin
+    samples. With the kernel, one Sinkhorn launch per train step."""
+    import torch
+
+    from torchebm_tpu_torch.couplings import get_coupling
+    from torchebm_tpu_torch.datasets import make_8gaussians
+    from torchebm_tpu_torch.models import EqMEnergy
+    from torchebm_tpu_torch.samplers import FlowSampler, LangevinDynamics
+
+    trainer, net, loss = _flow_trainer(dev, 21, get_coupling("sinkhorn", fused=fused), lr=FQ_LR)
+    g = torch.Generator(dev).manual_seed(22)
+    state = trainer.init_state(net, g)
+    ops.reset_launch_counts()
+    for _ in range(FQ_STEPS):
+        state, _ = trainer.train_step(state, make_8gaussians(g, FQ_BATCH))
+    launches = ops.launch_counts()["sinkhorn_log_fused"]
+    data = make_8gaussians(g, FQ_SAMPLES)
+    prior = torch.randn((FQ_SAMPLES, 2), generator=g, device=dev)
+    ed_prior = _energy_distance(prior, data)
+    flow = FlowSampler(model=net, negate_velocity=True, integrator="euler")
+    gen_field = flow.sample(g, dim=2, n_samples=FQ_SAMPLES, n_steps=FQ_GEN_STEPS)
+    ed_field = _energy_distance(gen_field, data)
+    lang = LangevinDynamics(EqMEnergy.from_loss(loss), step_size=0.01, noise_scale=0.3)
+    gen_mcmc = lang.sample(g, x=gen_field, n_steps=FQ_MCMC_STEPS)
+    ed_mcmc = _energy_distance(gen_mcmc, data)
+    ang = torch.arange(8, device=dev) * (2 * math.pi / 8)
+    centers = 2.0 * torch.stack([torch.cos(ang), torch.sin(ang)], -1)
+    counts = torch.bincount(torch.cdist(gen_mcmc, centers).argmin(1), minlength=8).tolist()
+    print(f"main path: EqM quality gate, fused={fused!r}: 8 Gaussians, MLPVelocityField"
+          f"{FLOW_HIDDEN}, batch {FQ_BATCH}, Adam {FQ_LR}, {FQ_STEPS} steps, coupling 'sinkhorn': "
+          f"energy distance to data: prior {ed_prior:.4f}, FlowSampler {ed_field:.4f}, EqMEnergy + "
+          f"Langevin {ed_mcmc:.4f} (gate: below {0.3 * ed_prior:.4f}); samples per mode {counts} "
+          f"(gate: each above 10); sinkhorn_log_fused launches {launches} | {card}")
+    if launches != (FQ_STEPS if fused == "auto" else 0):
+        raise AssertionError(f"EqM quality gate: {launches} Sinkhorn kernel launches")
+    if not (ed_field < 0.3 * ed_prior and ed_mcmc < 0.3 * ed_prior):
+        raise AssertionError(f"EqM quality gate failed ({fused}): {ed_field}, {ed_mcmc} against "
+                             f"{ed_prior}")
+    if not min(counts) > 10:
+        raise AssertionError(f"EqM quality gate ({fused}): a mode is missing: {counts}")
+
+
+def path_flow(ops, dev, card: str) -> dict:
+    """EqM training and generation (BASELINE config 5) through the trainer and
+    FlowSampler: FLOW_STEPS train steps with the coupling's ``fused="auto"``,
+    exactly one Sinkhorn kernel launch per step, and the same with ``"off"``,
+    none; both once per seed of FLOW_SEEDS, and the kernel's tail losses held
+    to the loop's; Euler and dopri5 generation from the trained field; the
+    quality gate through the kernel and through the loop."""
+    import torch
+
+    from torchebm_tpu_torch.samplers import FlowSampler
+
+    ops.reset_launch_counts()
+    net, loss0, ms = _flow_run(dev, "auto", FLOW_STEPS, FLOW_SEEDS[0])
+    launches = read_counts(ops, "EqM, config 5", ["sinkhorn_log_fused"])
+    if launches["sinkhorn_log_fused"] != FLOW_STEPS:
+        raise AssertionError(f"{launches['sinkhorn_log_fused']} Sinkhorn kernel launches in "
+                             f"{FLOW_STEPS} EqM steps, expected one per step")
+    g = torch.Generator(dev).manual_seed(31)
+    flow = FlowSampler(model=net, integrator="euler", negate_velocity=True)
+    gen = flow.sample(g, dim=2, n_samples=GEN_SAMPLES, n_steps=GEN_STEPS)
+    gen5, diag5 = FlowSampler(model=net, negate_velocity=True).sample(
+        g, dim=2, n_samples=GEN_SAMPLES, n_steps=GEN_STEPS, return_diagnostics=True)
+    for name, out in (("euler", gen), ("dopri5", gen5)):
+        if tuple(out.shape) != (GEN_SAMPLES, 2) or not torch.isfinite(out).all():
+            raise AssertionError(f"FlowSampler({name}) output is malformed")
+    gap = float((gen.mean(0) - gen5.mean(0)).norm())
+    print(f"main path: FlowSampler generation {GEN_SAMPLES} x {GEN_STEPS} steps from the trained "
+          f"field: euler mean {[round(v, 4) for v in gen.mean(0).tolist()]}, dopri5 mean "
+          f"{[round(v, 4) for v in diag5['mean'][0].tolist()]} (apart by {gap:.4f}, gate 0.2; the "
+          f"data's mean is (2, 0)) | {card}")
+    if not gap < 0.2:
+        raise AssertionError(f"euler and dopri5 generation disagree in the mean by {gap}")
+
+    ops.reset_launch_counts()
+    loop_runs = [_flow_run(dev, "off", FLOW_STEPS, s)[1:] for s in FLOW_SEEDS]
+    off = ops.launch_counts()["sinkhorn_log_fused"]
+    kernel_runs = [(loss0, ms)] + [_flow_run(dev, "auto", FLOW_STEPS, s)[1:]
+                                   for s in FLOW_SEEDS[1:]]
+    if off != 0:
+        raise AssertionError("fused='off' launched the Sinkhorn kernel")
+    kern, loop = (torch.tensor([r[0] for r in runs], dtype=torch.float64)
+                  for runs in (kernel_runs, loop_runs))
+    if not (torch.isfinite(kern).all() and torch.isfinite(loop).all()):
+        raise AssertionError("EqM losses are not finite")
+    diff = float(kern.mean() - loop.mean())
+    se = math.sqrt(float(kern.var()) / len(kern) + float(loop.var()) / len(loop))
+    print(f"main path: EqM config 5 (MLPVelocityField{FLOW_HIDDEN}, batch {FLOW_BATCH}, Sinkhorn "
+          f"reg {FLOW_REG} cap {FLOW_ITERS} tol {FLOW_TOL:g}, Adam {FLOW_LR}), {FLOW_STEPS} steps: "
+          f"{ms:.3f} ms per train step with the kernel (launches "
+          f"{launches['sinkhorn_log_fused']}), {loop_runs[0][1]:.3f} ms on the loop (launches "
+          f"{off}), first step included; mean loss of the last {FLOW_TAIL} steps over "
+          f"{len(FLOW_SEEDS)} seeds: kernel {float(kern.mean()):.5f} (sd {float(kern.std()):.5f}), "
+          f"loop {float(loop.mean()):.5f} (sd {float(loop.std()):.5f}); kernel - loop {diff:.5f} = "
+          f"{diff / max(se, 1e-12):.2f} standard errors (bound {CD_SIGMAS:g}) | {card}")
+    if not abs(diff) <= CD_SIGMAS * se:
+        raise AssertionError(f"EqM through the kernel drifts from the loop: {diff} at a standard "
+                             f"error of {se}")
+
+    for mode in ("auto", "off"):
+        _flow_quality_gate(ops, dev, mode, card)
+    return launches
+
+
 def phase_timing(ops, dev, card: str) -> dict:
     """Each kernel against its plain version (CUDA events), with its work
     (``ops._counts.work``); PT per ladder step, AIS per rung, the one-step op
@@ -1202,6 +1504,7 @@ def phase_timing(ops, dev, card: str) -> dict:
                 torch.linspace(0.0, 1.0, AIS_RUNGS + 1, device=dev), 0.05)
     mlp_layers = _mlp_layers(dev, (2, *CD_HIDDEN), 60)
     x_cd = torch.randn((CD_BATCH, 2), generator=g, device=dev)
+    sk_cost = _pair_cost(g, dev, FLOW_BATCH, FLOW_BATCH)
     # name -> (args, kwargs, (updates per call, their unit), plain version's
     # (warm-up, repetitions)): the plain MALA, HMC, PT and AIS versions take
     # seconds per call, so one repetition
@@ -1231,11 +1534,15 @@ def phase_timing(ops, dev, card: str) -> dict:
         # the CD path's call: one batch of negatives, CD_K steps
         "mlp_langevin_chain": ((x_cd, mlp_layers, CD_K, CD_STEP, 1.0), dict(seed=24),
                                (CD_BATCH * CD_K, "chain-steps"), fast),
+        # the flow path's matrix at fixed work: FLOW_ITERS iterations, no gate
+        "sinkhorn_log_fused": ((sk_cost, FLOW_REG, FLOW_ITERS), dict(tol=0.0),
+                               (sk_cost.numel() * FLOW_ITERS, "element-iterations"), (1, 3)),
     }
     times = {}
     for name, (args, kw, (updates, unit), plain_reps) in calls.items():
         module = getattr(ops, KERNELS[name][0])
-        kernel, plain = getattr(module, name), getattr(module, name + "_plain")
+        kernel = getattr(module, name)
+        plain = getattr(module, PLAIN_NAMES.get(name, name + "_plain"))
         reps = STEP_REPS if name == "fused_langevin_step" else (2, 10)
         ms = statistics.median(cuda_times(lambda: kernel(*args, **kw), *reps))
         plain_ms = statistics.median(cuda_times(lambda: plain(*args, **kw), *plain_reps))
@@ -1293,6 +1600,59 @@ def phase_timing(ops, dev, card: str) -> dict:
                                               2, 10, batch=10))
         print(f"timing: mlp_langevin_chain {label} device time {dev_ms:.4f} ms per call "
               f"({dev_ms / CD_K * 1e3:.2f} us per step) | {card}")
+    # the Sinkhorn kernel as the flow path calls it (gated at FLOW_TOL), with
+    # the iterations it ran and its bound for that work; and what the loop
+    # pays: no single PyTorch call runs the fixed point, 2 x FLOW_ITERS
+    # logsumexp calls are its body
+    sk = ops.fused_sinkhorn
+    gated = dict(tol=FLOW_TOL)
+    k_ms = statistics.median(cuda_times(
+        lambda: sk.sinkhorn_log_fused(sk_cost, FLOW_REG, FLOW_ITERS, **gated), 2, 10))
+    p_ms = statistics.median(cuda_times(
+        lambda: sk.sinkhorn_log_plain(sk_cost, FLOW_REG, FLOW_ITERS, **gated), 1, 3))
+    d_ms = statistics.median(cuda_times(
+        lambda: sk.sinkhorn_log_fused(sk_cost, FLOW_REG, FLOW_ITERS, **gated), 2, 10, batch=10))
+    result = sk.sinkhorn_log_fused(sk_cost, FLOW_REG, FLOW_ITERS, return_iters=True, **gated)
+    b_ms, b_by = bound_of(work("sinkhorn_log_fused", (sk_cost, FLOW_REG, FLOW_ITERS), gated,
+                               result), max_sm_clock_mhz())
+    print(f"timing: sinkhorn_log_fused {FLOW_BATCH}x{FLOW_BATCH}, reg {FLOW_REG}, "
+          f"tol {FLOW_TOL:g}: "
+          f"{int(result[1])} iterations of {FLOW_ITERS}: kernel {k_ms:.4f} ms per call (device "
+          f"{d_ms:.4f} ms), plain {p_ms:.3f} ms, bound {b_ms:.5f} ms by {b_by} | {card}")
+    fixed_ms = statistics.median(cuda_times(
+        lambda: sk.sinkhorn_log_fused(sk_cost, FLOW_REG, FLOW_ITERS), 2, 10, batch=10))
+    lse_ms = statistics.median(cuda_times(
+        lambda: [torch.logsumexp(sk_cost, dim=i % 2) for i in range(2 * FLOW_ITERS)], 1, 5))
+    print(f"timing: sinkhorn_log_fused {FLOW_BATCH}x{FLOW_BATCH} at tol 0, {FLOW_ITERS} "
+          f"iterations: device {fixed_ms:.4f} ms per call ({fixed_ms / FLOW_ITERS * 1e3:.2f} us "
+          f"per iteration); {2 * FLOW_ITERS} torch.logsumexp calls over the same matrix "
+          f"{lse_ms:.3f} ms | {card}")
+    # the EqM train step (config 5): kernel, loop and identity pairing (the
+    # floor without any coupling work): host clock over 50 steps after 10
+    from torchebm_tpu_torch.couplings import IndependentCoupling
+    from torchebm_tpu_torch.samplers import FlowSampler
+
+    data = _flow_batch(dev)
+    for path, coupling in (("Sinkhorn kernel", _config5_coupling("auto")),
+                           ("Sinkhorn loop", _config5_coupling("off")),
+                           ("IndependentCoupling", IndependentCoupling())):
+        trainer, net, _ = _flow_trainer(dev, 15, coupling)
+        state = trainer.init_state(net, torch.Generator(dev).manual_seed(16))
+        for _ in range(10):
+            trainer.train_step(state, data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            trainer.train_step(state, data)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 50
+        print(f"timing: EqM train step config 5, {path}: {ms:.4f} ms per step (50 steps after 10 "
+              f"warm-up) | {card}")
+    flow = FlowSampler(model=net, integrator="euler", negate_velocity=True)
+    gen_ms = statistics.median(cuda_times(
+        lambda: flow.sample(g, dim=2, n_samples=GEN_SAMPLES, n_steps=GEN_STEPS), 1, 3))
+    print(f"timing: FlowSampler euler generation {GEN_SAMPLES} samples x {GEN_STEPS} steps: "
+          f"{gen_ms:.3f} ms ({GEN_SAMPLES / gen_ms * 1e3:.4e} samples/s) | {card}")
     # the CD train step (config 3), kernel against generic loop: host clock
     # over 50 steps after 10 warm-up steps
     for fused, path in (("auto", "kernel path"), ("off", "generic loop")):
@@ -1344,6 +1704,72 @@ def phase_timing(ops, dev, card: str) -> dict:
     print(f"timing: HMC warmup (generic loop, dual averaging) {N_CHAINS} chains x 200: "
           f"{ms:.3f} ms, one repetition | {card}")
     return times
+
+
+def count_syncs(fn) -> int:
+    """The host's synchronising CUDA calls during ``fn()``, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them (one warning
+    each: a ``bool()``, ``float()``, ``int()``, ``.cpu()`` or ``.item()`` of a
+    device tensor)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message).lower() for w in caught)
+
+
+def phase_syncs(ops, dev, card: str) -> None:
+    """Host syncs per call of what the flow slice runs on the host's clock:
+    the EqM train step through the Sinkhorn kernel (none expected: the
+    coupling's draw and the kernel's gate stay on the device) and through the
+    loop (one per iteration at ``tol`` > 0), the auction and the greedy
+    assignment on the flow batch's cost matrix (one per round), and a dopri5
+    generation (one per attempted step)."""
+    import torch
+
+    from torchebm_tpu_torch.couplings import (
+        SinkhornCoupling,
+        auction_assignment,
+        greedy_assignment,
+    )
+    from torchebm_tpu_torch.integrators import get_integrator
+    from torchebm_tpu_torch.samplers import FlowSampler
+
+    data = _flow_batch(dev)
+    g = torch.Generator(dev).manual_seed(41)
+    steps = {}
+    for fused in ("auto", "off"):
+        trainer, net, _ = _flow_trainer(dev, 19, _config5_coupling(fused))
+        state = trainer.init_state(net, torch.Generator(dev).manual_seed(20))
+        for _ in range(3):
+            trainer.train_step(state, data)
+        steps[fused] = count_syncs(lambda: trainer.train_step(state, data))
+    cost = SinkhornCoupling().compute_cost(torch.randn((FLOW_BATCH, 2), generator=g, device=dev),
+                                           data).contiguous()
+    auction = count_syncs(lambda: auction_assignment(cost))
+    greedy = count_syncs(lambda: greedy_assignment(cost))
+    flow = FlowSampler(model=net, negate_velocity=True)
+    x0 = torch.randn((GEN_SAMPLES, 2), generator=g, device=dev)
+    drift = flow._get_drift({})
+    with torch.no_grad():
+        _, stats = get_integrator("dopri5").integrate(
+            {"x": x0}, 1.0 / GEN_STEPS, GEN_STEPS, drift=drift, return_stats=True)
+    dopri = count_syncs(lambda: flow.sample(g, x=x0, n_steps=GEN_STEPS))
+    print(f"syncs: EqM train step config 5: {steps['auto']} through the Sinkhorn kernel, "
+          f"{steps['off']} on the loop (one per iteration of the fixed point); "
+          f"auction_assignment {FLOW_BATCH}x{FLOW_BATCH}: {auction}; greedy_assignment: "
+          f"{greedy}; dopri5 generation {GEN_SAMPLES}x{GEN_STEPS}: {dopri} "
+          f"({int(stats.n_attempted)} attempted steps, {int(stats.n_accepted)} accepted) | {card}")
+    if steps["auto"] != 0:
+        raise AssertionError(f"the EqM train step through the kernel syncs {steps['auto']} times")
 
 
 def bound_of(work: dict, clock_mhz: float):
@@ -1413,7 +1839,21 @@ def phase_profile(dev, card: str) -> None:
         gg = torch.Generator(dev).manual_seed(14)
         batch = _cd_batches(dev, gg, 1, seed=13)[0]
         cd_steps[fused] = (trainer, trainer.init_state(net, gg), batch)
+    from torchebm_tpu_torch.samplers import FlowSampler
+
+    eqm_steps = {}
+    for fused in ("auto", "off"):
+        trainer, net, _ = _flow_trainer(dev, 17, _config5_coupling(fused))
+        eqm_steps[fused] = (trainer, trainer.init_state(net, torch.Generator(dev).manual_seed(18)),
+                            _flow_batch(dev))
+    flow = FlowSampler(model=eqm_steps["auto"][1].model, integrator="euler", negate_velocity=True)
     calls = {
+        f"EqM train step config 5 Sinkhorn kernel (batch {FLOW_BATCH})":
+            lambda: eqm_steps["auto"][0].train_step(*eqm_steps["auto"][1:]),
+        f"EqM train step config 5 Sinkhorn loop (batch {FLOW_BATCH})":
+            lambda: eqm_steps["off"][0].train_step(*eqm_steps["off"][1:]),
+        f"FlowSampler euler generation {GEN_SAMPLES}x{GEN_STEPS}":
+            lambda: flow.sample(g, dim=2, n_samples=GEN_SAMPLES, n_steps=GEN_STEPS),
         f"CD train step config 3 kernel path (batch {CD_BATCH}, CD-{CD_K})":
             lambda: cd_steps["auto"][0].train_step(*cd_steps["auto"][1:]),
         f"CD train step config 3 generic loop (batch {CD_BATCH}, CD-{CD_K})":
@@ -1486,13 +1926,15 @@ def main() -> None:
     phase_check_metropolis(ops, dev, errors)
     phase_check_tempering(ops, dev, errors)
     phase_check_mlp(ops, dev, errors)
+    phase_check_sinkhorn(ops, dev, errors)
     launches = {name: 0 for name in KERNELS}
     for path in (path_langevin, path_hmc, path_mala, path_gradient_descent, path_pt, path_ais,
-                 path_step, path_cd):
+                 path_step, path_cd, path_flow):
         for name, n in path(ops, dev, card).items():
             launches[name] += n
     times = phase_timing(ops, dev, card)
     phase_profile(dev, card)
+    phase_syncs(ops, dev, card)
 
     clock = max_sm_clock_mhz()
     print(f"bound: {N_SMS} SMs at {clock:.0f} MHz (nvidia-smi clocks.max.sm), per-SM rates "

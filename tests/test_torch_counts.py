@@ -50,6 +50,7 @@ def _calls():
         "mlp_langevin_chain": ((x0, [(torch.randn(2, 8, generator=g), torch.zeros(8)),
                                      (torch.randn(8, 1, generator=g), torch.zeros(1))], 5, 0.01),
                                dict(seed=1)),
+        "sinkhorn_log_fused": ((torch.rand(6, 9, generator=g), 0.05, 7), dict(tol=0.0)),
     }
 
 
@@ -62,8 +63,8 @@ def test_every_kernel_has_work_counts(name):
     work = _counts.work(name, args, kw, result)
     assert set(work["ops"]) == {"fp32", "int32", "sfu"}
     assert work["ops"]["fp32"] > 0 and work["bytes"] > 0
-    # every kernel draws Philox numbers on these calls
-    assert work["ops"]["int32"] > 0
+    # every chain kernel draws Philox numbers on these calls; Sinkhorn draws none
+    assert (work["ops"]["int32"] > 0) == (name != "sinkhorn_log_fused")
 
 
 def test_work_scales_with_the_chain_length():
@@ -75,3 +76,19 @@ def test_work_scales_with_the_chain_length():
     assert twice["ops"] == {k: 2 * v for k, v in once["ops"].items()}
     with pytest.raises(KeyError):
         _counts.work("no_such_kernel", args, kw, None)
+
+
+def test_sinkhorn_work_follows_the_iterations_run():
+    """The work of a gated call is what its data needed: the kernel's own
+    iteration count when the call returned it, the cap otherwise; the bytes
+    are the cost matrix read and the plan written."""
+    args, kw = _calls()["sinkhorn_log_fused"]
+    capped = _counts.work("sinkhorn_log_fused", args, kw, ops.sinkhorn_log_fused(*args, **kw))
+    assert capped["bytes"] == 2 * 4 * 6 * 9
+    gated = dict(tol=1e9, return_iters=True)  # one iteration, then the gate
+    result = ops.sinkhorn_log_fused(*args, **gated)
+    assert int(result[1]) == 1
+    once = _counts.work("sinkhorn_log_fused", args, gated, result)
+    per_iter = {k: (capped["ops"][k] - once["ops"][k]) / 6 for k in once["ops"]}
+    assert per_iter["fp32"] > 0 and per_iter["sfu"] == 2 * 6 * 9 + 2 * (6 + 9)
+    assert once["bytes"] == capped["bytes"]

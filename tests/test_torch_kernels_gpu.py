@@ -28,6 +28,7 @@ from torchebm_tpu_torch.ops import fused_langevin as tfl
 from torchebm_tpu_torch.ops import fused_mala as tmala
 from torchebm_tpu_torch.ops import fused_mlp_langevin as tmlp
 from torchebm_tpu_torch.ops import fused_pt as tpt
+from torchebm_tpu_torch.ops import fused_sinkhorn as tsk
 
 TOL = 1e-4
 
@@ -336,3 +337,65 @@ def test_mlp_kernel_matches_plain_on_card(cuda, inject, n, widths, clamp):
     want = tmlp.mlp_langevin_chain_plain(x0, layers, n_steps, 0.01, 1.0, **kw)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+#: (shape, reg, iteration cap, tol, damping): the flow path's (256, 256) at
+#: fixed work and gated, the damped update, ragged shapes, one row, one
+#: column, a matrix wider than shared memory holds, and the largest it takes
+SINKHORN_CASES = [
+    ((256, 256), 0.05, 50, 0.0, 1.0), ((256, 256), 0.05, 50, 1e-3, 1.0),
+    ((64, 192), 0.1, 80, 0.0, 0.5 / 0.6), ((8, 128), 0.05, 60, 0.0, 1.0),
+    ((17, 33), 0.05, 60, 0.0, 1.0), ((5, 200), 0.05, 60, 1e-3, 1.0),
+    ((200, 333), 0.05, 60, 0.0, 1.0), ((128, 128), 0.1, 500, 1e-4, 1.0),
+    ((1, 1), 0.05, 5, 0.0, 1.0), ((3, 1), 0.05, 5, 0.0, 1.0), ((1, 70_000), 0.05, 5, 0.0, 1.0),
+    ((70_000, 3), 0.05, 40, 1e-3, 1.0), ((1024, 1024), 0.05, 50, 0.0, 1.0),
+    ((1024, 1024), 0.05, 100, 1e-3, 1.0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape, reg, cap, tol, damping", SINKHORN_CASES,
+                         ids=[f"{s[0]}x{s[1]}-tol{t:g}-phi{p:.2f}"
+                              for s, _, _, t, p in SINKHORN_CASES])
+def test_sinkhorn_kernel_matches_plain_on_card(cuda, shape, reg, cap, tol, damping):
+    """The whole fixed point in one launch against the loop on the CPU: the
+    same number of iterations, every entry of the log plan to 1e-4, and a
+    gated balanced plan's marginals uniform to rtol 2e-3."""
+    rng = _rng(14)
+    n, m = shape
+    x0, x1 = _normal(rng, n, 2), _normal(rng, m, 2) + 1.0
+    cost = ((x0[:, None, :] - x1[None, :, :]) ** 2).sum(-1)
+    cost = torch.from_numpy((cost / cost.max()).astype(np.float32)).to(cuda)
+    (got, k_iters), (want, p_iters) = _kernel_and_plain(
+        tsk.sinkhorn_log_fused, cuda, cost, reg, cap, tol, damping, return_iters=True)
+    torch.cuda.synchronize()
+    assert int(k_iters) == int(p_iters)
+    assert torch.isfinite(got).all()
+    assert float((got.cpu() - want).abs().max()) <= TOL
+    if tol > 0 and damping == 1.0:
+        assert int(k_iters) < cap
+        plan = got.exp()
+        assert float((plan.sum(1) * n - 1).abs().max()) <= 2e-3
+        assert float((plan.sum(0) * m - 1).abs().max()) <= 2e-3
+
+
+@pytest.mark.gpu
+def test_sinkhorn_dispatch_on_card(cuda):
+    """``"auto"`` launches the kernel for a float32 CUDA matrix that fits and
+    takes the loop beyond the fit rule and for float64; ``"off"`` never
+    launches; the coupling's train-step call launches once."""
+    from torchebm_tpu_torch.couplings import SinkhornCoupling, sinkhorn_log
+
+    g = torch.Generator(cuda).manual_seed(0)
+    cost = torch.rand((64, 64), generator=g, device=cuda)
+    fn = tsk.sinkhorn_log_fused
+    for fused, matrix, launched in (("auto", cost, 1), ("force", cost, 1), ("off", cost, 0),
+                                    ("auto", cost.double(), 0),
+                                    ("auto", torch.rand((1025, 1024), device=cuda), 0)):
+        before = fn.launches
+        out = sinkhorn_log(matrix, 0.05, 20, tol=1e-3, fused=fused)
+        assert fn.launches == before + launched and out.shape == matrix.shape
+    before = fn.launches
+    x0 = torch.randn((256, 2), generator=g, device=cuda)
+    out = SinkhornCoupling(n_iters=50)(x0, x0 + 2.0, generator=g)
+    assert fn.launches == before + 1 and out.x1.shape == (256, 2)

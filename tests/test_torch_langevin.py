@@ -79,6 +79,8 @@ def test_sample_validation():
     with pytest.raises(ValueError, match="fused"):
         LangevinDynamics(tcore.HarmonicEnergy(), fused="yes")
     with pytest.raises(ValueError, match="Unknown integrator"):
+        LangevinDynamics(tcore.HarmonicEnergy(), integrator="rk5")
+    with pytest.raises(ValueError, match="family 'ode'"):
         LangevinDynamics(tcore.HarmonicEnergy(), integrator="rk4")
 
 

@@ -109,6 +109,58 @@ def test_bf16_compute_keeps_float32_parameters():
         ConvEnergy2D(data_format="CHWN")
 
 
+@pytest.mark.parametrize("hidden, d, embed", [((128, 128, 128), 2, 32), ((16,), 5, 9)])
+def test_mlp_velocity_field_matches_flax(hidden, d, embed):
+    from torchebm_tpu.models import MLPVelocityField as JField
+    from torchebm_tpu_torch.models import MLPVelocityField
+    from torchebm_tpu_torch.utils import mlp_velocity_field_from_flax
+
+    net = JField(hidden_dims=hidden, time_embed_dim=embed)
+    params = net.init(jax.random.PRNGKey(4), jnp.zeros((1, d)), jnp.zeros((1,)))
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((21, d)).astype(np.float32)
+    t = rng.uniform(0, 1, 21).astype(np.float32)
+    field = mlp_velocity_field_from_flax(jax.tree_util.tree_map(np.asarray, params),
+                                         time_embed_dim=embed)
+    assert isinstance(field, MLPVelocityField) and field.hidden_dims == tuple(hidden)
+    got = field(torch.from_numpy(x), torch.from_numpy(t))
+    assert got.dtype == torch.float32 and got.shape == (21, d)
+    np.testing.assert_allclose(got.detach().numpy(),
+                               np.asarray(net.apply(params, jnp.asarray(x), jnp.asarray(t))),
+                               rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="MLPVelocityField tree"):
+        mlp_velocity_field_from_flax(jax.tree_util.tree_map(np.asarray, params),
+                                     time_embed_dim=embed + 1)
+
+
+@pytest.mark.parametrize("dim", [32, 9, 256])
+def test_timestep_embedder_matches_flax(dim):
+    from torchebm_tpu.models import MLPTimestepEmbedder as JEmbedder
+    from torchebm_tpu_torch.models import MLPTimestepEmbedder
+
+    t = np.random.default_rng(5).uniform(0, 1000, 13).astype(np.float32)
+    want = JEmbedder.sinusoidal_embedding(jnp.asarray(t), dim)
+    got = MLPTimestepEmbedder.sinusoidal_embedding(torch.from_numpy(t), dim)
+    # cosines first, then sines, max_period 10,000; float32 sin and cos of
+    # arguments up to 1,000 differ by their range reduction
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=2e-4)
+    assert float(got[0, 0]) == pytest.approx(np.cos(t[0]), abs=2e-4)
+    if dim % 2:
+        assert float(got[:, -1].abs().max()) == 0.0
+    emb = JEmbedder(out_dim=24, frequency_embedding_size=dim)
+    params = emb.init(jax.random.PRNGKey(6), jnp.asarray(t))
+    mine = MLPTimestepEmbedder(24, frequency_embedding_size=dim)
+    from torchebm_tpu_torch.utils.convert import _flax_layers, _load_linear
+
+    for layer, (kernel, bias) in zip(mine.layers,
+                                     _flax_layers(jax.tree_util.tree_map(np.asarray, params),
+                                                  "Dense")):
+        _load_linear(layer, kernel, bias)
+    np.testing.assert_allclose(mine(torch.from_numpy(t)).detach().numpy(),
+                               np.asarray(emb.apply(params, jnp.asarray(t))),
+                               rtol=1e-4, atol=2e-4)
+
+
 def _imported_modules(path: Path) -> set:
     tree = ast.parse(path.read_text())
     names = set()
@@ -122,7 +174,7 @@ def _imported_modules(path: Path) -> set:
 
 def test_the_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "torchebm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 30
+    assert len(files) > 55
     for path in files:
         for name in _imported_modules(path):
             top = name.split(".")[0]

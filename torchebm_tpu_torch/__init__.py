@@ -5,8 +5,9 @@ module's counterpart is found under the same name. It imports ``torch`` and
 never ``jax``. Energies are ``nn.Module``\\ s with their parameters as buffers,
 randomness comes from explicit ``torch.Generator``\\ s, and the device is the
 generator's. The whole-chain Langevin, MALA, HMC, parallel-tempering, AIS
-and neural (SiLU-MLP) Langevin kernels and the one-step Langevin kernel are
-hand-written CUDA for Hopper (``ops/csrc``), built at first use.
+and neural (SiLU-MLP) Langevin kernels, the one-step Langevin kernel and the
+whole-loop Sinkhorn kernel are hand-written CUDA for Hopper (``ops/csrc``),
+built at first use.
 
 Ported so far: the Langevin sampling path (energies, schedulers,
 Euler–Maruyama, the sampling loop, ``LangevinDynamics`` with its dispatch
@@ -16,8 +17,12 @@ replica exchange (``ParallelTemperingLangevin``) and annealed importance
 sampling, the public ``ops.fused_langevin_step``, CD/PCD training (the
 SiLU-MLP and conv energies, the synthetic datasets and image loading, the CD,
 PCD and PT-CD losses, the trainer with EMA, accumulation and checkpoints, and
-the whole-chain neural Langevin kernel), and parameter, sampler and network
-conversion from the JAX package.
+the whole-chain neural Langevin kernel), the flow slice (interpolants, the
+minibatch couplings with the one-launch Sinkhorn kernel, the fixed-step,
+adaptive and implicit Runge-Kutta integrators, ``FlowSampler`` with ODE and
+SDE generation and ``log_prob``, the Equilibrium Matching and Energy Matching
+losses, ``MLPVelocityField`` and ``EqMEnergy``), and parameter, sampler and
+network conversion from the JAX package.
 
 Subpackages and symbols load lazily through module ``__getattr__``.
 """
@@ -28,7 +33,8 @@ import importlib
 
 __version__ = "0.5.0"
 
-_SUBMODULES = ("core", "integrators", "samplers", "losses", "models", "datasets", "ops", "utils")
+_SUBMODULES = ("core", "integrators", "interpolants", "couplings", "samplers", "losses", "models",
+               "datasets", "ops", "utils")
 
 # name -> submodule path for lazily re-exported symbols
 _LAZY_SYMBOLS = {
@@ -58,6 +64,31 @@ _LAZY_SYMBOLS = {
     "resolve_integrator": "integrators",
     "EulerMaruyamaIntegrator": "integrators",
     "LeapfrogIntegrator": "integrators",
+    "BackwardEulerMaruyamaIntegrator": "integrators",
+    "HeunIntegrator": "integrators",
+    "MidpointIntegrator": "integrators",
+    "RK4Integrator": "integrators",
+    "RK438Integrator": "integrators",
+    "AdaptiveHeunIntegrator": "integrators",
+    "Bosh3Integrator": "integrators",
+    "Dopri5Integrator": "integrators",
+    "Dopri8Integrator": "integrators",
+    # interpolants
+    "LinearInterpolant": "interpolants",
+    "CosineInterpolant": "interpolants",
+    "VariancePreservingInterpolant": "interpolants",
+    "get_interpolant": "interpolants",
+    "resolve_interpolant": "interpolants",
+    # couplings
+    "CouplingResult": "couplings",
+    "IndependentCoupling": "couplings",
+    "ExactOTCoupling": "couplings",
+    "SinkhornCoupling": "couplings",
+    "UnbalancedSinkhornCoupling": "couplings",
+    "GreedyCoupling": "couplings",
+    "ReflowCoupling": "couplings",
+    "get_coupling": "couplings",
+    "resolve_coupling": "couplings",
     # samplers
     "LangevinDynamics": "samplers",
     "GradientDescentSampler": "samplers",
@@ -73,6 +104,9 @@ _LAZY_SYMBOLS = {
     "ParallelTemperingLangevin": "samplers",
     "AISResult": "samplers",
     "annealed_importance_sampling": "samplers",
+    "FlowSampler": "samplers",
+    "PredictionType": "samplers",
+    "WrappedField": "samplers",
     # training
     "BaseTrainer": "core.trainer",
     "ContrastiveDivergenceTrainer": "core.trainer",
@@ -81,9 +115,14 @@ _LAZY_SYMBOLS = {
     "PersistentContrastiveDivergence": "losses",
     "ParallelTemperingCD": "losses",
     "ReplayBuffer": "losses",
+    "EquilibriumMatchingLoss": "losses",
+    "EnergyMatchingLoss": "losses",
     # models
     "MLPEnergy": "models",
     "ConvEnergy2D": "models",
+    "MLPVelocityField": "models",
+    "MLPTimestepEmbedder": "models",
+    "EqMEnergy": "models",
     # datasets
     "DATASET_REGISTRY": "datasets",
     "load_mnist": "datasets",

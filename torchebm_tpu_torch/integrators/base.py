@@ -1,11 +1,17 @@
-r"""Integrator contracts: explicit Runge-Kutta, additive-noise SDE and symplectic families.
+r"""Integrator contracts: explicit and DIRK Runge-Kutta, additive-noise SDE and symplectic families.
 
-PyTorch counterpart of the explicit part of :mod:`torchebm_tpu.integrators.base`.
-Integrators are frozen, tensor-free dataclasses; the Butcher tableau is a
-class-level tuple unrolled in Python. Noise comes from an explicit
-``torch.Generator`` on the state's device, or is injected with ``noise=``.
-The adaptive controller and the implicit (DIRK) stages come with the
-integrators that need them.
+PyTorch counterpart of :mod:`torchebm_tpu.integrators.base`. Integrators are
+frozen, tensor-free dataclasses; the Butcher tableau is a class-level tuple
+unrolled in Python. Noise comes from an explicit ``torch.Generator`` on the
+state's device, or is injected with ``noise=``.
+
+Fixed-grid integration is a Python loop over the grid. The embedded-pair
+adaptive controller keeps its state on the device and reads "time left and
+steps left" on the host before every attempted step (one device sync each,
+where the JAX package runs a ``while_loop`` on the device); accept or reject
+is a ``torch.where``. A DIRK stage is solved by Picard iteration: a fixed
+count of drift calls by default, or with ``solver_check_every > 0`` until the
+RMS residual drops below ``solver_tol`` (one sync per check).
 
 State is a plain dict: ``{"x": position}`` (and ``"p"``, the momentum, for the
 symplectic family).
@@ -14,7 +20,7 @@ symplectic family).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, ClassVar, Dict, Optional, Tuple
+from typing import Callable, ClassVar, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -27,7 +33,22 @@ __all__ = [
     "BaseRungeKuttaIntegrator",
     "BaseSDERungeKuttaIntegrator",
     "BaseSymplecticIntegrator",
+    "AdaptiveStats",
 ]
+
+
+def _rms_norm(x: Tensor) -> Tensor:
+    return torch.sqrt(torch.mean(torch.square(x)))
+
+
+@dataclass(eq=False)
+class AdaptiveStats:
+    """Counters of an adaptive integration, 0-d tensors on the state's device."""
+
+    n_accepted: Tensor
+    n_attempted: Tensor
+    final_h: Tensor
+    exhausted: Tensor  # True if max_steps was hit before t_end
 
 
 class BaseIntegrator:
@@ -45,35 +66,81 @@ class BaseIntegrator:
 
 @dataclass(frozen=True)
 class BaseRungeKuttaIntegrator(BaseIntegrator):
-    """Explicit Butcher-tableau Runge-Kutta base.
+    r"""Butcher-tableau Runge-Kutta base.
 
-    Subclasses define ``tableau_a`` (row ``i`` holds :math:`a_{i0..i-1}`),
-    ``tableau_b`` (weights) and ``tableau_c`` (nodes).
+    Subclasses define class attributes:
+
+    - ``tableau_a``: row ``i`` holds :math:`a_{i0..}` (explicit rows have
+      length ``i``; DIRK rows length ``i+1``: a non-zero diagonal entry marks
+      the stage implicit and triggers a Picard solve).
+    - ``tableau_b`` / ``tableau_c``: weights and nodes.
+    - ``error_weights`` (optional): :math:`e_i = b_i - \hat b_i` of the
+      embedded pair (``n_stages + 1`` entries for FSAL methods).
+    - ``order`` (optional): order ``p`` of the higher-order solution, the
+      controller's exponent is ``-1/p``.
+    - ``fsal``: First-Same-As-Last stage reuse.
     """
+
+    # adaptive controller
+    atol: float = 1e-6
+    rtol: float = 1e-5
+    max_steps: int = 10_000
+    safety: float = 0.9
+    min_factor: float = 0.2
+    max_factor: float = 10.0
+    max_step_size: float = float("inf")
+    # implicit (DIRK) Picard solver
+    solver_max_iter: int = 8
+    solver_tol: float = 1e-6
+    solver_check_every: int = 0
 
     tableau_a: ClassVar[Tuple[Tuple[float, ...], ...]] = ()
     tableau_b: ClassVar[Tuple[float, ...]] = ()
     tableau_c: ClassVar[Tuple[float, ...]] = ()
+    error_weights: ClassVar[Optional[Tuple[float, ...]]] = None
+    order: ClassVar[Optional[int]] = None
+    fsal: ClassVar[bool] = False
 
     @property
     def n_stages(self) -> int:
         return len(self.tableau_c)
 
-    def _evaluate_stages(self, x: Tensor, t, h, drift: DriftFn) -> list:
+    def _solve_implicit_stage(self, base: Tensor, t, h, a_ii: float, drift: DriftFn) -> Tensor:
+        r"""Solve :math:`k = f(\text{base} + h a_{ii} k, t)` by Picard iteration:
+        ``solver_max_iter`` drift calls in all, or fewer once the RMS change
+        of ``k`` is at most ``solver_tol`` (``solver_check_every > 0``)."""
+        coef = h * a_ii
+        k = drift(base, t)
+        for _ in range(self.solver_max_iter - 1):
+            k_next = drift(base + coef * k, t)
+            if self.solver_check_every > 0:
+                resid = float(_rms_norm(k_next - k))
+                k = k_next
+                if not resid > self.solver_tol:
+                    break
+            else:
+                k = k_next
+        return k
+
+    def _evaluate_stages(self, x: Tensor, t, h, drift: DriftFn,
+                         k0: Optional[Tensor] = None) -> list:
+        """All stages, a list of ``s`` tensors; ``k0`` replaces the first (FSAL)."""
         a, c = self.tableau_a, self.tableau_c
         ks: list = []
         for i in range(self.n_stages):
+            if i == 0 and k0 is not None:
+                ks.append(k0)
+                continue
             x_stage = x
             row = a[i] if i < len(a) else ()
-            if len(row) > i and row[i] != 0.0:
-                raise NotImplementedError(
-                    f"{type(self).__name__} has an implicit stage; only explicit "
-                    "tableaus are ported"
-                )
             for j in range(min(i, len(row))):
                 if row[j] != 0.0:
                     x_stage = x_stage + (h * row[j]) * ks[j]
-            ks.append(drift(x_stage, t + c[i] * h))
+            t_stage = t + c[i] * h
+            if len(row) > i and row[i] != 0.0:  # DIRK diagonal entry
+                ks.append(self._solve_implicit_stage(x_stage, t_stage, h, row[i], drift))
+            else:
+                ks.append(drift(x_stage, t_stage))
         return ks
 
     def _combine(self, x: Tensor, h, ks: list, weights: Tuple[float, ...]) -> Tensor:
@@ -108,13 +175,109 @@ class BaseRungeKuttaIntegrator(BaseIntegrator):
         return t
 
     def integrate(self, state: State, step_size, n_steps: Optional[int] = None, *,
-                  drift: DriftFn, t: Optional[Tensor] = None, **_) -> State:
-        """Fixed-grid ODE integration as a Python loop over the grid."""
+                  drift: DriftFn, t: Optional[Tensor] = None, adaptive: Optional[bool] = None,
+                  return_stats: bool = False,
+                  **_) -> Union[State, Tuple[State, AdaptiveStats]]:
+        """Integrate an ODE over a time grid.
+
+        Fixed mode is a Python loop over the grid; adaptive mode (the default
+        when the method defines an embedded pair) runs the step-size
+        controller from ``t[0]`` to ``t[-1]``.
+        """
+        if adaptive is None:
+            adaptive = self.error_weights is not None
         x = state["x"]
-        grid = self._build_time_grid(x, step_size, n_steps, t)
-        for i in range(grid.shape[0] - 1):
-            x = self._deterministic_step(x, grid[i + 1] - grid[i], drift, grid[i])
-        return {"x": x}
+        if not adaptive:
+            grid = self._build_time_grid(x, step_size, n_steps, t)
+            for i in range(grid.shape[0] - 1):
+                x = self._deterministic_step(x, grid[i + 1] - grid[i], drift, grid[i])
+            return {"x": x}
+
+        if self.error_weights is None or self.order is None:
+            raise ValueError(
+                f"{type(self).__name__} does not define error_weights/order "
+                f"and cannot be used with adaptive=True."
+            )
+        if t is not None:
+            t = torch.as_tensor(t)
+            t_start, t_end = t[0], t[-1]
+        else:
+            t_start = 0.0
+            t_end = torch.as_tensor(float(n_steps)) * torch.as_tensor(step_size)
+        x_final, stats = self._adaptive_integrate(x, drift, t_start, t_end, step_size)
+        out: State = {"x": x_final}
+        if return_stats:
+            return out, stats
+        return out
+
+    def _adaptive_integrate(self, x: Tensor, drift: DriftFn, t_start, t_end,
+                            h0) -> Tuple[Tensor, AdaptiveStats]:
+        r"""Embedded-pair adaptive loop.
+
+        Standard controller: accept iff ``err_ratio <= 1``; then
+        ``h *= clamp(safety * err^{-1/p}, min_factor, max_factor)``, with FSAL
+        first-stage reuse. State, time and step size are tensors on the
+        state's device and accept/reject a ``torch.where``; the host reads
+        only the loop condition, once per attempted step.
+        """
+        dtype, dev = x.dtype, x.device
+
+        def scalar(v):
+            # a 0-d tensor on the state's device, made there (no host copy)
+            if isinstance(v, Tensor):
+                return v.to(device=dev, dtype=dtype)
+            return torch.full((), float(v), dtype=dtype, device=dev)
+
+        p = float(self.order)
+        is_fsal = self.fsal
+        e = self.error_weights
+        t_cur, t_end = scalar(t_start), scalar(t_end)
+        tiny = 1e-12 * torch.clamp(torch.abs(t_end), min=1.0)
+        max_h, max_factor = scalar(self.max_step_size), scalar(self.max_factor)
+        h = torch.minimum(torch.minimum(scalar(h0), t_end - t_cur), max_h)
+        k1 = drift(x, t_cur) if is_fsal else torch.zeros_like(x)
+        n_acc = torch.zeros((), dtype=torch.int32, device=dev)
+        n_att = 0
+        while n_att < self.max_steps and bool(t_cur < t_end - tiny):
+            h = torch.minimum(torch.minimum(h, t_end - t_cur), max_h)
+            ks = self._evaluate_stages(x, t_cur, h, drift, k0=k1 if is_fsal else None)
+            y_new = self._combine(x, h, ks, self.tableau_b)
+            if is_fsal:
+                # the tableaus store the s "real" stages (dopri5: 6); this
+                # evaluation at the new point is the (s+1)-th error stage and
+                # the next step's first stage
+                k_fsal = drift(y_new, t_cur + h)
+                ks_err = ks + [k_fsal]
+            else:
+                k_fsal = k1
+                ks_err = ks
+            err_vec = self._combine(torch.zeros_like(x), h, ks_err, e)
+            scale = self.atol + self.rtol * torch.maximum(torch.abs(x), torch.abs(y_new))
+            err_ratio = _rms_norm(err_vec / scale)
+
+            accept = err_ratio <= 1.0
+            x = torch.where(accept, y_new, x)
+            t_cur = torch.where(accept, t_cur + h, t_cur)
+            if is_fsal:
+                k1 = torch.where(accept, k_fsal, k1)
+            factor = torch.where(
+                err_ratio == 0.0,
+                max_factor,
+                torch.clamp(
+                    self.safety * torch.pow(torch.clamp(err_ratio, min=1e-30), -1.0 / p),
+                    self.min_factor, self.max_factor,
+                ),
+            )
+            h = torch.minimum(h * factor, max_h)
+            n_acc = n_acc + accept.to(torch.int32)
+            n_att += 1
+        stats = AdaptiveStats(
+            n_accepted=n_acc,
+            n_attempted=torch.tensor(n_att, dtype=torch.int32, device=dev),
+            final_h=h,
+            exhausted=t_cur < t_end - tiny,
+        )
+        return x, stats
 
 
 @dataclass(frozen=True)

@@ -1,22 +1,38 @@
 r"""Integrator registry: name → class resolution with family validation.
 
-Counterpart of :mod:`torchebm_tpu.integrators.registry`; it names only the
-integrators ported so far.
+Counterpart of :mod:`torchebm_tpu.integrators.registry`. The generalised
+leapfrog comes with Riemannian HMC.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence, Union
 
+from .adaptive_heun import AdaptiveHeunIntegrator
 from .base import BaseIntegrator
-from .euler_maruyama import EulerMaruyamaIntegrator
+from .bosh3 import Bosh3Integrator
+from .dopri import Dopri5Integrator, Dopri8Integrator
+from .euler_maruyama import BackwardEulerMaruyamaIntegrator, EulerMaruyamaIntegrator
+from .heun import HeunIntegrator
 from .leapfrog import LeapfrogIntegrator
+from .midpoint import MidpointIntegrator
+from .rk4 import RK438Integrator, RK4Integrator
 
 __all__ = ["INTEGRATOR_REGISTRY", "get_integrator", "resolve_integrator"]
 
 INTEGRATOR_REGISTRY = {
     "euler": EulerMaruyamaIntegrator,
     "euler_maruyama": EulerMaruyamaIntegrator,
+    "backward_euler": BackwardEulerMaruyamaIntegrator,
+    "backward_euler_maruyama": BackwardEulerMaruyamaIntegrator,
+    "heun": HeunIntegrator,
+    "midpoint": MidpointIntegrator,
+    "rk4": RK4Integrator,
+    "rk438": RK438Integrator,
+    "adaptive_heun": AdaptiveHeunIntegrator,
+    "bosh3": Bosh3Integrator,
+    "dopri5": Dopri5Integrator,
+    "dopri8": Dopri8Integrator,
     "leapfrog": LeapfrogIntegrator,
 }
 

@@ -1,6 +1,6 @@
 """Training objectives (counterpart of ``torchebm_tpu.losses``): the loss
-contract, the shared utilities, and CD/PCD/PT-CD. Score matching and the
-flow-family losses come with later slices."""
+contract, the shared utilities, CD/PCD/PT-CD, Equilibrium Matching and Energy
+Matching. Score matching comes with a later slice."""
 
 from .base import BaseLoss, inject_params
 from .contrastive_divergence import (
@@ -9,6 +9,8 @@ from .contrastive_divergence import (
     PersistentContrastiveDivergence,
     ReplayBuffer,
 )
+from .energy_matching import EnergyMatchingLoss
+from .equilibrium_matching import EquilibriumMatchingLoss
 from .loss_utils import (
     compute_eqm_ct,
     compute_flow_weight,
@@ -24,6 +26,8 @@ __all__ = [
     "PersistentContrastiveDivergence",
     "ParallelTemperingCD",
     "ReplayBuffer",
+    "EquilibriumMatchingLoss",
+    "EnergyMatchingLoss",
     "mean_flat",
     "trimmed_mean",
     "compute_flow_weight",

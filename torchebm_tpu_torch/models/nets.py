@@ -1,10 +1,12 @@
-r"""Ready-made networks: the SiLU-MLP energy and a conv energy for image EBMs.
+r"""Ready-made networks: the SiLU-MLP energy, the time-conditioned MLP vector
+field and a conv energy for image EBMs.
 
-PyTorch counterpart of :mod:`torchebm_tpu.models.nets`. Both are
+PyTorch counterpart of :mod:`torchebm_tpu.models.nets`. The energies are
 ``nn.Module``\ s mapping a batch to ``(B,)`` float32 energies; wrap them with
 :func:`~torchebm_tpu_torch.core.as_energy`. PyTorch needs the input sizes
-when a module is built (flax infers them at ``init``), so ``MLPEnergy`` takes
-``input_dim`` and ``ConvEnergy2D`` ``in_channels`` and ``image_size``.
+when a module is built (flax infers them at ``init``), so ``MLPEnergy`` and
+``MLPVelocityField`` take ``input_dim`` and ``ConvEnergy2D`` ``in_channels``
+and ``image_size``.
 
 The weights start as flax's ``Dense``/``Conv`` defaults: LeCun-normal
 kernels (a normal of variance 1/fan-in truncated at two standard deviations)
@@ -23,7 +25,7 @@ from torch import nn
 
 Tensor = torch.Tensor
 
-__all__ = ["MLPEnergy", "ConvEnergy2D"]
+__all__ = ["MLPEnergy", "MLPVelocityField", "ConvEnergy2D"]
 
 #: the standard deviation of a unit normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -69,6 +71,36 @@ class MLPEnergy(nn.Module):
         for layer in self.layers[:-1]:
             h = F.silu(_linear(layer, h))
         return _linear(self.layers[-1], h).squeeze(-1).to(torch.float32)
+
+
+class MLPVelocityField(nn.Module):
+    """Time-conditioned vector field ``(x, t) -> dx`` for flow and EqM
+    training, ``(B, input_dim), (B,) -> (B, input_dim)`` float32.
+
+    Time enters through a sinusoidal embedding of ``time_embed_dim`` entries
+    concatenated after ``x``, then a SiLU MLP.
+    """
+
+    def __init__(self, input_dim: int, hidden_dims: Sequence[int] = (128, 128, 128),
+                 time_embed_dim: int = 32, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.input_dim = int(input_dim)
+        self.hidden_dims = tuple(int(h) for h in hidden_dims)
+        self.time_embed_dim = int(time_embed_dim)
+        self.dtype = dtype
+        widths = (self.input_dim + self.time_embed_dim, *self.hidden_dims, self.input_dim)
+        self.layers = nn.ModuleList(
+            _lecun_init(nn.Linear(i, o)) for i, o in zip(widths[:-1], widths[1:])
+        )
+
+    def forward(self, x: Tensor, t: Tensor) -> Tensor:
+        from .components.embeddings import MLPTimestepEmbedder
+
+        te = MLPTimestepEmbedder.sinusoidal_embedding(t, self.time_embed_dim)
+        h = torch.cat([x, te.to(x.dtype)], dim=-1).to(self.dtype)
+        for layer in self.layers[:-1]:
+            h = F.silu(_linear(layer, h))
+        return _linear(self.layers[-1], h).to(torch.float32)
 
 
 def _same_pads(size: int, kernel: int = 3, stride: int = 2) -> Tuple[int, int]:

@@ -27,6 +27,7 @@ COUNTED_SOURCES = {
     "fused_mala.cu": "5c281c546e39a99a",
     "fused_mlp_langevin.cu": "1c9df0ffe632ed07",
     "fused_pt.cu": "749b05b3dce2d4d8",
+    "fused_sinkhorn.cu": "d0a19152cfef9635",
     "fused_step.cu": "45698a16da6ceaad",
     "tebm_common.cuh": "915894584e01ad9d",
 }
@@ -126,6 +127,24 @@ def work(name: str, args, kw, result) -> dict:
         quads = -(-x.numel() // 4)
         drawn = noise_scale and kw.get("noise") is None
         ops = _add(_NORMALS4 if drawn else {}, {"fp32": 12}, times=quads)
+    elif name == "sinkhorn_log_fused":  # fused_sinkhorn.cu, per matrix element and iteration
+        cost, _, n_iters = args[:3]
+        n, m = cost.shape
+        # the iterations this call ran: the kernel's own count when the call
+        # returned it, else the cap (exact at tol == 0)
+        iters = int(result[1]) if isinstance(result, tuple) else int(n_iters)
+        # a pass over the matrix is a max sweep (add, max) and a sum sweep (add,
+        # subtract, expf: about 7 FP32 operations around one ex2, add), and an
+        # iteration is a row pass and a column pass; per row and column and
+        # iteration one logf and the update, and per column the bands' merge
+        per_element = {"fp32": 22, "sfu": 2}
+        per_vector_entry = {"fp32": 14, "sfu": 2}
+        ops = _add(_add(per_element, times=n * m * iters),
+                   _add(per_vector_entry, times=(n + m) * iters),
+                   {"fp32": 3 * n * m})  # M = C * (-1 / reg) and the plan M + f + g
+        # C read once and the plan written once from device memory; what an
+        # iteration re-reads comes from shared memory or L2
+        moved = 2 * 4 * n * m
     else:
         raise KeyError(f"no instruction counts for kernel {name!r}")
     return {"ops": ops, "bytes": moved}

@@ -1,7 +1,8 @@
 """MCMC samplers (counterpart of ``torchebm_tpu.samplers``): the shared loop,
 Langevin dynamics with its whole-chain kernel dispatch, gradient descent and
 Nesterov, MALA, HMC with dual-averaging warmup, the R̂/ESS diagnostics,
-parallel tempering and annealed importance sampling."""
+parallel tempering, annealed importance sampling, and the flow sampler (ODE
+and SDE generation from a trained field)."""
 
 from .ais import AISResult, annealed_importance_sampling
 from .base import BaseSampler
@@ -11,6 +12,7 @@ from .diagnostics import (
     summarize_chains,
     tail_effective_sample_size,
 )
+from .flow import FlowSampler, PredictionType, WrappedField
 from .gradient_descent import GradientDescentSampler, NesterovSampler
 from .hmc import DualAveragingState, HamiltonianMonteCarlo, dual_averaging_update
 from .langevin import FUSED_DISPATCH, LangevinDynamics
@@ -34,4 +36,7 @@ __all__ = [
     "ParallelTemperingLangevin",
     "AISResult",
     "annealed_importance_sampling",
+    "FlowSampler",
+    "PredictionType",
+    "WrappedField",
 ]

@@ -6,6 +6,7 @@ from .convert import (
     conv_energy_from_flax,
     energy_from_arrays,
     mlp_energy_from_flax,
+    mlp_velocity_field_from_flax,
     sampler_from_fields,
     scheduler_from_fields,
 )
@@ -26,6 +27,7 @@ __all__ = [
     "scheduler_from_fields",
     "mlp_energy_from_flax",
     "conv_energy_from_flax",
+    "mlp_velocity_field_from_flax",
     "stack_batches",
     "prefetch_to_device",
     "update_ema",

@@ -17,6 +17,7 @@ Networks come across from their flax parameter trees (numpy arrays under
 
     mlp_energy_from_flax(params)                       # MLPEnergy
     conv_energy_from_flax(params, image_size=(28, 28)) # ConvEnergy2D
+    mlp_velocity_field_from_flax(params)               # MLPVelocityField
 """
 
 from __future__ import annotations
@@ -29,12 +30,13 @@ import torch
 from .. import samplers
 from ..core import energies, schedulers
 from ..core.module import default_device
-from ..models.nets import ConvEnergy2D, MLPEnergy
+from ..models.nets import ConvEnergy2D, MLPEnergy, MLPVelocityField
 
 __all__ = [
     "conv_energy_from_flax",
     "energy_from_arrays",
     "mlp_energy_from_flax",
+    "mlp_velocity_field_from_flax",
     "sampler_from_fields",
     "scheduler_from_fields",
 ]
@@ -94,14 +96,15 @@ def scheduler_from_fields(name: str, fields: Mapping[str, Any]) -> schedulers.Ba
 #: the samplers :func:`sampler_from_fields` builds
 _SAMPLERS = (
     "LangevinDynamics", "MetropolisAdjustedLangevin", "HamiltonianMonteCarlo",
-    "GradientDescentSampler", "ParallelTemperingLangevin",
+    "GradientDescentSampler", "ParallelTemperingLangevin", "FlowSampler",
 )
 
 
 def sampler_from_fields(name: str, fields: Mapping[str, Any],
-                        energy: energies.Energy) -> samplers.BaseSampler:
-    """The port's sampler ``name`` on ``energy``, built from the JAX
-    sampler's field values.
+                        energy: Any) -> samplers.BaseSampler:
+    """The port's sampler ``name`` on ``energy`` (for ``"FlowSampler"`` the
+    field ``model(x, t)``), built from the JAX sampler's field values;
+    interpolants and integrators are given by their registry names.
 
     Numbers and strings pass as they are; a numpy array (an HMC ``mass``)
     becomes a float32 tensor on the device of ``energy``'s buffers (the CPU
@@ -110,7 +113,8 @@ def sampler_from_fields(name: str, fields: Mapping[str, Any],
     """
     if name not in _SAMPLERS:
         raise ValueError(f"Unknown sampler '{name}'. Available: {sorted(_SAMPLERS)}")
-    device = next(iter(energy.buffers()), torch.empty(0)).device
+    buffers = energy.buffers() if isinstance(energy, torch.nn.Module) else ()
+    device = next(iter(buffers), torch.empty(0)).device
 
     def convert(v):
         if isinstance(v, np.ndarray):
@@ -149,6 +153,24 @@ def mlp_energy_from_flax(params: Mapping[str, Any],
     if len(dense) < 1 or dense[-1][0].shape[1] != 1:
         raise ValueError("an MLPEnergy tree is a Dense_0..Dense_L stack ending in one output")
     net = MLPEnergy(dense[0][0].shape[0], [k.shape[1] for k, _ in dense[:-1]])
+    for layer, (kernel, bias) in zip(net.layers, dense):
+        _load_linear(layer, kernel, bias)
+    return net.to(default_device() if device is None else device)
+
+
+def mlp_velocity_field_from_flax(params: Mapping[str, Any], time_embed_dim: int = 32,
+                                 device: Optional[torch.device] = None) -> MLPVelocityField:
+    """The port's :class:`MLPVelocityField` with the weights of the JAX
+    package's ``MLPVelocityField`` parameter tree (``Dense_0 ... Dense_L``; the
+    first kernel's rows are ``x`` then the ``time_embed_dim`` embedding
+    entries, the order both packages concatenate them in). On ``device``, as
+    :func:`mlp_energy_from_flax`."""
+    dense = _flax_layers(params, "Dense")
+    d = dense[-1][0].shape[1] if dense else 0
+    if len(dense) < 1 or dense[0][0].shape[0] != d + time_embed_dim:
+        raise ValueError("an MLPVelocityField tree is a Dense_0..Dense_L stack from "
+                         "d + time_embed_dim inputs to d outputs")
+    net = MLPVelocityField(d, [k.shape[1] for k, _ in dense[:-1]], time_embed_dim)
     for layer, (kernel, bias) in zip(net.layers, dense):
         _load_linear(layer, kernel, bias)
     return net.to(default_device() if device is None else device)
