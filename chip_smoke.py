@@ -12,8 +12,9 @@ not 0:
    ``build/torch_kernels/``, with each kernel instance's registers and spills;
 3. check: every kernel against its plain PyTorch version on the card, on
    injected randomness and on the Philox stream, at the main shapes (10,000
-   x 2, 8 components; 4,096 x 32 double well) and at d=32 with full
-   covariance, with and without schedule, clamp, diagonal mass and thinning;
+   x 2, 8 components; 4,096 x 32 double well), on rings of 12 and 33
+   components and at d=32 with full covariance, with and without schedule,
+   clamp, diagonal mass and thinning;
    MALA and HMC also at the ESS protocol's own instances and steps (the
    correlated Gaussian at MALA's pilot step and HMC's adapted steps and
    mass, thin 4), with each check's mean acceptance; parallel tempering
@@ -87,9 +88,11 @@ not 0:
    generic loop (``fused="off"``), and the correlated Gaussian's covariance,
    R-hat and ESS (over consecutive draws, R-hat within 0.005 of the loop's);
 5. timing: CUDA events, medians after warm-up: each kernel against its
-   plain version, PT per ladder step, AIS per rung, the one-step op in GB/s
-   beside ``torch.add`` (device time per call in batches queued behind a
-   spin, and per call with the host's launch work), the neural chain also at
+   plain version, the mixture chain and its trajectory twin at each number
+   of lanes per chain the kernel is built for, PT per ladder step, AIS per
+   rung, the one-step op in GB/s beside ``torch.add`` (device time per call
+   in batches queued behind a spin, and per call with the host's launch
+   work), the neural chain also at
    4,096 chains, the CD train step with the kernel and on the loop, the
    Sinkhorn kernel at fixed work and gated, beside 100 ``torch.logsumexp``
    calls, the EqM train step with the kernel, on the loop and with
@@ -97,7 +100,8 @@ not 0:
    paths, beside the card's name and power limit;
 6. profile: wall time, device busy time (``torch.profiler``) and idle share
    of the CD and EqM train steps, the flow generation, the sampler paths,
-   the HMC warmup and ``summarize_chains``;
+   the HMC warmup and ``summarize_chains``; for the headline Langevin call
+   also its host operations with the most self CPU time;
 7. syncs: the host's synchronising calls per EqM train step (none through
    the Sinkhorn kernel), per auction and greedy assignment and per dopri5
    generation (``torch.cuda.set_sync_debug_mode``);
@@ -177,6 +181,15 @@ KERNELS = {
 }
 #: the plain versions that are not named ``<wrapper>_plain``
 PLAIN_NAMES = {"sinkhorn_log_fused": "sinkhorn_log_plain"}
+
+#: rings checked beside the 8-Gaussians one: K not a power of two, above the
+#: mixture kernel's lanes per chain, and past the 4 logits per lane it keeps
+#: in registers
+RING_CHECK_K = (12, 33)
+
+#: (K, chains) of the rings timed by lanes per chain beside the main shape:
+#: the shapes the mixture kernel's launch plan is read from
+PLAN_SHAPES = ((3, N_CHAINS), (12, N_CHAINS), (33, N_CHAINS), (8, 100_000))
 
 #: the parallel-tempering and AIS configurations of the JAX package's headline
 #: benchmarks (benchmarks/headline.py:178-289), at full width
@@ -324,6 +337,17 @@ def phase_build(build_mod) -> None:
             entry, spills = None, "?"
 
 
+def _ring(k: int):
+    """The 8-Gaussians ring's radius and scale with ``k`` modes."""
+    import torch
+
+    from torchebm_tpu_torch.core import GaussianMixtureEnergy
+
+    ang = torch.arange(k, dtype=torch.float32) * (2 * math.pi / k)
+    return GaussianMixtureEnergy.create(4.0 * torch.stack([torch.cos(ang), torch.sin(ang)], -1),
+                                        scale=0.4)
+
+
 def phase_check(fl, dev, errors: dict) -> None:
     import torch
 
@@ -359,6 +383,8 @@ def phase_check(fl, dev, errors: dict) -> None:
     # chain is held to the generic loop by its distribution in the main path.
     x2 = mix.sample(g, N_CHAINS)
     mix_kw = dict(scale=float(mix.scale), log_weights=mix.log_weights)
+    rings = {kr: _ring(kr).to(dev) for kr in RING_CHECK_K}
+    x_rings = {kr: ring.sample(g, N_CHAINS) for kr, ring in rings.items()}
     d = 32
     a = randn(d, d, scale=0.1)
     gauss_kw = dict(precision=(a @ a.T + torch.eye(d, device=dev)).contiguous(), seed=7)
@@ -380,6 +406,15 @@ def phase_check(fl, dev, errors: dict) -> None:
                   f"8gauss sched+clamp, {label}")
             check("mixture_langevin_chain" + suffix, (x32, mean32, steps, 0.05),
                   dict(**gauss_kw, **tkw, noise=noise32), f"d=32 full cov, {label}")
+            # rings of K not a power of two, from their modes: 12 components
+            # (three per lane at G = 4) and 33 (G = 8, past the four logits
+            # each lane keeps in registers)
+            for kr, ring in rings.items():
+                check("mixture_langevin_chain" + suffix,
+                      (x_rings[kr], ring.means, steps, sched, 0.5),
+                      dict(scale=float(ring.scale), log_weights=ring.log_weights, **tkw, seed=18,
+                           clamp=(-4.5, 4.5), noise=noise2),
+                      f"ring K={kr} G={fl.mixture_launch_plan(N_CHAINS, 2, kr, False)[0]}, {label}")
             tkw = dict(thin=7) if traj else {}
             check("doublewell_langevin_chain" + suffix, (xdw, steps, 0.01),
                   dict(**tkw, seed=13, noise=noisedw), f"{dw_label} const, {label}")
@@ -1552,6 +1587,38 @@ def phase_timing(ops, dev, card: str) -> dict:
               f"{plain_ms:.3f} ms ({updates / plain_ms * 1e3:.4e} {unit}/s; warm-up "
               f"{plain_reps[0]}, repetitions {plain_reps[1]}) | {card}")
 
+    # rows 4-5 at the main shape for each group of lanes per chain the
+    # kernel is built for: per call (one call per reading, the wrapper's host
+    # work inside, as the rows' "ms") and the kernel's own device time
+    # (torch.profiler); launches made here are not counted
+    fl = ops.fused_langevin
+    k8 = mix.means.shape[0]
+    picked = fl.mixture_launch_plan(N_CHAINS, 2, k8, False)[0]
+    for name, thin in (("mixture_langevin_chain", None), ("mixture_langevin_chain_trajectory", 1)):
+        by_group = {}
+        for group in fl.MIXTURE_GROUPS:
+            run = functools.partial(fl._mixture_run, name, x2, mix.means, N_STEPS, 0.05, 1.0, thin,
+                                    mix_kw["scale"], mix.log_weights, None, 21, None, None,
+                                    group=group)
+            by_group[group] = (statistics.median(cuda_times(run, 2, 10)),
+                               device_busy_ms(run, "mixture_chain_kernel", 5))
+        fastest = min(by_group, key=lambda grp: by_group[grp][1])
+        print(f"timing: {name} {N_CHAINS}x2x{N_STEPS}, K={k8}, by lanes per chain G: " + "; ".join(
+            f"G={grp} {ms:.4f} ms per call, kernel {dev_ms:.4f} ms"
+            for grp, (ms, dev_ms) in by_group.items())
+            + f"; fastest kernel G={fastest}, the plan picks G={picked} | {card}")
+    # the shapes behind the plan's rule: rings of other K, and more chains
+    for kr, n in PLAN_SHAPES:
+        ring = _ring(kr).to(dev)
+        xr = torch.randn((n, 2), generator=g, device=dev)
+        by_group = {group: device_busy_ms(functools.partial(
+            fl._mixture_run, "mixture_langevin_chain", xr, ring.means, N_STEPS, 0.05, 1.0, None,
+            float(ring.scale), ring.log_weights, None, 21, None, None, group=group),
+            "mixture_chain_kernel", 5) for group in fl.MIXTURE_GROUPS}
+        print(f"timing: mixture_langevin_chain {n}x2x{N_STEPS}, ring K={kr}, kernel by lanes per "
+              f"chain G: " + "; ".join(f"G={grp} {ms:.4f} ms" for grp, ms in by_group.items())
+              + f"; the plan picks G={fl.mixture_launch_plan(n, 2, kr, False)[0]} | {card}")
+
     for name in ("pt_langevin_chain", "pt_langevin_chain_trajectory"):
         print(f"timing: {name} {N_CHAINS} chains x {len(PT_TEMPS)} replicas: "
               f"{times[name]['ms'] / N_STEPS * 1e3:.3f} us per ladder step | {card}")
@@ -1789,18 +1856,35 @@ def max_sm_clock_mhz() -> float:
     return float(out.strip().splitlines()[0])
 
 
-def device_busy_ms(fn) -> float:
-    """Device time of one call of ``fn()``: the sum of the CUDA kernels' and
-    copies' self time that ``torch.profiler`` records (0.0 when it records
-    none)."""
+def device_busy_ms(fn, name: str = "", calls: int = 1) -> float:
+    """Device time per call over ``calls`` calls of ``fn()``: the sum of the
+    self time that ``torch.profiler`` records for the CUDA kernels and copies
+    whose name contains ``name`` (all of them by default); 0.0 when it
+    records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key) / calls / 1e3
+
+
+def host_top_ops(fn, n: int = 6) -> str:
+    """The ``n`` host operations of one call of ``fn()`` with the most self
+    CPU time under ``torch.profiler`` (a synchronising call's time includes
+    its wait for the device), as "name ms" pairs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    ops = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                 key=lambda e: -e.self_cpu_time_total)[:n]
+    return ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.3f} ms" for e in ops)
 
 
 def phase_profile(dev, card: str) -> None:
@@ -1902,6 +1986,9 @@ def phase_profile(dev, card: str) -> None:
         device = (f"device busy {busy:.3f} ms, idle share {1.0 - busy / wall:.3f}" if busy > 0
                   else "device busy not measured (the profile recorded no device events)")
         print(f"profile: {label}: wall {wall:.3f} ms, {device} | {card}")
+        if label.startswith("Langevin sample() kernel path"):
+            print(f"profile: {label}: host ops by self CPU time (profiled call): "
+                  f"{host_top_ops(fn)} | {card}")
 
 
 def main() -> None:

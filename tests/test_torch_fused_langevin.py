@@ -102,6 +102,54 @@ def test_mixture_chain_plain_matches_jax_interpret(d, k, n_steps, thin, sched, c
     assert _build.launch_counts() == counts  # the CPU path launches no kernel
 
 
+# (d, K, gaussian): K at d = 2 (the ring is K = 8), a d in every bucket 1-64
+# at K = 8, the full-covariance Gaussian
+PLAN_TARGETS = (
+    [(2, k, False) for k in (1, 2, 3, 5, 8, 9, 33, 512)]
+    + [(d, 8, False) for d in (1, 3, 4, 5, 8, 9, 16, 17, 32, 33, 64)]
+    + [(2, 1, True), (16, 1, True), (32, 1, True)]
+)
+
+
+@pytest.mark.parametrize("n", [1, 31, 10_000])
+@pytest.mark.parametrize("d, k, gaussian", PLAN_TARGETS,
+                         ids=[f"d{d}-k{k}" + ("-gauss" if g else "") for d, k, g in PLAN_TARGETS])
+def test_mixture_launch_plan(n, d, k, gaussian):
+    """Up to 16 components the group is the power of two that covers them, at
+    most 4 lanes; above, 8; one lane for the full-covariance Gaussian, one
+    component and d > 16; the grid holds every chain's group and no block
+    past the last chain."""
+    group, threads, blocks = tfl.mixture_launch_plan(n, d, k, gaussian)
+    if gaussian or k == 1 or d > 16:
+        assert group == 1
+    elif k <= 16:
+        assert group == min(4, 2 ** int(np.ceil(np.log2(k))))
+        assert k <= 4 * group and group // 2 < k
+    else:
+        assert group == 8
+    assert group in tfl.MIXTURE_GROUPS
+    assert threads == tfl.MIXTURE_THREADS and threads % 32 == 0 and 128 <= threads <= 256
+    assert blocks * threads // group >= n > (blocks - 1) * threads // group
+    assert tfl.mixture_launch_plan(n, d, k, gaussian, group=group) == (group, threads, blocks)
+
+
+@pytest.mark.parametrize("n, k, group", [(65_000, 8, 4), (100_000, 8, 2), (100_000, 33, 2),
+                                          (140_000, 33, 1), (1_000_000, 8, 1)])
+def test_mixture_launch_plan_stops_at_the_resident_threads(n, k, group):
+    """Past the threads the card holds at once more lanes only add work: the
+    group halves until ``n * group`` fits (or one lane is left)."""
+    assert tfl.mixture_launch_plan(n, 2, k, False)[0] == group
+    assert group == 1 or n * group <= tfl.MIXTURE_RESIDENT_THREADS < 2 * n * group
+
+
+def test_mixture_launch_plan_rejects_groups_without_a_kernel():
+    assert tfl.mixture_launch_plan(10_000, 2, 8, False, group=2)[0] == 2
+    for d, k, gaussian, group in ((2, 8, False, 3), (2, 8, False, 16), (2, 1, True, 2),
+                                  (17, 8, False, 2), (2, 1, False, 4)):
+        with pytest.raises(ValueError, match="no mixture chain kernel"):
+            tfl.mixture_launch_plan(100, d, k, gaussian, group=group)
+
+
 # (shape, n_steps, thin, schedule, clamp)
 DOUBLEWELL_CASES = [
     pytest.param((N_CHAINS, 3), 17, None, False, (-1.5, 1.5), id="const-clamp"),

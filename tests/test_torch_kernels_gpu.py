@@ -64,14 +64,33 @@ def _kernel_and_plain(fn, cuda, *args, **kwargs):
     return got, want
 
 
+#: (n chains, d, K, precision, start at draws of the target): 4,096 chains from
+#: N(0, I) on 8 components at d = 2 and on the d = 32 Gaussian; at 4,097
+#: chains (a ragged last warp) K in {1, 3, 8, 12, 33} at d = 2 (one lane, an
+#: idle lane, one component per lane, K > G, components past the registers)
+#: and d in {1, 5, 16, 64} at K = 8 (the groups' buckets, then one lane),
+#: started at draws of the target, where the chains contract
+MIXTURE_CASES = [
+    (4096, 2, 8, False, False), (4096, 32, 1, True, False),
+    *[(4097, 2, k, False, True) for k in (1, 3, 8, 12, 33)],
+    *[(4097, d, 8, False, True) for d in (1, 5, 16, 64)],
+]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("inject", [True, False], ids=["noise", "philox"])
-@pytest.mark.parametrize("precision", [False, True], ids=["mixture", "gaussian"])
-def test_mixture_kernels_match_plain_on_card(cuda, inject, precision):
+@pytest.mark.parametrize("n, d, k, precision, at_target", MIXTURE_CASES,
+                         ids=[f"{n}x{d}-k{k}" + ("-gaussian" if p else "")
+                              for n, d, k, p, _ in MIXTURE_CASES])
+def test_mixture_kernels_match_plain_on_card(cuda, inject, n, d, k, precision, at_target):
     rng = _rng(0)
-    n, n_steps, d, k = 4096, 20, (32 if precision else 2), (1 if precision else 8)
-    x0 = torch.from_numpy(_normal(rng, n, d)).to(cuda)
+    n_steps = 20
     means = torch.from_numpy(_normal(rng, k, d, scale=2.0)).to(cuda)
+    if at_target:
+        comp = torch.from_numpy(rng.integers(0, k, n)).to(cuda)
+        x0 = (means[comp] + torch.from_numpy(_normal(rng, n, d, scale=0.9)).to(cuda)).contiguous()
+    else:
+        x0 = torch.from_numpy(_normal(rng, n, d)).to(cuda)
     kw = dict(scale=0.9, seed=99, clamp=(-4.0, 4.0))
     if precision:
         a = _normal(rng, d, d, scale=0.1)
@@ -86,6 +105,49 @@ def test_mixture_kernels_match_plain_on_card(cuda, inject, precision):
     )
     torch.testing.assert_close(gt.cpu(), wt, rtol=0, atol=1e-4)
     torch.testing.assert_close(gf.cpu(), wf, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inject", [True, False], ids=["noise", "philox"])
+@pytest.mark.parametrize("group", [2, 4, 8])
+@pytest.mark.parametrize("d, k", [(2, 8), (2, 12), (5, 8)])
+def test_mixture_kernel_each_group_matches_plain_on_card(cuda, inject, group, d, k):
+    """Every group the kernel is built for, whichever the plan picks: 1, 2 or
+    4 components per lane in registers and the rest read from shared memory,
+    one Philox block per step shared over G steps (d = 2) or blocks drawn by
+    lanes (d = 5), at 1,001 chains (a ragged last warp), thin 3."""
+    rng = _rng(8)
+    n, n_steps = 1001, 20
+    means = torch.from_numpy(_normal(rng, k, d, scale=2.0))
+    x0 = (means[torch.from_numpy(rng.integers(0, k, n))]
+          + torch.from_numpy(_normal(rng, n, d, scale=0.9))).contiguous()
+    sched = torch.from_numpy(_schedule(rng, n_steps, 0.01, 0.05))
+    noise = torch.from_numpy(_normal(rng, n_steps, n, d)) if inject else None
+    args = (x0, means, n_steps, sched, 0.8, 3, 0.9, None, None, 31, (-4.0, 4.0), noise)
+    traj, final, launched = tfl._mixture_run(
+        "mixture_langevin_chain_trajectory",
+        *[a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args], group=group)
+    assert launched
+    want_traj, want_final, _ = tfl._mixture_run("mixture_langevin_chain_trajectory", *args)
+    torch.testing.assert_close(traj.cpu(), want_traj, rtol=0, atol=1e-4)
+    torch.testing.assert_close(final.cpu(), want_final, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d, k", [(2, 1), (2, 3), (2, 8), (2, 12), (5, 8), (16, 8), (64, 8)])
+def test_mixture_kernel_draws_the_philox_twin(cuda, d, k):
+    """Every lane of a group draws with the counters (chain, step, block) of
+    ``philox_normals``: with all means at 0, unit scale, step 1 and noise
+    scale 1/√2 the update is ``x − 1·x + 1·ε = ε``, so each kept state is the
+    step's normals (to the ulps of the card's logf/sinf/cosf against the
+    CPU's; a wrong counter is off by O(1))."""
+    n, n_steps = 1001, 11
+    x0 = torch.zeros((n, d), device=cuda)
+    traj, _ = tfl.mixture_langevin_chain_trajectory(
+        x0, torch.zeros((k, d), device=cuda), n_steps, 1.0, 2 ** -0.5, seed=(5 << 32) | 77)
+    for t in range(n_steps):
+        want = tfl.philox_normals(torch.arange(n), t, d, (5 << 32) | 77)
+        torch.testing.assert_close(traj[t].cpu(), want, rtol=0, atol=1e-5)
 
 
 @pytest.mark.gpu

@@ -10,6 +10,13 @@ not read. Classes: ``"fp32"`` adds, multiplies, FMAs, min/max and compares;
 ``"int32"`` Philox's multiplies, xors and key adds; ``"sfu"`` ex2, lg2, rsq,
 rcp, sin, cos and int-to-float conversions.
 
+The counts are the algorithm's work, not what a design adds to it. The
+mixture chain (``mixture_langevin*``) splits a chain over a group of lanes:
+its butterfly shuffles, the update and reciprocal that every lane of a group
+repeats, and the logits that lanes with no component form are overhead, so
+its count stays one evaluation, one update and ``ceil(d/4)`` Philox blocks
+per chain-step, whatever the group (each block is drawn once, by one lane).
+
 :data:`COUNTED_SOURCES` holds the SHA-256 prefix of each source the counts
 were last checked against; a test fails when a source changes, so that an
 edited kernel has its counts checked again before its hash is updated.
@@ -23,13 +30,13 @@ __all__ = ["COUNTED_SOURCES", "work"]
 COUNTED_SOURCES = {
     "fused_ais.cu": "bbb0be8b07f58a41",
     "fused_hmc.cu": "a21525becda3a215",
-    "fused_langevin.cu": "12b514afc98a6858",
+    "fused_langevin.cu": "5e6ab0abd505aaf4",
     "fused_mala.cu": "5c281c546e39a99a",
     "fused_mlp_langevin.cu": "1c9df0ffe632ed07",
     "fused_pt.cu": "749b05b3dce2d4d8",
     "fused_sinkhorn.cu": "d0a19152cfef9635",
     "fused_step.cu": "45698a16da6ceaad",
-    "tebm_common.cuh": "915894584e01ad9d",
+    "tebm_common.cuh": "2ddd7558d2c0351a",
 }
 
 # tebm_common.cuh: one Philox4x32-10 block; normals4 (one block, two
@@ -48,8 +55,9 @@ def _add(*parts, times=1) -> dict:
 
 
 def _eval(d: int, k: int, gaussian: bool) -> dict:
-    """One gradient + log-density evaluation (``grad_logp``, tebm_common.cuh)
-    of a ``k``-component mixture or a full-covariance Gaussian in ``d``
+    """One gradient + log-density evaluation (``grad_logp``, or
+    ``grad_logp_group`` split over lanes, tebm_common.cuh) of a
+    ``k``-component mixture or a full-covariance Gaussian in ``d``
     dimensions."""
     if gaussian:
         return {"fp32": d * d + 3 * d + 2}
@@ -72,7 +80,7 @@ def work(name: str, args, kw, result) -> dict:
         return _add(_NORMALS4, times=-(-d // 4))
 
     gaussian = kw.get("precision") is not None
-    if name.startswith("mixture_langevin"):  # fused_langevin.cu, per chain-step
+    if name.startswith("mixture_langevin"):  # fused_langevin.cu, per chain-step, any group
         x0, means, n_steps = args[:3]
         n, d = x0.shape
         per = _add(_eval(d, means.shape[0], gaussian), normals(d), {"fp32": 4 * d})

@@ -32,22 +32,60 @@ namespace {
 // mixture_langevin_chain (:1227) and mixture_langevin_chain_trajectory (:1381),
 // with the evaluators _mixture_grad_logp (:121) and _gaussian_grad_logp (:155).
 //
-// Bound: arithmetic. Per chain-step the mixture costs about K*(d+4) FMAs and K
-// exponentials (the full-covariance Gaussian d^2 FMAs), plus one Philox block
-// and one Box-Muller pair per four coordinates; no device-memory traffic
-// between steps except the optional trajectory store.
+// Bound: arithmetic. Per chain-step the mixture costs about K*(3d+8) FP32
+// operations and K exponentials (the full-covariance Gaussian d^2 FMAs), plus
+// one Philox block and one Box-Muller pair per four coordinates; no
+// device-memory traffic between steps except the optional trajectory store.
+// At the main shape (10,000 chains x 1,000 steps, the 8-component ring) that
+// is 0.0568 ms on an H100 SXM. One chain per thread gives about 2.4 warps
+// per SM, so each dependent instruction's latency shows: the design buys
+// warps.
 //
-// Design: one thread holds one chain; its d coordinates live in registers for
-// the whole chain (arrays sized by the bucket DMAX >= d, every index unrolled
-// to a constant). The K means and log-weights (or the precision matrix and
-// the mean) are staged once per block in shared memory, where all threads of
-// a warp read the same word (a broadcast). The softmax over components is
-// taken online in one pass: one exponential per component, the running sums
-// rescaled only when the running maximum moves (grad_logp and stage_target in
-// tebm_common.cuh, which also give the parameter layouts).
+// Design: a group of G lanes of one warp (G in {1, 2, 4, 8}, from the
+// wrapper's launch plan, ops/fused_langevin.py::mixture_launch_plan, which
+// follows the card's timings: 4 lanes at the ring) holds one chain; every
+// lane keeps its own copy of the chain's d <= 16 coordinates in registers
+// (arrays sized by the bucket DMAX >= d, every index unrolled to a
+// constant). Lane r evaluates the components r, r + G, ... : its first NJ
+// (1, 2 or 4, as many as it has, by the launcher) stay in registers for the
+// whole chain (GroupComponents), the rest are read from the block's staged
+// copy in shared memory. grad_logp_group (tebm_common.cuh) takes the group
+// softmax by butterfly shuffles, with no branch on the data; its butterflies
+// leave the same bits in every lane, so the copies of x never drift and
+// nothing is broadcast. At the ring and G = 4 the launch holds 40,000
+// threads, about 9.5 warps per SM instead of 2.4.
+//
+// Randomness off the critical path: the noise of a step does not depend on
+// the state. At d <= 4 (one Philox block per step), lane r draws the block of
+// step t0 + r at step t0, a multiple of G, and at step t every lane takes
+// its normals from lane t - t0 by shuffle: one Philox block per lane per G
+// steps. At d > 4 lane r draws blocks r, r + G, ... of the current step. With
+// injected noise lane r loads coordinates r, r + G, ... The counters are
+// (chain, step, block) whichever lane draws, so the stream is the one
+// philox_normals gives. No shuffle sits inside a branch.
+//
+// The full-covariance Gaussian and buckets with d > 16 (whose copy of x in
+// every lane would spill) run at G = 1, one thread per chain, on the
+// per-thread evaluator grad_logp (the rows of the precision matrix are not
+// split over lanes). A warp whose groups all
+// lie past the last chain leaves at once; in the last live warp the groups
+// past n run on a zero state and store nothing, since the group reductions
+// need every lane of the warp. Lane r of a group writes coordinates r,
+// r + G, ... of the final state and of each kept trajectory slot.
 // ---------------------------------------------------------------------------
-template <int DMAX, bool GAUSS, bool TRAJ>
-__global__ void __launch_bounds__(kThreads) mixture_chain_kernel(
+constexpr int kMixThreads = 128;  // the largest block the launch plan gives
+constexpr int kMaxGroupDim = 16;  // the largest d held in every lane of a group
+
+template <int DMAX, int G>
+__device__ __forceinline__ void store_chain(float* dst, const float (&x)[DMAX], int d, int r,
+                                            bool live) {
+#pragma unroll
+  for (int i = 0; i < DMAX; ++i)
+    if (live && i < d && i % G == r) dst[i] = x[i];
+}
+
+template <int DMAX, bool GAUSS, bool TRAJ, int G, int NJ>
+__global__ void __launch_bounds__(kMixThreads) mixture_chain_kernel(
     const float* __restrict__ x0, float* __restrict__ out, float* __restrict__ traj,
     const float* __restrict__ params_a, const float* __restrict__ params_b,
     const float* __restrict__ sched, const float* __restrict__ noise, int n, int d, int k,
@@ -58,48 +96,97 @@ __global__ void __launch_bounds__(kThreads) mixture_chain_kernel(
   stage_target<GAUSS>(s_a, s_b, params_a, params_b, d, k);
   __syncthreads();
 
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= n) return;
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if ((lane & ~31) / G >= n) return;
+  const int r = threadIdx.x & (G - 1);
+  const int c = lane / G;
+  const bool live = c < n;
 
   float x[DMAX], g[DMAX];
 #pragma unroll
-  for (int i = 0; i < DMAX; ++i) x[i] = i < d ? x0[(size_t)c * d + i] : 0.0f;
+  for (int i = 0; i < DMAX; ++i) x[i] = live && i < d ? x0[(size_t)c * d + i] : 0.0f;
+  // the trajectory slot of the next kept state, `until` steps ahead
+  float* slot = TRAJ ? traj + (size_t)c * d : nullptr;
+  int until = thin;
 
-  for (int t = 0; t < n_steps; ++t) {
-    const float h = sched[t];
-    const float nc = sched[n_steps + t];
-
-    grad_logp<DMAX, GAUSS>(x, g, s_a, s_b, d, k, inv_var);
-
+  if constexpr (G == 1) {
+    for (int t = 0; t < n_steps; ++t) {
+      const float h = sched[t];
+      const float nc = sched[n_steps + t];
+      grad_logp<DMAX, GAUSS>(x, g, s_a, s_b, d, k, inv_var);
 #pragma unroll
-    for (int j = 0; j < (DMAX + 3) / 4; ++j) {
-      if (4 * j >= d) break;
-      float z[4];
-      if (noise != nullptr) {
+      for (int j = 0; j < (DMAX + 3) / 4; ++j) {
+        if (4 * j >= d) break;
+        float z[4];
+        if (noise != nullptr) {
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          z[q] = 4 * j + q < d ? noise[((size_t)t * n + c) * d + 4 * j + q] : 0.0f;
-      } else {
-        normals4((uint64_t)c, t, j, seed_lo, seed_hi, z);
+          for (int q = 0; q < 4; ++q)
+            z[q] = live && 4 * j + q < d ? noise[((size_t)t * n + c) * d + 4 * j + q] : 0.0f;
+        } else {
+          normals4((uint64_t)c, t, j, seed_lo, seed_hi, z);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = 4 * j + q;
+          if (i < DMAX && i < d) x[i] = clampf(x[i] - h * g[i] + nc * z[q], use_clamp, lo, hi);
+        }
       }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int i = 4 * j + q;
-        if (i < DMAX && i < d) x[i] = clampf(x[i] - h * g[i] + nc * z[q], use_clamp, lo, hi);
+      if (TRAJ && --until == 0) {
+        store_chain<DMAX, 1>(slot, x, d, r, live);
+        until = thin;
+        slot += (size_t)n * d;
       }
     }
+  } else {
+    GroupComponents<DMAX, G, NJ> comps;
+    comps.load(s_a, s_b, d, k);
+    // This lane's share of a step's normals: injected coordinates r, r + G,
+    // ...; at d <= 4 the Philox block of step t0 + r (drawn at step t0, a
+    // multiple of G, and kept for G steps); at d > 4 blocks r, r + G, ... of
+    // the step.
+    constexpr int kBlocks = (DMAX + 3) / 4;
+    constexpr int kLoads = (DMAX + G - 1) / G;
+    constexpr int kDraws = (kBlocks + G - 1) / G;
+    float zl[kLoads] = {}, zq[kDraws][4] = {}, zs[4] = {};
+    const bool inj = noise != nullptr;
+    for (int t = 0; t < n_steps; ++t) {
+      const float h = sched[t];
+      const float nc = sched[n_steps + t];
+      grad_logp_group<DMAX, G, NJ>(x, g, comps, s_a, s_b, d, k, inv_var);
 
-    if (TRAJ && (t + 1) % thin == 0) {
-      float* dst = traj + ((size_t)((t + 1) / thin - 1) * n + c) * d;
+      const int s = t & (G - 1);
+      if (inj) {
 #pragma unroll
-      for (int i = 0; i < DMAX; ++i)
-        if (i < d) dst[i] = x[i];
+        for (int b = 0; b < kLoads; ++b) {
+          const int i = r + G * b;
+          zl[b] = live && i < d ? noise[((size_t)t * n + c) * d + i] : 0.0f;
+        }
+      } else if constexpr (kBlocks == 1) {
+        if (s == 0) normals4((uint64_t)c, t + r, 0, seed_lo, seed_hi, zs);
+      } else {
+#pragma unroll
+        for (int b = 0; b < kDraws; ++b) {
+          const int j = r + G * b;
+          if (4 * j < d) normals4((uint64_t)c, t, j, seed_lo, seed_hi, zq[b]);
+        }
+      }
+      // every coordinate's normal from the lane that holds it, with no
+      // branch around the shuffles
+#pragma unroll
+      for (int i = 0; i < DMAX; ++i) {
+        const float held = kBlocks == 1 ? zs[i % 4] : zq[(i / 4) / G][i % 4];
+        const int from = kBlocks == 1 ? s : (i / 4) % G;
+        const float z = group_bcast<G>(inj ? zl[i / G] : held, inj ? i % G : from);
+        if (i < d) x[i] = clampf(x[i] - h * g[i] + nc * z, use_clamp, lo, hi);
+      }
+      if (TRAJ && --until == 0) {
+        store_chain<DMAX, G>(slot, x, d, r, live);
+        until = thin;
+        slot += (size_t)n * d;
+      }
     }
   }
-
-#pragma unroll
-  for (int i = 0; i < DMAX; ++i)
-    if (i < d) out[(size_t)c * d + i] = x[i];
+  store_chain<DMAX, G>(out + (size_t)c * d, x, d, r, live);
 }
 
 // ---------------------------------------------------------------------------
@@ -139,19 +226,55 @@ __global__ void __launch_bounds__(kThreads) doublewell_chain_kernel(
   out[e] = x;
 }
 
+// One launch over `n` chains with the plan (group, threads, blocks) of
+// ops/fused_langevin.py::mixture_launch_plan: G = group lanes per chain,
+// picked among the instances built here, and the bucket DMAX >= d.
 template <bool TRAJ>
 int launch_mixture(const float* x0, float* out, float* traj, const float* params_a,
                    const float* params_b, const float* sched, const float* noise, int n, int d,
                    int k, int gaussian, int n_steps, int thin, float inv_var, int use_clamp,
-                   float lo, float hi, uint32_t seed_lo, uint32_t seed_hi, void* stream) {
-  const dim3 grid((n + kThreads - 1) / kThreads);
+                   float lo, float hi, uint32_t seed_lo, uint32_t seed_hi, int group, int threads,
+                   int blocks, void* stream) {
+  if (threads < 32 || threads > kMixThreads || threads % 32 != 0 || blocks < 1 ||
+      (long long)blocks * threads < (long long)n * group)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TEBM_LAUNCH(DM, G)                                                                    \
-  mixture_chain_kernel<DM, G, TRAJ><<<grid, kThreads, 0, s>>>(                                \
+#define TEBM_LAUNCH(DM, GS, G, NJ)                                                            \
+  mixture_chain_kernel<DM, GS, TRAJ, G, NJ><<<blocks, threads, 0, s>>>(                       \
       x0, out, traj, params_a, params_b, sched, noise, n, d, k, n_steps, thin, inv_var,      \
       use_clamp, lo, hi, seed_lo, seed_hi)
-  TEBM_DISPATCH_BUCKETS(TEBM_LAUNCH);
+#define TEBM_ONE_LANE(DM, GS) TEBM_LAUNCH(DM, GS, 1, 1)
+#define TEBM_GROUPS(DM, NJ)                          \
+  switch (group) {                                   \
+    case 1: TEBM_LAUNCH(DM, false, 1, 1); break;     \
+    case 2: TEBM_LAUNCH(DM, false, 2, NJ); break;    \
+    case 4: TEBM_LAUNCH(DM, false, 4, NJ); break;    \
+    case 8: TEBM_LAUNCH(DM, false, 8, NJ); break;    \
+    default: return (int)cudaErrorInvalidValue;      \
+  }
+  if (gaussian || d > kMaxGroupDim) {
+    if (group != 1) return (int)cudaErrorInvalidValue;
+    TEBM_DISPATCH_BUCKETS(TEBM_ONE_LANE);
+  }
+  // components per lane held in registers: as many as the lane has, up to
+  // 4 at d <= 2, 2 at d <= 4, 1 above
+  const int nj = (k + group - 1) / group;
+  if (d <= 2) {
+    if (nj <= 1) TEBM_GROUPS(2, 1)
+    else if (nj <= 2) TEBM_GROUPS(2, 2)
+    else TEBM_GROUPS(2, 4)
+  } else if (d <= 4) {
+    if (nj <= 1) TEBM_GROUPS(4, 1)
+    else TEBM_GROUPS(4, 2)
+  } else if (d <= 8) {
+    TEBM_GROUPS(8, 1)
+  } else {
+    TEBM_GROUPS(16, 1)
+  }
+#undef TEBM_GROUPS
+#undef TEBM_ONE_LANE
 #undef TEBM_LAUNCH
+  return (int)cudaGetLastError();
 }
 
 template <bool TRAJ>
@@ -174,10 +297,11 @@ int tebm_mixture_langevin_chain(const float* x0, float* out, const float* params
                                 const float* params_b, const float* sched, const float* noise,
                                 int n, int d, int k, int gaussian, int n_steps, float inv_var,
                                 int use_clamp, float lo, float hi, uint32_t seed_lo,
-                                uint32_t seed_hi, void* stream) {
+                                uint32_t seed_hi, int group, int threads, int blocks,
+                                void* stream) {
   return launch_mixture<false>(x0, out, nullptr, params_a, params_b, sched, noise, n, d, k,
                                gaussian, n_steps, 1, inv_var, use_clamp, lo, hi, seed_lo, seed_hi,
-                               stream);
+                               group, threads, blocks, stream);
 }
 
 int tebm_mixture_langevin_chain_trajectory(const float* x0, float* out, float* traj,
@@ -185,9 +309,11 @@ int tebm_mixture_langevin_chain_trajectory(const float* x0, float* out, float* t
                                            const float* sched, const float* noise, int n, int d,
                                            int k, int gaussian, int n_steps, int thin,
                                            float inv_var, int use_clamp, float lo, float hi,
-                                           uint32_t seed_lo, uint32_t seed_hi, void* stream) {
+                                           uint32_t seed_lo, uint32_t seed_hi, int group,
+                                           int threads, int blocks, void* stream) {
   return launch_mixture<true>(x0, out, traj, params_a, params_b, sched, noise, n, d, k, gaussian,
-                              n_steps, thin, inv_var, use_clamp, lo, hi, seed_lo, seed_hi, stream);
+                              n_steps, thin, inv_var, use_clamp, lo, hi, seed_lo, seed_hi, group,
+                              threads, blocks, stream);
 }
 
 int tebm_doublewell_langevin_chain(const float* x0, float* out, const float* sched,

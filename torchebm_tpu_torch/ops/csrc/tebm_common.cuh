@@ -14,12 +14,15 @@
 // Target evaluator: grad_logp<DMAX, GAUSS> returns the unnormalised
 // log-density and writes the energy gradient, for an isotropic Gaussian
 // mixture (the JAX _mixture_grad_logp) or a full-covariance Gaussian
-// (_gaussian_grad_logp, torchebm_tpu/ops/fused_langevin.py:121-180).
+// (_gaussian_grad_logp, torchebm_tpu/ops/fused_langevin.py:121-180), one
+// thread per chain. grad_logp_group<DMAX, G, NJ> is the mixture evaluator
+// split over a group of G lanes of one warp that hold the same chain.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <float.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -154,6 +157,125 @@ __device__ __forceinline__ float grad_logp(const float (&x)[DMAX], float (&g)[DM
     }
   }
   const float inv_den = 1.0f / den;
+#pragma unroll
+  for (int i = 0; i < DMAX; ++i) g[i] = (x[i] - g[i] * inv_den) * inv_var;
+  return m + logf(den);
+}
+
+// Butterfly reductions and a broadcast over the aligned group of G lanes
+// (G a power of two <= 32) that holds one chain. Every lane of the warp must
+// call them. With xor butterflies each lane combines the same two operands
+// in each round (a + b == b + a bit for bit), so every lane of the group
+// ends with the same bits.
+template <int G>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The value of lane `src` (0 <= src < G) of the caller's group.
+template <int G>
+__device__ __forceinline__ float group_bcast(float v, int src) {
+  return G == 1 ? v : __shfl_sync(0xffffffffu, v, src, G);
+}
+
+// The components that lane r = threadIdx.x mod G of a group evaluates first,
+// held in registers for the whole chain: slot j holds component r + j G (its
+// mean, zero past d, and its log-weight), or, past the last component, the
+// last one's mean and a log-weight of -inf, whose logit is -inf and weight 0.
+// NJ slots per lane: 1, 2 or 4, by the launch; components past NJ G are read
+// from shared memory each step.
+template <int DMAX, int G, int NJ>
+struct GroupComponents {
+  float mu[NJ][DMAX];
+  float lw[NJ];
+
+  __device__ __forceinline__ void load(const float* s_a, const float* s_b, int d, int k) {
+    const int r = threadIdx.x & (G - 1);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int kk = r + j * G;
+      const int kc = min(kk, k - 1);
+      lw[j] = kk < k ? s_b[kc] : -INFINITY;
+#pragma unroll
+      for (int i = 0; i < DMAX; ++i) mu[j][i] = i < d ? s_a[kc * d + i] : 0.0f;
+    }
+  }
+};
+
+// The isotropic-mixture branch of grad_logp, split over the G lanes of a
+// group that each hold a copy of the same x: lane r takes the components
+// r, r + G, r + 2G, ... (its first NJ in `comps`, the rest, k > NJ G, from
+// the staged s_a, s_b). Two passes and no branch on the data: each lane forms
+// its logits and their maximum, the group maximum m comes from log2(G)
+// butterflies, then one exponential w = exp(logit - m) per component, and
+// butterfly sums of den = sum w and of the DMAX entries of sum w mu (zero
+// past d). Every lane returns the same g and log p. den >= 1 (the largest
+// logit gives w = 1), so 1 / den is the approximate reciprocal (2 ulp).
+template <int DMAX, int G, int NJ>
+__device__ __forceinline__ float grad_logp_group(const float (&x)[DMAX], float (&g)[DMAX],
+                                                 const GroupComponents<DMAX, G, NJ>& comps,
+                                                 const float* s_a, const float* s_b, int d,
+                                                 int k, float inv_var) {
+  const int r = threadIdx.x & (G - 1);
+  const float half = 0.5f * inv_var;
+  auto shared_logit = [&](int kk) {
+    const float* mu = s_a + kk * d;
+    float sq = 0.0f;
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i)
+      if (i < d) {
+        const float df = x[i] - mu[i];
+        sq = fmaf(df, df, sq);
+      }
+    return s_b[kk] - half * sq;
+  };
+  float lg[NJ];
+  float m = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    float sq = 0.0f;
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i) {
+      const float df = x[i] - comps.mu[j][i];
+      sq = fmaf(df, df, sq);
+    }
+    lg[j] = comps.lw[j] - half * sq;
+    m = fmaxf(m, lg[j]);
+  }
+  for (int kk = r + NJ * G; kk < k; kk += G) m = fmaxf(m, shared_logit(kk));
+  m = group_max<G>(m);
+
+  float den = 0.0f;
+#pragma unroll
+  for (int i = 0; i < DMAX; ++i) g[i] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const float w = expf(lg[j] - m);
+    den += w;
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i) g[i] = fmaf(w, comps.mu[j][i], g[i]);
+  }
+  for (int kk = r + NJ * G; kk < k; kk += G) {
+    const float* mu = s_a + kk * d;
+    const float w = expf(shared_logit(kk) - m);
+    den += w;
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i)
+      if (i < d) g[i] = fmaf(w, mu[i], g[i]);
+  }
+  den = group_sum<G>(den);
+#pragma unroll
+  for (int i = 0; i < DMAX; ++i) g[i] = group_sum<G>(g[i]);
+  const float inv_den = __fdividef(1.0f, den);
 #pragma unroll
   for (int i = 0; i < DMAX; ++i) g[i] = (x[i] - g[i] * inv_den) * inv_var;
   return m + logf(den);

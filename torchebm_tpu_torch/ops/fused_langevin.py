@@ -55,6 +55,7 @@ __all__ = [
     "doublewell_langevin_chain_trajectory",
     "mixture_langevin_chain",
     "mixture_langevin_chain_trajectory",
+    "mixture_launch_plan",
     "fused_langevin_step",
     "fused_langevin_step_plain",
     "doublewell_langevin_chain_plain",
@@ -72,11 +73,22 @@ MAX_DIM = 64
 MAX_COMPONENTS_X_DIM = 1024
 MAX_PRECISION_DIM = 32
 
+#: the mixture chain kernel's block size (``kMixThreads`` in csrc/fused_langevin.cu)
+MIXTURE_THREADS = 128
+#: lanes per chain the mixture chain kernel is built for
+MIXTURE_GROUPS = (1, 2, 4, 8)
+#: threads an H100 holds resident at once (132 SMs x 2,048): the plan halves
+#: the group while a launch would hold more
+MIXTURE_RESIDENT_THREADS = 132 * 2048
+#: the largest d a group holds in every lane (``kMaxGroupDim``): above it, one lane
+MIXTURE_GROUP_MAX_DIM = 16
+
 _P, _I, _F, _U, _LL = _build.PTR, _build.INT, _build.FLOAT, _build.U32, _build.I64
 #: C entry point (``tebm_<name>``) -> its argument types before the stream
 _SIGNATURES = {
-    "mixture_langevin_chain": (_P,) * 6 + (_I,) * 5 + (_F, _I, _F, _F, _U, _U),
-    "mixture_langevin_chain_trajectory": (_P,) * 7 + (_I,) * 6 + (_F, _I, _F, _F, _U, _U),
+    "mixture_langevin_chain": (_P,) * 6 + (_I,) * 5 + (_F, _I, _F, _F, _U, _U) + (_I,) * 3,
+    "mixture_langevin_chain_trajectory":
+        (_P,) * 7 + (_I,) * 6 + (_F, _I, _F, _F, _U, _U) + (_I,) * 3,
     "doublewell_langevin_chain": (_P,) * 4 + (_LL, _I, _F, _F, _I, _F, _F, _U, _U),
     "doublewell_langevin_chain_trajectory":
         (_P,) * 5 + (_LL, _I, _I, _F, _F, _I, _F, _F, _U, _U),
@@ -364,6 +376,63 @@ def mixture_langevin_chain_trajectory_plain(x0, means, n_steps, step_size, noise
     return _run_plain(x0, grad_fn, sched, x0.shape[1], clamp, seed, noise, int(thin))
 
 
+def mixture_launch_plan(n: int, d: int, k: int, gaussian: bool,
+                        group: Optional[int] = None) -> Tuple[int, int, int]:
+    """``(group, threads, blocks)`` of one mixture chain launch over ``n``
+    chains in ``d`` dimensions with ``k`` components: ``group`` lanes of one
+    warp hold a chain, ``threads`` per block, ``blocks`` in the grid.
+
+    The rule follows the card's timings of the kernel (``chip_smoke.py``,
+    H100): up to 16 components, the smallest power of two that covers them,
+    at most 4 lanes (the ring, K = 8, two components per lane); above 16, 8
+    lanes. The group is then halved while ``n * group`` exceeds the threads
+    the card holds at once (:data:`MIXTURE_RESIDENT_THREADS`), where more
+    lanes only add work. It is 1 where the kernel keeps one lane per chain:
+    the full-covariance Gaussian, one component, and
+    ``d > MIXTURE_GROUP_MAX_DIM``. ``group=`` overrides the choice with a
+    group the kernel is built for (timings compare them)."""
+    single = gaussian or k < 2 or d > MIXTURE_GROUP_MAX_DIM
+    if group is None:
+        group = 1 if single else (min(1 << (k - 1).bit_length(), 4) if k <= 16 else 8)
+        while group > 1 and n * group > MIXTURE_RESIDENT_THREADS:
+            group //= 2
+    elif group not in MIXTURE_GROUPS or (single and group != 1):
+        raise ValueError(f"no mixture chain kernel at group {group} for d={d}, K={k}, "
+                         f"gaussian={bool(gaussian)}")
+    threads = MIXTURE_THREADS
+    return group, threads, -(-n * group // threads)
+
+
+def _mixture_run(name, x0, means, n_steps, step_size, noise_scale, thin, scale, log_weights,
+                 precision, seed, clamp, noise, group=None):
+    """The body of both mixture wrappers (``thin=None``: final state only):
+    ``(traj, final, launched)``. A CPU ``x0`` runs the plain version; a CUDA
+    ``x0`` launches kernel ``name`` with :func:`mixture_launch_plan`, whose
+    group ``group`` overrides."""
+    grad_fn, pa, pb, gaussian, sched, inv_var = _mixture_args(
+        x0, means, n_steps, step_size, noise_scale, scale, log_weights, precision, noise
+    )
+    seed_lo, seed_hi = _seed_words(seed)
+    if x0.device.type == "cpu":
+        return (*_run_plain(x0, grad_fn, sched, x0.shape[1], clamp, seed, noise, thin), False)
+    n, d = x0.shape
+    k = means.shape[0]
+    plan = mixture_launch_plan(n, d, k, bool(gaussian), group)
+    out = torch.empty_like(x0)
+    traj = None if thin is None else torch.empty(
+        (int(n_steps) // thin, n, d), dtype=torch.float32, device=x0.device)
+    use_clamp, lo, hi = _clamp_args(clamp)
+    head = (_ptr(x0), _ptr(out)) + (() if thin is None else (_ptr(traj),))
+    tail = () if thin is None else (thin,)
+    _launch(
+        name, x0.device,
+        *head, _ptr(pa), _ptr(pb), _ptr(sched), _ptr(noise),
+        n, d, k, gaussian, int(n_steps), *tail, inv_var,
+        use_clamp, lo, hi, seed_lo, seed_hi, *plan,
+    )
+    return traj, out, True
+
+
 @_build.counted
 def mixture_langevin_chain(
     x0: Tensor,
@@ -384,22 +453,11 @@ def mixture_langevin_chain(
 
     ``x0``: ``(n_chains, d)``; ``means``: ``(K, d)``. Returns the final state.
     """
-    grad_fn, pa, pb, gaussian, sched, inv_var = _mixture_args(
-        x0, means, n_steps, step_size, noise_scale, scale, log_weights, precision, noise
+    _, out, launched = _mixture_run(
+        "mixture_langevin_chain", x0, means, n_steps, step_size, noise_scale, None, scale,
+        log_weights, precision, seed, clamp, noise,
     )
-    seed_lo, seed_hi = _seed_words(seed)
-    if x0.device.type == "cpu":
-        return _run_plain(x0, grad_fn, sched, x0.shape[1], clamp, seed, noise, None)[1]
-    n, d = x0.shape
-    out = torch.empty_like(x0)
-    use_clamp, lo, hi = _clamp_args(clamp)
-    _launch(
-        "mixture_langevin_chain", x0.device,
-        _ptr(x0), _ptr(out), _ptr(pa), _ptr(pb), _ptr(sched), _ptr(noise),
-        n, d, means.shape[0], gaussian, int(n_steps), inv_var,
-        use_clamp, lo, hi, seed_lo, seed_hi,
-    )
-    mixture_langevin_chain.launches += 1
+    mixture_langevin_chain.launches += launched
     return out
 
 
@@ -425,24 +483,12 @@ def mixture_langevin_chain_trajectory(
     holds the states after steps ``thin, 2·thin, …``; ``final`` the state
     after all ``n_steps`` steps.
     """
-    n_kept = _check_thin(n_steps, thin)
-    grad_fn, pa, pb, gaussian, sched, inv_var = _mixture_args(
-        x0, means, n_steps, step_size, noise_scale, scale, log_weights, precision, noise
+    _check_thin(n_steps, thin)
+    traj, out, launched = _mixture_run(
+        "mixture_langevin_chain_trajectory", x0, means, n_steps, step_size, noise_scale,
+        int(thin), scale, log_weights, precision, seed, clamp, noise,
     )
-    seed_lo, seed_hi = _seed_words(seed)
-    if x0.device.type == "cpu":
-        return _run_plain(x0, grad_fn, sched, x0.shape[1], clamp, seed, noise, int(thin))
-    n, d = x0.shape
-    out = torch.empty_like(x0)
-    traj = torch.empty((n_kept, n, d), dtype=torch.float32, device=x0.device)
-    use_clamp, lo, hi = _clamp_args(clamp)
-    _launch(
-        "mixture_langevin_chain_trajectory", x0.device,
-        _ptr(x0), _ptr(out), _ptr(traj), _ptr(pa), _ptr(pb), _ptr(sched), _ptr(noise),
-        n, d, means.shape[0], gaussian, int(n_steps), int(thin), inv_var,
-        use_clamp, lo, hi, seed_lo, seed_hi,
-    )
-    mixture_langevin_chain_trajectory.launches += 1
+    mixture_langevin_chain_trajectory.launches += launched
     return traj, out
 
 
