@@ -3,13 +3,19 @@
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --ess-shape`` times only row 9 at the ESS
+protocol's shape, through the public wrapper, against whichever package is
+imported: ``PYTHONPATH=<checkout> python3 -P chip_smoke.py --ess-shape``
+times an earlier checkout's kernel on the same card.)
+
 Phases, each printing its lines; any failure raises and the exit code is
 not 0:
 
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: the CUDA kernels compiled from ``torchebm_tpu_torch/ops/csrc``
    (one ``nvcc`` per source, in parallel) into a clean
-   ``build/torch_kernels/``, with each kernel instance's registers and spills;
+   ``build/torch_kernels/``, with each kernel instance's registers and spills
+   (an HMC instance of the d <= 2 bucket, the main path's, must not spill);
 3. check: every kernel against its plain PyTorch version on the card, on
    injected randomness and on the Philox stream, at the main shapes (10,000
    x 2, 8 components; 4,096 x 32 double well), on rings of 12 and 33
@@ -18,7 +24,10 @@ not 0:
    MALA and HMC also at the ESS protocol's own instances and steps (the
    correlated Gaussian at MALA's pilot step and HMC's adapted steps and
    mass, thin 4), with each check's mean acceptance; parallel tempering
-   (R = 4) from the ring's modes and on a Gaussian; AIS at the main path's
+   (R = 4) from the ring's modes and on a Gaussian; the HMC chain and its
+   trajectory twin at every group of lanes per chain they are built for (the
+   ring, the ESS protocol's Gaussian, a d=16 Gaussian, a d=16 mixture, 1,001
+   chains; Philox and injected, unit and diagonal mass); AIS at the main path's
    shapes (the ring from its modes at 16,384 chains, the two Gaussians at
    65,536, a 201-entry beta table); the one-step op at 4,096 x 32 and 16M
    elements; the neural (SiLU-MLP) chain at the CD path's 256 x 2 on
@@ -88,8 +97,12 @@ not 0:
    generic loop (``fused="off"``), and the correlated Gaussian's covariance,
    R-hat and ESS (over consecutive draws, R-hat within 0.005 of the loop's);
 5. timing: CUDA events, medians after warm-up: each kernel against its
-   plain version, the mixture chain and its trajectory twin at each number
-   of lanes per chain the kernel is built for, PT per ladder step, AIS per
+   plain version, the mixture and HMC chains and their trajectory twins at
+   each number of lanes per chain the kernels are built for, the HMC
+   trajectory at the ESS protocol's shape with its bound, the HMC plan
+   sweep (device time per call at every built group over 40 shapes of
+   rings, mixtures, Gaussians, chain counts and leapfrog steps, beside the
+   launch plan's pick), PT per ladder step, AIS per
    rung, the one-step op in GB/s beside ``torch.add`` (device time per call
    in batches queued behind a spin, and per call with the host's launch
    work), the neural chain also at
@@ -98,10 +111,12 @@ not 0:
    calls, the EqM train step with the kernel, on the loop and with
    ``IndependentCoupling``, the generation in samples/s, and the sampler
    paths, beside the card's name and power limit;
-6. profile: wall time, device busy time (``torch.profiler``) and idle share
+6. profile (run right after the checks; the run's only profiler sessions):
+   wall time, device busy time (``torch.profiler``) and idle share
    of the CD and EqM train steps, the flow generation, the sampler paths,
-   the HMC warmup and ``summarize_chains``; for the headline Langevin call
-   also its host operations with the most self CPU time;
+   the HMC warmup and ``summarize_chains`` (the kernel paths first, each of
+   which must record device events); for the headline Langevin call also
+   its host operations with the most self CPU time;
 7. syncs: the host's synchronising calls per EqM train step (none through
    the Sinkhorn kernel), per auction and greedy assignment and per dopri5
    generation (``torch.cuda.set_sync_debug_mode``);
@@ -125,6 +140,7 @@ import re
 import shutil
 import statistics
 import subprocess
+import sys
 import time
 
 #: kernel-vs-plain tolerance (absolute, float32): the kernels contract
@@ -190,6 +206,16 @@ RING_CHECK_K = (12, 33)
 #: (K, chains) of the rings timed by lanes per chain beside the main shape:
 #: the shapes the mixture kernel's launch plan is read from
 PLAN_SHAPES = ((3, N_CHAINS), (12, N_CHAINS), (33, N_CHAINS), (8, 100_000))
+#: the HMC chain's plan sweep beside rows 8-9's main shape and the ESS
+#: protocol's: rings of K components at 10,000 chains; random means of K
+#: components at d; rings at 100,000 and 300,000 chains (200 draws); the
+#: full-covariance Gaussian at d; the ring and the ESS shape at other
+#: numbers of leapfrog steps per draw
+SWEEP_RING_K = (2, 3, 4, 6, 8, 12, 16, 24, 33)
+SWEEP_MIX_D, SWEEP_MIX_K = (3, 5, 8, 16), (2, 4, 8, 16)
+SWEEP_LARGE_K, SWEEP_LARGE_N, SWEEP_LARGE_DRAWS = (8, 12, 16, 33), (100_000, 300_000), 200
+SWEEP_GAUSS_D = (4, 8, 16)
+SWEEP_LEAPFROG = (1, 16)
 
 #: the parallel-tempering and AIS configurations of the JAX package's headline
 #: benchmarks (benchmarks/headline.py:178-289), at full width
@@ -300,6 +326,17 @@ def cuda_times(fn, warmup: int, reps: int, batch: int = 0) -> list:
     return times
 
 
+def device_ms(fn) -> float:
+    """Device time per call of ``fn()``: CUDA events around 2 calls queued
+    behind a device spin, median of 3 readings after one call. A call that
+    waits for the device on the host (the Langevin wrappers' synchronous
+    copy of the schedule table) adds the host's launch work after the wait.
+    The profiler is not used here: after its very large sessions (the
+    profile phase's loops and HMC warmup) later sessions of a process drop
+    device events, on an H100 with torch 2.11."""
+    return statistics.median(cuda_times(fn, 1, 3, batch=2))
+
+
 def max_err(got, want) -> float:
     import torch
 
@@ -310,7 +347,9 @@ def max_err(got, want) -> float:
     return float((got - want).abs().max())
 
 
-def phase_build(build_mod) -> None:
+def phase_build(build_mod) -> dict:
+    """Build from clean and print each kernel instance's registers and spill
+    stores; returns ``{instance: (registers, spill bytes)}``."""
     shutil.rmtree(build_mod.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     build_mod.load_library()
@@ -319,7 +358,7 @@ def phase_build(build_mod) -> None:
     print(f"build: nvcc sm_90a, one process per source ({sources}), into "
           f"{build_mod.BUILD_DIR.name}/ in {seconds:.1f} s from clean")
     log = build_mod.library_path().with_suffix(".log").read_text()
-    entry, spills = None, "?"
+    entry, spills, instances = None, "?", {}
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
@@ -334,7 +373,25 @@ def phase_build(build_mod) -> None:
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
             print(f"build:   {entry}: {m.group(1)} registers, {spills} bytes spill stores")
+            instances[entry] = (int(m.group(1)), int(spills) if spills.isdigit() else -1)
             entry, spills = None, "?"
+    return instances
+
+
+def check_hmc_instances(instances: dict) -> None:
+    """The HMC instances of the d <= 2 bucket, the main path's among them
+    (the ring's and the ESS protocol's correlated Gaussian's, chain and
+    trajectory), must not spill; every instance's registers and spills are
+    printed with the build."""
+    bucket2 = {name: v for name, v in instances.items()
+               if name.startswith("hmc_chain_kernel<2,")}
+    spilled = {name: v[1] for name, v in instances.items()
+               if name.startswith("hmc_chain_kernel") and v[1] != 0}
+    print(f"build: {len(bucket2)} HMC instances of the d <= 2 bucket, at most "
+          f"{max(v[0] for v in bucket2.values())} registers; HMC instances that spill: "
+          f"{spilled or 'none'}")
+    if any(v[1] != 0 for v in bucket2.values()):
+        raise AssertionError("an HMC instance of the main path's d <= 2 bucket spills")
 
 
 def _ring(k: int):
@@ -527,6 +584,28 @@ def _hmc_warmup(dev, adapt_mass: bool):
                               adapt_mass=adapt_mass)
 
 
+def _flips(got, want, n: int, label: str):
+    """``(flipped chains, largest error over the rest, 0-d errors)`` of the
+    outputs ``got`` against ``want`` over ``n`` chains: a chain flips where
+    any of its state, trajectory or acceptance differs by more than TOL."""
+    import torch
+
+    flipped = torch.zeros(n, dtype=torch.bool, device=got[0].device)
+    diffs, scalars = [], []
+    for gt, wt in zip(got, want):
+        if not torch.isfinite(gt).all():
+            raise AssertionError(f"{label}: kernel output is not finite")
+        d = (gt - wt).abs()
+        if d.ndim == 0:
+            scalars.append(float(d))
+            continue
+        d = d.amax(dim=(0, 2)) if d.ndim == 3 else (d.amax(dim=1) if d.ndim == 2 else d)
+        diffs.append(d)
+        flipped |= d > TOL
+    err = max(float(torch.where(flipped, 0.0, d).max()) for d in diffs)
+    return int(flipped.sum()), err, scalars
+
+
 def _check_flips(ops, name, args, kwargs, label, errors: dict, n: int) -> None:
     """A kernel with a Metropolis or exchange decision per step against its
     plain version (flip rule in the module docstring), over ``n`` chains. A
@@ -542,20 +621,8 @@ def _check_flips(ops, name, args, kwargs, label, errors: dict, n: int) -> None:
     if kernel.launches != before + 1:
         raise AssertionError(f"{name} did not launch its kernel")
     want = getattr(module, name + "_plain")(*args, **kwargs)
-    flipped = torch.zeros(n, dtype=torch.bool, device=got[0].device)
-    diffs, scalars = [], []
-    for gt, wt in zip(got, want):
-        if not torch.isfinite(gt).all():
-            raise AssertionError(f"{name} [{label}]: kernel output is not finite")
-        d = (gt - wt).abs()
-        if d.ndim == 0:
-            scalars.append(float(d))
-            continue
-        d = d.amax(dim=(0, 2)) if d.ndim == 3 else (d.amax(dim=1) if d.ndim == 2 else d)
-        diffs.append(d)
-        flipped |= d > TOL
-    n_flipped, max_flipped = int(flipped.sum()), n // 1000
-    err = max(float(torch.where(flipped, 0.0, d).max()) for d in diffs)
+    n_flipped, err, scalars = _flips(got, want, n, f"{name} [{label}]")
+    max_flipped = n // 1000
     scalar_ok = all(s <= TOL + n_flipped / n for s in scalars)
     errors[name] = max(errors.get(name, 0.0), err, *(s for s in scalars if n_flipped == 0))
     print(f"check: {name} [{label}] max|kernel - plain| = {err:.3e} over the "
@@ -642,6 +709,86 @@ def phase_check_metropolis(ops, dev, errors: dict) -> None:
                 check("mixture_hmc_chain" + sfx, (xc, corr_means, steps, eps, HMC_LEAPFROG),
                       dict(**corr_kw, **tkw, mass=m, **rand_kw(2, 37)),
                       f"corr-Gaussian, {mass_label}, {label}")
+
+
+def phase_check_hmc_groups(ops, dev, errors: dict) -> None:
+    """Rows 8-9 at every group of lanes per chain the kernel is built for
+    (``fused_hmc.hmc_groups``), whichever the launch plan picks, against their
+    plain versions (flip rule in the module docstring): the ring from exact
+    draws at step 0.05, the ESS protocol's correlated Gaussian at its adapted
+    step (thin 4; precision in registers), a d=16 full-covariance Gaussian
+    (precision in shared memory), a d=16 mixture (the groups' largest bucket:
+    four Philox blocks per draw, drawn by the lanes) and 1,001 chains of the
+    ring (groups past the last chain in a partial last warp), each with
+    Philox and injected randomness, unit and diagonal mass, final state and
+    trajectory."""
+    import torch
+
+    from torchebm_tpu_torch.core import GaussianMixtureEnergy
+    from torchebm_tpu_torch.samplers.base import _gaussian_target
+
+    fh = ops.fused_hmc
+    g = torch.Generator(dev).manual_seed(8642)
+    mix = GaussianMixtureEnergy.eight_gaussians().to(dev)
+    ring_kw = dict(scale=float(mix.scale), log_weights=mix.log_weights)
+    x2 = mix.sample(g, N_CHAINS)
+    corr_means, corr_prec = _gaussian_target(_corr_gaussian(dev))
+    chol = torch.linalg.cholesky(torch.tensor(CORR_COV, device=dev))
+    xc = (torch.randn((N_CHAINS, 2), generator=g, device=dev) @ chol.T).contiguous()
+    _, _, (_, eps, mass_adapted) = _hmc_warmup(dev, True)
+    means16 = 2.0 * torch.randn((8, 16), generator=g, device=dev)
+    x16 = (means16[torch.randint(0, 8, (N_CHAINS,), generator=g, device=dev)]
+           + 0.4 * torch.randn((N_CHAINS, 16), generator=g, device=dev)).contiguous()
+    a16 = 0.1 * torch.randn((16, 16), generator=g, device=dev)
+    prec16 = (a16 @ a16.T + torch.eye(16, device=dev)).contiguous()
+    xg16 = torch.linalg.solve_triangular(  # exact draws of N(0, prec16^-1)
+        torch.linalg.cholesky(prec16).T, torch.randn((16, N_CHAINS), generator=g, device=dev),
+        upper=True).T.contiguous()
+    # (label, x0, means, step, target keywords, diagonal mass, thin, gaussian)
+    cases = (
+        ("8gauss", x2, mix.means, 0.05, ring_kw, torch.tensor([0.5, 2.0], device=dev), 3,
+         False),
+        ("8gauss 1001 chains", x2[:1001].contiguous(), mix.means, 0.05, ring_kw,
+         torch.tensor([0.5, 2.0], device=dev), 3, False),
+        ("d=16 K=8", x16, means16, 0.05, dict(scale=0.4),
+         0.5 + torch.rand(16, generator=g, device=dev), 3, False),
+        ("corr-Gaussian", xc, corr_means, eps, dict(precision=corr_prec.contiguous()),
+         mass_adapted, ESS_THIN, True),
+        ("Gaussian d=16", xg16, torch.zeros((1, 16), device=dev), 0.05, dict(precision=prec16),
+         0.5 + torch.rand(16, generator=g, device=dev), 3, True),
+    )
+    for label, x0, means, step, target_kw, mass_diag, thin, gaussian in cases:
+        n, d = x0.shape
+        groups = fh.hmc_groups(d, means.shape[0], gaussian)
+        for inject in (True, False):
+            rand = dict(seed=35) if not inject else dict(
+                noise=torch.randn((CHECK_STEPS, n, d), generator=g, device=dev),
+                uniforms=torch.rand((CHECK_STEPS, n), generator=g, device=dev))
+            for mass in (None, mass_diag):
+                for t in (None, thin):
+                    name = "mixture_hmc_chain" + ("" if t is None else "_trajectory")
+                    kw = dict(target_kw, mass=mass, **rand, **({} if t is None else dict(thin=t)))
+                    args = (x0, means, CHECK_STEPS, step, HMC_LEAPFROG)
+                    want = getattr(fh, name + "_plain")(*args, **kw)
+                    for group in groups:
+                        traj, out, acc, launched = fh._run(
+                            *args, thin=t, scale=target_kw.get("scale", 1.0),
+                            log_weights=target_kw.get("log_weights"),
+                            precision=target_kw.get("precision"), mass=mass,
+                            seed=rand.get("seed", 0), noise=rand.get("noise"),
+                            uniforms=rand.get("uniforms"), group=group)
+                        torch.cuda.synchronize()
+                        got = (out, acc) if t is None else (traj, out, acc)
+                        what = (f"{name} [{label}, G={group}, "
+                                f"{'diagonal' if mass is not None else 'unit'} mass, "
+                                f"{'injected' if inject else 'philox'}]")
+                        n_flipped, err, _ = _flips(got, want, n, what)
+                        errors[name] = max(errors.get(name, 0.0), err)
+                        print(f"check: {what} max|kernel - plain| = {err:.3e} over the "
+                              f"{n - n_flipped} chains that agree (tol {TOL:g}); flipped chains "
+                              f"{n_flipped} (at most {n // 1000})")
+                        if not launched or not err <= TOL or n_flipped > n // 1000:
+                            raise AssertionError(f"{what} disagrees with its plain version")
 
 
 def phase_check_tempering(ops, dev, errors: dict) -> None:
@@ -844,6 +991,10 @@ def path_hmc(ops, dev, card: str) -> dict:
         consecutive = tuned.sample(g, x=x0, n_steps=N_STEPS, return_trajectory=True)
         runs.append((tuned, x0, eps, traj, consecutive))
     launches = read_counts(ops, "HMC", ["mixture_hmc_chain", "mixture_hmc_chain_trajectory"])
+    # one chain launch per ring sample(), one trajectory launch per ESS call
+    if (launches["mixture_hmc_chain"], launches["mixture_hmc_chain_trajectory"]) != (1, 4):
+        raise AssertionError(f"the HMC path made {launches} launches, not 1 chain and 4 "
+                             "trajectory launches")
     if ring.shape != (N_CHAINS, 2) or not torch.isfinite(ring).all():
         raise AssertionError("HMC ring samples are malformed")
     print(f"main path: HMC 8gauss sample() mean radius {float(ring.norm(dim=-1).mean()):.4f}")
@@ -1504,6 +1655,109 @@ def path_flow(ops, dev, card: str) -> dict:
     return launches
 
 
+def hmc_run_kw(**kw) -> dict:
+    """``fused_hmc._run``'s keywords: ``kw`` over the final state only, unit
+    scale and mass, no weights, precision or injected randomness, seed 21."""
+    return {**dict(thin=None, scale=1.0, log_weights=None, precision=None, mass=None, seed=21,
+                   noise=None, uniforms=None), **kw}
+
+
+def ess_shape_cases(dev) -> list:
+    """Row 9 at the ESS protocol's shape: ``[(label, step, args, kwargs)]`` of
+    ``mixture_hmc_chain_trajectory`` on the correlated Gaussian, 10,000
+    chains x 4,000 draws thinned by 4, from the warmup's state at its tuned
+    step, with unit and with the adapted diagonal mass."""
+    from torchebm_tpu_torch.samplers.base import _gaussian_target
+
+    corr_means, corr_prec = _gaussian_target(_corr_gaussian(dev))
+    cases = []
+    for adapt_mass, label in ((False, "unit mass"), (True, "adapted mass")):
+        _, _, (x0, eps, *mass) = _hmc_warmup(dev, adapt_mass)
+        cases.append((label, eps, (x0, corr_means, ESS_DRAWS, eps, HMC_LEAPFROG),
+                      dict(thin=ESS_THIN, precision=corr_prec.contiguous(),
+                           mass=mass[0] if mass else None, seed=21)))
+    return cases
+
+
+def hmc_plan_sweep(fh, dev, card: str, ess: list) -> None:
+    """The shapes ``hmc_launch_plan`` is read from (``SWEEP_*``; the ESS
+    shapes ``ess`` of :func:`ess_shape_cases`): the HMC chain kernel's device
+    time per call (:func:`device_ms`) at every group of lanes it is built
+    for, with the fastest group and the plan's pick, and a count of the
+    shapes where the pick is fastest."""
+    import torch
+
+    from torchebm_tpu_torch.core import GaussianMixtureEnergy
+
+    g = torch.Generator(dev).manual_seed(55)
+    x2 = torch.randn((N_CHAINS, 2), generator=g, device=dev)
+    ring8 = GaussianMixtureEnergy.eight_gaussians().to(dev)
+    # (label, args, _run keywords, d, K, gaussian)
+    cases = []
+    for k in SWEEP_RING_K:
+        ring = _ring(k).to(dev)
+        cases.append((f"ring K={k} d=2 {N_CHAINS}x{N_STEPS}", (x2, ring.means, N_STEPS, 0.2),
+                      dict(scale=float(ring.scale), log_weights=ring.log_weights), 2, k, False))
+    for d in SWEEP_MIX_D:
+        xd = torch.randn((N_CHAINS, d), generator=g, device=dev)
+        for k in SWEEP_MIX_K:
+            means = 2.0 * torch.randn((k, d), generator=g, device=dev)
+            cases.append((f"mixture K={k} d={d} {N_CHAINS}x{N_STEPS}",
+                          (xd, means, N_STEPS, 0.1), dict(scale=0.8), d, k, False))
+    for k in SWEEP_LARGE_K:
+        ring = _ring(k).to(dev)
+        for n in SWEEP_LARGE_N:
+            xn = torch.randn((n, 2), generator=g, device=dev)
+            cases.append((f"ring K={k} d=2 {n}x{SWEEP_LARGE_DRAWS}",
+                          (xn, ring.means, SWEEP_LARGE_DRAWS, 0.2),
+                          dict(scale=float(ring.scale), log_weights=ring.log_weights), 2, k, False))
+    for d in SWEEP_GAUSS_D:
+        a = 0.1 * torch.randn((d, d), generator=g, device=dev)
+        xd = torch.randn((N_CHAINS, d), generator=g, device=dev)
+        cases.append((f"full-covariance Gaussian d={d} {N_CHAINS}x{N_STEPS}",
+                      (xd, torch.zeros((1, d), device=dev), N_STEPS, 0.2),
+                      dict(precision=(a @ a.T + torch.eye(d, device=dev)).contiguous()), d, 1,
+                      True))
+    for label, _, args, kw in ess:
+        cases.append((f"ESS shape (corr-Gaussian d=2, {N_CHAINS}x{ESS_DRAWS} thin {ESS_THIN}, "
+                      f"{label})", args[:4], kw, 2, 1, True))
+    label, _, args, kw = ess[0]
+    for n_lf in SWEEP_LEAPFROG:
+        cases.append((f"ring K=8 d=2 {N_CHAINS}x{N_STEPS}, {n_lf} leapfrog",
+                      (x2, ring8.means, N_STEPS, 0.3, n_lf),
+                      dict(scale=float(ring8.scale), log_weights=ring8.log_weights), 2, 8, False))
+        cases.append((f"ESS shape ({label}), {n_lf} leapfrog", (*args[:4], n_lf), kw, 2, 1, True))
+    at_pick = 0
+    for label, args, kw, d, k, gaussian in cases:
+        args = args if len(args) == 5 else (*args, HMC_LEAPFROG)
+        ms = {group: device_ms(functools.partial(fh._run, *args, **hmc_run_kw(**kw), group=group))
+              for group in fh.hmc_groups(d, k, gaussian)}
+        fastest = min(ms, key=ms.get)
+        pick = fh.hmc_launch_plan(args[0].shape[0], d, k, gaussian)[0]
+        at_pick += fastest == pick
+        print(f"sweep: HMC {label}: device ms per call " + "; ".join(
+            f"G={grp} {t:.4f}" for grp, t in ms.items()) + f"; fastest G={fastest}, the plan "
+            f"picks G={pick} ({ms[pick] / ms[fastest] - 1:.1%} slower) | {card}", flush=True)
+    print(f"sweep: the HMC plan's pick is the fastest group at {at_pick} of {len(cases)} shapes "
+          f"| {card}")
+
+
+def phase_ess_shape(ops, dev, card: str) -> None:
+    """``chip_smoke.py --ess-shape``: row 9 at the ESS protocol's shape
+    through the public wrapper (the plan's group), per call and by device
+    time per call. It runs against any revision of the package, so
+    an earlier checkout can be timed beside this one on the same card:
+    ``PYTHONPATH=<checkout> python3 -P chip_smoke.py --ess-shape``."""
+    fh = ops.fused_hmc
+    for label, eps, args, kw in ess_shape_cases(dev):
+        run = functools.partial(fh.mixture_hmc_chain_trajectory, *args, **kw)
+        ms = statistics.median(cuda_times(run, 2, 10))
+        dev_ms = device_ms(run)
+        print(f"ess-shape: mixture_hmc_chain_trajectory (package {ops.__file__}, corr-Gaussian "
+              f"d=2, {N_CHAINS}x{ESS_DRAWS} draws thin {ESS_THIN}, step {eps:.5f}, {label}): "
+              f"{ms:.4f} ms per call, device {dev_ms:.4f} ms | {card}", flush=True)
+
+
 def phase_timing(ops, dev, card: str) -> dict:
     """Each kernel against its plain version (CUDA events), with its work
     (``ops._counts.work``); PT per ladder step, AIS per rung, the one-step op
@@ -1589,8 +1843,8 @@ def phase_timing(ops, dev, card: str) -> dict:
 
     # rows 4-5 at the main shape for each group of lanes per chain the
     # kernel is built for: per call (one call per reading, the wrapper's host
-    # work inside, as the rows' "ms") and the kernel's own device time
-    # (torch.profiler); launches made here are not counted
+    # work inside, as the rows' "ms") and the device time per call
+    # (device_ms); launches made here are not counted
     fl = ops.fused_langevin
     k8 = mix.means.shape[0]
     picked = fl.mixture_launch_plan(N_CHAINS, 2, k8, False)[0]
@@ -1601,23 +1855,60 @@ def phase_timing(ops, dev, card: str) -> dict:
                                     mix_kw["scale"], mix.log_weights, None, 21, None, None,
                                     group=group)
             by_group[group] = (statistics.median(cuda_times(run, 2, 10)),
-                               device_busy_ms(run, "mixture_chain_kernel", 5))
+                               device_ms(run))
         fastest = min(by_group, key=lambda grp: by_group[grp][1])
         print(f"timing: {name} {N_CHAINS}x2x{N_STEPS}, K={k8}, by lanes per chain G: " + "; ".join(
-            f"G={grp} {ms:.4f} ms per call, kernel {dev_ms:.4f} ms"
+            f"G={grp} {ms:.4f} ms per call, device {dev_ms:.4f} ms"
             for grp, (ms, dev_ms) in by_group.items())
-            + f"; fastest kernel G={fastest}, the plan picks G={picked} | {card}")
+            + f"; fastest G={fastest}, the plan picks G={picked} | {card}")
     # the shapes behind the plan's rule: rings of other K, and more chains
     for kr, n in PLAN_SHAPES:
         ring = _ring(kr).to(dev)
         xr = torch.randn((n, 2), generator=g, device=dev)
-        by_group = {group: device_busy_ms(functools.partial(
+        by_group = {group: device_ms(functools.partial(
             fl._mixture_run, "mixture_langevin_chain", xr, ring.means, N_STEPS, 0.05, 1.0, None,
-            float(ring.scale), ring.log_weights, None, 21, None, None, group=group),
-            "mixture_chain_kernel", 5) for group in fl.MIXTURE_GROUPS}
-        print(f"timing: mixture_langevin_chain {n}x2x{N_STEPS}, ring K={kr}, kernel by lanes per "
+            float(ring.scale), ring.log_weights, None, 21, None, None, group=group))
+            for group in fl.MIXTURE_GROUPS}
+        print(f"timing: mixture_langevin_chain {n}x2x{N_STEPS}, ring K={kr}, device by lanes per "
               f"chain G: " + "; ".join(f"G={grp} {ms:.4f} ms" for grp, ms in by_group.items())
               + f"; the plan picks G={fl.mixture_launch_plan(n, 2, kr, False)[0]} | {card}")
+
+    # rows 8-9 at the main shape for each group of lanes per chain the
+    # kernel is built for, per call and by device time per call, and
+    # row 9 at the ESS protocol's shape (the correlated Gaussian, tuned step,
+    # unit and adapted mass) with its bound; then the plan sweep. Launches
+    # made here are not counted.
+    fh = ops.fused_hmc
+    clock = max_sm_clock_mhz()
+    picked = fh.hmc_launch_plan(N_CHAINS, 2, k8, False)[0]
+    for name, thin in (("mixture_hmc_chain", None), ("mixture_hmc_chain_trajectory", 1)):
+        by_group = {}
+        for group in fh.hmc_groups(2, k8, False):
+            run = functools.partial(fh._run, *hmc_args, **hmc_run_kw(
+                thin=thin, scale=mix_kw["scale"], log_weights=mix.log_weights), group=group)
+            by_group[group] = (statistics.median(cuda_times(run, 2, 10)),
+                               device_ms(run))
+        fastest = min(by_group, key=lambda grp: by_group[grp][1])
+        print(f"timing: {name} {N_CHAINS}x2x{N_STEPS} draws x {HMC_LEAPFROG} leapfrog, K={k8}, "
+              "by lanes per chain G: " + "; ".join(
+                  f"G={grp} {ms:.4f} ms per call, device {dev_ms:.4f} ms"
+                  for grp, (ms, dev_ms) in by_group.items())
+              + f"; fastest G={fastest}, the plan picks G={picked}; bound "
+              f"{bound_of(times[name]['work'], clock)[0]:.4f} ms | {card}")
+    ess = ess_shape_cases(dev)
+    for label, eps, args, kw in ess:
+        b_ms, b_by = bound_of(work("mixture_hmc_chain_trajectory", args, kw,
+                                   fh.mixture_hmc_chain_trajectory(*args, **kw)), clock)
+        for group in fh.hmc_groups(2, 1, True):
+            run = functools.partial(fh._run, *args, **hmc_run_kw(**kw), group=group)
+            ms = statistics.median(cuda_times(run, 2, 10))
+            dev_ms = device_ms(run)
+            print(f"timing: mixture_hmc_chain_trajectory at the ESS protocol's shape "
+                  f"(corr-Gaussian d=2, {N_CHAINS}x{ESS_DRAWS} draws thin {ESS_THIN}, step "
+                  f"{eps:.5f}, {label}) G={group}: {ms:.4f} ms per call, device {dev_ms:.4f} ms; "
+                  f"bound {b_ms:.5f} ms by {b_by} ({b_ms / dev_ms:.3f} of the bound's rate by "
+                  f"device time) | {card}")
+    hmc_plan_sweep(fh, dev, card, ess)
 
     for name in ("pt_langevin_chain", "pt_langevin_chain_trajectory"):
         print(f"timing: {name} {N_CHAINS} chains x {len(PT_TEMPS)} replicas: "
@@ -1856,20 +2147,18 @@ def max_sm_clock_mhz() -> float:
     return float(out.strip().splitlines()[0])
 
 
-def device_busy_ms(fn, name: str = "", calls: int = 1) -> float:
-    """Device time per call over ``calls`` calls of ``fn()``: the sum of the
-    self time that ``torch.profiler`` records for the CUDA kernels and copies
-    whose name contains ``name`` (all of them by default); 0.0 when it
+def device_busy_ms(fn) -> float:
+    """Device time of one call of ``fn()``: the sum of the self time that
+    ``torch.profiler`` records for its CUDA kernels and copies; 0.0 when it
     records none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+        fn()
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key) / calls / 1e3
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
 
 
 def host_top_ops(fn, n: int = 6) -> str:
@@ -1931,7 +2220,15 @@ def phase_profile(dev, card: str) -> None:
         eqm_steps[fused] = (trainer, trainer.init_state(net, torch.Generator(dev).manual_seed(18)),
                             _flow_batch(dev))
     flow = FlowSampler(model=eqm_steps["auto"][1].model, integrator="euler", negate_velocity=True)
-    calls = {
+    # The kernel paths and the other short calls are profiled first, the
+    # generic loops after them and the HMC warmup (about 190,000 profiler
+    # events, 40,000 on the device) last: after a session that large, every
+    # later session of the process drops some of its device events, and
+    # more after each such session (on an H100 with torch 2.11), while
+    # sessions before it record them all. So this phase runs first and is
+    # the only one that profiles, and every call of the first group must
+    # record device events.
+    first = {
         f"EqM train step config 5 Sinkhorn kernel (batch {FLOW_BATCH})":
             lambda: eqm_steps["auto"][0].train_step(*eqm_steps["auto"][1:]),
         f"EqM train step config 5 Sinkhorn loop (batch {FLOW_BATCH})":
@@ -1946,33 +2243,35 @@ def phase_profile(dev, card: str) -> None:
             lambda: lang.sample(g, x=x2, n_steps=N_STEPS),
         f"Langevin sample() kernel path + diagnostics {n}x{N_STEPS}":
             lambda: lang.sample(g, x=x2, n_steps=N_STEPS, return_diagnostics=True),
-        f"Langevin sample() generic loop {n}x{N_STEPS}":
-            lambda: lang.replace(fused="off").sample(g, x=x2, n_steps=N_STEPS),
         f"HMC sample() kernel path {n}x{N_STEPS}": lambda: hmc.sample(g, x=x2, n_steps=N_STEPS),
-        f"MALA sample() kernel path {n}x{N_STEPS}":
-            lambda: mala.sample(g, x=x2, n_steps=N_STEPS),
-        f"HMC sample() generic loop {n}x{loop_steps}":
-            lambda: hmc.replace(fused="off").sample(g, x=x2, n_steps=loop_steps),
-        f"MALA sample() generic loop {n}x{loop_steps}":
-            lambda: mala.replace(fused="off").sample(g, x=x2, n_steps=loop_steps),
-        f"HMC warmup (generic loop) {n}x{loop_steps}":
-            lambda: corr.warmup(g, dim=2, n_warmup=loop_steps, n_samples=n),
         f"HMC ESS trajectory kernel path {n}x{ESS_DRAWS} thin {ESS_THIN}":
             lambda: corr.sample(g, x=x0, n_steps=ESS_DRAWS, thin=ESS_THIN,
                                 return_trajectory=True),
+        f"MALA sample() kernel path {n}x{N_STEPS}":
+            lambda: mala.sample(g, x=x2, n_steps=N_STEPS),
         f"PT sample() kernel path {n}x{N_STEPS}, R={len(PT_TEMPS)}":
             lambda: pt.sample(g, x=x2, n_steps=N_STEPS),
-        f"PT sample() generic loop {n}x{loop_steps}, R={len(PT_TEMPS)}":
-            lambda: pt.replace(fused="off").sample(g, x=x2, n_steps=loop_steps),
         f"AIS kernel path {AIS_CHAINS}x{AIS_RUNGS} rungs":
             lambda: annealed_importance_sampling(g, mix, **ais_kw),
-        f"AIS generic loop {AIS_CHAINS}x{AIS_RUNGS} rungs":
-            lambda: annealed_importance_sampling(g, mix, fused="off", **ais_kw),
         f"summarize_chains {tuple(traj.shape)}": lambda: summarize_chains(traj),
         f"summarize_chains(rank_normalized=True) {tuple(traj.shape)}":
             lambda: summarize_chains(traj, rank_normalized=True),
     }
-    for label, fn in calls.items():
+    loops = {
+        f"Langevin sample() generic loop {n}x{N_STEPS}":
+            lambda: lang.replace(fused="off").sample(g, x=x2, n_steps=N_STEPS),
+        f"HMC sample() generic loop {n}x{loop_steps}":
+            lambda: hmc.replace(fused="off").sample(g, x=x2, n_steps=loop_steps),
+        f"MALA sample() generic loop {n}x{loop_steps}":
+            lambda: mala.replace(fused="off").sample(g, x=x2, n_steps=loop_steps),
+        f"PT sample() generic loop {n}x{loop_steps}, R={len(PT_TEMPS)}":
+            lambda: pt.replace(fused="off").sample(g, x=x2, n_steps=loop_steps),
+        f"AIS generic loop {AIS_CHAINS}x{AIS_RUNGS} rungs":
+            lambda: annealed_importance_sampling(g, mix, fused="off", **ais_kw),
+        f"HMC warmup (generic loop) {n}x{loop_steps}":
+            lambda: corr.warmup(g, dim=2, n_warmup=loop_steps, n_samples=n),
+    }
+    for label, fn in (*first.items(), *loops.items()):
         fn()
         torch.cuda.synchronize()
         walls = []
@@ -1983,6 +2282,8 @@ def phase_profile(dev, card: str) -> None:
             walls.append((time.perf_counter() - t0) * 1e3)
         wall = statistics.median(walls)
         busy = device_busy_ms(fn)
+        if busy <= 0 and label in first:
+            raise AssertionError(f"profile: {label}: the profile recorded no device events")
         device = (f"device busy {busy:.3f} ms, idle share {1.0 - busy / wall:.3f}" if busy > 0
                   else "device busy not measured (the profile recorded no device events)")
         print(f"profile: {label}: wall {wall:.3f} ms, {device} | {card}")
@@ -2006,21 +2307,25 @@ def main() -> None:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--ess-shape"]:
+        phase_ess_shape(ops, dev, card)
+        return
 
-    phase_build(_build)
+    check_hmc_instances(phase_build(_build))
     errors: dict = {}
     phase_check(ops.fused_langevin, dev, errors)
     phase_check_metropolis(ops, dev, errors)
+    phase_check_hmc_groups(ops, dev, errors)
     phase_check_tempering(ops, dev, errors)
     phase_check_mlp(ops, dev, errors)
     phase_check_sinkhorn(ops, dev, errors)
+    phase_profile(dev, card)
     launches = {name: 0 for name in KERNELS}
     for path in (path_langevin, path_hmc, path_mala, path_gradient_descent, path_pt, path_ais,
                  path_step, path_cd, path_flow):
         for name, n in path(ops, dev, card).items():
             launches[name] += n
     times = phase_timing(ops, dev, card)
-    phase_profile(dev, card)
     phase_syncs(ops, dev, card)
 
     clock = max_sm_clock_mhz()

@@ -159,3 +159,55 @@ def test_wrappers_reject_bad_inputs():
         thmc.mixture_hmc_chain(torch.zeros(2, 8).T, means, 2, 0.1)
     with pytest.raises(ValueError, match="seed"):
         thmc.mixture_hmc_chain(x0, means, 2, 0.1, seed=-1)
+
+
+# (d, K, gaussian, n chains, group): the ring's pick, K past the lanes'
+# registers (4 components per lane at d <= 2, 2 at d <= 4, 1 above), each
+# bucket's cap (8 lanes at d <= 4, 4 above), one lane for one component and
+# for d > 16, two for the full-covariance Gaussian at d <= 16, and the
+# halving at large n (down to 2)
+PLAN_CASES = [
+    (2, 8, False, 10_000, 2), (2, 2, False, 10_000, 2), (2, 3, False, 10_000, 2),
+    (2, 12, False, 10_000, 4), (2, 16, False, 10_000, 4), (2, 24, False, 10_000, 8),
+    (2, 33, False, 10_000, 8), (3, 4, False, 10_000, 2), (4, 8, False, 10_000, 4),
+    (3, 16, False, 10_000, 8), (5, 2, False, 10_000, 2), (8, 4, False, 10_000, 4),
+    (16, 8, False, 10_000, 4), (16, 33, False, 10_000, 4), (2, 8, False, 31, 2),
+    (2, 1, False, 10_000, 1), (2, 1, True, 10_000, 2), (16, 1, True, 10_000, 2),
+    (2, 1, True, 1_000_000, 2), (32, 1, True, 10_000, 1), (17, 8, False, 10_000, 1),
+    (64, 8, False, 10_000, 1),
+    (2, 12, False, 100_000, 2), (2, 33, False, 40_000, 4), (2, 33, False, 100_000, 2),
+    (2, 8, False, 1_000_000, 2), (2, 33, False, 1_000_000, 2),
+]
+
+
+@pytest.mark.parametrize("d, k, gaussian, n, group", PLAN_CASES,
+                         ids=[f"d{d}-k{k}-n{n}" + ("-gauss" if g else "")
+                              for d, k, g, n, _ in PLAN_CASES])
+def test_hmc_launch_plan(d, k, gaussian, n, group):
+    """The group the card's timings pick, a grid that holds every chain's
+    group and no block past the last chain, and the same plan when the
+    group is passed back as the override."""
+    got, threads, blocks = thmc.hmc_launch_plan(n, d, k, gaussian)
+    assert got == group and got in thmc.HMC_GROUPS
+    assert threads == thmc.HMC_THREADS and threads % 32 == 0
+    assert blocks * threads >= n * group > (blocks - 1) * threads
+    assert thmc.hmc_launch_plan(n, d, k, gaussian, group=group) == (group, threads, blocks)
+    if group > 2:  # halving stops where the chains' lanes fit the card
+        assert n * group <= tops.fused_langevin.MIXTURE_RESIDENT_THREADS
+
+
+def test_hmc_launch_plan_overrides_only_built_groups():
+    """Every built group may be forced (timings compare them): 1, 2, 4, 8 on
+    the mixture and the full-covariance Gaussian at d <= 16; one component
+    and d > 16 have one lane."""
+    for d, k, gaussian, built in ((2, 8, False, (1, 2, 4, 8)), (16, 8, False, (1, 2, 4, 8)),
+                                  (2, 1, True, (1, 2, 4, 8)), (16, 1, True, (1, 2, 4, 8)),
+                                  (2, 1, False, (1,)), (17, 8, False, (1,)), (32, 1, True, (1,))):
+        assert thmc.hmc_groups(d, k, gaussian) == built
+        for group in built:
+            assert thmc.hmc_launch_plan(10_000, d, k, gaussian, group=group)[0] == group
+    for d, k, gaussian, group in ((2, 8, False, 3), (2, 8, False, 16), (2, 1, True, 3),
+                                  (16, 1, True, 16), (32, 1, True, 2), (17, 8, False, 2),
+                                  (2, 1, False, 4)):
+        with pytest.raises(ValueError, match="no HMC chain kernel"):
+            thmc.hmc_launch_plan(100, d, k, gaussian, group=group)

@@ -235,24 +235,76 @@ def test_mala_kernels_match_plain_on_card(cuda, inject, target):
         assert _flipped_chains(got, want, n) <= n // 1000
 
 
+#: (target, lanes per chain): every group the HMC kernel is built for
+#: (``hmc_groups``), on the mixture at 4,096 chains, at 1,001 (groups past the
+#: last chain in a partial last warp) and at d = 16 (the groups' largest
+#: bucket, four Philox blocks per draw drawn by the lanes), on the correlated
+#: 2-D Gaussian (precision in registers), a d = 16 Gaussian (precision in
+#: shared memory) and the d = 32 Gaussian (one lane)
+HMC_TARGETS = {"mixture": (2, 8, False), "ragged": (2, 8, False), "d16": (16, 8, False),
+               "gaussian": (32, 1, True), "corr2": (2, 1, True), "gauss16": (16, 1, True)}
+HMC_CASES = [(t, grp) for t, (d, k, gaussian) in HMC_TARGETS.items()
+             for grp in thmc.hmc_groups(d, k, gaussian)]
+HMC_STEP_OF = {"ragged": "mixture", "d16": "mixture", "gauss16": "gaussian"}
+
+
+def _hmc_case(rng, target):
+    """``(n, d, x0, means, kwargs)`` on the CPU: the targets of
+    :func:`_metropolis_case`, the mixture's first 1,001 chains, an
+    8-component mixture at d = 16 started at draws of it, or a d = 16
+    full-covariance Gaussian."""
+    if target == "ragged":
+        n, d, x0, means, kw = _metropolis_case(rng, "mixture")
+        return 1001, d, x0[:1001].contiguous(), means, kw
+    if target == "gauss16":
+        n, d = 4096, 16
+        a = _normal(rng, d, d, scale=0.1)
+        prec = torch.from_numpy((a @ a.T + np.eye(d)).astype(np.float32))
+        return n, d, torch.from_numpy(_normal(rng, n, d)), torch.zeros(1, d), dict(
+            seed=42, precision=prec)
+    if target == "d16":
+        n, d, k = 4096, 16, 8
+        means = torch.from_numpy(_normal(rng, k, d, scale=2.0))
+        x0 = means[torch.from_numpy(rng.integers(0, k, n))] + torch.from_numpy(
+            _normal(rng, n, d, scale=0.4))
+        return n, d, x0.contiguous(), means, dict(scale=0.4, seed=42)
+    return _metropolis_case(rng, target)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("inject", [True, False], ids=["noise", "philox"])
-@pytest.mark.parametrize("target", TARGETS)
+@pytest.mark.parametrize("target, group", HMC_CASES, ids=[f"{t}-G{g}" for t, g in HMC_CASES])
 @pytest.mark.parametrize("mass", [False, True], ids=["unit", "diag-mass"])
-def test_hmc_kernels_match_plain_on_card(cuda, inject, target, mass):
+def test_hmc_kernels_match_plain_on_card(cuda, inject, target, group, mass):
+    """Rows 8-9 at ``group`` lanes per chain against the plain versions under
+    the flip rule; where the launch plan picks ``group`` itself, through the
+    public wrappers and their launch counts."""
     rng = _rng(3)
-    n, d, x0, means, kw = _metropolis_case(rng, target)
-    n_draws, (step, thin) = 10, HMC_STEP[target]
+    n, d, x0, means, kw = _hmc_case(rng, target)
+    n_draws, (step, thin) = 10, HMC_STEP[HMC_STEP_OF.get(target, target)]
     if mass:
         kw["mass"] = torch.from_numpy(rng.uniform(0.5, 2.0, d).astype(np.float32))
     if inject:
         kw["noise"] = torch.from_numpy(_normal(rng, n_draws, n, d))
         kw["uniforms"] = torch.from_numpy(rng.uniform(size=(n_draws, n)).astype(np.float32))
-    kw = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
-    for fn, extra in ((thmc.mixture_hmc_chain, {}),
-                      (thmc.mixture_hmc_chain_trajectory, dict(thin=thin))):
-        got, want = _kernel_and_plain(fn, cuda, x0.to(cuda), means.to(cuda), n_draws, step, 8,
-                                      **extra, **kw)
+    gaussian = "precision" in kw
+    planned = thmc.hmc_launch_plan(n, d, means.shape[0], gaussian)[0] == group
+    on_card = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    for fn, t in ((thmc.mixture_hmc_chain, None), (thmc.mixture_hmc_chain_trajectory, thin)):
+        extra = {} if t is None else dict(thin=t)
+        if planned:
+            got, want = _kernel_and_plain(fn, cuda, x0.to(cuda), means.to(cuda), n_draws, step,
+                                          8, **extra, **on_card)
+        else:
+            traj, out, acc, launched = thmc._run(
+                x0.to(cuda), means.to(cuda), n_draws, step, 8, thin=t,
+                scale=kw.get("scale", 1.0), log_weights=on_card.get("log_weights"),
+                precision=on_card.get("precision"), mass=on_card.get("mass"),
+                seed=kw.get("seed", 0), noise=on_card.get("noise"),
+                uniforms=on_card.get("uniforms"), group=group)
+            assert launched
+            got = (out, acc) if t is None else (traj, out, acc)
+            want = fn(x0, means, n_draws, step, 8, **extra, **kw)
         assert _flipped_chains(got, want, n) <= n // 1000
 
 

@@ -11,11 +11,13 @@ not read. Classes: ``"fp32"`` adds, multiplies, FMAs, min/max and compares;
 rcp, sin, cos and int-to-float conversions.
 
 The counts are the algorithm's work, not what a design adds to it. The
-mixture chain (``mixture_langevin*``) splits a chain over a group of lanes:
-its butterfly shuffles, the update and reciprocal that every lane of a group
+mixture and HMC chains (``mixture_langevin*``, ``mixture_hmc*``) split a
+chain over a group of lanes: their butterfly shuffles and broadcasts, the
+updates, kinetic sums and Metropolis tests that every lane of a group
 repeats, and the logits that lanes with no component form are overhead, so
-its count stays one evaluation, one update and ``ceil(d/4)`` Philox blocks
-per chain-step, whatever the group (each block is drawn once, by one lane).
+the counts stay one evaluation and update per chain-step or leapfrog step,
+``ceil(d/4)`` Philox blocks of normals and, for HMC, one uniform block per
+chain-draw, whatever the group (each block is drawn once, by one lane).
 
 :data:`COUNTED_SOURCES` holds the SHA-256 prefix of each source the counts
 were last checked against; a test fails when a source changes, so that an
@@ -29,14 +31,14 @@ __all__ = ["COUNTED_SOURCES", "work"]
 #: ``{file under csrc/: sha256 hexdigest[:16]}`` of the sources counted here
 COUNTED_SOURCES = {
     "fused_ais.cu": "bbb0be8b07f58a41",
-    "fused_hmc.cu": "a21525becda3a215",
-    "fused_langevin.cu": "5e6ab0abd505aaf4",
+    "fused_hmc.cu": "faf4f65e7bb69787",
+    "fused_langevin.cu": "ed1abd8c6f146eb2",
     "fused_mala.cu": "5c281c546e39a99a",
     "fused_mlp_langevin.cu": "1c9df0ffe632ed07",
     "fused_pt.cu": "749b05b3dce2d4d8",
     "fused_sinkhorn.cu": "d0a19152cfef9635",
     "fused_step.cu": "45698a16da6ceaad",
-    "tebm_common.cuh": "2ddd7558d2c0351a",
+    "tebm_common.cuh": "6aa01e56cd26d015",
 }
 
 # tebm_common.cuh: one Philox4x32-10 block; normals4 (one block, two
@@ -94,13 +96,16 @@ def work(name: str, args, kw, result) -> dict:
         per = _add(_eval(d, means.shape[0], gaussian), normals(d), _UNIFORM,
                    {"fp32": 8 * d + 12, "sfu": 2})
         ops = _add(per, times=n * n_steps)
-    elif name.startswith("mixture_hmc"):  # fused_hmc.cu, per chain-draw
+    elif name.startswith("mixture_hmc"):  # fused_hmc.cu, per chain-draw, any group
         x0, means, n_draws, _, n_leap = args[:5]
         n, d = x0.shape
         ev = _eval(d, means.shape[0], gaussian)
-        per = _add(_add(ev, {"fp32": 4 * d}, times=n_leap), ev, normals(d), _UNIFORM,
+        # a draw's n_leap evaluations with their kicks and drift; the state's
+        # own gradient and log-density are kept from the draw before, so one
+        # more evaluation per chain starts the run
+        per = _add(_add(ev, {"fp32": 4 * d}, times=n_leap), normals(d), _UNIFORM,
                    {"fp32": 6 * d + 12, "sfu": 2})
-        ops = _add(per, times=n * n_draws)
+        ops = _add(_add(per, times=n * n_draws), _add(ev, times=n))
     elif name.startswith("pt_langevin"):  # fused_pt.cu, per replica-step and sweep
         ladder, means, n_steps, _, _, betas, swap_every = args[:7]
         n_rep, n, d = ladder.shape

@@ -1,8 +1,8 @@
 // Whole-run Hamiltonian Monte Carlo (HMC) kernels for Hopper (sm_90a).
 //
 // Replaces the Pallas kernels behind torchebm_tpu/ops/fused_hmc.py::
-//   hmc_chain_kernel<.., TRAJ=false>   mixture_hmc_chain (:370)
-//   hmc_chain_kernel<.., TRAJ=true>    mixture_hmc_chain_trajectory (:238)
+//   hmc_chain_kernel<.., TRAJ=false, ..>   mixture_hmc_chain (:370)
+//   hmc_chain_kernel<.., TRAJ=true, ..>    mixture_hmc_chain_trajectory (:238)
 // on an isotropic Gaussian mixture or a full-covariance Gaussian target, with
 // an optional diagonal mass m (the JAX library semantics, samplers/hmc.py).
 //
@@ -15,29 +15,104 @@
 // The kernel returns the final state and each chain's mean alpha; the
 // trajectory variant also stores the post-MH state after draws thin, 2 thin, ...
 //
-// Bound: arithmetic. A draw costs 1 + n_leapfrog grad + log-density
-// evaluations (the log-density at q comes with the last leapfrog gradient),
+// Bound: arithmetic. A draw costs n_leapfrog gradient + log-density
+// evaluations: U(x) and grad U(x) of a draw are those of the previous draw's
+// state, kept in registers (the proposal's, the last leapfrog evaluation,
+// when it was taken), so only the chain's start is evaluated once more. Add
 // one Philox block per four momentum coordinates and one for the Metropolis
 // uniform. No device-memory traffic between draws except the optional
-// trajectory store.
+// trajectory store. At the main shape (10,000 chains x 1,000 draws x 8
+// leapfrog steps on the 8-component ring) one chain per thread gives about
+// 2.4 warps per SM, so every dependent latency of the eight evaluations per
+// draw shows: the design buys warps.
 //
-// Design: one thread holds one chain; x, q, p and grad U(q) live in
-// registers (4 DMAX floats, so the d = 64 bucket spills), the target and the
-// per-dimension sqrt(m) and 1/m are staged once per block in shared memory
-// (1 without a mass, so one code path serves both and the products by 1 are
-// exact).
+// Design (the mixture chain's, fused_langevin.cu): a group of G lanes of one
+// warp (G in {1, 2, 4, 8}, from the wrapper's launch plan,
+// ops/fused_hmc.py::hmc_launch_plan) holds one chain; every lane keeps its
+// own copy of the chain's x, q, p, grad U(q) and grad U(x) (d <= 16 at
+// G > 1; arrays sized by the bucket DMAX >= d, every index unrolled to a
+// constant). On the mixture lane r evaluates components r, r + G, ... by
+// grad_logp_group (tebm_common.cuh), whose xor butterflies leave the same
+// gradient and log-density bits in every lane; on the full-covariance
+// Gaussian every lane runs the whole per-thread evaluator grad_logp on the
+// same inputs. Each lane forms the kinetic sums from the same p and reads the
+// same uniform, so H0, H1, alpha and the Metropolis decision are the same in
+// every lane and the copies never drift: nothing is broadcast but the
+// randomness.
 //
-// Randomness: the Philox normals (counter (chain lo, draw, j, chain hi)) and
-// uniform (block 0xFFFFFFFF) of tebm_common.cuh, or injected standard-normal
-// `noise` (n_draws, n, d) and `uniforms` (n_draws, n) together, as in the JAX
-// signatures.
+// Randomness drawn ahead and shared: a draw's momentum and uniform do not
+// depend on the state. At draw t0, a multiple of G, lane r draws the uniform
+// of draw t0 + r and, at d <= 4 (one Philox block of normals per draw), that
+// draw's normals block too; at draw t every lane takes them from lane t - t0
+// by shuffle: two Philox blocks per lane per G draws. At d > 4 lane r draws
+// the normals blocks r, r + G, ... of the current draw. Injected `noise`
+// (n_draws, n, d) and `uniforms` (n_draws, n) are loaded lane-wise the same
+// way (coordinates r, r + G, ...; the uniform of draw t0 + r). The counters
+// are the ones philox_normals and philox_uniforms use, whichever lane draws:
+// normals (chain lo, draw, j, chain hi), the uniform at block 0xFFFFFFFF. No
+// shuffle sits inside a branch on the data or on i < d.
+//
+// Ragged edges: a warp whose groups all lie past the last chain leaves after
+// staging; in the last live warp the groups past n run on a zero state and
+// store nothing, since the group reductions need every lane. Lane r writes
+// coordinates r, r + G, ... of the final state and of each kept trajectory
+// slot; lane 0 of a group writes its acceptance. Buckets with d > 16 run at
+// G = 1, one thread per chain. The full-covariance Gaussian is built for
+// every G at d <= 16 and the plan picks G = 2: every lane repeats its whole
+// evaluation, and two lanes gain by sharing the randomness drawn ahead and
+// by doubling the warps.
+//
+// The target and the per-dimension sqrt(m) and 1/m (1 without a mass, so one
+// code path serves both and the products by 1 are exact; 0 past d) are
+// staged once per block in shared memory; at d <= 16 sqrt(m) and 1/m, and at
+// d <= 4 the Gaussian's precision and mean, are then held in registers, so
+// the leapfrog loop reads no shared memory and, with every padded coordinate
+// 0, carries no branch on d.
 
 #include "tebm_common.cuh"
 
 namespace {
 
-template <int DMAX, bool GAUSS, bool TRAJ>
-__global__ void __launch_bounds__(kThreads) hmc_chain_kernel(
+constexpr int kHmcThreads = 128;  // the largest block the launch plan gives
+constexpr int kGaussRegDim = 4;   // the largest d whose precision is held in registers
+
+// The full-covariance Gaussian's precision and mean held in registers, zero
+// past d, for DMAX <= kGaussRegDim: grad_logp<DMAX, true>'s arithmetic in the
+// same order (the padded terms add exact zeros), with no shared-memory load
+// and no branch on d inside the leapfrog.
+template <int DMAX>
+struct GaussRegs {
+  float prec[DMAX][DMAX];
+  float mean[DMAX];
+
+  __device__ __forceinline__ void load(const float* s_a, const float* s_b, int d) {
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i) {
+      mean[i] = i < d ? s_b[i] : 0.0f;
+#pragma unroll
+      for (int j = 0; j < DMAX; ++j) prec[i][j] = i < d && j < d ? s_a[i * d + j] : 0.0f;
+    }
+  }
+
+  __device__ __forceinline__ float grad_logp(const float (&x)[DMAX], float (&g)[DMAX]) const {
+    float diff[DMAX];
+#pragma unroll
+    for (int j = 0; j < DMAX; ++j) diff[j] = x[j] - mean[j];
+    float quad = 0.0f;
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int j = 0; j < DMAX; ++j) acc = fmaf(prec[i][j], diff[j], acc);
+      g[i] = acc;
+      quad = fmaf(diff[i], acc, quad);
+    }
+    return -0.5f * quad;
+  }
+};
+
+template <int DMAX, bool GAUSS, bool TRAJ, int G, int NJ>
+__global__ void __launch_bounds__(kHmcThreads) hmc_chain_kernel(
     const float* __restrict__ x0, float* __restrict__ out, float* __restrict__ accept,
     float* __restrict__ traj, const float* __restrict__ params_a,
     const float* __restrict__ params_b, const float* __restrict__ mass,
@@ -49,108 +124,233 @@ __global__ void __launch_bounds__(kThreads) hmc_chain_kernel(
   __shared__ float s_msqrt[kMaxDim];
   __shared__ float s_minv[kMaxDim];
   stage_target<GAUSS>(s_a, s_b, params_a, params_b, d, k);
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    s_msqrt[i] = mass != nullptr ? sqrtf(mass[i]) : 1.0f;
-    s_minv[i] = mass != nullptr ? 1.0f / mass[i] : 1.0f;
+  // zero past d, so that the padded coordinates of p and q stay 0 unguarded
+  for (int i = threadIdx.x; i < kMaxDim; i += blockDim.x) {
+    s_msqrt[i] = i >= d ? 0.0f : mass != nullptr ? sqrtf(mass[i]) : 1.0f;
+    s_minv[i] = i >= d ? 0.0f : mass != nullptr ? 1.0f / mass[i] : 1.0f;
   }
   __syncthreads();
 
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= n) return;
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if ((lane & ~31) / G >= n) return;
+  const int r = threadIdx.x & (G - 1);
+  const int c = lane / G;
+  const bool live = c < n;
 
-  float x[DMAX];
+  GroupComponents<DMAX, G, NJ> comps;
+  if constexpr (!GAUSS && G > 1) comps.load(s_a, s_b, d, k);
+  GaussRegs<DMAX <= kGaussRegDim ? DMAX : 1> gauss;
+  if constexpr (GAUSS && DMAX <= kGaussRegDim) gauss.load(s_a, s_b, d);
+  // gradient of U (into gq) and log-density at xq, the same bits in every lane
+  auto evaluate = [&](const float (&xq)[DMAX], float (&gq)[DMAX]) -> float {
+    if constexpr (GAUSS && DMAX <= kGaussRegDim)
+      return gauss.grad_logp(xq, gq);
+    else if constexpr (GAUSS || G == 1)
+      return grad_logp<DMAX, GAUSS>(xq, gq, s_a, s_b, d, k, inv_var);
+    else
+      return grad_logp_group<DMAX, G, NJ>(xq, gq, comps, s_a, s_b, d, k, inv_var);
+  };
+  // sqrt(m) and 1/m, in registers at d <= kMaxGroupDim
+  constexpr bool kRegMass = DMAX <= kMaxGroupDim;
+  float msqrt[kRegMass ? DMAX : 1], minv[kRegMass ? DMAX : 1];
+  if constexpr (kRegMass) {
 #pragma unroll
-  for (int i = 0; i < DMAX; ++i) x[i] = i < d ? x0[(size_t)c * d + i] : 0.0f;
+    for (int i = 0; i < DMAX; ++i) {
+      msqrt[i] = s_msqrt[i];
+      minv[i] = s_minv[i];
+    }
+  }
+  auto sqrt_m = [&](int i) -> float {
+    if constexpr (kRegMass) return msqrt[i]; else return s_msqrt[i];
+  };
+  auto inv_m = [&](int i) -> float {
+    if constexpr (kRegMass) return minv[i]; else return s_minv[i];
+  };
+
+  float x[DMAX], gx[DMAX];
+#pragma unroll
+  for (int i = 0; i < DMAX; ++i) x[i] = live && i < d ? x0[(size_t)c * d + i] : 0.0f;
+  float lpx = evaluate(x, gx);
   const float half_h = 0.5f * h;
   float acc = 0.0f;
+  // the trajectory slot of the next kept state, `until` draws ahead
+  float* slot = TRAJ ? traj + (size_t)c * d : nullptr;
+  int until = thin;
+
+  // This lane's share of the randomness at G > 1: the uniform us and, at
+  // d <= 4, the normals zs of draw t0 + r (drawn at draw t0, kept for G
+  // draws); at d > 4 the normals blocks r, r + G, ... of the draw (zq);
+  // injected coordinates r, r + G, ... of the draw (zl). One lane per chain
+  // draws (or loads) each block of four normals and uses it in turn.
+  constexpr int kBlocks = (DMAX + 3) / 4;
+  constexpr int kLoads = (DMAX + G - 1) / G;
+  constexpr int kDraws = (kBlocks + G - 1) / G;
+  float zl[kLoads] = {}, zq[kDraws][4] = {}, zs[4] = {}, us = 0.0f;
+  const bool inj = noise != nullptr;
 
   for (int t = 0; t < n_draws; ++t) {
     float q[DMAX], p[DMAX], g[DMAX];
 #pragma unroll
     for (int i = 0; i < DMAX; ++i) {
       q[i] = x[i];
+      g[i] = gx[i];
       p[i] = 0.0f;
     }
-#pragma unroll
-    for (int j = 0; j < (DMAX + 3) / 4; ++j) {
-      if (4 * j >= d) break;
-      float z[4];
-      if (noise != nullptr) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          z[r] = 4 * j + r < d ? noise[((size_t)t * n + c) * d + 4 * j + r] : 0.0f;
+    const int s = t & (G - 1);
+    if (s == 0) {
+      const int ta = t + r;
+      if (inj) {
+        us = live && ta < n_draws ? uniforms[(size_t)ta * n + c] : 0.0f;
       } else {
-        normals4((uint64_t)c, t, j, seed_lo, seed_hi, z);
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = 4 * j + r;
-        if (i < DMAX && i < d) p[i] = z[r] * s_msqrt[i];
+        us = uniform01((uint64_t)c, ta, seed_lo, seed_hi);
+        if constexpr (G > 1 && kBlocks == 1) normals4((uint64_t)c, ta, 0, seed_lo, seed_hi, zs);
       }
     }
-
-    const float lp0 = grad_logp<DMAX, GAUSS>(q, g, s_a, s_b, d, k, inv_var);
+    if constexpr (G == 1) {
+#pragma unroll
+      for (int j = 0; j < kBlocks; ++j) {
+        if (4 * j >= d) break;
+        float z[4];
+        if (inj) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            z[e] = live && 4 * j + e < d ? noise[((size_t)t * n + c) * d + 4 * j + e] : 0.0f;
+        } else {
+          normals4((uint64_t)c, t, j, seed_lo, seed_hi, z);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          if (i < DMAX && i < d) p[i] = z[e] * sqrt_m(i);
+        }
+      }
+    } else {
+      if (inj) {
+#pragma unroll
+        for (int b = 0; b < kLoads; ++b) {
+          const int i = r + G * b;
+          zl[b] = live && i < d ? noise[((size_t)t * n + c) * d + i] : 0.0f;
+        }
+      } else if constexpr (kBlocks > 1) {
+#pragma unroll
+        for (int b = 0; b < kDraws; ++b) {
+          const int j = r + G * b;
+          if (4 * j < d) normals4((uint64_t)c, t, j, seed_lo, seed_hi, zq[b]);
+        }
+      }
+      // every coordinate's normal from the lane that holds it, with no
+      // branch around the shuffles
+#pragma unroll
+      for (int i = 0; i < DMAX; ++i) {
+        const float held = kBlocks == 1 ? zs[i % 4] : zq[(i / 4) / G][i % 4];
+        const int from = kBlocks == 1 ? s : (i / 4) % G;
+        const float z = group_bcast<G>(inj ? zl[i / G] : held, inj ? i % G : from);
+        p[i] = z * sqrt_m(i);
+      }
+    }
+    // past d: p, q and g are 0 (sqrt(m) and 1/m staged 0), so no guard
     float k0 = 0.0f;
 #pragma unroll
-    for (int i = 0; i < DMAX; ++i)
-      if (i < d) k0 += p[i] * p[i] * s_minv[i];
-    const float h0 = -lp0 + 0.5f * k0;
+    for (int i = 0; i < DMAX; ++i) k0 += p[i] * p[i] * inv_m(i);
+    const float u = group_bcast<G>(us, s);
+    const float h0 = -lpx + 0.5f * k0;
 
-    float lp1 = lp0;
+    float lp1 = lpx;
+    // not unrolled: unrolled by two, the two-lane Gaussian's trajectory
+    // instance kept loop-invariant predicates in local memory (nvcc 12.9)
+#pragma unroll 1
     for (int l = 0; l < n_leapfrog; ++l) {
 #pragma unroll
-      for (int i = 0; i < DMAX; ++i)
-        if (i < d) {
-          p[i] = p[i] - half_h * g[i];
-          q[i] = q[i] + h * p[i] * s_minv[i];
-        }
-      lp1 = grad_logp<DMAX, GAUSS>(q, g, s_a, s_b, d, k, inv_var);
+      for (int i = 0; i < DMAX; ++i) {
+        p[i] = p[i] - half_h * g[i];
+        q[i] = q[i] + h * p[i] * inv_m(i);
+      }
+      lp1 = evaluate(q, g);
 #pragma unroll
-      for (int i = 0; i < DMAX; ++i)
-        if (i < d) p[i] = p[i] - half_h * g[i];
+      for (int i = 0; i < DMAX; ++i) p[i] = p[i] - half_h * g[i];
     }
 
     float k1 = 0.0f;
 #pragma unroll
-    for (int i = 0; i < DMAX; ++i)
-      if (i < d) k1 += p[i] * p[i] * s_minv[i];
+    for (int i = 0; i < DMAX; ++i) k1 += p[i] * p[i] * inv_m(i);
     const float h1 = -lp1 + 0.5f * k1;
     const float alpha = fminf(expf(fminf(fmaxf(h0 - h1, -50.0f), 50.0f)), 1.0f);
-    const float u = uniforms != nullptr ? uniforms[(size_t)t * n + c]
-                                        : uniform01((uint64_t)c, t, seed_lo, seed_hi);
     const bool take = u < alpha;
 #pragma unroll
-    for (int i = 0; i < DMAX; ++i) x[i] = take ? q[i] : x[i];
+    for (int i = 0; i < DMAX; ++i) {
+      x[i] = take ? q[i] : x[i];
+      gx[i] = take ? g[i] : gx[i];
+    }
+    lpx = take ? lp1 : lpx;
     acc += alpha;
 
-    if (TRAJ && (t + 1) % thin == 0) {
-      float* dst = traj + ((size_t)((t + 1) / thin - 1) * n + c) * d;
-#pragma unroll
-      for (int i = 0; i < DMAX; ++i)
-        if (i < d) dst[i] = x[i];
+    if (TRAJ && --until == 0) {
+      store_chain<DMAX, G>(slot, x, d, r, live);
+      until = thin;
+      slot += (size_t)n * d;
     }
   }
 
-#pragma unroll
-  for (int i = 0; i < DMAX; ++i)
-    if (i < d) out[(size_t)c * d + i] = x[i];
-  accept[c] = acc * (1.0f / (float)n_draws);
+  store_chain<DMAX, G>(out + (size_t)c * d, x, d, r, live);
+  if (live && r == 0) accept[c] = acc * (1.0f / (float)n_draws);
 }
 
+// One launch over `n` chains with the plan (group, threads, blocks) of
+// ops/fused_hmc.py::hmc_launch_plan: G = group lanes per chain, picked among
+// the instances built here, and the bucket DMAX >= d.
 template <bool TRAJ>
 int launch_hmc(const float* x0, float* out, float* accept, float* traj, const float* params_a,
                const float* params_b, const float* mass, const float* noise,
                const float* uniforms, int n, int d, int k, int gaussian, int n_draws, int thin,
                int n_leapfrog, float inv_var, float h, uint32_t seed_lo, uint32_t seed_hi,
-               void* stream) {
-  const dim3 grid((n + kThreads - 1) / kThreads);
+               int group, int threads, int blocks, void* stream) {
+  if (threads < 32 || threads > kHmcThreads || threads % 32 != 0 || blocks < 1 ||
+      (long long)blocks * threads < (long long)n * group)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TEBM_LAUNCH(DM, G)                                                                  \
-  hmc_chain_kernel<DM, G, TRAJ><<<grid, kThreads, 0, s>>>(                                  \
-      x0, out, accept, traj, params_a, params_b, mass, noise, uniforms, n, d, k, n_draws,  \
+#define TEBM_LAUNCH(DM, GS, G, NJ)                                                            \
+  hmc_chain_kernel<DM, GS, TRAJ, G, NJ><<<blocks, threads, 0, s>>>(                           \
+      x0, out, accept, traj, params_a, params_b, mass, noise, uniforms, n, d, k, n_draws,     \
       thin, n_leapfrog, inv_var, h, seed_lo, seed_hi)
-  TEBM_DISPATCH_BUCKETS(TEBM_LAUNCH);
+#define TEBM_ONE_LANE(DM, GS) TEBM_LAUNCH(DM, GS, 1, 1)
+#define TEBM_GROUPS(DM, GS, NJ)                      \
+  switch (group) {                                   \
+    case 1: TEBM_LAUNCH(DM, GS, 1, 1); break;        \
+    case 2: TEBM_LAUNCH(DM, GS, 2, NJ); break;       \
+    case 4: TEBM_LAUNCH(DM, GS, 4, NJ); break;       \
+    case 8: TEBM_LAUNCH(DM, GS, 8, NJ); break;       \
+    default: return (int)cudaErrorInvalidValue;      \
+  }
+  if (gaussian && d <= kMaxGroupDim) {
+    if (d <= 2) TEBM_GROUPS(2, true, 1)
+    else if (d <= 4) TEBM_GROUPS(4, true, 1)
+    else if (d <= 8) TEBM_GROUPS(8, true, 1)
+    else TEBM_GROUPS(16, true, 1)
+    return (int)cudaGetLastError();
+  }
+  if (d > kMaxGroupDim) {
+    if (group != 1) return (int)cudaErrorInvalidValue;
+    TEBM_DISPATCH_BUCKETS(TEBM_ONE_LANE);
+  }
+  // components per lane held in registers: as many as the lane has, up to
+  // 4 at d <= 2, 2 at d <= 4, 1 above
+  const int nj = (k + group - 1) / group;
+  if (d <= 2) {
+    if (nj <= 1) TEBM_GROUPS(2, false, 1)
+    else if (nj <= 2) TEBM_GROUPS(2, false, 2)
+    else TEBM_GROUPS(2, false, 4)
+  } else if (d <= 4) {
+    if (nj <= 1) TEBM_GROUPS(4, false, 1)
+    else TEBM_GROUPS(4, false, 2)
+  } else if (d <= 8) {
+    TEBM_GROUPS(8, false, 1)
+  } else {
+    TEBM_GROUPS(16, false, 1)
+  }
+#undef TEBM_GROUPS
+#undef TEBM_ONE_LANE
 #undef TEBM_LAUNCH
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -163,14 +363,15 @@ int tebm_mixture_hmc_chain(const float* x0, float* out, float* accept, float* tr
                            const float* params_a, const float* params_b, const float* mass,
                            const float* noise, const float* uniforms, int n, int d, int k,
                            int gaussian, int n_draws, int thin, int n_leapfrog, float inv_var,
-                           float h, uint32_t seed_lo, uint32_t seed_hi, void* stream) {
+                           float h, uint32_t seed_lo, uint32_t seed_hi, int group, int threads,
+                           int blocks, void* stream) {
   if (traj == nullptr)
     return launch_hmc<false>(x0, out, accept, traj, params_a, params_b, mass, noise, uniforms, n,
                              d, k, gaussian, n_draws, 1, n_leapfrog, inv_var, h, seed_lo,
-                             seed_hi, stream);
+                             seed_hi, group, threads, blocks, stream);
   return launch_hmc<true>(x0, out, accept, traj, params_a, params_b, mass, noise, uniforms, n, d,
                           k, gaussian, n_draws, thin, n_leapfrog, inv_var, h, seed_lo, seed_hi,
-                          stream);
+                          group, threads, blocks, stream);
 }
 
 }  // extern "C"

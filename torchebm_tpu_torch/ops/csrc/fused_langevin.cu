@@ -74,15 +74,6 @@ namespace {
 // r + G, ... of the final state and of each kept trajectory slot.
 // ---------------------------------------------------------------------------
 constexpr int kMixThreads = 128;  // the largest block the launch plan gives
-constexpr int kMaxGroupDim = 16;  // the largest d held in every lane of a group
-
-template <int DMAX, int G>
-__device__ __forceinline__ void store_chain(float* dst, const float (&x)[DMAX], int d, int r,
-                                            bool live) {
-#pragma unroll
-  for (int i = 0; i < DMAX; ++i)
-    if (live && i < d && i % G == r) dst[i] = x[i];
-}
 
 template <int DMAX, bool GAUSS, bool TRAJ, int G, int NJ>
 __global__ void __launch_bounds__(kMixThreads) mixture_chain_kernel(

@@ -32,6 +32,10 @@ constexpr int kThreads = 64;
 // shared memory per block.
 constexpr int kMaxParams = 1024;
 constexpr int kMaxDim = 64;
+// The largest d a group kernel holds in every lane of a group (a larger copy
+// of the state in each lane would spill): d > kMaxGroupDim runs one lane per
+// chain.
+constexpr int kMaxGroupDim = 16;
 constexpr float kTwoPi = 6.28318530717958647692f;
 constexpr uint32_t kUniformBlock = 0xFFFFFFFFu;
 
@@ -185,6 +189,16 @@ __device__ __forceinline__ float group_sum(float v) {
 template <int G>
 __device__ __forceinline__ float group_bcast(float v, int src) {
   return G == 1 ? v : __shfl_sync(0xffffffffu, v, src, G);
+}
+
+// Store a chain's state held in every lane of its group: lane r writes the
+// coordinates r, r + G, ... (nothing for a group past the last chain).
+template <int DMAX, int G>
+__device__ __forceinline__ void store_chain(float* dst, const float (&x)[DMAX], int d, int r,
+                                            bool live) {
+#pragma unroll
+  for (int i = 0; i < DMAX; ++i)
+    if (live && i < d && i % G == r) dst[i] = x[i];
 }
 
 // The components that lane r = threadIdx.x mod G of a group evaluates first,

@@ -20,6 +20,9 @@ injected together or not at all; without them both come from the
 Philox4x32-10 stream keyed by ``seed``. Each wrapper also returns the
 per-chain mean acceptance probability.
 
+A launch splits each chain over a group of lanes of one warp, chosen by
+:func:`hmc_launch_plan` from the card's timings.
+
 Every wrapper carries an integer ``launches`` attribute, raised by one each
 time it launches its kernel (never on the plain path); ``ops.launch_counts``
 reads them.
@@ -33,6 +36,8 @@ import torch
 
 from . import _build
 from .fused_langevin import (
+    MIXTURE_GROUP_MAX_DIM,
+    MIXTURE_RESIDENT_THREADS,
     _check_metropolis,
     _check_thin,
     _seed_words,
@@ -45,6 +50,8 @@ Tensor = torch.Tensor
 Mass = Union[None, float, Tensor]
 
 __all__ = [
+    "hmc_groups",
+    "hmc_launch_plan",
     "mixture_hmc_chain",
     "mixture_hmc_chain_trajectory",
     "mixture_hmc_chain_plain",
@@ -53,8 +60,14 @@ __all__ = [
 
 #: ``tebm_mixture_hmc_chain``'s argument types before the stream: x0, out, accept,
 #: traj, params_a, params_b, mass, noise, uniforms, n, d, k, gaussian, n_draws,
-#: thin, n_leapfrog, inv_var, step, seed lo, seed hi
-_SIGNATURE = (_build.PTR,) * 9 + (_build.INT,) * 7 + (_build.FLOAT,) * 2 + (_build.U32,) * 2
+#: thin, n_leapfrog, inv_var, step, seed lo, seed hi, group, threads, blocks
+_SIGNATURE = ((_build.PTR,) * 9 + (_build.INT,) * 7 + (_build.FLOAT,) * 2 + (_build.U32,) * 2
+              + (_build.INT,) * 3)
+
+#: the HMC chain kernel's block size (``kHmcThreads`` in csrc/fused_hmc.cu)
+HMC_THREADS = 128
+#: lanes per chain the HMC chain kernel is built for at d <= 16
+HMC_GROUPS = (1, 2, 4, 8)
 
 
 def _mass_vector(mass: Mass, d: int, device: torch.device) -> Optional[Tensor]:
@@ -118,19 +131,90 @@ def _run_plain(x0, grad_logp, h, n_leapfrog, mass, n_draws, seed, noise, uniform
     return traj, x, acc * (1.0 / int(n_draws))
 
 
-def _launch(x0, traj, pa, pb, gaussian, inv_var, h, n_leapfrog, mass, n_draws, thin, seed,
-            noise, uniforms, k):
+def hmc_groups(d: int, k: int, gaussian: bool) -> Tuple[int, ...]:
+    """The groups of lanes per chain the HMC chain kernel is built for on a
+    target of ``k`` components (or the full-covariance Gaussian) in ``d``
+    dimensions: :data:`HMC_GROUPS` up to ``MIXTURE_GROUP_MAX_DIM``, one lane
+    above it and for a single component."""
+    if d > MIXTURE_GROUP_MAX_DIM or (k < 2 and not gaussian):
+        return (1,)
+    return HMC_GROUPS
+
+
+def hmc_launch_plan(n: int, d: int, k: int, gaussian: bool,
+                    group: Optional[int] = None) -> Tuple[int, int, int]:
+    """``(group, threads, blocks)`` of one HMC chain launch over ``n`` chains
+    in ``d`` dimensions with ``k`` components: ``group`` lanes of one warp
+    hold a chain, ``threads`` per block, ``blocks`` in the grid.
+
+    The rule follows the card's timings of every built group
+    (``chip_smoke.py``'s plan sweep, H100): the fewest lanes, a power of two,
+    that hold every component in registers (4 per lane at d ≤ 2, 2 at d ≤ 4,
+    1 above: ``NJ`` of csrc/fused_hmc.cu; further components are read from
+    shared memory at every evaluation), at least 2 and at most 8 (4 at
+    d > 4); 2 at the ring (K = 8, d = 2), where a draw's eight evaluations cost more
+    butterfly rounds at 4 lanes than the extra warps give. The group is then
+    halved while ``n * group`` exceeds the threads the card holds at once
+    (:data:`.fused_langevin.MIXTURE_RESIDENT_THREADS`), down to 2, which
+    beats one lane at every size timed (to 300,000 chains). The
+    full-covariance Gaussian takes 2 lanes (every lane repeats its whole
+    evaluation; two share the randomness drawn ahead and double the warps:
+    fastest at d = 4, 8 and 16). The sweep's exceptions, where 4 lanes beat
+    the pick: K = 16 at 100,000 and 300,000 chains (by 9–13%), the ESS
+    protocol's 2-D Gaussian (by 1%) and one leapfrog step per draw (by
+    5–17%, where the randomness, shared by more lanes, outweighs the
+    evaluations; the plan does not see ``n_leapfrog``). One component and
+    ``d > MIXTURE_GROUP_MAX_DIM`` take one lane.
+    ``group=`` overrides the choice with a group of :func:`hmc_groups`
+    (timings compare them). The block is :data:`HMC_THREADS`, as the
+    mixture Langevin chain's."""
+    built = hmc_groups(d, k, gaussian)
+    if built == (1,):
+        pick = 1
+    elif gaussian:
+        pick = 2
+    else:
+        lanes = -(-k // (4 if d <= 2 else 2 if d <= 4 else 1))
+        pick = min(max(1 << (lanes - 1).bit_length(), 2), 8 if d <= 4 else 4)
+        while pick > 2 and n * pick > MIXTURE_RESIDENT_THREADS:
+            pick //= 2
+    if group is None:
+        group = pick
+    elif group not in built:
+        raise ValueError(f"no HMC chain kernel at group {group} for d={d}, K={k}, "
+                         f"gaussian={bool(gaussian)}")
+    return group, HMC_THREADS, -(-n * group // HMC_THREADS)
+
+
+def _run(x0, means, n_draws, step_size, n_leapfrog, *, thin, scale, log_weights, precision,
+         mass, seed, noise, uniforms, group=None):
+    """The body of both wrappers (``thin=None``: final state only):
+    ``(traj, final, accept, launched)``. A CPU ``x0`` runs the plain version;
+    a CUDA ``x0`` launches the kernel with :func:`hmc_launch_plan`, whose
+    group ``group`` overrides."""
+    grad_logp, pa, pb, gaussian, inv_var, h, m = _hmc_args(
+        x0, means, n_draws, step_size, n_leapfrog, scale, log_weights, precision, mass, noise,
+        uniforms, seed,
+    )
+    if x0.device.type == "cpu":
+        return (*_run_plain(x0, grad_logp, h, n_leapfrog, m, n_draws, seed, noise, uniforms,
+                            thin), False)
     n, d = x0.shape
+    k = means.shape[0]
+    plan = hmc_launch_plan(n, d, k, bool(gaussian), group)
     out = torch.empty_like(x0)
     accept = torch.empty((n,), dtype=torch.float32, device=x0.device)
+    traj = None if thin is None else torch.empty(
+        (int(n_draws) // thin, n, d), dtype=torch.float32, device=x0.device)
     seed_lo, seed_hi = _seed_words(seed)
     _build.launch(
         "mixture_hmc_chain", _SIGNATURE, x0.device,
         _build.ptr(x0), _build.ptr(out), _build.ptr(accept), _build.ptr(traj), _build.ptr(pa),
-        _build.ptr(pb), _build.ptr(mass), _build.ptr(noise), _build.ptr(uniforms), n, d, k,
-        gaussian, int(n_draws), int(thin), int(n_leapfrog), inv_var, h, seed_lo, seed_hi,
+        _build.ptr(pb), _build.ptr(m), _build.ptr(noise), _build.ptr(uniforms), n, d, k,
+        gaussian, int(n_draws), 1 if thin is None else thin, int(n_leapfrog), inv_var, h,
+        seed_lo, seed_hi, *plan,
     )
-    return out, accept
+    return traj, out, accept, True
 
 
 def mixture_hmc_chain_plain(x0, means, n_draws, step_size, n_leapfrog=10, *, scale=1.0,
@@ -178,18 +262,11 @@ def mixture_hmc_chain(
     accept)``: the final state and the per-chain mean acceptance probability
     over all draws.
     """
-    grad_logp, pa, pb, gaussian, inv_var, h, m = _hmc_args(
-        x0, means, n_draws, step_size, n_leapfrog, scale, log_weights, precision, mass, noise,
-        uniforms, seed,
-    )
-    if x0.device.type == "cpu":
-        _, final, accept = _run_plain(x0, grad_logp, h, n_leapfrog, m, n_draws, seed, noise,
-                                      uniforms, None)
-        return final, accept
-    out = _launch(x0, None, pa, pb, gaussian, inv_var, h, n_leapfrog, m, n_draws, 1, seed,
-                  noise, uniforms, means.shape[0])
-    mixture_hmc_chain.launches += 1
-    return out
+    _, out, accept, launched = _run(x0, means, n_draws, step_size, n_leapfrog, thin=None,
+                                    scale=scale, log_weights=log_weights, precision=precision,
+                                    mass=mass, seed=seed, noise=noise, uniforms=uniforms)
+    mixture_hmc_chain.launches += launched
+    return out, accept
 
 
 @_build.counted
@@ -215,16 +292,10 @@ def mixture_hmc_chain_trajectory(
     d)`` holds the states after draws ``thin, 2·thin, …``; ``final`` the state
     after all draws; ``accept`` the per-chain mean acceptance probability.
     """
-    n_kept = _check_thin(n_draws, thin)
-    grad_logp, pa, pb, gaussian, inv_var, h, m = _hmc_args(
-        x0, means, n_draws, step_size, n_leapfrog, scale, log_weights, precision, mass, noise,
-        uniforms, seed,
-    )
-    if x0.device.type == "cpu":
-        return _run_plain(x0, grad_logp, h, n_leapfrog, m, n_draws, seed, noise, uniforms,
-                          int(thin))
-    traj = torch.empty((n_kept, *x0.shape), dtype=torch.float32, device=x0.device)
-    out, accept = _launch(x0, traj, pa, pb, gaussian, inv_var, h, n_leapfrog, m, n_draws, thin,
-                          seed, noise, uniforms, means.shape[0])
-    mixture_hmc_chain_trajectory.launches += 1
+    _check_thin(n_draws, thin)
+    traj, out, accept, launched = _run(x0, means, n_draws, step_size, n_leapfrog,
+                                       thin=int(thin), scale=scale, log_weights=log_weights,
+                                       precision=precision, mass=mass, seed=seed, noise=noise,
+                                       uniforms=uniforms)
+    mixture_hmc_chain_trajectory.launches += launched
     return traj, out, accept
