@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py --ess-shape`` times only row 9 at the ESS
-protocol's shape, through the public wrapper, against whichever package is
+(``python3 chip_smoke.py --ess-shape`` times only rows 7 and 9 at the ESS
+protocol's shape, through the public wrappers, against whichever package is
 imported: ``PYTHONPATH=<checkout> python3 -P chip_smoke.py --ess-shape``
-times an earlier checkout's kernel on the same card.)
+times an earlier checkout's kernels on the same card.)
 
 Phases, each printing its lines; any failure raises and the exit code is
 not 0:
@@ -15,7 +15,8 @@ not 0:
 2. build: the CUDA kernels compiled from ``torchebm_tpu_torch/ops/csrc``
    (one ``nvcc`` per source, in parallel) into a clean
    ``build/torch_kernels/``, with each kernel instance's registers and spills
-   (an HMC instance of the d <= 2 bucket, the main path's, must not spill);
+   (an HMC or MALA instance of the d <= 2 bucket, the main paths', must not
+   spill);
 3. check: every kernel against its plain PyTorch version on the card, on
    injected randomness and on the Philox stream, at the main shapes (10,000
    x 2, 8 components; 4,096 x 32 double well), on rings of 12 and 33
@@ -24,10 +25,11 @@ not 0:
    MALA and HMC also at the ESS protocol's own instances and steps (the
    correlated Gaussian at MALA's pilot step and HMC's adapted steps and
    mass, thin 4), with each check's mean acceptance; parallel tempering
-   (R = 4) from the ring's modes and on a Gaussian; the HMC chain and its
-   trajectory twin at every group of lanes per chain they are built for (the
-   ring, the ESS protocol's Gaussian, a d=16 Gaussian, a d=16 mixture, 1,001
-   chains; Philox and injected, unit and diagonal mass); AIS at the main path's
+   (R = 4) from the ring's modes and on a Gaussian; the MALA and HMC chains
+   and their trajectory twins at every group of lanes per chain they are
+   built for (the ring, the ESS protocol's Gaussian, a d=16 Gaussian, a d=16
+   mixture, 1,001 chains; Philox and injected; for HMC unit and diagonal
+   mass); AIS at the main path's
    shapes (the ring from its modes at 16,384 chains, the two Gaussians at
    65,536, a 201-entry beta table); the one-step op at 4,096 x 32 and 16M
    elements; the neural (SiLU-MLP) chain at the CD path's 256 x 2 on
@@ -97,12 +99,13 @@ not 0:
    generic loop (``fused="off"``), and the correlated Gaussian's covariance,
    R-hat and ESS (over consecutive draws, R-hat within 0.005 of the loop's);
 5. timing: CUDA events, medians after warm-up: each kernel against its
-   plain version, the mixture and HMC chains and their trajectory twins at
-   each number of lanes per chain the kernels are built for, the HMC
-   trajectory at the ESS protocol's shape with its bound, the HMC plan
-   sweep (device time per call at every built group over 40 shapes of
-   rings, mixtures, Gaussians, chain counts and leapfrog steps, beside the
-   launch plan's pick), PT per ladder step, AIS per
+   plain version, the mixture, MALA and HMC chains and their trajectory
+   twins at each number of lanes per chain the kernels are built for, the
+   MALA and HMC trajectories at the ESS protocol's shape with their bound,
+   the MALA and HMC plan sweeps (device time per call at every built group
+   over 37 and 42 shapes of rings, mixtures, Gaussians, chain counts and,
+   for HMC, leapfrog steps, beside the launch plan's pick), PT per ladder
+   step, AIS per
    rung, the one-step op in GB/s beside ``torch.add`` (device time per call
    in batches queued behind a spin, and per call with the host's launch
    work), the neural chain also at
@@ -126,7 +129,8 @@ not 0:
    (``torchebm_tpu_torch/ops/_counts.py``), the count over the class's rate
    at the card's maximum SM clock.
 
-The line before the last is the per-kernel JSON summary; the last line is
+The run's total time is printed before the card's name and power limit;
+the line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script raises
 before it runs anything.
 """
@@ -206,11 +210,11 @@ RING_CHECK_K = (12, 33)
 #: (K, chains) of the rings timed by lanes per chain beside the main shape:
 #: the shapes the mixture kernel's launch plan is read from
 PLAN_SHAPES = ((3, N_CHAINS), (12, N_CHAINS), (33, N_CHAINS), (8, 100_000))
-#: the HMC chain's plan sweep beside rows 8-9's main shape and the ESS
-#: protocol's: rings of K components at 10,000 chains; random means of K
-#: components at d; rings at 100,000 and 300,000 chains (200 draws); the
-#: full-covariance Gaussian at d; the ring and the ESS shape at other
-#: numbers of leapfrog steps per draw
+#: the MALA and HMC chains' plan sweeps beside rows 6-9's main shape and the
+#: ESS protocol's: rings of K components at 10,000 chains; random means of K
+#: components at d; rings at 100,000 and 300,000 chains (200 steps or
+#: draws); the full-covariance Gaussian at d; for HMC, the ring and the ESS
+#: shape at other numbers of leapfrog steps per draw
 SWEEP_RING_K = (2, 3, 4, 6, 8, 12, 16, 24, 33)
 SWEEP_MIX_D, SWEEP_MIX_K = (3, 5, 8, 16), (2, 4, 8, 16)
 SWEEP_LARGE_K, SWEEP_LARGE_N, SWEEP_LARGE_DRAWS = (8, 12, 16, 33), (100_000, 300_000), 200
@@ -378,20 +382,21 @@ def phase_build(build_mod) -> dict:
     return instances
 
 
-def check_hmc_instances(instances: dict) -> None:
-    """The HMC instances of the d <= 2 bucket, the main path's among them
-    (the ring's and the ESS protocol's correlated Gaussian's, chain and
-    trajectory), must not spill; every instance's registers and spills are
-    printed with the build."""
-    bucket2 = {name: v for name, v in instances.items()
-               if name.startswith("hmc_chain_kernel<2,")}
-    spilled = {name: v[1] for name, v in instances.items()
-               if name.startswith("hmc_chain_kernel") and v[1] != 0}
-    print(f"build: {len(bucket2)} HMC instances of the d <= 2 bucket, at most "
-          f"{max(v[0] for v in bucket2.values())} registers; HMC instances that spill: "
-          f"{spilled or 'none'}")
-    if any(v[1] != 0 for v in bucket2.values()):
-        raise AssertionError("an HMC instance of the main path's d <= 2 bucket spills")
+def check_instances(instances: dict) -> None:
+    """The HMC and MALA instances of the d <= 2 bucket, the main paths' among
+    them (the ring's and the ESS protocol's correlated Gaussian's, chain and
+    trajectory, at every group), must not spill; every instance's registers
+    and spills are printed with the build."""
+    for kernel in ("hmc_chain_kernel", "mala_chain_kernel"):
+        bucket2 = {name: v for name, v in instances.items()
+                   if name.startswith(f"{kernel}<2,")}
+        spilled = {name: v[1] for name, v in instances.items()
+                   if name.startswith(kernel) and v[1] != 0}
+        print(f"build: {len(bucket2)} {kernel} instances of the d <= 2 bucket, at most "
+              f"{max(v[0] for v in bucket2.values())} registers; {kernel} instances that "
+              f"spill: {spilled or 'none'}")
+        if any(v[1] != 0 for v in bucket2.values()):
+            raise AssertionError(f"a {kernel} instance of the main path's d <= 2 bucket spills")
 
 
 def _ring(k: int):
@@ -551,10 +556,11 @@ def path_langevin(ops, dev, card: str) -> dict:
 
 
 
+@functools.lru_cache
 def _mala_pilot_step(dev) -> float:
     """MALA's step on the correlated Gaussian: the trial closest to the 0.574
     optimal-scaling acceptance on the loop (diagnostics take the loop), as
-    the JAX package's ESS protocol picks it."""
+    the JAX package's ESS protocol picks it (the same on every call)."""
     import torch
 
     from torchebm_tpu_torch.samplers import MetropolisAdjustedLangevin
@@ -711,23 +717,23 @@ def phase_check_metropolis(ops, dev, errors: dict) -> None:
                       f"corr-Gaussian, {mass_label}, {label}")
 
 
-def phase_check_hmc_groups(ops, dev, errors: dict) -> None:
-    """Rows 8-9 at every group of lanes per chain the kernel is built for
-    (``fused_hmc.hmc_groups``), whichever the launch plan picks, against their
-    plain versions (flip rule in the module docstring): the ring from exact
-    draws at step 0.05, the ESS protocol's correlated Gaussian at its adapted
-    step (thin 4; precision in registers), a d=16 full-covariance Gaussian
-    (precision in shared memory), a d=16 mixture (the groups' largest bucket:
-    four Philox blocks per draw, drawn by the lanes) and 1,001 chains of the
-    ring (groups past the last chain in a partial last warp), each with
-    Philox and injected randomness, unit and diagonal mass, final state and
-    trajectory."""
+def phase_check_groups(ops, dev, errors: dict) -> None:
+    """Rows 6-9 at every group of lanes per chain their kernels are built for
+    (``fused_mala.mala_groups``, ``fused_hmc.hmc_groups``), whichever the
+    launch plans pick, against their plain versions (flip rule in the module
+    docstring): the ring from exact draws at step 0.05, the ESS protocol's
+    correlated Gaussian at MALA's pilot step and HMC's adapted step and mass
+    (thin 4; precision in registers), a d=16 full-covariance Gaussian
+    (precision in shared memory), a d=16 mixture (the groups' largest
+    bucket: four Philox blocks per step, drawn by the lanes) and 1,001 chains
+    of the ring (groups past the last chain in a partial last warp), each
+    with Philox and injected randomness, final state and trajectory, and for
+    HMC with unit and diagonal mass."""
     import torch
 
     from torchebm_tpu_torch.core import GaussianMixtureEnergy
     from torchebm_tpu_torch.samplers.base import _gaussian_target
 
-    fh = ops.fused_hmc
     g = torch.Generator(dev).manual_seed(8642)
     mix = GaussianMixtureEnergy.eight_gaussians().to(dev)
     ring_kw = dict(scale=float(mix.scale), log_weights=mix.log_weights)
@@ -736,6 +742,7 @@ def phase_check_hmc_groups(ops, dev, errors: dict) -> None:
     chol = torch.linalg.cholesky(torch.tensor(CORR_COV, device=dev))
     xc = (torch.randn((N_CHAINS, 2), generator=g, device=dev) @ chol.T).contiguous()
     _, _, (_, eps, mass_adapted) = _hmc_warmup(dev, True)
+    mala_step = _mala_pilot_step(dev)
     means16 = 2.0 * torch.randn((8, 16), generator=g, device=dev)
     x16 = (means16[torch.randint(0, 8, (N_CHAINS,), generator=g, device=dev)]
            + 0.4 * torch.randn((N_CHAINS, 16), generator=g, device=dev)).contiguous()
@@ -744,51 +751,58 @@ def phase_check_hmc_groups(ops, dev, errors: dict) -> None:
     xg16 = torch.linalg.solve_triangular(  # exact draws of N(0, prec16^-1)
         torch.linalg.cholesky(prec16).T, torch.randn((16, N_CHAINS), generator=g, device=dev),
         upper=True).T.contiguous()
-    # (label, x0, means, step, target keywords, diagonal mass, thin, gaussian)
+    # (label, x0, means, target keywords, thin, gaussian, MALA step, HMC step,
+    # HMC diagonal mass)
     cases = (
-        ("8gauss", x2, mix.means, 0.05, ring_kw, torch.tensor([0.5, 2.0], device=dev), 3,
-         False),
-        ("8gauss 1001 chains", x2[:1001].contiguous(), mix.means, 0.05, ring_kw,
-         torch.tensor([0.5, 2.0], device=dev), 3, False),
-        ("d=16 K=8", x16, means16, 0.05, dict(scale=0.4),
-         0.5 + torch.rand(16, generator=g, device=dev), 3, False),
-        ("corr-Gaussian", xc, corr_means, eps, dict(precision=corr_prec.contiguous()),
-         mass_adapted, ESS_THIN, True),
-        ("Gaussian d=16", xg16, torch.zeros((1, 16), device=dev), 0.05, dict(precision=prec16),
-         0.5 + torch.rand(16, generator=g, device=dev), 3, True),
+        ("8gauss", x2, mix.means, ring_kw, 3, False, 0.05, 0.05,
+         torch.tensor([0.5, 2.0], device=dev)),
+        ("8gauss 1001 chains", x2[:1001].contiguous(), mix.means, ring_kw, 3, False, 0.05, 0.05,
+         torch.tensor([0.5, 2.0], device=dev)),
+        ("d=16 K=8", x16, means16, dict(scale=0.4), 3, False, 0.05, 0.05,
+         0.5 + torch.rand(16, generator=g, device=dev)),
+        ("corr-Gaussian", xc, corr_means, dict(precision=corr_prec.contiguous()), ESS_THIN, True,
+         mala_step, eps, mass_adapted),
+        ("Gaussian d=16", xg16, torch.zeros((1, 16), device=dev), dict(precision=prec16), 3, True,
+         0.05, 0.05, 0.5 + torch.rand(16, generator=g, device=dev)),
     )
-    for label, x0, means, step, target_kw, mass_diag, thin, gaussian in cases:
+    n_checks = 0
+    for label, x0, means, target_kw, thin, gaussian, mala_step, hmc_step, mass_diag in cases:
         n, d = x0.shape
-        groups = fh.hmc_groups(d, means.shape[0], gaussian)
         for inject in (True, False):
             rand = dict(seed=35) if not inject else dict(
                 noise=torch.randn((CHECK_STEPS, n, d), generator=g, device=dev),
                 uniforms=torch.rand((CHECK_STEPS, n), generator=g, device=dev))
-            for mass in (None, mass_diag):
-                for t in (None, thin):
-                    name = "mixture_hmc_chain" + ("" if t is None else "_trajectory")
-                    kw = dict(target_kw, mass=mass, **rand, **({} if t is None else dict(thin=t)))
-                    args = (x0, means, CHECK_STEPS, step, HMC_LEAPFROG)
-                    want = getattr(fh, name + "_plain")(*args, **kw)
-                    for group in groups:
-                        traj, out, acc, launched = fh._run(
-                            *args, thin=t, scale=target_kw.get("scale", 1.0),
-                            log_weights=target_kw.get("log_weights"),
-                            precision=target_kw.get("precision"), mass=mass,
-                            seed=rand.get("seed", 0), noise=rand.get("noise"),
-                            uniforms=rand.get("uniforms"), group=group)
-                        torch.cuda.synchronize()
-                        got = (out, acc) if t is None else (traj, out, acc)
-                        what = (f"{name} [{label}, G={group}, "
-                                f"{'diagonal' if mass is not None else 'unit'} mass, "
-                                f"{'injected' if inject else 'philox'}]")
-                        n_flipped, err, _ = _flips(got, want, n, what)
-                        errors[name] = max(errors.get(name, 0.0), err)
-                        print(f"check: {what} max|kernel - plain| = {err:.3e} over the "
-                              f"{n - n_flipped} chains that agree (tol {TOL:g}); flipped chains "
-                              f"{n_flipped} (at most {n // 1000})")
-                        if not launched or not err <= TOL or n_flipped > n // 1000:
-                            raise AssertionError(f"{what} disagrees with its plain version")
+            # (family, module, leading arguments, keywords per mass)
+            for family, module, args, variants in (
+                ("mala", ops.fused_mala, (x0, means, CHECK_STEPS, mala_step), ({},)),
+                ("hmc", ops.fused_hmc, (x0, means, CHECK_STEPS, hmc_step, HMC_LEAPFROG),
+                 (dict(mass=None), dict(mass=mass_diag))),
+            ):
+                groups = getattr(module, f"{family}_groups")(d, means.shape[0], gaussian)
+                for variant in variants:
+                    for t in (None, thin):
+                        name = f"mixture_{family}_chain" + ("" if t is None else "_trajectory")
+                        kw = dict(target_kw, **variant, **rand)
+                        want = getattr(module, name + "_plain")(
+                            *args, **kw, **({} if t is None else dict(thin=t)))
+                        for group in groups:
+                            traj, out, acc, launched = module._run(
+                                *args, **run_kw(family, **kw, thin=t), group=group)
+                            torch.cuda.synchronize()
+                            got = (out, acc) if t is None else (traj, out, acc)
+                            mass_label = ("" if family == "mala" else "diagonal mass, "
+                                          if variant["mass"] is not None else "unit mass, ")
+                            what = (f"{name} [{label}, G={group}, {mass_label}"
+                                    f"{'injected' if inject else 'philox'}]")
+                            n_flipped, err, _ = _flips(got, want, n, what)
+                            errors[name] = max(errors.get(name, 0.0), err)
+                            n_checks += 1
+                            print(f"check: {what} max|kernel - plain| = {err:.3e} over the "
+                                  f"{n - n_flipped} chains that agree (tol {TOL:g}); flipped "
+                                  f"chains {n_flipped} (at most {n // 1000})")
+                            if not launched or not err <= TOL or n_flipped > n // 1000:
+                                raise AssertionError(f"{what} disagrees with its plain version")
+    print(f"check: {n_checks} group checks of rows 6-9 within the flip rule")
 
 
 def phase_check_tempering(ops, dev, errors: dict) -> None:
@@ -1655,14 +1669,16 @@ def path_flow(ops, dev, card: str) -> dict:
     return launches
 
 
-def hmc_run_kw(**kw) -> dict:
-    """``fused_hmc._run``'s keywords: ``kw`` over the final state only, unit
-    scale and mass, no weights, precision or injected randomness, seed 21."""
-    return {**dict(thin=None, scale=1.0, log_weights=None, precision=None, mass=None, seed=21,
-                   noise=None, uniforms=None), **kw}
+def run_kw(family: str, **kw) -> dict:
+    """``fused_mala._run``'s (``family`` "mala") or ``fused_hmc._run``'s
+    ("hmc") keywords: ``kw`` over the final state only, unit scale (and
+    mass), no weights, precision or injected randomness, seed 21."""
+    base = dict(thin=None, scale=1.0, log_weights=None, precision=None, seed=21, noise=None,
+                uniforms=None, **(dict(mass=None) if family == "hmc" else {}))
+    return {**base, **kw}
 
 
-def ess_shape_cases(dev) -> list:
+def hmc_ess_shape_cases(dev) -> list:
     """Row 9 at the ESS protocol's shape: ``[(label, step, args, kwargs)]`` of
     ``mixture_hmc_chain_trajectory`` on the correlated Gaussian, 10,000
     chains x 4,000 draws thinned by 4, from the warmup's state at its tuned
@@ -1679,16 +1695,38 @@ def ess_shape_cases(dev) -> list:
     return cases
 
 
-def hmc_plan_sweep(fh, dev, card: str, ess: list) -> None:
-    """The shapes ``hmc_launch_plan`` is read from (``SWEEP_*``; the ESS
-    shapes ``ess`` of :func:`ess_shape_cases`): the HMC chain kernel's device
-    time per call (:func:`device_ms`) at every group of lanes it is built
-    for, with the fastest group and the plan's pick, and a count of the
-    shapes where the pick is fastest."""
+def mala_ess_shape_cases(dev) -> list:
+    """Row 7 at the ESS protocol's shape: ``[(label, step, args, kwargs)]`` of
+    ``mixture_mala_chain_trajectory`` on the correlated Gaussian, 10,000
+    chains x 4,000 steps thinned by 4, from exact draws of it at the pilot
+    step (the path's own start is a 200-step burn-in)."""
+    import torch
+
+    from torchebm_tpu_torch.samplers.base import _gaussian_target
+
+    corr_means, corr_prec = _gaussian_target(_corr_gaussian(dev))
+    chol = torch.linalg.cholesky(torch.tensor(CORR_COV, device=dev))
+    g = torch.Generator(dev).manual_seed(84)
+    x0 = (torch.randn((N_CHAINS, 2), generator=g, device=dev) @ chol.T).contiguous()
+    step = _mala_pilot_step(dev)
+    return [("pilot step", step, (x0, corr_means, ESS_DRAWS, step),
+             dict(thin=ESS_THIN, precision=corr_prec.contiguous(), seed=21))]
+
+
+def plan_sweep(family: str, module, dev, card: str, ess: list) -> None:
+    """The shapes the launch plan of ``family`` ("mala" or "hmc") is read
+    from (``SWEEP_*``; the ESS shapes ``ess`` of :func:`mala_ess_shape_cases`
+    or :func:`hmc_ess_shape_cases`; for HMC also other leapfrog counts): the
+    chain kernel's device time per call (:func:`device_ms`) at every group of
+    lanes it is built for, with the fastest group and the plan's pick, and a
+    count of the shapes where the pick is fastest."""
     import torch
 
     from torchebm_tpu_torch.core import GaussianMixtureEnergy
 
+    groups = getattr(module, f"{family}_groups")
+    plan = getattr(module, f"{family}_launch_plan")
+    extra = (HMC_LEAPFROG,) if family == "hmc" else ()
     g = torch.Generator(dev).manual_seed(55)
     x2 = torch.randn((N_CHAINS, 2), generator=g, device=dev)
     ring8 = GaussianMixtureEnergy.eight_gaussians().to(dev)
@@ -1696,66 +1734,130 @@ def hmc_plan_sweep(fh, dev, card: str, ess: list) -> None:
     cases = []
     for k in SWEEP_RING_K:
         ring = _ring(k).to(dev)
-        cases.append((f"ring K={k} d=2 {N_CHAINS}x{N_STEPS}", (x2, ring.means, N_STEPS, 0.2),
+        cases.append((f"ring K={k} d=2 {N_CHAINS}x{N_STEPS}",
+                      (x2, ring.means, N_STEPS, 0.2, *extra),
                       dict(scale=float(ring.scale), log_weights=ring.log_weights), 2, k, False))
     for d in SWEEP_MIX_D:
         xd = torch.randn((N_CHAINS, d), generator=g, device=dev)
         for k in SWEEP_MIX_K:
             means = 2.0 * torch.randn((k, d), generator=g, device=dev)
             cases.append((f"mixture K={k} d={d} {N_CHAINS}x{N_STEPS}",
-                          (xd, means, N_STEPS, 0.1), dict(scale=0.8), d, k, False))
+                          (xd, means, N_STEPS, 0.1, *extra), dict(scale=0.8), d, k, False))
     for k in SWEEP_LARGE_K:
         ring = _ring(k).to(dev)
         for n in SWEEP_LARGE_N:
             xn = torch.randn((n, 2), generator=g, device=dev)
             cases.append((f"ring K={k} d=2 {n}x{SWEEP_LARGE_DRAWS}",
-                          (xn, ring.means, SWEEP_LARGE_DRAWS, 0.2),
+                          (xn, ring.means, SWEEP_LARGE_DRAWS, 0.2, *extra),
                           dict(scale=float(ring.scale), log_weights=ring.log_weights), 2, k, False))
     for d in SWEEP_GAUSS_D:
         a = 0.1 * torch.randn((d, d), generator=g, device=dev)
         xd = torch.randn((N_CHAINS, d), generator=g, device=dev)
         cases.append((f"full-covariance Gaussian d={d} {N_CHAINS}x{N_STEPS}",
-                      (xd, torch.zeros((1, d), device=dev), N_STEPS, 0.2),
+                      (xd, torch.zeros((1, d), device=dev), N_STEPS, 0.2, *extra),
                       dict(precision=(a @ a.T + torch.eye(d, device=dev)).contiguous()), d, 1,
                       True))
     for label, _, args, kw in ess:
         cases.append((f"ESS shape (corr-Gaussian d=2, {N_CHAINS}x{ESS_DRAWS} thin {ESS_THIN}, "
-                      f"{label})", args[:4], kw, 2, 1, True))
-    label, _, args, kw = ess[0]
-    for n_lf in SWEEP_LEAPFROG:
-        cases.append((f"ring K=8 d=2 {N_CHAINS}x{N_STEPS}, {n_lf} leapfrog",
-                      (x2, ring8.means, N_STEPS, 0.3, n_lf),
-                      dict(scale=float(ring8.scale), log_weights=ring8.log_weights), 2, 8, False))
-        cases.append((f"ESS shape ({label}), {n_lf} leapfrog", (*args[:4], n_lf), kw, 2, 1, True))
+                      f"{label})", args, kw, 2, 1, True))
+    if family == "hmc":
+        label, _, args, kw = ess[0]
+        for n_lf in SWEEP_LEAPFROG:
+            cases.append((f"ring K=8 d=2 {N_CHAINS}x{N_STEPS}, {n_lf} leapfrog",
+                          (x2, ring8.means, N_STEPS, 0.3, n_lf),
+                          dict(scale=float(ring8.scale), log_weights=ring8.log_weights), 2, 8,
+                          False))
+            cases.append((f"ESS shape ({label}), {n_lf} leapfrog", (*args[:4], n_lf), kw, 2, 1,
+                          True))
     at_pick = 0
     for label, args, kw, d, k, gaussian in cases:
-        args = args if len(args) == 5 else (*args, HMC_LEAPFROG)
-        ms = {group: device_ms(functools.partial(fh._run, *args, **hmc_run_kw(**kw), group=group))
-              for group in fh.hmc_groups(d, k, gaussian)}
+        ms = {group: device_ms(functools.partial(module._run, *args, **run_kw(family, **kw),
+                                                 group=group))
+              for group in groups(d, k, gaussian)}
         fastest = min(ms, key=ms.get)
-        pick = fh.hmc_launch_plan(args[0].shape[0], d, k, gaussian)[0]
+        pick = plan(args[0].shape[0], d, k, gaussian)[0]
         at_pick += fastest == pick
-        print(f"sweep: HMC {label}: device ms per call " + "; ".join(
+        print(f"sweep: {family.upper()} {label}: device ms per call " + "; ".join(
             f"G={grp} {t:.4f}" for grp, t in ms.items()) + f"; fastest G={fastest}, the plan "
             f"picks G={pick} ({ms[pick] / ms[fastest] - 1:.1%} slower) | {card}", flush=True)
-    print(f"sweep: the HMC plan's pick is the fastest group at {at_pick} of {len(cases)} shapes "
-          f"| {card}")
+    print(f"sweep: the {family.upper()} plan's pick is the fastest group at {at_pick} of "
+          f"{len(cases)} shapes | {card}")
 
 
 def phase_ess_shape(ops, dev, card: str) -> None:
-    """``chip_smoke.py --ess-shape``: row 9 at the ESS protocol's shape
-    through the public wrapper (the plan's group), per call and by device
-    time per call. It runs against any revision of the package, so
-    an earlier checkout can be timed beside this one on the same card:
+    """``chip_smoke.py --ess-shape``: rows 7 and 9 at the ESS protocol's shape
+    through the public wrappers (the plans' groups), per call and by device
+    time per call. It runs against any revision of the package, so an
+    earlier checkout can be timed beside this one on the same card:
     ``PYTHONPATH=<checkout> python3 -P chip_smoke.py --ess-shape``."""
-    fh = ops.fused_hmc
-    for label, eps, args, kw in ess_shape_cases(dev):
-        run = functools.partial(fh.mixture_hmc_chain_trajectory, *args, **kw)
-        ms = statistics.median(cuda_times(run, 2, 10))
-        dev_ms = device_ms(run)
-        print(f"ess-shape: mixture_hmc_chain_trajectory (package {ops.__file__}, corr-Gaussian "
-              f"d=2, {N_CHAINS}x{ESS_DRAWS} draws thin {ESS_THIN}, step {eps:.5f}, {label}): "
-              f"{ms:.4f} ms per call, device {dev_ms:.4f} ms | {card}", flush=True)
+    for module, name, cases in (
+        (ops.fused_mala, "mixture_mala_chain_trajectory", mala_ess_shape_cases(dev)),
+        (ops.fused_hmc, "mixture_hmc_chain_trajectory", hmc_ess_shape_cases(dev)),
+    ):
+        for label, eps, args, kw in cases:
+            run = functools.partial(getattr(module, name), *args, **kw)
+            ms = statistics.median(cuda_times(run, 2, 10))
+            dev_ms = device_ms(run)
+            print(f"ess-shape: {name} (package {ops.__file__}, corr-Gaussian d=2, "
+                  f"{N_CHAINS}x{ESS_DRAWS} thin {ESS_THIN}, step {eps:.5f}, {label}): "
+                  f"{ms:.4f} ms per call, device {dev_ms:.4f} ms | {card}", flush=True)
+
+
+def phase_group_timing(ops, dev, card: str) -> None:
+    """Rows 6-9 at the main shape (the ring from N(0, I), 10,000 chains x
+    1,000 steps or draws) at each group of lanes per chain their kernels are
+    built for, per call and by device time per call, beside the bound; rows
+    7 and 9 at the ESS protocol's shape (the correlated Gaussian: MALA at the
+    pilot step, HMC at the tuned step with unit and adapted mass) at each
+    group; then each plan's sweep. Launches made here are not counted."""
+    import torch
+
+    from torchebm_tpu_torch.core import GaussianMixtureEnergy
+    from torchebm_tpu_torch.ops._counts import work
+
+    mix = GaussianMixtureEnergy.eight_gaussians().to(dev)
+    k8 = mix.means.shape[0]
+    x2 = torch.randn((N_CHAINS, 2), generator=torch.Generator(dev).manual_seed(5), device=dev)
+    ring_kw = dict(scale=float(mix.scale), log_weights=mix.log_weights)
+    clock = max_sm_clock_mhz()
+    for family, module, args, ess, per in (
+        ("mala", ops.fused_mala, (x2, mix.means, N_STEPS, 0.05), mala_ess_shape_cases(dev),
+         f"{N_STEPS} steps"),
+        ("hmc", ops.fused_hmc, (x2, mix.means, N_STEPS, 0.3, HMC_LEAPFROG),
+         hmc_ess_shape_cases(dev), f"{N_STEPS} draws x {HMC_LEAPFROG} leapfrog"),
+    ):
+        groups = getattr(module, f"{family}_groups")
+        picked = getattr(module, f"{family}_launch_plan")(N_CHAINS, 2, k8, False)[0]
+        for name, thin in ((f"mixture_{family}_chain", None),
+                           (f"mixture_{family}_chain_trajectory", 1)):
+            kw = dict(ring_kw, seed=21, **({} if thin is None else dict(thin=thin)))
+            b_ms = bound_of(work(name, args, kw, getattr(module, name)(*args, **kw)), clock)[0]
+            by_group = {}
+            for group in groups(2, k8, False):
+                run = functools.partial(module._run, *args, **run_kw(family, thin=thin, **ring_kw),
+                                        group=group)
+                by_group[group] = (statistics.median(cuda_times(run, 2, 10)), device_ms(run))
+            fastest = min(by_group, key=lambda grp: by_group[grp][1])
+            print(f"timing: {name} {N_CHAINS}x2x{per}, K={k8}, by lanes per chain G: "
+                  + "; ".join(f"G={grp} {ms:.4f} ms per call, device {dev_ms:.4f} ms"
+                              for grp, (ms, dev_ms) in by_group.items())
+                  + f"; fastest G={fastest}, the plan picks G={picked}; bound {b_ms:.4f} ms "
+                  f"| {card}", flush=True)
+        name = f"mixture_{family}_chain_trajectory"
+        for label, eps, eargs, kw in ess:
+            b_ms, b_by = bound_of(work(name, eargs, kw, getattr(module, name)(*eargs, **kw)),
+                                  clock)
+            for group in groups(2, 1, True):
+                run = functools.partial(module._run, *eargs, **run_kw(family, **kw),
+                                        group=group)
+                ms = statistics.median(cuda_times(run, 2, 10))
+                dev_ms = device_ms(run)
+                print(f"timing: {name} at the ESS protocol's shape (corr-Gaussian d=2, "
+                      f"{N_CHAINS}x{ESS_DRAWS} thin {ESS_THIN}, step {eps:.5f}, {label}) "
+                      f"G={group}: {ms:.4f} ms per call, device {dev_ms:.4f} ms; bound "
+                      f"{b_ms:.5f} ms by {b_by} ({b_ms / dev_ms:.3f} of the bound's rate by "
+                      f"device time) | {card}", flush=True)
+        plan_sweep(family, module, dev, card, ess)
 
 
 def phase_timing(ops, dev, card: str) -> dict:
@@ -1873,42 +1975,7 @@ def phase_timing(ops, dev, card: str) -> dict:
               f"chain G: " + "; ".join(f"G={grp} {ms:.4f} ms" for grp, ms in by_group.items())
               + f"; the plan picks G={fl.mixture_launch_plan(n, 2, kr, False)[0]} | {card}")
 
-    # rows 8-9 at the main shape for each group of lanes per chain the
-    # kernel is built for, per call and by device time per call, and
-    # row 9 at the ESS protocol's shape (the correlated Gaussian, tuned step,
-    # unit and adapted mass) with its bound; then the plan sweep. Launches
-    # made here are not counted.
-    fh = ops.fused_hmc
-    clock = max_sm_clock_mhz()
-    picked = fh.hmc_launch_plan(N_CHAINS, 2, k8, False)[0]
-    for name, thin in (("mixture_hmc_chain", None), ("mixture_hmc_chain_trajectory", 1)):
-        by_group = {}
-        for group in fh.hmc_groups(2, k8, False):
-            run = functools.partial(fh._run, *hmc_args, **hmc_run_kw(
-                thin=thin, scale=mix_kw["scale"], log_weights=mix.log_weights), group=group)
-            by_group[group] = (statistics.median(cuda_times(run, 2, 10)),
-                               device_ms(run))
-        fastest = min(by_group, key=lambda grp: by_group[grp][1])
-        print(f"timing: {name} {N_CHAINS}x2x{N_STEPS} draws x {HMC_LEAPFROG} leapfrog, K={k8}, "
-              "by lanes per chain G: " + "; ".join(
-                  f"G={grp} {ms:.4f} ms per call, device {dev_ms:.4f} ms"
-                  for grp, (ms, dev_ms) in by_group.items())
-              + f"; fastest G={fastest}, the plan picks G={picked}; bound "
-              f"{bound_of(times[name]['work'], clock)[0]:.4f} ms | {card}")
-    ess = ess_shape_cases(dev)
-    for label, eps, args, kw in ess:
-        b_ms, b_by = bound_of(work("mixture_hmc_chain_trajectory", args, kw,
-                                   fh.mixture_hmc_chain_trajectory(*args, **kw)), clock)
-        for group in fh.hmc_groups(2, 1, True):
-            run = functools.partial(fh._run, *args, **hmc_run_kw(**kw), group=group)
-            ms = statistics.median(cuda_times(run, 2, 10))
-            dev_ms = device_ms(run)
-            print(f"timing: mixture_hmc_chain_trajectory at the ESS protocol's shape "
-                  f"(corr-Gaussian d=2, {N_CHAINS}x{ESS_DRAWS} draws thin {ESS_THIN}, step "
-                  f"{eps:.5f}, {label}) G={group}: {ms:.4f} ms per call, device {dev_ms:.4f} ms; "
-                  f"bound {b_ms:.5f} ms by {b_by} ({b_ms / dev_ms:.3f} of the bound's rate by "
-                  f"device time) | {card}")
-    hmc_plan_sweep(fh, dev, card, ess)
+    phase_group_timing(ops, dev, card)
 
     for name in ("pt_langevin_chain", "pt_langevin_chain_trajectory"):
         print(f"timing: {name} {N_CHAINS} chains x {len(PT_TEMPS)} replicas: "
@@ -2295,6 +2362,7 @@ def phase_profile(dev, card: str) -> None:
 def main() -> None:
     import torch
 
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device and none is visible")
     from torchebm_tpu_torch import ops
@@ -2311,11 +2379,11 @@ def main() -> None:
         phase_ess_shape(ops, dev, card)
         return
 
-    check_hmc_instances(phase_build(_build))
+    check_instances(phase_build(_build))
     errors: dict = {}
     phase_check(ops.fused_langevin, dev, errors)
     phase_check_metropolis(ops, dev, errors)
-    phase_check_hmc_groups(ops, dev, errors)
+    phase_check_groups(ops, dev, errors)
     phase_check_tempering(ops, dev, errors)
     phase_check_mlp(ops, dev, errors)
     phase_check_sinkhorn(ops, dev, errors)
@@ -2344,6 +2412,7 @@ def main() -> None:
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": t["library_ms"]})
     summary = {"kernels": rows}
+    print(f"chip_smoke.py: {time.perf_counter() - started:.1f} s in all, the build included")
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

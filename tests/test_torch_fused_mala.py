@@ -157,6 +157,60 @@ def test_wrappers_reject_bad_inputs():
                                  torch.zeros(1, 2, device="meta"), 2, 0.1)
 
 
+# (d, K, gaussian, n chains, group): at least 4 lanes at d <= 2 (the ring's
+# pick), 8 where a lane's registers (4 components at d <= 2, 2 at d <= 4, 1
+# above) leave components over at 4, 2 at d > 2 where two lanes hold every
+# component and every normals block, 4 where the d = 16 blocks need them, the
+# cap of 4 at d > 4, one lane for one component and for d > 16, the
+# full-covariance Gaussian by its normals blocks, and the halving at large n
+# (down to 2)
+PLAN_CASES = [
+    (2, 8, False, 10_000, 4), (2, 2, False, 10_000, 4), (2, 16, False, 10_000, 4),
+    (2, 24, False, 10_000, 8), (2, 33, False, 10_000, 8), (3, 2, False, 10_000, 2),
+    (3, 4, False, 10_000, 2), (3, 8, False, 10_000, 4), (3, 16, False, 10_000, 8),
+    (5, 2, False, 10_000, 2), (8, 4, False, 10_000, 4), (8, 16, False, 10_000, 4),
+    (16, 2, False, 10_000, 4), (16, 33, False, 10_000, 4), (2, 8, False, 31, 4),
+    (2, 1, False, 10_000, 1), (17, 8, False, 10_000, 1), (64, 8, False, 10_000, 1),
+    (2, 1, True, 10_000, 4), (4, 1, True, 10_000, 2), (8, 1, True, 10_000, 2),
+    (16, 1, True, 10_000, 4), (32, 1, True, 10_000, 1), (2, 1, True, 1_000_000, 2),
+    (2, 8, False, 60_000, 4), (2, 8, False, 100_000, 2), (2, 33, False, 40_000, 4),
+    (2, 33, False, 300_000, 2),
+]
+
+
+@pytest.mark.parametrize("d, k, gaussian, n, group", PLAN_CASES,
+                         ids=[f"d{d}-k{k}-n{n}" + ("-gauss" if g else "")
+                              for d, k, g, n, _ in PLAN_CASES])
+def test_mala_launch_plan(d, k, gaussian, n, group):
+    """The group the card's timings pick, a grid that holds every chain's
+    group and no block past the last chain, and the same plan when the
+    group is passed back as the override."""
+    got, threads, blocks = tmala.mala_launch_plan(n, d, k, gaussian)
+    assert got == group and got in tmala.mala_groups(d, k, gaussian)
+    assert threads == tmala.MALA_THREADS and threads % 32 == 0
+    assert blocks * threads >= n * group > (blocks - 1) * threads
+    assert tmala.mala_launch_plan(n, d, k, gaussian, group=group) == (group, threads, blocks)
+    if group > 2:  # halving stops where the chains' lanes fit the card
+        assert n * group <= tfl.MIXTURE_RESIDENT_THREADS
+
+
+def test_mala_launch_plan_overrides_only_built_groups():
+    """Every built group may be forced (timings compare them): 1, 2, 4, 8 on
+    the mixture and the full-covariance Gaussian at d <= 16; one component
+    and d > 16 have one lane."""
+    for d, k, gaussian, built in ((2, 8, False, (1, 2, 4, 8)), (16, 8, False, (1, 2, 4, 8)),
+                                  (2, 1, True, (1, 2, 4, 8)), (16, 1, True, (1, 2, 4, 8)),
+                                  (2, 1, False, (1,)), (17, 8, False, (1,)), (32, 1, True, (1,))):
+        assert tmala.mala_groups(d, k, gaussian) == built
+        for group in built:
+            assert tmala.mala_launch_plan(10_000, d, k, gaussian, group=group)[0] == group
+    for d, k, gaussian, group in ((2, 8, False, 3), (2, 8, False, 16), (2, 1, True, 3),
+                                  (16, 1, True, 16), (32, 1, True, 2), (17, 8, False, 2),
+                                  (2, 1, False, 4)):
+        with pytest.raises(ValueError, match="no MALA chain kernel"):
+            tmala.mala_launch_plan(100, d, k, gaussian, group=group)
+
+
 # ------------------------------------------------------------------ Philox uniform
 
 

@@ -214,41 +214,23 @@ def _metropolis_case(rng, target):
 #: adapted step with a material share of rejections) and its thin of 4
 MALA_STEP = {"mixture": (0.02, 3), "gaussian": (0.02, 3), "corr2": (0.25, 4)}
 HMC_STEP = {"mixture": (0.05, 3), "gaussian": (0.05, 3), "corr2": (0.6, 4)}
-TARGETS = ["mixture", "gaussian", "corr2"]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("inject", [True, False], ids=["noise", "philox"])
-@pytest.mark.parametrize("target", TARGETS)
-def test_mala_kernels_match_plain_on_card(cuda, inject, target):
-    rng = _rng(2)
-    n, d, x0, means, kw = _metropolis_case(rng, target)
-    n_steps, (step, thin) = 20, MALA_STEP[target]
-    if inject:
-        kw["noise"] = torch.from_numpy(_normal(rng, n_steps, n, d))
-        kw["uniforms"] = torch.from_numpy(rng.uniform(size=(n_steps, n)).astype(np.float32))
-    kw = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
-    for fn, extra in ((tmala.mixture_mala_chain, {}),
-                      (tmala.mixture_mala_chain_trajectory, dict(thin=thin))):
-        got, want = _kernel_and_plain(fn, cuda, x0.to(cuda), means.to(cuda), n_steps, step,
-                                      **extra, **kw)
-        assert _flipped_chains(got, want, n) <= n // 1000
-
-
-#: (target, lanes per chain): every group the HMC kernel is built for
-#: (``hmc_groups``), on the mixture at 4,096 chains, at 1,001 (groups past the
-#: last chain in a partial last warp) and at d = 16 (the groups' largest
-#: bucket, four Philox blocks per draw drawn by the lanes), on the correlated
-#: 2-D Gaussian (precision in registers), a d = 16 Gaussian (precision in
-#: shared memory) and the d = 32 Gaussian (one lane)
-HMC_TARGETS = {"mixture": (2, 8, False), "ragged": (2, 8, False), "d16": (16, 8, False),
+#: (target, lanes per chain): every group the MALA and HMC kernels are built
+#: for (``mala_groups``, ``hmc_groups``: the same), on the mixture at 4,096
+#: chains, at 1,001 (groups past the last chain in a partial last warp) and
+#: at d = 16 (the groups' largest bucket, four Philox blocks per step drawn by
+#: the lanes), on the correlated 2-D Gaussian (precision in registers), a
+#: d = 16 Gaussian (precision in shared memory) and the d = 32 Gaussian (one
+#: lane)
+GROUP_TARGETS = {"mixture": (2, 8, False), "ragged": (2, 8, False), "d16": (16, 8, False),
                "gaussian": (32, 1, True), "corr2": (2, 1, True), "gauss16": (16, 1, True)}
-HMC_CASES = [(t, grp) for t, (d, k, gaussian) in HMC_TARGETS.items()
+GROUP_CASES = [(t, grp) for t, (d, k, gaussian) in GROUP_TARGETS.items()
              for grp in thmc.hmc_groups(d, k, gaussian)]
-HMC_STEP_OF = {"ragged": "mixture", "d16": "mixture", "gauss16": "gaussian"}
+STEP_OF = {"ragged": "mixture", "d16": "mixture", "gauss16": "gaussian"}
 
 
-def _hmc_case(rng, target):
+def _group_case(rng, target):
     """``(n, d, x0, means, kwargs)`` on the CPU: the targets of
     :func:`_metropolis_case`, the mixture's first 1,001 chains, an
     8-component mixture at d = 16 started at draws of it, or a d = 16
@@ -271,40 +253,64 @@ def _hmc_case(rng, target):
     return _metropolis_case(rng, target)
 
 
+def _group_run(module, fn, x0, means, args, t, kw, group, planned, cuda):
+    """``fn`` (a wrapper of ``module``, the MALA or HMC chain or trajectory)
+    on the card at ``group`` lanes per chain, and its plain version on the
+    CPU: through the public wrapper and its launch count where the launch
+    plan picks ``group`` (``planned``), else through ``module._run``."""
+    extra = {} if t is None else dict(thin=t)
+    on_card = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    if planned:
+        return _kernel_and_plain(fn, cuda, x0.to(cuda), means.to(cuda), *args, **extra,
+                                 **on_card)
+    traj, out, acc, launched = module._run(
+        x0.to(cuda), means.to(cuda), *args, thin=t, scale=kw.get("scale", 1.0),
+        log_weights=on_card.get("log_weights"), precision=on_card.get("precision"),
+        seed=kw.get("seed", 0), noise=on_card.get("noise"), uniforms=on_card.get("uniforms"),
+        group=group, **({"mass": on_card.get("mass")} if module is thmc else {}))
+    assert launched
+    got = (out, acc) if t is None else (traj, out, acc)
+    return got, fn(x0, means, *args, **extra, **kw)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("inject", [True, False], ids=["noise", "philox"])
-@pytest.mark.parametrize("target, group", HMC_CASES, ids=[f"{t}-G{g}" for t, g in HMC_CASES])
+@pytest.mark.parametrize("target, group", GROUP_CASES, ids=[f"{t}-G{g}" for t, g in GROUP_CASES])
+def test_mala_kernels_match_plain_on_card(cuda, inject, target, group):
+    """Rows 6-7 at ``group`` lanes per chain against the plain versions under
+    the flip rule; where the launch plan picks ``group`` itself, through the
+    public wrappers and their launch counts."""
+    rng = _rng(2)
+    n, d, x0, means, kw = _group_case(rng, target)
+    n_steps, (step, thin) = 20, MALA_STEP[STEP_OF.get(target, target)]
+    if inject:
+        kw["noise"] = torch.from_numpy(_normal(rng, n_steps, n, d))
+        kw["uniforms"] = torch.from_numpy(rng.uniform(size=(n_steps, n)).astype(np.float32))
+    planned = tmala.mala_launch_plan(n, d, means.shape[0], "precision" in kw)[0] == group
+    for fn, t in ((tmala.mixture_mala_chain, None), (tmala.mixture_mala_chain_trajectory, thin)):
+        got, want = _group_run(tmala, fn, x0, means, (n_steps, step), t, kw, group, planned, cuda)
+        assert _flipped_chains(got, want, n) <= n // 1000
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inject", [True, False], ids=["noise", "philox"])
+@pytest.mark.parametrize("target, group", GROUP_CASES, ids=[f"{t}-G{g}" for t, g in GROUP_CASES])
 @pytest.mark.parametrize("mass", [False, True], ids=["unit", "diag-mass"])
 def test_hmc_kernels_match_plain_on_card(cuda, inject, target, group, mass):
     """Rows 8-9 at ``group`` lanes per chain against the plain versions under
     the flip rule; where the launch plan picks ``group`` itself, through the
     public wrappers and their launch counts."""
     rng = _rng(3)
-    n, d, x0, means, kw = _hmc_case(rng, target)
-    n_draws, (step, thin) = 10, HMC_STEP[HMC_STEP_OF.get(target, target)]
+    n, d, x0, means, kw = _group_case(rng, target)
+    n_draws, (step, thin) = 10, HMC_STEP[STEP_OF.get(target, target)]
     if mass:
         kw["mass"] = torch.from_numpy(rng.uniform(0.5, 2.0, d).astype(np.float32))
     if inject:
         kw["noise"] = torch.from_numpy(_normal(rng, n_draws, n, d))
         kw["uniforms"] = torch.from_numpy(rng.uniform(size=(n_draws, n)).astype(np.float32))
-    gaussian = "precision" in kw
-    planned = thmc.hmc_launch_plan(n, d, means.shape[0], gaussian)[0] == group
-    on_card = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    planned = thmc.hmc_launch_plan(n, d, means.shape[0], "precision" in kw)[0] == group
     for fn, t in ((thmc.mixture_hmc_chain, None), (thmc.mixture_hmc_chain_trajectory, thin)):
-        extra = {} if t is None else dict(thin=t)
-        if planned:
-            got, want = _kernel_and_plain(fn, cuda, x0.to(cuda), means.to(cuda), n_draws, step,
-                                          8, **extra, **on_card)
-        else:
-            traj, out, acc, launched = thmc._run(
-                x0.to(cuda), means.to(cuda), n_draws, step, 8, thin=t,
-                scale=kw.get("scale", 1.0), log_weights=on_card.get("log_weights"),
-                precision=on_card.get("precision"), mass=on_card.get("mass"),
-                seed=kw.get("seed", 0), noise=on_card.get("noise"),
-                uniforms=on_card.get("uniforms"), group=group)
-            assert launched
-            got = (out, acc) if t is None else (traj, out, acc)
-            want = fn(x0, means, n_draws, step, 8, **extra, **kw)
+        got, want = _group_run(thmc, fn, x0, means, (n_draws, step, 8), t, kw, group, planned, cuda)
         assert _flipped_chains(got, want, n) <= n // 1000
 
 

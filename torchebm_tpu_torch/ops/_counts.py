@@ -11,13 +11,16 @@ not read. Classes: ``"fp32"`` adds, multiplies, FMAs, min/max and compares;
 rcp, sin, cos and int-to-float conversions.
 
 The counts are the algorithm's work, not what a design adds to it. The
-mixture and HMC chains (``mixture_langevin*``, ``mixture_hmc*``) split a
-chain over a group of lanes: their butterfly shuffles and broadcasts, the
-updates, kinetic sums and Metropolis tests that every lane of a group
-repeats, and the logits that lanes with no component form are overhead, so
-the counts stay one evaluation and update per chain-step or leapfrog step,
-``ceil(d/4)`` Philox blocks of normals and, for HMC, one uniform block per
+mixture, MALA and HMC chains (``mixture_langevin*``, ``mixture_mala*``,
+``mixture_hmc*``) split a chain over a group of lanes: their butterfly
+shuffles and broadcasts, the updates, residual and kinetic sums and
+Metropolis tests that every lane of a group repeats, and the logits that
+lanes with no component form are overhead, so the counts stay one
+evaluation and update per chain-step or leapfrog step, ``ceil(d/4)`` Philox
+blocks of normals and, for MALA and HMC, one uniform block per chain-step or
 chain-draw, whatever the group (each block is drawn once, by one lane).
+MALA's bound at its main shapes (the ring, the ESS protocol's 2-D Gaussian)
+is set by its two Philox blocks per step (INT32).
 
 :data:`COUNTED_SOURCES` holds the SHA-256 prefix of each source the counts
 were last checked against; a test fails when a source changes, so that an
@@ -31,14 +34,14 @@ __all__ = ["COUNTED_SOURCES", "work"]
 #: ``{file under csrc/: sha256 hexdigest[:16]}`` of the sources counted here
 COUNTED_SOURCES = {
     "fused_ais.cu": "bbb0be8b07f58a41",
-    "fused_hmc.cu": "faf4f65e7bb69787",
+    "fused_hmc.cu": "72f93febded56462",
     "fused_langevin.cu": "ed1abd8c6f146eb2",
-    "fused_mala.cu": "5c281c546e39a99a",
+    "fused_mala.cu": "cc395518a0c9ea11",
     "fused_mlp_langevin.cu": "1c9df0ffe632ed07",
     "fused_pt.cu": "749b05b3dce2d4d8",
     "fused_sinkhorn.cu": "d0a19152cfef9635",
     "fused_step.cu": "45698a16da6ceaad",
-    "tebm_common.cuh": "6aa01e56cd26d015",
+    "tebm_common.cuh": "43878f3f794f147e",
 }
 
 # tebm_common.cuh: one Philox4x32-10 block; normals4 (one block, two
@@ -90,7 +93,7 @@ def work(name: str, args, kw, result) -> dict:
     elif name.startswith("doublewell"):  # fused_langevin.cu, per element-step
         x0, n_steps = args[:2]
         ops = _add(_PHILOX, {"fp32": 31, "sfu": 5}, times=x0.numel() * n_steps)
-    elif name.startswith("mixture_mala"):  # fused_mala.cu, per chain-step
+    elif name.startswith("mixture_mala"):  # fused_mala.cu, per chain-step, any group
         x0, means, n_steps = args[:3]
         n, d = x0.shape
         per = _add(_eval(d, means.shape[0], gaussian), normals(d), _UNIFORM,

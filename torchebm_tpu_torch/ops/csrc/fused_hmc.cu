@@ -65,52 +65,16 @@
 // The target and the per-dimension sqrt(m) and 1/m (1 without a mass, so one
 // code path serves both and the products by 1 are exact; 0 past d) are
 // staged once per block in shared memory; at d <= 16 sqrt(m) and 1/m, and at
-// d <= 4 the Gaussian's precision and mean, are then held in registers, so
-// the leapfrog loop reads no shared memory and, with every padded coordinate
-// 0, carries no branch on d.
+// d <= 4 the Gaussian's precision and mean (GaussRegs, tebm_common.cuh), are
+// then held in registers, so the leapfrog loop reads no shared memory and,
+// with every padded coordinate 0, carries no branch on d. The bucket and
+// group dispatch (TEBM_DISPATCH_GROUPS) is shared with the MALA chain.
 
 #include "tebm_common.cuh"
 
 namespace {
 
 constexpr int kHmcThreads = 128;  // the largest block the launch plan gives
-constexpr int kGaussRegDim = 4;   // the largest d whose precision is held in registers
-
-// The full-covariance Gaussian's precision and mean held in registers, zero
-// past d, for DMAX <= kGaussRegDim: grad_logp<DMAX, true>'s arithmetic in the
-// same order (the padded terms add exact zeros), with no shared-memory load
-// and no branch on d inside the leapfrog.
-template <int DMAX>
-struct GaussRegs {
-  float prec[DMAX][DMAX];
-  float mean[DMAX];
-
-  __device__ __forceinline__ void load(const float* s_a, const float* s_b, int d) {
-#pragma unroll
-    for (int i = 0; i < DMAX; ++i) {
-      mean[i] = i < d ? s_b[i] : 0.0f;
-#pragma unroll
-      for (int j = 0; j < DMAX; ++j) prec[i][j] = i < d && j < d ? s_a[i * d + j] : 0.0f;
-    }
-  }
-
-  __device__ __forceinline__ float grad_logp(const float (&x)[DMAX], float (&g)[DMAX]) const {
-    float diff[DMAX];
-#pragma unroll
-    for (int j = 0; j < DMAX; ++j) diff[j] = x[j] - mean[j];
-    float quad = 0.0f;
-#pragma unroll
-    for (int i = 0; i < DMAX; ++i) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int j = 0; j < DMAX; ++j) acc = fmaf(prec[i][j], diff[j], acc);
-      g[i] = acc;
-      quad = fmaf(diff[i], acc, quad);
-    }
-    return -0.5f * quad;
-  }
-};
-
 template <int DMAX, bool GAUSS, bool TRAJ, int G, int NJ>
 __global__ void __launch_bounds__(kHmcThreads) hmc_chain_kernel(
     const float* __restrict__ x0, float* __restrict__ out, float* __restrict__ accept,
@@ -312,45 +276,8 @@ int launch_hmc(const float* x0, float* out, float* accept, float* traj, const fl
   hmc_chain_kernel<DM, GS, TRAJ, G, NJ><<<blocks, threads, 0, s>>>(                           \
       x0, out, accept, traj, params_a, params_b, mass, noise, uniforms, n, d, k, n_draws,     \
       thin, n_leapfrog, inv_var, h, seed_lo, seed_hi)
-#define TEBM_ONE_LANE(DM, GS) TEBM_LAUNCH(DM, GS, 1, 1)
-#define TEBM_GROUPS(DM, GS, NJ)                      \
-  switch (group) {                                   \
-    case 1: TEBM_LAUNCH(DM, GS, 1, 1); break;        \
-    case 2: TEBM_LAUNCH(DM, GS, 2, NJ); break;       \
-    case 4: TEBM_LAUNCH(DM, GS, 4, NJ); break;       \
-    case 8: TEBM_LAUNCH(DM, GS, 8, NJ); break;       \
-    default: return (int)cudaErrorInvalidValue;      \
-  }
-  if (gaussian && d <= kMaxGroupDim) {
-    if (d <= 2) TEBM_GROUPS(2, true, 1)
-    else if (d <= 4) TEBM_GROUPS(4, true, 1)
-    else if (d <= 8) TEBM_GROUPS(8, true, 1)
-    else TEBM_GROUPS(16, true, 1)
-    return (int)cudaGetLastError();
-  }
-  if (d > kMaxGroupDim) {
-    if (group != 1) return (int)cudaErrorInvalidValue;
-    TEBM_DISPATCH_BUCKETS(TEBM_ONE_LANE);
-  }
-  // components per lane held in registers: as many as the lane has, up to
-  // 4 at d <= 2, 2 at d <= 4, 1 above
-  const int nj = (k + group - 1) / group;
-  if (d <= 2) {
-    if (nj <= 1) TEBM_GROUPS(2, false, 1)
-    else if (nj <= 2) TEBM_GROUPS(2, false, 2)
-    else TEBM_GROUPS(2, false, 4)
-  } else if (d <= 4) {
-    if (nj <= 1) TEBM_GROUPS(4, false, 1)
-    else TEBM_GROUPS(4, false, 2)
-  } else if (d <= 8) {
-    TEBM_GROUPS(8, false, 1)
-  } else {
-    TEBM_GROUPS(16, false, 1)
-  }
-#undef TEBM_GROUPS
-#undef TEBM_ONE_LANE
+  TEBM_DISPATCH_GROUPS(TEBM_LAUNCH);
 #undef TEBM_LAUNCH
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

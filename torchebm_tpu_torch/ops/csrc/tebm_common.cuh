@@ -16,7 +16,10 @@
 // mixture (the JAX _mixture_grad_logp) or a full-covariance Gaussian
 // (_gaussian_grad_logp, torchebm_tpu/ops/fused_langevin.py:121-180), one
 // thread per chain. grad_logp_group<DMAX, G, NJ> is the mixture evaluator
-// split over a group of G lanes of one warp that hold the same chain.
+// split over a group of G lanes of one warp that hold the same chain;
+// GaussRegs<DMAX> the full-covariance one with its precision in registers.
+// TEBM_DISPATCH_GROUPS launches the MALA and HMC chains' instances by bucket
+// and group.
 
 #pragma once
 
@@ -294,6 +297,93 @@ __device__ __forceinline__ float grad_logp_group(const float (&x)[DMAX], float (
   for (int i = 0; i < DMAX; ++i) g[i] = (x[i] - g[i] * inv_den) * inv_var;
   return m + logf(den);
 }
+
+// The full-covariance Gaussian's precision and mean held in registers, zero
+// past d, for DMAX <= kGaussRegDim: grad_logp<DMAX, true>'s arithmetic in the
+// same order (the padded terms add exact zeros), with no shared-memory load
+// and no branch on d.
+constexpr int kGaussRegDim = 4;  // the largest d whose precision is held in registers
+
+template <int DMAX>
+struct GaussRegs {
+  float prec[DMAX][DMAX];
+  float mean[DMAX];
+
+  __device__ __forceinline__ void load(const float* s_a, const float* s_b, int d) {
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i) {
+      mean[i] = i < d ? s_b[i] : 0.0f;
+#pragma unroll
+      for (int j = 0; j < DMAX; ++j) prec[i][j] = i < d && j < d ? s_a[i * d + j] : 0.0f;
+    }
+  }
+
+  __device__ __forceinline__ float grad_logp(const float (&x)[DMAX], float (&g)[DMAX]) const {
+    float diff[DMAX];
+#pragma unroll
+    for (int j = 0; j < DMAX; ++j) diff[j] = x[j] - mean[j];
+    float quad = 0.0f;
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int j = 0; j < DMAX; ++j) acc = fmaf(prec[i][j], diff[j], acc);
+      g[i] = acc;
+      quad = fmaf(diff[i], acc, quad);
+    }
+    return -0.5f * quad;
+  }
+};
+
+// One launch of LAUNCH(DMAX, GAUSS, G, NJ), a Metropolis chain kernel at
+// G = `group` lanes per chain, with the bucket DMAX >= d: G in {1, 2, 4, 8}
+// at d <= kMaxGroupDim for the mixture, with NJ components per lane in
+// registers (as many as the lane has, up to 4 at d <= 2, 2 at d <= 4, 1
+// above), and for the full-covariance Gaussian; G = 1 above. Returns
+// cudaGetLastError() as an int, or cudaErrorInvalidValue for a group or a
+// size with no instance.
+#define TEBM_GROUP_SWITCH(LAUNCH, DM, GS, NJ)    \
+  switch (group) {                               \
+    case 1: LAUNCH(DM, GS, 1, 1); break;         \
+    case 2: LAUNCH(DM, GS, 2, NJ); break;        \
+    case 4: LAUNCH(DM, GS, 4, NJ); break;        \
+    case 8: LAUNCH(DM, GS, 8, NJ); break;        \
+    default: return (int)cudaErrorInvalidValue; \
+  }
+#define TEBM_DISPATCH_GROUPS(LAUNCH)                                          \
+  do {                                                                        \
+    if (d > kMaxGroupDim) {                                                   \
+      if (group != 1) return (int)cudaErrorInvalidValue;                      \
+      if (d <= 32) {                                                          \
+        if (gaussian) LAUNCH(32, true, 1, 1);                                 \
+        else LAUNCH(32, false, 1, 1);                                         \
+      } else if (d <= 64 && !gaussian) {                                      \
+        LAUNCH(64, false, 1, 1);                                              \
+      } else {                                                                \
+        return (int)cudaErrorInvalidValue;                                    \
+      }                                                                       \
+    } else if (gaussian) {                                                    \
+      if (d <= 2) TEBM_GROUP_SWITCH(LAUNCH, 2, true, 1)                       \
+      else if (d <= 4) TEBM_GROUP_SWITCH(LAUNCH, 4, true, 1)                  \
+      else if (d <= 8) TEBM_GROUP_SWITCH(LAUNCH, 8, true, 1)                  \
+      else TEBM_GROUP_SWITCH(LAUNCH, 16, true, 1)                             \
+    } else {                                                                  \
+      const int nj = (k + group - 1) / group;                                 \
+      if (d <= 2) {                                                           \
+        if (nj <= 1) TEBM_GROUP_SWITCH(LAUNCH, 2, false, 1)                   \
+        else if (nj <= 2) TEBM_GROUP_SWITCH(LAUNCH, 2, false, 2)              \
+        else TEBM_GROUP_SWITCH(LAUNCH, 2, false, 4)                           \
+      } else if (d <= 4) {                                                    \
+        if (nj <= 1) TEBM_GROUP_SWITCH(LAUNCH, 4, false, 1)                   \
+        else TEBM_GROUP_SWITCH(LAUNCH, 4, false, 2)                           \
+      } else if (d <= 8) {                                                    \
+        TEBM_GROUP_SWITCH(LAUNCH, 8, false, 1)                                \
+      } else {                                                                \
+        TEBM_GROUP_SWITCH(LAUNCH, 16, false, 1)                               \
+      }                                                                       \
+    }                                                                         \
+    return (int)cudaGetLastError();                                           \
+  } while (0)
 
 // One launch of KERNEL<DMAX, GAUSS, TRAJ> over `n` chains with the bucket
 // DMAX >= d picked at run time: d <= 64 for the mixture, d <= 32 for the

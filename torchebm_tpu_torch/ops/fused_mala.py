@@ -23,6 +23,9 @@ all; without them both come from the Philox4x32-10 stream keyed by ``seed``
 (:func:`~.fused_langevin.philox_normals`, :func:`~.fused_langevin.philox_uniforms`).
 Each wrapper also returns the per-chain mean acceptance probability.
 
+A launch splits each chain over a group of lanes of one warp, chosen by
+:func:`mala_launch_plan` from the card's timings.
+
 Every wrapper carries an integer ``launches`` attribute, raised by one each
 time it launches its kernel (never on the plain path); ``ops.launch_counts``
 reads them.
@@ -36,7 +39,9 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from .fused_hmc import hmc_groups
 from .fused_langevin import (
+    MIXTURE_RESIDENT_THREADS,
     _check_metropolis,
     _check_thin,
     _seed_words,
@@ -48,6 +53,8 @@ from .fused_langevin import (
 Tensor = torch.Tensor
 
 __all__ = [
+    "mala_groups",
+    "mala_launch_plan",
     "mixture_mala_chain",
     "mixture_mala_chain_trajectory",
     "mixture_mala_chain_plain",
@@ -56,8 +63,12 @@ __all__ = [
 
 #: ``tebm_mixture_mala_chain``'s argument types before the stream: x0, out, accept,
 #: traj, params_a, params_b, noise, uniforms, n, d, k, gaussian, n_steps, thin,
-#: inv_var, eta, noise_coef, four_eta, seed lo, seed hi
-_SIGNATURE = (_build.PTR,) * 8 + (_build.INT,) * 6 + (_build.FLOAT,) * 4 + (_build.U32,) * 2
+#: inv_var, eta, noise_coef, four_eta, seed lo, seed hi, group, threads, blocks
+_SIGNATURE = ((_build.PTR,) * 8 + (_build.INT,) * 6 + (_build.FLOAT,) * 4 + (_build.U32,) * 2
+              + (_build.INT,) * 3)
+
+#: the MALA chain kernel's block size (``kMalaThreads`` in csrc/fused_mala.cu)
+MALA_THREADS = 128
 
 
 def _mala_args(x0, means, n_steps, step_size, scale, log_weights, precision, noise, uniforms,
@@ -102,20 +113,85 @@ def _run_plain(x0, grad_logp, eta, n_steps, seed, noise, uniforms, thin):
     return traj, x, acc * (1.0 / int(n_steps))
 
 
-def _launch(x0, traj, pa, pb, gaussian, inv_var, eta, n_steps, thin, seed, noise, uniforms,
-            k):
+def mala_groups(d: int, k: int, gaussian: bool) -> Tuple[int, ...]:
+    """The groups of lanes per chain the MALA chain kernel is built for on a
+    target of ``k`` components (or the full-covariance Gaussian) in ``d``
+    dimensions: the HMC chain's (:func:`.fused_hmc.hmc_groups`), since both
+    kernels are instantiated by one dispatch (``TEBM_DISPATCH_GROUPS``,
+    csrc/tebm_common.cuh): 1, 2, 4 and 8 up to ``MIXTURE_GROUP_MAX_DIM``,
+    one lane above it and for a single component."""
+    return hmc_groups(d, k, gaussian)
+
+
+def mala_launch_plan(n: int, d: int, k: int, gaussian: bool,
+                     group: Optional[int] = None) -> Tuple[int, int, int]:
+    """``(group, threads, blocks)`` of one MALA chain launch over ``n``
+    chains in ``d`` dimensions with ``k`` components: ``group`` lanes of one
+    warp hold a chain, ``threads`` per block, ``blocks`` in the grid.
+
+    The rule follows the card's timings of every built group
+    (``chip_smoke.py``'s MALA plan sweep, H100): enough lanes, a power of
+    two, that each holds some of the components in registers (4 per lane at
+    d ≤ 2, 2 at d ≤ 4, 1 above: ``NJ`` of csrc/tebm_common.cuh's dispatch;
+    further components are read from shared memory at every evaluation) and
+    draws some of a step's ``ceil(d / 4)`` Philox blocks of normals; at
+    least 4 at d ≤ 2, where a step's two Philox blocks, shared by the lanes,
+    outweigh the 2-D evaluation (4 lanes at the ring, K = 8), else at least
+    2; at most 8 (4 at d > 4, where a wider group's butterflies over d
+    coordinates cost more than its warps give). The group is then halved
+    while ``n * group`` exceeds the threads the card holds at once
+    (:data:`.fused_langevin.MIXTURE_RESIDENT_THREADS`), down to 2, which
+    beats one lane at every size timed (to 300,000 chains). The sweep's
+    exceptions, where another group beats the pick: the full-covariance
+    Gaussian at d = 4 (4 lanes, by 1.7%) and the ring at K = 2 (2 lanes, by
+    0.1%). One component and ``d > MIXTURE_GROUP_MAX_DIM``
+    take one lane. ``group=`` overrides the choice with a group of
+    :func:`mala_groups` (timings compare them). The block is
+    :data:`MALA_THREADS`."""
+    built = mala_groups(d, k, gaussian)
+    if built == (1,):
+        pick = 1
+    else:
+        per_lane = 4 if d <= 2 else 2 if d <= 4 else 1
+        lanes = max(-(-k // per_lane), -(-d // 4))
+        pick = min(max(1 << (lanes - 1).bit_length(), 4 if d <= 2 else 2), 8 if d <= 4 else 4)
+        while pick > 2 and n * pick > MIXTURE_RESIDENT_THREADS:
+            pick //= 2
+    if group is None:
+        group = pick
+    elif group not in built:
+        raise ValueError(f"no MALA chain kernel at group {group} for d={d}, K={k}, "
+                         f"gaussian={bool(gaussian)}")
+    return group, MALA_THREADS, -(-n * group // MALA_THREADS)
+
+
+def _run(x0, means, n_steps, step_size, *, thin, scale, log_weights, precision, seed, noise,
+         uniforms, group=None):
+    """The body of both wrappers (``thin=None``: final state only):
+    ``(traj, final, accept, launched)``. A CPU ``x0`` runs the plain version;
+    a CUDA ``x0`` launches the kernel with :func:`mala_launch_plan`, whose
+    group ``group`` overrides."""
+    grad_logp, pa, pb, gaussian, inv_var, eta = _mala_args(
+        x0, means, n_steps, step_size, scale, log_weights, precision, noise, uniforms, seed
+    )
+    if x0.device.type == "cpu":
+        return (*_run_plain(x0, grad_logp, eta, n_steps, seed, noise, uniforms, thin), False)
     n, d = x0.shape
+    k = means.shape[0]
+    plan = mala_launch_plan(n, d, k, bool(gaussian), group)
     out = torch.empty_like(x0)
     accept = torch.empty((n,), dtype=torch.float32, device=x0.device)
+    traj = None if thin is None else torch.empty(
+        (int(n_steps) // thin, n, d), dtype=torch.float32, device=x0.device)
     seed_lo, seed_hi = _seed_words(seed)
     _build.launch(
         "mixture_mala_chain", _SIGNATURE, x0.device,
         _build.ptr(x0), _build.ptr(out), _build.ptr(accept), _build.ptr(traj), _build.ptr(pa),
         _build.ptr(pb), _build.ptr(noise), _build.ptr(uniforms), n, d, k, gaussian,
-        int(n_steps), int(thin), inv_var, eta, math.sqrt(2.0 * eta), 4.0 * eta,
-        seed_lo, seed_hi,
+        int(n_steps), 1 if thin is None else thin, inv_var, eta, math.sqrt(2.0 * eta),
+        4.0 * eta, seed_lo, seed_hi, *plan,
     )
-    return out, accept
+    return traj, out, accept, True
 
 
 def mixture_mala_chain_plain(x0, means, n_steps, step_size, *, scale=1.0, log_weights=None,
@@ -158,16 +234,11 @@ def mixture_mala_chain(
     ``x0``: ``(n_chains, d)``; ``means``: ``(K, d)``. Returns ``(samples,
     accept)``: the final state and the per-chain mean acceptance probability.
     """
-    grad_logp, pa, pb, gaussian, inv_var, eta = _mala_args(
-        x0, means, n_steps, step_size, scale, log_weights, precision, noise, uniforms, seed
-    )
-    if x0.device.type == "cpu":
-        _, final, accept = _run_plain(x0, grad_logp, eta, n_steps, seed, noise, uniforms, None)
-        return final, accept
-    out = _launch(x0, None, pa, pb, gaussian, inv_var, eta, n_steps, 1, seed, noise, uniforms,
-                  means.shape[0])
-    mixture_mala_chain.launches += 1
-    return out
+    _, out, accept, launched = _run(x0, means, n_steps, step_size, thin=None, scale=scale,
+                                    log_weights=log_weights, precision=precision, seed=seed,
+                                    noise=noise, uniforms=uniforms)
+    mixture_mala_chain.launches += launched
+    return out, accept
 
 
 @_build.counted
@@ -192,14 +263,10 @@ def mixture_mala_chain_trajectory(
     state after all transitions; ``accept`` the per-chain mean acceptance
     probability over the whole run.
     """
-    n_kept = _check_thin(n_steps, thin)
-    grad_logp, pa, pb, gaussian, inv_var, eta = _mala_args(
-        x0, means, n_steps, step_size, scale, log_weights, precision, noise, uniforms, seed
-    )
-    if x0.device.type == "cpu":
-        return _run_plain(x0, grad_logp, eta, n_steps, seed, noise, uniforms, int(thin))
-    traj = torch.empty((n_kept, *x0.shape), dtype=torch.float32, device=x0.device)
-    out, accept = _launch(x0, traj, pa, pb, gaussian, inv_var, eta, n_steps, thin, seed, noise,
-                          uniforms, means.shape[0])
-    mixture_mala_chain_trajectory.launches += 1
+    _check_thin(n_steps, thin)
+    traj, out, accept, launched = _run(x0, means, n_steps, step_size, thin=int(thin),
+                                       scale=scale, log_weights=log_weights,
+                                       precision=precision, seed=seed, noise=noise,
+                                       uniforms=uniforms)
+    mixture_mala_chain_trajectory.launches += launched
     return traj, out, accept
