@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --ess-shape`` times only rows 7 and 9 at the ESS
-protocol's shape, through the public wrappers, against whichever package is
-imported: ``PYTHONPATH=<checkout> python3 -P chip_smoke.py --ess-shape``
-times an earlier checkout's kernels on the same card.)
+protocol's shape and rows 10-11 at their main shape, through the public
+wrappers, against whichever package is imported:
+``PYTHONPATH=<checkout> python3 -P chip_smoke.py --ess-shape`` times an
+earlier checkout's kernels on the same card.)
 
 Phases, each printing its lines; any failure raises and the exit code is
 not 0:
@@ -15,8 +16,8 @@ not 0:
 2. build: the CUDA kernels compiled from ``torchebm_tpu_torch/ops/csrc``
    (one ``nvcc`` per source, in parallel) into a clean
    ``build/torch_kernels/``, with each kernel instance's registers and spills
-   (an HMC or MALA instance of the d <= 2 bucket, the main paths', must not
-   spill);
+   (an HMC, MALA or ladder instance of the d <= 2 bucket, the main paths',
+   must not spill);
 3. check: every kernel against its plain PyTorch version on the card, on
    injected randomness and on the Philox stream, at the main shapes (10,000
    x 2, 8 components; 4,096 x 32 double well), on rings of 12 and 33
@@ -29,7 +30,10 @@ not 0:
    and their trajectory twins at every group of lanes per chain they are
    built for (the ring, the ESS protocol's Gaussian, a d=16 Gaussian, a d=16
    mixture, 1,001 chains; Philox and injected; for HMC unit and diagonal
-   mass); AIS at the main path's
+   mass); the ladder and its trajectory twin at every group of lanes per
+   replica they are built for (the ring from its modes at R = 3, 4 and 8,
+   1,001 chains, a d=16 mixture and a d=16 Gaussian; Philox and injected;
+   final ladder, trajectory and acceptance); AIS at the main path's
    shapes (the ring from its modes at 16,384 chains, the two Gaussians at
    65,536, a 201-entry beta table); the one-step op at 4,096 x 32 and 16M
    elements; the neural (SiLU-MLP) chain at the CD path's 256 x 2 on
@@ -104,8 +108,10 @@ not 0:
    MALA and HMC trajectories at the ESS protocol's shape with their bound,
    the MALA and HMC plan sweeps (device time per call at every built group
    over 37 and 42 shapes of rings, mixtures, Gaussians, chain counts and,
-   for HMC, leapfrog steps, beside the launch plan's pick), PT per ladder
-   step, AIS per
+   for HMC, leapfrog steps, beside the launch plan's pick), rows 10-11 at
+   each group of lanes per replica and row 10 at each block size, the PT
+   plan sweep (34 shapes of ladders, rings, mixtures, Gaussians, chain
+   counts and swap intervals), PT per ladder step, AIS per
    rung, the one-step op in GB/s beside ``torch.add`` (device time per call
    in batches queued behind a spin, and per call with the host's launch
    work), the neural chain also at
@@ -220,6 +226,19 @@ SWEEP_MIX_D, SWEEP_MIX_K = (3, 5, 8, 16), (2, 4, 8, 16)
 SWEEP_LARGE_K, SWEEP_LARGE_N, SWEEP_LARGE_DRAWS = (8, 12, 16, 33), (100_000, 300_000), 200
 SWEEP_GAUSS_D = (4, 8, 16)
 SWEEP_LEAPFROG = (1, 16)
+#: the PT plan sweep beside rows 10-11's main shape (the ring, R = 4, swap
+#: every 5, 10,000 chains x 1,000 steps): the ring's ladder at other R, rings
+#: of K components, swapping every step, random means of K components at d,
+#: the full-covariance Gaussian at d (R = 4), and (chains, R, K, swap every)
+#: at 200 steps
+SWEEP_PT_R = (2, 3, 4, 8, 16)
+SWEEP_PT_RING_K = (2, 4, 12, 16, 24, 33)
+SWEEP_PT_SWAP1_R = (2, 4, 8)
+SWEEP_PT_MIX_D, SWEEP_PT_MIX_K = (3, 8, 16), (2, 8, 16)
+SWEEP_PT_GAUSS_D = (2, 4, 8, 16)
+SWEEP_PT_LARGE = ((100_000, 4, 8, 5), (100_000, 4, 16, 5), (100_000, 4, 33, 5),
+                  (100_000, 2, 8, 5), (100_000, 8, 8, 5), (100_000, 4, 8, 1),
+                  (300_000, 4, 8, 5))
 
 #: the parallel-tempering and AIS configurations of the JAX package's headline
 #: benchmarks (benchmarks/headline.py:178-289), at full width
@@ -341,6 +360,23 @@ def device_ms(fn) -> float:
     return statistics.median(cuda_times(fn, 1, 3, batch=2))
 
 
+def host_ms(fn, reps: int = 10) -> float:
+    """Host milliseconds of one call of ``fn()`` up to its return, before
+    the device finishes it: median of ``reps`` calls, each after a
+    synchronize and one warm-up call."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def max_err(got, want) -> float:
     import torch
 
@@ -383,11 +419,11 @@ def phase_build(build_mod) -> dict:
 
 
 def check_instances(instances: dict) -> None:
-    """The HMC and MALA instances of the d <= 2 bucket, the main paths' among
-    them (the ring's and the ESS protocol's correlated Gaussian's, chain and
-    trajectory, at every group), must not spill; every instance's registers
-    and spills are printed with the build."""
-    for kernel in ("hmc_chain_kernel", "mala_chain_kernel"):
+    """The HMC, MALA and ladder instances of the d <= 2 bucket, the main
+    paths' among them (the ring's and the ESS protocol's correlated
+    Gaussian's, chain and trajectory, at every group), must not spill; every
+    instance's registers and spills are printed with the build."""
+    for kernel in ("hmc_chain_kernel", "mala_chain_kernel", "pt_chain_kernel"):
         bucket2 = {name: v for name, v in instances.items()
                    if name.startswith(f"{kernel}<2,")}
         spilled = {name: v[1] for name, v in instances.items()
@@ -888,6 +924,84 @@ def phase_check_tempering(ops, dev, errors: dict) -> None:
                      (ladder32[0], mean32[0], 2.0, mean32, ais_betas, 0.02),
                      dict(**gauss_kw, **ais_rand(n, d, 47)),
                      f"d=32 full cov {n}x{AIS_RUNGS} rungs, {label}", errors, n)
+    _check_pt_groups(ops, dev, errors)
+
+
+def _check_pt_groups(ops, dev, errors: dict) -> None:
+    """Rows 10-11 at every group of lanes per replica their kernel is built
+    for (``fused_pt.pt_groups``), whichever the launch plan picks, against
+    their plain versions (flip rule in the module docstring): the ring from
+    its modes at noise scale 0.5 with R = 4 (PT_TEMPS), R = 3 (a padded
+    replica group in every chain) and R = 8 (:func:`pt_ladder`, the warp
+    bounding the group at 4), 1,001 chains of the ring (a partial last
+    warp), a d=16 mixture (four Philox blocks per step, drawn by the lanes)
+    and a d=16 full-covariance Gaussian (precision in shared memory) at R =
+    4, each with Philox and injected randomness, final ladder, trajectory
+    (thin 3) and per-chain acceptance."""
+    import torch
+
+    from torchebm_tpu_torch.core import GaussianMixtureEnergy
+
+    fp = ops.fused_pt
+    g = torch.Generator(dev).manual_seed(9753)
+    mix = GaussianMixtureEnergy.eight_gaussians().to(dev)
+    ring_kw = dict(scale=float(mix.scale), log_weights=mix.log_weights, precision=None)
+    n, steps = N_CHAINS, CHECK_STEPS
+
+    def ring(n_rep, n_chains=n):
+        return mix.sample(g, n_rep * n_chains).view(n_rep, n_chains, 2)
+
+    means16 = 2.0 * torch.randn((8, 16), generator=g, device=dev)
+    x16 = (means16[torch.randint(0, 8, (4 * n,), generator=g, device=dev)]
+           + 0.4 * torch.randn((4 * n, 16), generator=g, device=dev)).view(4, n, 16)
+    a16 = 0.1 * torch.randn((16, 16), generator=g, device=dev)
+    prec16 = (a16 @ a16.T + torch.eye(16, device=dev)).contiguous()
+    xg16 = torch.linalg.solve_triangular(  # exact draws of N(0, prec16^-1)
+        torch.linalg.cholesky(prec16).T, torch.randn((16, 4 * n), generator=g, device=dev),
+        upper=True).T.reshape(4, n, 16)
+    betas4 = tuple(1.0 / t for t in PT_TEMPS)
+    # (label, replicas, means, target keywords, betas, noise scale, gaussian)
+    cases = (
+        ("8gauss R=4", ring(4), mix.means, ring_kw, betas4, 0.5, False),
+        ("8gauss R=3", ring(3), mix.means, ring_kw, betas4[:3], 0.5, False),
+        ("8gauss R=8", ring(8), mix.means, ring_kw, pt_ladder(8), 0.5, False),
+        ("8gauss R=4 1001 chains", ring(4, 1001), mix.means, ring_kw, betas4, 0.5, False),
+        ("d=16 K=8 R=4", x16.contiguous(), means16, dict(scale=0.4, log_weights=None,
+                                                         precision=None), betas4, 0.5, False),
+        ("Gaussian d=16 R=4", xg16.contiguous(), torch.zeros((1, 16), device=dev),
+         dict(scale=1.0, log_weights=None, precision=prec16), betas4, 1.0, True),
+    )
+    n_checks = 0
+    for label, reps, means, target_kw, betas, noise_scale, gaussian in cases:
+        n_rep, n_c, d = reps.shape
+        groups = fp.pt_groups(n_rep, d, means.shape[0], gaussian)
+        args = (reps, means, steps, 0.05, noise_scale, betas, PT_SWAP_EVERY)
+        for inject in (True, False):
+            rand = dict(seed=48, noise=None, swap_uniform=None) if not inject else dict(
+                seed=48, noise=torch.randn((steps, n_rep, n_c, d), generator=g, device=dev),
+                swap_uniform=torch.rand((steps // PT_SWAP_EVERY, n_rep - 1, n_c), generator=g,
+                                        device=dev))
+            for thin in (None, 3):
+                name = "pt_langevin_chain" + ("" if thin is None else "_trajectory")
+                kw = dict(**target_kw, **rand, clamp=None)
+                want = fp._run(*args, thin, **kw, kernel=False)
+                want = want[1:] if thin is None else want
+                for group in groups:
+                    traj, out, acc = fp._run(*args, thin, **kw, kernel=True, group=group)
+                    torch.cuda.synchronize()
+                    got = (out, acc) if thin is None else (traj, out, acc)
+                    what = (f"{name} [{label}, G={group}, "
+                            f"{'injected' if inject else 'philox'}]")
+                    n_flipped, err, _ = _flips(got, want, n_c, what)
+                    errors[name] = max(errors.get(name, 0.0), err)
+                    n_checks += 1
+                    print(f"check: {what} max|kernel - plain| = {err:.3e} over the "
+                          f"{n_c - n_flipped} chains that agree (tol {TOL:g}); flipped chains "
+                          f"{n_flipped} (at most {n_c // 1000}); mean acceptance "
+                          f"{float(want[-1].mean()):.4f}")
+                    if not err <= TOL or n_flipped > n_c // 1000:
+                        raise AssertionError(f"{what} disagrees with its plain version")
+    print(f"check: {n_checks} group checks of rows 10-11 within the flip rule")
 
 
 def _ais_targets(dev) -> dict:
@@ -1713,19 +1827,16 @@ def mala_ess_shape_cases(dev) -> list:
              dict(thin=ESS_THIN, precision=corr_prec.contiguous(), seed=21))]
 
 
-def plan_sweep(family: str, module, dev, card: str, ess: list) -> None:
-    """The shapes the launch plan of ``family`` ("mala" or "hmc") is read
-    from (``SWEEP_*``; the ESS shapes ``ess`` of :func:`mala_ess_shape_cases`
-    or :func:`hmc_ess_shape_cases`; for HMC also other leapfrog counts): the
-    chain kernel's device time per call (:func:`device_ms`) at every group of
-    lanes it is built for, with the fastest group and the plan's pick, and a
-    count of the shapes where the pick is fastest."""
+def _chain_sweep_cases(family: str, module, dev, ess: list) -> list:
+    """The MALA ("mala") or HMC ("hmc") plan sweep's shapes (``SWEEP_*``; the
+    ESS shapes ``ess`` of :func:`mala_ess_shape_cases` or
+    :func:`hmc_ess_shape_cases`; for HMC also other leapfrog counts):
+    ``[(label, run, (n, d, K, gaussian))]``, ``run(group=G)`` one call of the
+    chain kernel at G lanes per chain."""
     import torch
 
     from torchebm_tpu_torch.core import GaussianMixtureEnergy
 
-    groups = getattr(module, f"{family}_groups")
-    plan = getattr(module, f"{family}_launch_plan")
     extra = (HMC_LEAPFROG,) if family == "hmc" else ()
     g = torch.Generator(dev).manual_seed(55)
     x2 = torch.randn((N_CHAINS, 2), generator=g, device=dev)
@@ -1769,13 +1880,83 @@ def plan_sweep(family: str, module, dev, card: str, ess: list) -> None:
                           False))
             cases.append((f"ESS shape ({label}), {n_lf} leapfrog", (*args[:4], n_lf), kw, 2, 1,
                           True))
+    return [(label, functools.partial(module._run, *args, **run_kw(family, **kw)),
+             (args[0].shape[0], d, k, gaussian)) for label, args, kw, d, k, gaussian in cases]
+
+
+def pt_run(fp, replicas, means, n_steps, betas, swap_every, *, thin=None, scale=1.0,
+           log_weights=None, precision=None, group=None):
+    """One ladder call through ``fused_pt._run`` on the card: step 0.05, noise
+    scale 1, Philox seed 21, no clamp; ``group`` overrides the launch plan's."""
+    return fp._run(replicas, means, n_steps, 0.05, 1.0, betas, swap_every, thin, scale=scale,
+                   log_weights=log_weights, precision=precision, seed=21, clamp=None,
+                   noise=None, swap_uniform=None, kernel=True, group=group)
+
+
+def pt_ladder(n_rep: int) -> tuple:
+    """The inverse temperatures of an R-replica ladder spanning the headline
+    configuration's temperatures 1 to 4.1 geometrically (PT_TEMPS, to 0.1%,
+    at R = 4)."""
+    return tuple(PT_TEMPS[-1] ** (-r / (n_rep - 1)) for r in range(n_rep))
+
+
+def _pt_sweep_cases(fp, dev) -> list:
+    """The PT plan sweep's shapes (``SWEEP_PT_*``): ``[(label, run, (n, R, d, K,
+    gaussian))]``, ``run(group=G)`` one ladder call at G lanes per replica,
+    from N(0, I), at step 0.05 over :func:`pt_ladder`'s temperatures."""
+    import torch
+
+    g = torch.Generator(dev).manual_seed(57)
+    cases = []
+
+    def add(label, n, n_rep, n_steps, swap_every, means, kw, gaussian):
+        d = means.shape[1]
+        reps = torch.randn((n_rep, n, d), generator=g, device=dev)
+        cases.append((f"{label} R={n_rep} d={d} {n}x{n_steps} swap every {swap_every}",
+                      functools.partial(pt_run, fp, reps, means, n_steps, pt_ladder(n_rep),
+                                        swap_every, **kw),
+                      (n, n_rep, d, means.shape[0], gaussian)))
+
+    def ring(k):
+        r = _ring(k).to(dev)
+        return r.means, dict(scale=float(r.scale), log_weights=r.log_weights)
+
+    for n_rep in SWEEP_PT_R:
+        add("ring K=8", N_CHAINS, n_rep, N_STEPS, PT_SWAP_EVERY, *ring(8), False)
+    for k in SWEEP_PT_RING_K:
+        add(f"ring K={k}", N_CHAINS, 4, N_STEPS, PT_SWAP_EVERY, *ring(k), False)
+    for n_rep in SWEEP_PT_SWAP1_R:
+        add("ring K=8", N_CHAINS, n_rep, N_STEPS, 1, *ring(8), False)
+    for d in SWEEP_PT_MIX_D:
+        for k in SWEEP_PT_MIX_K:
+            add(f"mixture K={k}", N_CHAINS, 4, N_STEPS, PT_SWAP_EVERY,
+                2.0 * torch.randn((k, d), generator=g, device=dev), dict(scale=0.8), False)
+    for d in SWEEP_PT_GAUSS_D:
+        a = 0.1 * torch.randn((d, d), generator=g, device=dev)
+        add("full-covariance Gaussian", N_CHAINS, 4, N_STEPS, PT_SWAP_EVERY,
+            torch.zeros((1, d), device=dev),
+            dict(precision=(a @ a.T + torch.eye(d, device=dev)).contiguous()), True)
+    for n, n_rep, k, swap_every in SWEEP_PT_LARGE:
+        add(f"ring K={k}", n, n_rep, SWEEP_LARGE_DRAWS, swap_every, *ring(k), False)
+    return cases
+
+
+def plan_sweep(family: str, module, dev, card: str, ess: list) -> None:
+    """The shapes the launch plan of ``family`` ("mala", "hmc" or "pt") is
+    read from (:func:`_chain_sweep_cases`, :func:`_pt_sweep_cases`): the
+    kernel's device time per call (:func:`device_ms`) at every group of lanes
+    (per chain, or per replica) it is built for, with the fastest group and
+    the plan's pick, and a count of the shapes where the pick is fastest."""
+    groups = getattr(module, f"{family}_groups")
+    plan = getattr(module, f"{family}_launch_plan")
+    cases = (_pt_sweep_cases(module, dev) if family == "pt"
+             else _chain_sweep_cases(family, module, dev, ess))
     at_pick = 0
-    for label, args, kw, d, k, gaussian in cases:
-        ms = {group: device_ms(functools.partial(module._run, *args, **run_kw(family, **kw),
-                                                 group=group))
-              for group in groups(d, k, gaussian)}
+    for label, run, shape in cases:
+        ms = {group: device_ms(functools.partial(run, group=group))
+              for group in groups(*shape[1:])}
         fastest = min(ms, key=ms.get)
-        pick = plan(args[0].shape[0], d, k, gaussian)[0]
+        pick = plan(*shape)[0]
         at_pick += fastest == pick
         print(f"sweep: {family.upper()} {label}: device ms per call " + "; ".join(
             f"G={grp} {t:.4f}" for grp, t in ms.items()) + f"; fastest G={fastest}, the plan "
@@ -1784,8 +1965,25 @@ def plan_sweep(family: str, module, dev, card: str, ess: list) -> None:
           f"{len(cases)} shapes | {card}")
 
 
+def pt_main_shape(dev):
+    """Rows 10-11's main shape, the JAX package's headline PT configuration
+    (benchmarks/headline.py:178-220): ``(args, keywords)`` of the public
+    ladder wrappers on the ring, a (4, 10,000, 2) ladder from N(0, I), 1,000
+    steps at 0.05, noise scale 1, PT_TEMPS, swap every 5, Philox seed 21."""
+    import torch
+
+    from torchebm_tpu_torch.core import GaussianMixtureEnergy
+
+    mix = GaussianMixtureEnergy.eight_gaussians().to(dev)
+    ladder = torch.randn((len(PT_TEMPS), N_CHAINS, 2),
+                         generator=torch.Generator(dev).manual_seed(5), device=dev)
+    return ((ladder, mix.means, N_STEPS, 0.05, 1.0, tuple(1.0 / t for t in PT_TEMPS),
+             PT_SWAP_EVERY), dict(scale=float(mix.scale), log_weights=mix.log_weights, seed=21))
+
+
 def phase_ess_shape(ops, dev, card: str) -> None:
     """``chip_smoke.py --ess-shape``: rows 7 and 9 at the ESS protocol's shape
+    and rows 10-11 (thin 1) at their main shape (:func:`pt_main_shape`)
     through the public wrappers (the plans' groups), per call and by device
     time per call. It runs against any revision of the package, so an
     earlier checkout can be timed beside this one on the same card:
@@ -1801,6 +1999,15 @@ def phase_ess_shape(ops, dev, card: str) -> None:
             print(f"ess-shape: {name} (package {ops.__file__}, corr-Gaussian d=2, "
                   f"{N_CHAINS}x{ESS_DRAWS} thin {ESS_THIN}, step {eps:.5f}, {label}): "
                   f"{ms:.4f} ms per call, device {dev_ms:.4f} ms | {card}", flush=True)
+    args, kw = pt_main_shape(dev)
+    for name, extra in (("pt_langevin_chain", {}), ("pt_langevin_chain_trajectory", dict(thin=1))):
+        run = functools.partial(getattr(ops.fused_pt, name), *args, **kw, **extra)
+        ms = statistics.median(cuda_times(run, 2, 10))
+        dev_ms = device_ms(run)
+        print(f"ess-shape: {name} (package {ops.__file__}, 8gauss {N_CHAINS} chains x "
+              f"{len(PT_TEMPS)} replicas x {N_STEPS} steps, swap every {PT_SWAP_EVERY}"
+              + (", thin 1" if extra else "") + f"): {ms:.4f} ms per call, device "
+              f"{dev_ms:.4f} ms | {card}", flush=True)
 
 
 def phase_group_timing(ops, dev, card: str) -> None:
@@ -1858,6 +2065,55 @@ def phase_group_timing(ops, dev, card: str) -> None:
                       f"{b_ms:.5f} ms by {b_by} ({b_ms / dev_ms:.3f} of the bound's rate by "
                       f"device time) | {card}", flush=True)
         plan_sweep(family, module, dev, card, ess)
+    pt_group_timing(ops, dev, card, clock)
+
+
+def pt_group_timing(ops, dev, card: str, clock: float) -> None:
+    """Rows 10-11 (thin 1) at their main shape (:func:`pt_main_shape`) at
+    each group of lanes per replica their kernel is built for, per call and
+    by device time per call, beside the bound; the host's time per call of
+    both public wrappers at the pick and of the trajectory's allocation;
+    then the PT plan sweep. Launches made here are not counted."""
+    import torch
+
+    from torchebm_tpu_torch.ops._counts import work
+
+    fp = ops.fused_pt
+    args, kw = pt_main_shape(dev)
+    ladder, means, n_steps, _, _, betas, swap_every = args
+    n_rep, n, d = ladder.shape
+    k = means.shape[0]
+    target = dict(scale=kw["scale"], log_weights=kw["log_weights"])
+    groups = fp.pt_groups(n_rep, d, k, False)
+    picked = fp.pt_launch_plan(n, n_rep, d, k, False)[0]
+    shape = (f"8gauss {n} chains x {n_rep} replicas x {n_steps} steps, swap every "
+             f"{swap_every}")
+    for name, thin in (("pt_langevin_chain", None), ("pt_langevin_chain_trajectory", 1)):
+        extra = {} if thin is None else dict(thin=thin)
+        b_ms, b_by = bound_of(work(name, args, dict(kw, **extra),
+                                   getattr(fp, name)(*args, **kw, **extra)), clock)
+        by_group = {}
+        for group in groups:
+            run = functools.partial(pt_run, fp, ladder, means, n_steps, betas, swap_every,
+                                    thin=thin, group=group, **target)
+            by_group[group] = (statistics.median(cuda_times(run, 2, 10)), device_ms(run))
+        fastest = min(by_group, key=lambda grp: by_group[grp][1])
+        print(f"timing: {name} {shape}" + (", thin 1" if thin else "") + ", by lanes per "
+              f"replica G: " + "; ".join(
+                  f"G={grp} {ms:.4f} ms per call, device {dev_ms:.4f} ms"
+                  for grp, (ms, dev_ms) in by_group.items())
+              + f"; fastest G={fastest}, the plan picks G={picked}; bound {b_ms:.4f} ms by "
+              f"{b_by} ({b_ms / by_group[picked][1]:.3f} of the bound's rate by device time at "
+              f"the pick) | {card}", flush=True)
+    hosts = {name: host_ms(functools.partial(getattr(fp, name), *args, **kw, **extra))
+             for name, extra in (("pt_langevin_chain", {}),
+                                 ("pt_langevin_chain_trajectory", dict(thin=1)))}
+    alloc = host_ms(lambda: torch.empty((n_steps, n, d), device=dev))
+    print(f"timing: host ms per call to the return, {shape}, the plan's G={picked}: "
+          + "; ".join(f"{name} {ms:.4f}" for name, ms in hosts.items())
+          + f"; torch.empty of the ({n_steps}, {n}, {d}) trajectory {alloc:.4f} | {card}",
+          flush=True)
+    plan_sweep("pt", fp, dev, card, [])
 
 
 def phase_timing(ops, dev, card: str) -> dict:

@@ -222,3 +222,70 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="only CPU"):
         tpt.pt_langevin_chain(torch.zeros(2, 4, 2, device="meta"),
                               torch.zeros(1, 2, device="meta"), 4, 0.01, 1.0, (1.0, 0.5), 2)
+
+
+# ------------------------------------------------------------------ launch plan
+
+
+@pytest.mark.parametrize("n_rep", range(2, 33))
+def test_pt_groups_keep_a_chain_in_one_warp(n_rep):
+    """Every built group keeps a chain's Rp · G lanes in one warp, Rp the
+    next power of two >= R: 1, 2, 4 and 8 lanes per replica up to 4
+    replicas, 1, 2 and 4 up to 8, 1 and 2 up to 16, one lane above, and one
+    lane wherever the dispatch builds no group (d > 16, one component).
+    Every plan, picked or forced, launches one of them with a grid that
+    holds every chain and no block past the last."""
+    rp = 1 << (n_rep - 1).bit_length()
+    in_warp = ((1, 2, 4, 8) if n_rep <= 4 else (1, 2, 4) if n_rep <= 8
+               else (1, 2) if n_rep <= 16 else (1,))
+    for d, k, gaussian, want in ((2, 8, False, in_warp), (16, 8, False, in_warp),
+                                 (4, 1, True, in_warp), (32, 1, True, (1,)),
+                                 (2, 1, False, (1,))):
+        built = tpt.pt_groups(n_rep, d, k, gaussian)
+        assert built == want
+        assert 1 in built and all(rp * g <= 32 for g in built)
+        for group in (None, *built):
+            got, threads, blocks = tpt.pt_launch_plan(1001, n_rep, d, k, gaussian, group=group)
+            assert got in built and (group is None or got == group)
+            assert threads % 32 == 0 and threads == tpt.PT_THREADS
+            assert blocks * threads >= 1001 * rp * got > (blocks - 1) * threads
+
+
+# (n chains, R, d, K, gaussian, the plan's group): the main shape and the
+# ring's other ladders (2 lanes), the warp's bound at R = 16 and R > 16,
+# rings whose components fill 4 lanes but not 2 (K = 12, 16; at R = 8 too),
+# rings past that (K = 24, 33), mixtures at d = 3, 8, 16, full-covariance
+# Gaussians (1 lane above d = 8), one component, and no halving at 100,000
+# and 300,000 chains
+PT_PLAN_CASES = [
+    (10_000, 4, 2, 8, False, 2), (10_000, 2, 2, 8, False, 2), (10_000, 3, 2, 8, False, 2),
+    (10_000, 8, 2, 8, False, 2), (10_000, 16, 2, 8, False, 2), (10_000, 17, 2, 8, False, 1),
+    (10_000, 4, 2, 12, False, 4), (10_000, 4, 2, 16, False, 4), (10_000, 8, 2, 16, False, 4),
+    (10_000, 16, 2, 16, False, 2), (10_000, 4, 2, 24, False, 2), (10_000, 4, 2, 33, False, 2),
+    (10_000, 4, 3, 8, False, 2), (10_000, 4, 8, 16, False, 2), (10_000, 4, 16, 2, False, 2),
+    (10_000, 4, 16, 8, False, 4), (10_000, 4, 2, 1, True, 2), (10_000, 4, 8, 1, True, 2),
+    (10_000, 4, 16, 1, True, 1), (10_000, 4, 32, 1, True, 1), (10_000, 4, 2, 1, False, 1),
+    (100_000, 4, 2, 16, False, 4), (300_000, 4, 2, 8, False, 2),
+]
+
+
+@pytest.mark.parametrize("n, n_rep, d, k, gaussian, group", PT_PLAN_CASES,
+                         ids=[f"n{n}-R{r}-d{d}-k{k}" + ("-gauss" if g else "")
+                              for n, r, d, k, g, _ in PT_PLAN_CASES])
+def test_pt_launch_plan(n, n_rep, d, k, gaussian, group):
+    """The group the card's timings pick, with no halving at large ``n``,
+    and the same plan when the group is passed back as the override."""
+    got, threads, blocks = tpt.pt_launch_plan(n, n_rep, d, k, gaussian)
+    assert got == group
+    assert tpt.pt_launch_plan(n, n_rep, d, k, gaussian, group=group) == (got, threads, blocks)
+
+
+@pytest.mark.parametrize("n_rep, d, k, gaussian, group", [
+    (4, 2, 8, False, 3), (4, 2, 8, False, 16), (8, 2, 8, False, 8), (16, 2, 8, False, 4),
+    (17, 2, 8, False, 2), (32, 2, 8, False, 2), (4, 17, 8, False, 2), (4, 32, 1, True, 2),
+    (4, 2, 1, False, 2), (2, 2, 8, False, 16),
+])
+def test_pt_launch_plan_refuses_groups_not_built(n_rep, d, k, gaussian, group):
+    """``group=`` takes only a built group that keeps the chain in one warp."""
+    with pytest.raises(ValueError, match="no ladder kernel"):
+        tpt.pt_launch_plan(100, n_rep, d, k, gaussian, group=group)

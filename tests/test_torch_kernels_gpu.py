@@ -333,19 +333,26 @@ def test_fused_langevin_step_matches_plain_on_card(cuda, shape, inject):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
 
 
+#: the ladder's targets: (d, K, full covariance)
+PT_TARGETS = {"mixture": (2, 6, False), "d16": (16, 8, False), "gaussian": (32, 1, True),
+              "gauss4": (4, 1, True), "gauss16": (16, 1, True)}
+
+
 def _pt_case(rng, target, n_rep, n):
-    """``(replicas, means, kwargs)`` on the CPU: the ring-like mixture started
-    at its modes (noise 0.5 keeps every replica there), or a d=32 Gaussian."""
-    if target == "gaussian":
-        d = 32
+    """``(replicas, means, kwargs)`` on the CPU: a ring-like mixture (6
+    components at d = 2, or 8 at d = 16) started at its modes (noise 0.5
+    keeps every replica there), or a full-covariance Gaussian at d = 4, 16
+    or 32 (:data:`PT_TARGETS`)."""
+    d, k, gaussian = PT_TARGETS[target]
+    if gaussian:
         a = _normal(rng, d, d, scale=0.1)
         means = torch.from_numpy(_normal(rng, 1, d))
         reps = means + torch.from_numpy(_normal(rng, n_rep, n, d, scale=0.7))
         prec = torch.from_numpy((a @ a.T + np.eye(d)).astype(np.float32))
         return reps.contiguous(), means, dict(precision=prec)
-    means = torch.from_numpy(_normal(rng, 6, 2, scale=3.0))
-    comp = torch.from_numpy(rng.integers(0, 6, (n_rep, n)))
-    reps = means[comp] + torch.from_numpy(_normal(rng, n_rep, n, 2, scale=0.4))
+    means = torch.from_numpy(_normal(rng, k, d, scale=3.0))
+    comp = torch.from_numpy(rng.integers(0, k, (n_rep, n)))
+    reps = means[comp] + torch.from_numpy(_normal(rng, n_rep, n, d, scale=0.4))
     return reps.contiguous(), means, dict(scale=0.4)
 
 
@@ -380,6 +387,53 @@ def test_pt_kernels_match_plain_on_card(cuda, inject, target, n_rep, n, n_steps,
         assert abs(float(got[-1]) - float(want[-1])) <= TOL + flipped / n
         if n_steps < swap_every:
             assert float(got[-1]) == 0.0
+
+
+#: (target, R, n chains, n_steps, swap_every): every group of lanes per
+#: replica the ladder kernel is built for (``pt_groups``) on the ring-like
+#: mixture at R = 4 (up to 8 lanes per replica), R = 3 (a padded replica group
+#: in every chain), R = 8 and R = 16 (the warp bounds the group at 4 and 2),
+#: at 1,001 chains (a partial last warp) and swapping every step; a d = 16
+#: mixture (four Philox blocks per step, drawn by the lanes); full-covariance
+#: Gaussians at d = 4 (precision in registers) and d = 16 (in shared memory)
+PT_GROUP_SHAPES = {"R4": ("mixture", 4, 4096, 23, 5), "R3": ("mixture", 3, 4096, 20, 3),
+                   "R8": ("mixture", 8, 2048, 20, 5), "R16": ("mixture", 16, 1024, 20, 5),
+                   "ragged": ("mixture", 4, 1001, 21, 1), "d16": ("d16", 4, 2048, 20, 5),
+                   "gauss4": ("gauss4", 4, 2048, 20, 5), "gauss16": ("gauss16", 4, 2048, 20, 5)}
+PT_GROUP_CASES = [(shape, grp) for shape, (t, n_rep, *_) in PT_GROUP_SHAPES.items()
+                  for grp in tpt.pt_groups(n_rep, PT_TARGETS[t][0], PT_TARGETS[t][1],
+                                           PT_TARGETS[t][2])]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inject", [True, False], ids=["noise", "philox"])
+@pytest.mark.parametrize("shape, group", PT_GROUP_CASES,
+                         ids=[f"{s}-G{g}" for s, g in PT_GROUP_CASES])
+def test_pt_kernels_each_group_match_plain_on_card(cuda, inject, shape, group):
+    """Rows 10-11 at ``group`` lanes per replica, whichever the launch plan
+    picks, against the plain versions under the flip rule: final ladder,
+    trajectory (thin 2) and the last sweep's acceptance."""
+    target, n_rep, n, n_steps, swap_every = PT_GROUP_SHAPES[shape]
+    rng = _rng(7)
+    reps, means, kw = _pt_case(rng, target, n_rep, n)
+    d = reps.shape[-1]
+    betas = tuple(1.6 ** -r for r in range(n_rep))
+    kw = dict(scale=kw.get("scale", 1.0), log_weights=None, precision=kw.get("precision"),
+              seed=11, clamp=(-9.0, 9.0), noise=None, swap_uniform=None)
+    if inject:
+        kw["noise"] = torch.from_numpy(_normal(rng, n_steps, n_rep, n, d))
+        kw["swap_uniform"] = torch.from_numpy(
+            rng.uniform(size=(n_steps // swap_every, n_rep - 1, n)).astype(np.float32))
+    on_card = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    args = (n_steps, 0.02, 0.5, betas, swap_every)
+    for thin in (None, 2):
+        traj, out, acc = tpt._run(reps.to(cuda), means.to(cuda), *args, thin, **on_card,
+                                  kernel=True, group=group)
+        want = tpt._run(reps, means, *args, thin, **kw, kernel=False)
+        got = (out, acc) if thin is None else (traj, out, acc)
+        want = want[1:] if thin is None else want
+        flipped = _flipped_chains(got, want, n)
+        assert flipped <= n // 1000
 
 
 @pytest.mark.gpu

@@ -11,14 +11,16 @@ not read. Classes: ``"fp32"`` adds, multiplies, FMAs, min/max and compares;
 rcp, sin, cos and int-to-float conversions.
 
 The counts are the algorithm's work, not what a design adds to it. The
-mixture, MALA and HMC chains (``mixture_langevin*``, ``mixture_mala*``,
-``mixture_hmc*``) split a chain over a group of lanes: their butterfly
-shuffles and broadcasts, the updates, residual and kinetic sums and
-Metropolis tests that every lane of a group repeats, and the logits that
-lanes with no component form are overhead, so the counts stay one
-evaluation and update per chain-step or leapfrog step, ``ceil(d/4)`` Philox
-blocks of normals and, for MALA and HMC, one uniform block per chain-step or
-chain-draw, whatever the group (each block is drawn once, by one lane).
+mixture, MALA, HMC and ladder chains (``mixture_langevin*``,
+``mixture_mala*``, ``mixture_hmc*``, ``pt_langevin*``) split a chain (on the
+ladder, each replica) over a group of lanes: their butterfly shuffles and
+broadcasts, the exchange's shuffles, the updates, residual and kinetic sums,
+Metropolis tests and exchange decisions that every lane of a group repeats,
+and the logits that lanes with no component form are overhead, so the counts
+stay one evaluation and update per chain-step, replica-step or leapfrog
+step, ``ceil(d/4)`` Philox blocks of normals and, for MALA and HMC, one
+uniform block per chain-step or chain-draw, for the ladder one per pair
+tried, whatever the group (each block is drawn once, by one lane).
 MALA's bound at its main shapes (the ring, the ESS protocol's 2-D Gaussian)
 is set by its two Philox blocks per step (INT32).
 
@@ -38,10 +40,10 @@ COUNTED_SOURCES = {
     "fused_langevin.cu": "ed1abd8c6f146eb2",
     "fused_mala.cu": "cc395518a0c9ea11",
     "fused_mlp_langevin.cu": "1c9df0ffe632ed07",
-    "fused_pt.cu": "749b05b3dce2d4d8",
+    "fused_pt.cu": "cc295bb989eccc55",
     "fused_sinkhorn.cu": "d0a19152cfef9635",
     "fused_step.cu": "45698a16da6ceaad",
-    "tebm_common.cuh": "43878f3f794f147e",
+    "tebm_common.cuh": "c0420294bd37e508",
 }
 
 # tebm_common.cuh: one Philox4x32-10 block; normals4 (one block, two
@@ -109,14 +111,17 @@ def work(name: str, args, kw, result) -> dict:
         per = _add(_add(ev, {"fp32": 4 * d}, times=n_leap), normals(d), _UNIFORM,
                    {"fp32": 6 * d + 12, "sfu": 2})
         ops = _add(_add(per, times=n * n_draws), _add(ev, times=n))
-    elif name.startswith("pt_langevin"):  # fused_pt.cu, per replica-step and sweep
+    elif name.startswith("pt_langevin"):  # fused_pt.cu, per replica-step and pair tried
         ladder, means, n_steps, _, _, betas, swap_every = args[:7]
         n_rep, n, d = ladder.shape
         per_step = _add(_eval(d, means.shape[0], gaussian), normals(d), {"fp32": 4 * d})
-        # per lane and sweep: the exchange shuffles and, on the lower lane, a decision
-        per_sweep = _add(_UNIFORM, {"fp32": 8, "sfu": 1, "int32": 4 * d + 6})
-        ops = _add(_add(per_step, times=n_rep * n * n_steps),
-                   _add(per_sweep, times=n_rep * n * (n_steps // swap_every)))
+        # per pair tried: its uniform, the decision (one exponential) and the
+        # selects that exchange x, grad U and log p between the two replicas
+        per_pair = _add(_UNIFORM, {"fp32": 8 + 2 * (2 * d + 1), "sfu": 1})
+        # pairs (r, r + 1) with r % 2 == sweep % 2 (the single pair at R = 2)
+        pairs = sum(1 if n_rep == 2 else (n_rep - s % 2) // 2
+                    for s in range(n_steps // swap_every))
+        ops = _add(_add(per_step, times=n_rep * n * n_steps), _add(per_pair, times=n * pairs))
     elif name == "mixture_ais_run":  # fused_ais.cu, per chain-transition and rung
         x0, _, _, means, betas = args[:5]
         n, d = x0.shape

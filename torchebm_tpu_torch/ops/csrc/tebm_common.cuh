@@ -18,8 +18,8 @@
 // thread per chain. grad_logp_group<DMAX, G, NJ> is the mixture evaluator
 // split over a group of G lanes of one warp that hold the same chain;
 // GaussRegs<DMAX> the full-covariance one with its precision in registers.
-// TEBM_DISPATCH_GROUPS launches the MALA and HMC chains' instances by bucket
-// and group.
+// TEBM_DISPATCH_GROUPS launches the MALA, HMC and parallel-tempering chains'
+// instances by bucket and group.
 
 #pragma once
 
@@ -335,11 +335,11 @@ struct GaussRegs {
   }
 };
 
-// One launch of LAUNCH(DMAX, GAUSS, G, NJ), a Metropolis chain kernel at
-// G = `group` lanes per chain, with the bucket DMAX >= d: G in {1, 2, 4, 8}
-// at d <= kMaxGroupDim for the mixture, with NJ components per lane in
-// registers (as many as the lane has, up to 4 at d <= 2, 2 at d <= 4, 1
-// above), and for the full-covariance Gaussian; G = 1 above. Returns
+// One launch of LAUNCH(DMAX, GAUSS, G, NJ), a chain kernel at G = `group`
+// lanes per chain (per replica on the ladder), with the bucket DMAX >= d: G
+// in {1, 2, 4, 8} at d <= kMaxGroupDim for the mixture, with NJ components
+// per lane in registers (as many as the lane has, up to 4 at d <= 2, 2 at
+// d <= 4, 1 above), and for the full-covariance Gaussian; G = 1 above. Returns
 // cudaGetLastError() as an int, or cudaErrorInvalidValue for a group or a
 // size with no instance.
 #define TEBM_GROUP_SWITCH(LAUNCH, DM, GS, NJ)    \

@@ -30,6 +30,10 @@ generic loop's ``swap_acceptance_rate``. The JAX kernel averages it per grid
 block over padded chains too, and reports 0.0 on its injected path; the port
 reports the statistic on both paths.
 
+A launch splits each replica over a group of lanes of one warp, a chain's
+replicas side by side, chosen by :func:`pt_launch_plan` from the card's
+timings.
+
 Every wrapper carries an integer ``launches`` attribute, raised by one each
 time it launches its kernel (never on the plain path); ``ops.launch_counts``
 reads them.
@@ -43,6 +47,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import _build
+from .fused_hmc import hmc_groups
 from .fused_langevin import (
     _check_tensor,
     _check_thin,
@@ -57,20 +62,85 @@ Tensor = torch.Tensor
 
 __all__ = [
     "MAX_REPLICAS",
+    "pt_groups",
+    "pt_launch_plan",
     "pt_langevin_chain",
     "pt_langevin_chain_trajectory",
     "pt_langevin_chain_plain",
     "pt_langevin_chain_trajectory_plain",
 ]
 
-#: the replicas of one chain share a warp, one lane each
+#: the replicas of one chain share a warp, at least one lane each
 MAX_REPLICAS = 32
+
+#: the ladder kernel's block size (``kPtThreads`` in csrc/fused_pt.cu)
+PT_THREADS = 128
 
 #: ``tebm_pt_langevin_chain``'s argument types before the stream: x0, out, accept,
 #: traj, params_a, params_b, ladder, noise, swap_u, n, d, k, gaussian, n_rep,
-#: n_steps, swap_every, thin, inv_var, noise_coef, use_clamp, lo, hi, seed lo, seed hi
+#: n_steps, swap_every, thin, inv_var, noise_coef, use_clamp, lo, hi, seed lo, seed hi,
+#: group, threads, blocks
 _SIGNATURE = ((_build.PTR,) * 9 + (_build.INT,) * 8 + (_build.FLOAT,) * 2
-              + (_build.INT, _build.FLOAT, _build.FLOAT) + (_build.U32,) * 2)
+              + (_build.INT, _build.FLOAT, _build.FLOAT) + (_build.U32,) * 2
+              + (_build.INT,) * 3)
+
+
+def _padded_replicas(n_rep: int) -> int:
+    """Rp: the next power of two >= ``n_rep``, the replica groups of a chain."""
+    return 1 << (int(n_rep) - 1).bit_length()
+
+
+def pt_groups(n_rep: int, d: int, k: int, gaussian: bool) -> Tuple[int, ...]:
+    """The groups of lanes per replica the ladder kernel is built for on
+    ``n_rep`` replicas of a target of ``k`` components (or the
+    full-covariance Gaussian) in ``d`` dimensions: the HMC and MALA chains'
+    (:func:`.fused_hmc.hmc_groups`, one dispatch, ``TEBM_DISPATCH_GROUPS``
+    of csrc/tebm_common.cuh) that keep a chain's Rp · G lanes in one warp,
+    Rp the next power of two >= ``n_rep``: up to 8 lanes at R ≤ 4, 4 at
+    R ≤ 8, 2 at R ≤ 16, one lane at R > 16."""
+    rp = _padded_replicas(n_rep)
+    return tuple(g for g in hmc_groups(d, k, gaussian) if rp * g <= 32)
+
+
+def pt_launch_plan(n: int, n_rep: int, d: int, k: int, gaussian: bool,
+                   group: Optional[int] = None) -> Tuple[int, int, int]:
+    """``(group, threads, blocks)`` of one ladder launch over ``n`` chains
+    of ``n_rep`` replicas in ``d`` dimensions with ``k`` components:
+    ``group`` lanes of one warp hold a replica (a chain's Rp · group lanes
+    side by side, Rp the next power of two >= ``n_rep``), ``threads`` per
+    block, ``blocks`` in the grid.
+
+    The rule follows the card's timings of every built group
+    (``chip_smoke.py``'s PT plan sweep, H100): 2 lanes per replica, which
+    beat 1 and 4 at the ring (K = 8, every R from 2 to 16, swapping every
+    step or every 5, 10,000 to 300,000 chains), at d = 3 and 8 and on the
+    full-covariance Gaussian up to d = 8; 4 where the components outgrow two
+    lanes but fill four: the mixture at d ≤ 2 with 8 < K ≤ 16 (4 per lane
+    in registers, ``NJ`` of the dispatch; at K ≥ 24 two lanes win again) and
+    at d > 8 with K ≥ 8; 1 for the full-covariance Gaussian above d = 8,
+    whose evaluation every lane repeats. At most what the warp holds
+    (:func:`pt_groups`). Unlike the MALA and HMC plans the group is not
+    halved at large ``n``: at 100,000 chains on the ring with K = 16, 4
+    lanes (1.6M threads) still beat 2. The sweep's exception, where another
+    group beats the pick: the full-covariance Gaussian at d = 2, where one
+    lane led by 1.3% and 4.9% in two runs and two lanes led in a third. One
+    component and ``d > MIXTURE_GROUP_MAX_DIM`` take one lane. ``group=``
+    overrides the choice with a group of :func:`pt_groups` (timings compare
+    them). The block is :data:`PT_THREADS`."""
+    built = pt_groups(n_rep, d, k, gaussian)
+    if built == (1,):
+        pick = 1
+    elif gaussian:
+        pick = 2 if d <= 8 else 1
+    else:
+        pick = 4 if (d <= 2 and 8 < k <= 16) or (d > 8 and k >= 8) else 2
+    pick = min(pick, max(built))
+    if group is None:
+        group = pick
+    elif group not in built:
+        raise ValueError(f"no ladder kernel at group {group} for R={n_rep}, d={d}, K={k}, "
+                         f"gaussian={bool(gaussian)}")
+    return group, PT_THREADS, -(-n * _padded_replicas(n_rep) * group // PT_THREADS)
 
 
 def _pt_args(replicas, means, n_steps, step_size, noise_scale, betas, swap_every, scale,
@@ -167,7 +237,7 @@ def _run_plain(replicas, grad_logp, ladder, noise_coef, n_steps, swap_every, see
 
 
 def _launch(replicas, traj, pa, pb, gaussian, inv_var, ladder, noise_coef, n_steps, swap_every,
-            thin, seed, clamp, noise, swap_uniform, k):
+            thin, seed, clamp, noise, swap_uniform, k, plan):
     n_rep, n, d = replicas.shape
     out = torch.empty_like(replicas)
     accept = torch.empty((n,), dtype=torch.float32, device=replicas.device)
@@ -178,29 +248,32 @@ def _launch(replicas, traj, pa, pb, gaussian, inv_var, ladder, noise_coef, n_ste
         "pt_langevin_chain", _SIGNATURE, replicas.device,
         p(replicas), p(out), p(accept), p(traj), p(pa), p(pb), p(ladder), p(noise),
         p(swap_uniform), n, d, k, gaussian, n_rep, int(n_steps), int(swap_every), int(thin),
-        inv_var, noise_coef, use_clamp, lo, hi, seed_lo, seed_hi,
+        inv_var, noise_coef, use_clamp, lo, hi, seed_lo, seed_hi, *plan,
     )
     return out, accept
 
 
 def _run(replicas, means, n_steps, step_size, noise_scale, betas, swap_every, thin, *, scale,
-         log_weights, precision, seed, clamp, noise, swap_uniform, kernel):
+         log_weights, precision, seed, clamp, noise, swap_uniform, kernel, group=None):
     """Both wrappers and both plain versions: ``(traj or None, ladder,
     per-chain acceptance)`` from the kernel (``kernel`` True and a CUDA
-    ``replicas``) or the plain version."""
+    ``replicas``, with :func:`pt_launch_plan`, whose group ``group``
+    overrides) or the plain version."""
     grad_logp, pa, pb, gaussian, inv_var, ladder, noise_coef = _pt_args(
         replicas, means, n_steps, step_size, noise_scale, betas, swap_every, scale,
         log_weights, precision, seed, noise, swap_uniform)
     if not kernel or replicas.device.type == "cpu":
         return _run_plain(replicas, grad_logp, ladder, noise_coef, n_steps, int(swap_every), seed,
                           clamp, noise, swap_uniform, thin)
+    n_rep, n, d = replicas.shape
+    plan = pt_launch_plan(n, n_rep, d, means.shape[0], bool(gaussian), group)
     traj = None
     if thin is not None:
         traj = torch.empty((int(n_steps) // thin, *replicas.shape[1:]), dtype=torch.float32,
                            device=replicas.device)
     out, accept = _launch(replicas, traj, pa, pb, gaussian, inv_var, ladder, noise_coef, n_steps,
                           swap_every, thin or 1, seed, clamp, noise, swap_uniform,
-                          means.shape[0])
+                          means.shape[0], plan)
     return traj, out, accept
 
 
