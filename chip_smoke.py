@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --ess-shape`` times only rows 7 and 9 at the ESS
-protocol's shape and rows 10-11 at their main shape, through the public
-wrappers, against whichever package is imported:
+protocol's shape, rows 10-11 at their main shape and row 14 (the Sinkhorn
+kernel's per-iteration slope at (256, 256) and (1,024, 1,024), and the flow
+path's gated call), through the public wrappers, against whichever package
+is imported:
 ``PYTHONPATH=<checkout> python3 -P chip_smoke.py --ess-shape`` times an
 earlier checkout's kernels on the same card.)
 
@@ -41,8 +43,10 @@ not 0:
    clamp, and at hidden (512, 512) (weights streamed), 10 steps; the
    Sinkhorn kernel at (256, 256) with ``reg`` 0.05 (50 iterations at ``tol``
    0, and gated at ``tol`` 1e-3), damped at (64, 192), at ragged shapes, at
-   (1,024, 1,024) and on the cost matrix of the flow path's own batch: equal
-   iteration counts, the log plan, and the gated plans' marginals.
+   (1,024, 1,024) and on the cost matrix of the flow path's own batch, each
+   through the launch plan and at every cluster size of 1, 2, 4, 8 and 16
+   blocks: equal iteration counts, the log plan, and the gated plans'
+   marginals.
    The MALA, HMC and AIS chains take a Metropolis decision per step, the
    tempering ladder an exchange decision per pair and sweep; a chain whose
    uniform lies within rounding of its acceptance probability may decide
@@ -116,8 +120,11 @@ not 0:
    in batches queued behind a spin, and per call with the host's launch
    work), the neural chain also at
    4,096 chains, the CD train step with the kernel and on the loop, the
-   Sinkhorn kernel at fixed work and gated, beside 100 ``torch.logsumexp``
-   calls, the EqM train step with the kernel, on the loop and with
+   Sinkhorn kernel gated and at fixed work (its per-iteration slope and
+   intercept over 1, 10 and 50 iterations), beside 100 ``torch.logsumexp``
+   calls, at every cluster size (slopes at three shapes, device time at the
+   14 shapes its launch plan is read from, beside the plan's pick), the EqM
+   train step with the kernel, on the loop and with
    ``IndependentCoupling``, the generation in samples/s, and the sampler
    paths, beside the card's name and power limit;
 6. profile (run right after the checks; the run's only profiler sessions):
@@ -308,6 +315,15 @@ SINKHORN_CHECKS = (
 #: a gated balanced plan's row and column sums, relative to 1/n and 1/m
 #: (tests/ops/test_sinkhorn_parity.py:44-55)
 MARGINAL_RTOL = 2e-3
+#: row 14's timing: the iteration counts of its per-iteration slope; the
+#: shapes of the cluster-size sweep's slopes, and of the plan sweep (ragged,
+#: square, wide, tall, the flow path's and the largest), at a fixed count
+SINKHORN_SLOPE_ITERS = (1, 10, 50)
+SINKHORN_SWEEP_SLOPES = ((256, 256), (200, 333), (1024, 1024))
+SINKHORN_SWEEP = ((8, 128), (5, 200), (17, 33), (64, 64), (64, 192), (128, 128), (128, 512),
+                  (256, 256), (200, 333), (512, 512), (1024, 1024), (4096, 64), (64, 4096),
+                  (70_000, 3))
+SINKHORN_SWEEP_ITERS = 20
 
 #: the card's memory rate, and the per-SM instruction rates per clock of its
 #: FP32 lanes, INT32 lanes and special-function units (H100 SXM)
@@ -403,9 +419,9 @@ def phase_build(build_mod) -> dict:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             k = re.search(r"((?:mixture|doublewell|mala|hmc|pt|mlp)_chain_kernel|ais_kernel"
-                          r"|langevin_step_kernel)I(\w*?)EEv", m.group(1))
+                          r"|langevin_step_kernel|sinkhorn_kernel)I(\w*?)EEv", m.group(1))
             entry = f"{k.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', k.group(2)))}>" \
-                if k else ("sinkhorn_kernel" if "sinkhorn_kernel" in m.group(1) else m.group(1))
+                if k else m.group(1)
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
@@ -1555,20 +1571,27 @@ def _pair_cost(g, dev, n: int, m: int):
 
 def phase_check_sinkhorn(ops, dev, errors: dict) -> None:
     """The Sinkhorn kernel against its plain version at SINKHORN_CHECKS and on
-    the cost matrix ``compute_cost`` gives the flow path's batch: the same
-    number of iterations, every entry of the log plan within TOL, and for a
-    gated balanced plan row and column sums within MARGINAL_RTOL of 1/n and
-    1/m. TOL holds: the kernel sums a row's exponentials across lanes and a
-    column's across bands, the plain version in ``logsumexp``'s order, a
-    rounding difference of about 1e-7 relative in each potential, of order 20
-    at these ``reg``; the fixed point contracts, so it does not grow over the
-    iterations (the entries of the log plan lie above -45 here)."""
+    the cost matrix ``compute_cost`` gives the flow path's batch, through the
+    public wrapper (the launch plan's cluster) and at every cluster size the
+    kernel takes (``BLOCK_SIZES`` up to one block per row): the same number
+    of iterations, every entry of the log plan within TOL, and for a gated
+    balanced plan row and column sums within MARGINAL_RTOL of 1/n and 1/m.
+    TOL holds: the kernel sums a row's exponentials across lanes and a
+    column's across bands, in base 2, the plain version in ``logsumexp``'s
+    order, a rounding difference of about 1e-7 relative in each potential,
+    of order 20 at these ``reg``; the fixed point contracts, so it does not
+    grow over the iterations (the entries of the log plan lie above -45
+    here). Also prints whether the card can hold the flow path's 16-block
+    cluster (``cudaOccupancyMaxActiveClusters``)."""
     import torch
 
     from torchebm_tpu_torch.couplings import SinkhornCoupling
 
     mod = ops.fused_sinkhorn
     kernel = mod.sinkhorn_log_fused
+    main_plan = mod.launch_plan(FLOW_BATCH, FLOW_BATCH)
+    print(f"check: sinkhorn_log_fused plan at {FLOW_BATCH}x{FLOW_BATCH}: {main_plan}; the card "
+          f"holds {mod.max_active_clusters(main_plan, dev)} such clusters at once")
     g = torch.Generator(dev).manual_seed(2468)
     x0 = torch.randn((FLOW_BATCH, 2), generator=g, device=dev)
     x1 = torch.randn((FLOW_BATCH, 2), generator=g, device=dev) + torch.tensor([2.0, 0.0],
@@ -1580,36 +1603,42 @@ def phase_check_sinkhorn(ops, dev, errors: dict) -> None:
               for tol in (0.0, FLOW_TOL)]
     for cost, label, reg, iters, tol, phi in cases:
         n, m = cost.shape
+        want, p_iters = mod.sinkhorn_log_plain(cost, reg, iters, tol, phi, return_iters=True)
         before = kernel.launches
-        got, k_iters = kernel(cost, reg, iters, tol, phi, return_iters=True)
-        torch.cuda.synchronize()
+        runs = {"plan": kernel(cost, reg, iters, tol, phi, return_iters=True)}
         if kernel.launches != before + 1:
             raise AssertionError("sinkhorn_log_fused did not launch its kernel")
-        want, p_iters = mod.sinkhorn_log_plain(cost, reg, iters, tol, phi, return_iters=True)
-        err = max_err(got, want)
-        errors["sinkhorn_log_fused"] = max(errors.get("sinkhorn_log_fused", 0.0), err)
+        for blocks in mod.BLOCK_SIZES:
+            if blocks <= n:
+                runs[blocks] = mod._run(cost, reg, iters, tol, phi, blocks=blocks)
+        torch.cuda.synchronize()
         plan = mod.launch_plan(n, m)
-        rows = float((torch.exp(got).sum(1) * n - 1.0).abs().max())
-        cols = float((torch.exp(got).sum(0) * m - 1.0).abs().max())
+        found = []
+        for blocks, (got, k_iters) in runs.items():
+            err = max_err(got, want)
+            errors["sinkhorn_log_fused"] = max(errors.get("sinkhorn_log_fused", 0.0), err)
+            rows = float((torch.exp(got).sum(1) * n - 1.0).abs().max())
+            cols = float((torch.exp(got).sum(0) * m - 1.0).abs().max())
+            found.append(f"{blocks}: {int(k_iters)} it, {err:.2e}, marginals {rows:.1e} / "
+                         f"{cols:.1e}")
+            where = f"sinkhorn_log_fused [{n}x{m}, {blocks} blocks]"
+            if int(k_iters) != int(p_iters):
+                raise AssertionError(f"{where} ran {int(k_iters)} iterations, its plain version "
+                                     f"{int(p_iters)}")
+            if not err <= TOL:
+                raise AssertionError(f"{where} disagrees with its plain version: {err}")
+            if tol > 0.0 and phi == 1.0:
+                if not int(k_iters) < iters:
+                    raise AssertionError(f"{where} did not converge in {iters}")
+                if not max(rows, cols) <= MARGINAL_RTOL:
+                    raise AssertionError(f"{where}: the gated plan's marginals are off by {rows} "
+                                         f"(rows), {cols} (columns)")
         print(f"check: sinkhorn_log_fused [{n}x{m} {label}, reg {reg}, cap {iters}, tol {tol:g}, "
-              f"damping {phi:.4f}; {plan.blocks} blocks, M "
-              f"{'in shared memory' if plan.resident else 'in L2'}] iterations kernel "
-              f"{int(k_iters)} plain {int(p_iters)}, max|kernel - plain| = {err:.3e} "
-              f"(tol {TOL:g}), "
-              f"lowest entry {float(want.min()):.1f}, marginals off by {rows:.2e} (rows) "
-              f"{cols:.2e} (columns)")
-        if int(k_iters) != int(p_iters):
-            raise AssertionError(f"sinkhorn_log_fused [{n}x{m}] ran {int(k_iters)} iterations, "
-                                 f"its plain version {int(p_iters)}")
-        if not err <= TOL:
-            raise AssertionError(f"sinkhorn_log_fused [{n}x{m}] disagrees with its plain "
-                                 f"version: {err}")
-        if tol > 0.0 and phi == 1.0:
-            if not int(k_iters) < iters:
-                raise AssertionError(f"sinkhorn_log_fused [{n}x{m}] did not converge in {iters}")
-            if not max(rows, cols) <= MARGINAL_RTOL:
-                raise AssertionError(f"sinkhorn_log_fused [{n}x{m}]: the gated plan's marginals "
-                                     f"are off by {rows} (rows), {cols} (columns)")
+              f"damping {phi:.4f}; plan {plan.blocks} blocks, M "
+              f"{'in shared memory' if plan.resident else 'in L2'}, exchange through "
+              f"{'shared memory' if plan.pairs_smem else 'L2'}] plain {int(p_iters)} iterations, "
+              f"lowest entry {float(want.min()):.1f}; by cluster (iterations, max|kernel - "
+              f"plain| (tol {TOL:g}), row / column marginals): {'; '.join(found)}")
 
 
 def _flow_trainer(dev, seed: int, coupling, lr: float = FLOW_LR):
@@ -1982,11 +2011,12 @@ def pt_main_shape(dev):
 
 
 def phase_ess_shape(ops, dev, card: str) -> None:
-    """``chip_smoke.py --ess-shape``: rows 7 and 9 at the ESS protocol's shape
-    and rows 10-11 (thin 1) at their main shape (:func:`pt_main_shape`)
-    through the public wrappers (the plans' groups), per call and by device
-    time per call. It runs against any revision of the package, so an
-    earlier checkout can be timed beside this one on the same card:
+    """``chip_smoke.py --ess-shape``: rows 7 and 9 at the ESS protocol's shape,
+    rows 10-11 (thin 1) at their main shape (:func:`pt_main_shape`) and row
+    14 (:func:`sinkhorn_ab`) through the public wrappers (the plans' groups
+    and clusters), per call and by device time per call. It runs against
+    any revision of the package, so an earlier checkout can be timed beside
+    this one on the same card:
     ``PYTHONPATH=<checkout> python3 -P chip_smoke.py --ess-shape``."""
     for module, name, cases in (
         (ops.fused_mala, "mixture_mala_chain_trajectory", mala_ess_shape_cases(dev)),
@@ -2008,6 +2038,39 @@ def phase_ess_shape(ops, dev, card: str) -> None:
               f"{len(PT_TEMPS)} replicas x {N_STEPS} steps, swap every {PT_SWAP_EVERY}"
               + (", thin 1" if extra else "") + f"): {ms:.4f} ms per call, device "
               f"{dev_ms:.4f} ms | {card}", flush=True)
+    sinkhorn_ab(ops, dev, card)
+
+
+def sinkhorn_ab(ops, dev, card: str) -> None:
+    """Row 14 through the public wrapper, for ``--ess-shape``: at the flow
+    path's (256, 256) and at (1,024, 1,024), the per-iteration slope and the
+    intercept of device time at tol 0, and the time per call (wrapper
+    included) and device time of FLOW_ITERS iterations; and the flow path's
+    gated call (FLOW_TOL) at (256, 256)."""
+    import torch
+
+    sk = ops.fused_sinkhorn
+    g = torch.Generator(dev).manual_seed(7)
+    for shape in ((FLOW_BATCH, FLOW_BATCH), (1024, 1024)):
+        cost = _pair_cost(g, dev, *shape)
+        slope, intercept, times = sinkhorn_slope(
+            lambda k: sk.sinkhorn_log_fused(cost, FLOW_REG, k))
+        ms = statistics.median(cuda_times(
+            lambda: sk.sinkhorn_log_fused(cost, FLOW_REG, FLOW_ITERS), 2, 10))
+        print(f"ess-shape: sinkhorn_log_fused (package {ops.__file__}, {shape[0]}x{shape[1]}, "
+              f"reg {FLOW_REG}, tol 0): {slope:.3f} us per iteration, {intercept:.2f} us per "
+              f"call besides; {FLOW_ITERS} iterations {ms:.4f} ms per call, device "
+              f"{times[-1]:.4f} ms | {card}", flush=True)
+        if shape == (FLOW_BATCH, FLOW_BATCH):
+            run = functools.partial(sk.sinkhorn_log_fused, cost, FLOW_REG, FLOW_ITERS,
+                                    tol=FLOW_TOL)
+            iters = int(run(return_iters=True)[1])
+            ms = statistics.median(cuda_times(run, 2, 10))
+            dev_ms = statistics.median(cuda_times(run, 2, 5, batch=10))
+            print(f"ess-shape: sinkhorn_log_fused (package {ops.__file__}, {shape[0]}x{shape[1]}, "
+                  f"reg {FLOW_REG}, tol {FLOW_TOL:g}, the flow path's gated call): {iters} "
+                  f"iterations, {ms:.4f} ms per call, device {dev_ms:.4f} ms | {card}",
+                  flush=True)
 
 
 def phase_group_timing(ops, dev, card: str) -> None:
@@ -2114,6 +2177,58 @@ def pt_group_timing(ops, dev, card: str, clock: float) -> None:
           + f"; torch.empty of the ({n_steps}, {n}, {d}) trajectory {alloc:.4f} | {card}",
           flush=True)
     plan_sweep("pt", fp, dev, card, [])
+
+
+def sinkhorn_slope(run, iters=None):
+    """``(us per iteration, us per call besides, [device ms per call])`` of
+    ``run(n_iters)`` at ``iters`` (default SINKHORN_SLOPE_ITERS) iterations:
+    the least-squares line through device time per call (10 calls queued
+    behind a spin, median of 5 readings)."""
+    iters = SINKHORN_SLOPE_ITERS if iters is None else iters
+    times = [round(statistics.median(cuda_times(lambda k=k: run(k), 2, 5, batch=10)), 5)
+             for k in iters]
+    mx, my = statistics.fmean(iters), statistics.fmean(times)
+    slope = (sum((x - mx) * (y - my) for x, y in zip(iters, times))
+             / sum((x - mx) ** 2 for x in iters))
+    return slope * 1e3, (my - slope * mx) * 1e3, times
+
+
+def sinkhorn_cluster_sweep(sk, dev, card: str) -> None:
+    """Row 14 at every cluster size it takes: the per-iteration slope and
+    the intercept at SINKHORN_SWEEP_SLOPES, then device time per call at
+    SINKHORN_SWEEP_ITERS iterations over SINKHORN_SWEEP, the shapes the
+    plan's rule (``launch_plan``) is read from, beside the plan's pick."""
+    import torch
+
+    g = torch.Generator(dev).manual_seed(99)
+    for shape in SINKHORN_SWEEP_SLOPES:
+        cost = _pair_cost(g, dev, *shape)
+        cells = []
+        for blocks in sk.BLOCK_SIZES:
+            slope, intercept, _ = sinkhorn_slope(
+                lambda k: sk._run(cost, FLOW_REG, k, blocks=blocks))
+            cells.append(f"{blocks}: {slope:.3f} us + {intercept:.2f} us")
+        print(f"sinkhorn sweep: {shape[0]}x{shape[1]} per iteration + per call, by cluster size "
+              f"(plan {sk.launch_plan(*shape).blocks}): {'; '.join(cells)} | {card}", flush=True)
+    hits = 0
+    for shape in SINKHORN_SWEEP:
+        cost = _pair_cost(g, dev, *shape)
+        times = {}
+        for blocks in sk.BLOCK_SIZES:
+            if blocks <= shape[0]:
+                times[blocks] = statistics.median(cuda_times(
+                    lambda: sk._run(cost, FLOW_REG, SINKHORN_SWEEP_ITERS, blocks=blocks),
+                    1, 3, batch=5))
+        pick, best = sk.launch_plan(*shape).blocks, min(times, key=times.get)
+        hits += pick == best
+        print(f"sinkhorn sweep: {shape[0]}x{shape[1]}, {SINKHORN_SWEEP_ITERS} iterations, device "
+              f"ms per call by cluster size: "
+              + ", ".join(f"{b}: {t:.4f}" for b, t in times.items())
+              + f"; plan {pick}, fastest {best}"
+              + ("" if pick == best else f" ({times[pick] / times[best] - 1:.1%} slower)")
+              + f" | {card}", flush=True)
+    print(f"sinkhorn sweep: the plan's pick is the fastest at {hits} of {len(SINKHORN_SWEEP)} "
+          f"shapes | {card}")
 
 
 def phase_timing(ops, dev, card: str) -> dict:
@@ -2300,14 +2415,16 @@ def phase_timing(ops, dev, card: str) -> dict:
           f"tol {FLOW_TOL:g}: "
           f"{int(result[1])} iterations of {FLOW_ITERS}: kernel {k_ms:.4f} ms per call (device "
           f"{d_ms:.4f} ms), plain {p_ms:.3f} ms, bound {b_ms:.5f} ms by {b_by} | {card}")
-    fixed_ms = statistics.median(cuda_times(
-        lambda: sk.sinkhorn_log_fused(sk_cost, FLOW_REG, FLOW_ITERS), 2, 10, batch=10))
     lse_ms = statistics.median(cuda_times(
         lambda: [torch.logsumexp(sk_cost, dim=i % 2) for i in range(2 * FLOW_ITERS)], 1, 5))
-    print(f"timing: sinkhorn_log_fused {FLOW_BATCH}x{FLOW_BATCH} at tol 0, {FLOW_ITERS} "
-          f"iterations: device {fixed_ms:.4f} ms per call ({fixed_ms / FLOW_ITERS * 1e3:.2f} us "
-          f"per iteration); {2 * FLOW_ITERS} torch.logsumexp calls over the same matrix "
+    slope, intercept, fixed = sinkhorn_slope(
+        lambda k: sk.sinkhorn_log_fused(sk_cost, FLOW_REG, k))
+    print(f"timing: sinkhorn_log_fused {FLOW_BATCH}x{FLOW_BATCH} at tol 0, device ms per call at "
+          f"{SINKHORN_SLOPE_ITERS} iterations {fixed}: {slope:.3f} us per iteration (slope), "
+          f"{intercept:.2f} us per call besides (intercept); {FLOW_ITERS} iterations "
+          f"{fixed[-1]:.4f} ms; {2 * FLOW_ITERS} torch.logsumexp calls over the same matrix "
           f"{lse_ms:.3f} ms | {card}")
+    sinkhorn_cluster_sweep(sk, dev, card)
     # the EqM train step (config 5): kernel, loop and identity pairing (the
     # floor without any coupling work): host clock over 50 steps after 10
     from torchebm_tpu_torch.couplings import IndependentCoupling
@@ -2411,7 +2528,8 @@ def phase_syncs(ops, dev, card: str) -> None:
     """Host syncs per call of what the flow slice runs on the host's clock:
     the EqM train step through the Sinkhorn kernel (none expected: the
     coupling's draw and the kernel's gate stay on the device) and through the
-    loop (one per iteration at ``tol`` > 0), the auction and the greedy
+    loop (at ``tol`` > 0 one per ``CHECK_EVERY`` iterations, where it reads
+    its gate), the auction and the greedy
     assignment on the flow batch's cost matrix (one per round), and a dopri5
     generation (one per attempted step)."""
     import torch
@@ -2445,7 +2563,8 @@ def phase_syncs(ops, dev, card: str) -> None:
             {"x": x0}, 1.0 / GEN_STEPS, GEN_STEPS, drift=drift, return_stats=True)
     dopri = count_syncs(lambda: flow.sample(g, x=x0, n_steps=GEN_STEPS))
     print(f"syncs: EqM train step config 5: {steps['auto']} through the Sinkhorn kernel, "
-          f"{steps['off']} on the loop (one per iteration of the fixed point); "
+          f"{steps['off']} on the loop (one per {ops.fused_sinkhorn.CHECK_EVERY} iterations of "
+          f"the fixed point); "
           f"auction_assignment {FLOW_BATCH}x{FLOW_BATCH}: {auction}; greedy_assignment: "
           f"{greedy}; dopri5 generation {GEN_SAMPLES}x{GEN_STEPS}: {dopri} "
           f"({int(stats.n_attempted)} attempted steps, {int(stats.n_accepted)} accepted) | {card}")

@@ -8,6 +8,8 @@ The CUDA kernel is held against the plain version in
 tests/test_torch_kernels_gpu.py.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -91,6 +93,40 @@ def test_tol_zero_runs_the_cap_and_the_first_iteration_always_runs():
     np.testing.assert_allclose(out.numpy(), c.numpy() * (-1.0 / 0.05), rtol=1e-6)
 
 
+def _loop_errors(c, reg, n_iters):
+    """max|f_new - f| after each iteration of the loop, as it computes them."""
+    C = torch.from_numpy(c)
+    n, m = C.shape
+    M = C * (-1.0 / reg)
+    f, g, errs = torch.zeros(n), torch.zeros(m), []
+    for _ in range(n_iters):
+        f_new = -np.log(n) - torch.logsumexp(M + g[None, :], dim=1)
+        g = -np.log(m) - torch.logsumexp(M + f_new[:, None], dim=0)
+        errs.append(float(torch.max(torch.abs(f_new - f))))
+        f = f_new
+    return errs
+
+
+@pytest.mark.parametrize("target", [fs.CHECK_EVERY - 1, fs.CHECK_EVERY, fs.CHECK_EVERY + 1])
+def test_loop_reads_its_gate_every_k_iterations(target):
+    """The loop keeps its gate on the device and reads it on the host every
+    CHECK_EVERY iterations: a matrix that converges one iteration before, at
+    and after such a read stops in the iteration the JAX loop stops in, with
+    the plan of exactly that many iterations (bit for bit)."""
+    c, reg = _cost(8, 48, 80), 0.05
+    errs = _loop_errors(c, reg, target + 1)
+    assert all(a > b for a, b in zip(errs, errs[1:]))
+    tol = math.sqrt(errs[target - 1] * errs[target - 2])  # met first after iteration `target`
+    out, iters = fs.sinkhorn_log_plain(torch.from_numpy(c), reg, 50, tol=tol, return_iters=True)
+    assert int(iters) == target and iters.dtype == torch.int32
+    np.testing.assert_array_equal(
+        out.numpy(), fs.sinkhorn_log_plain(torch.from_numpy(c), reg, target).numpy())
+    ref = j_sinkhorn_log(jnp.asarray(c), reg=reg, n_iters=50, tol=tol, fused="off")
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    np.testing.assert_array_equal(
+        sinkhorn_log(torch.from_numpy(c), reg, 50, tol=tol, fused="off").numpy(), out.numpy())
+
+
 def test_plain_takes_float64_and_any_size():
     c = _cost(4, 12, 20)
     out64 = fs.sinkhorn_log_plain(torch.from_numpy(c).double(), 0.05, 30)
@@ -123,31 +159,75 @@ def test_argument_probes():
         fs.sinkhorn_log_fused(torch.zeros(4, 4, device="meta"), 0.05, 1)
 
 
-def test_fit_rule_and_launch_plan():
+#: (shape, the plan's cluster size, M resident, exchange in shared memory,
+#: f in shared memory): the flow path's matrix, the largest square one,
+#: one wide row and a tall matrix of three columns, the parity shapes,
+#: ragged and unbalanced shapes, wide matrices whose exchange goes through
+#: scratch, and one tall column whose f does
+PLAN_CASES = [
+    ((256, 256), 16, True, True, True), ((1024, 1024), 16, False, True, True),
+    ((1, 70_000), 1, False, False, True), ((70_000, 3), 16, True, True, True),
+    ((8, 128), 8, True, True, True), ((17, 33), 16, True, True, True),
+    ((64, 192), 16, True, True, True), ((128, 128), 16, True, True, True),
+    ((200, 333), 16, True, True, True), ((5000, 200), 16, False, True, True),
+    ((128, 4096), 16, True, True, True), ((64, 16_384), 16, False, True, True),
+    ((2, 524_288), 2, False, False, True), ((1, 1 << 20), 1, False, False, True),
+    ((1 << 20, 1), 16, False, True, False),
+]
+
+
+def _check_plan(plan, n, m):
+    """What every plan keeps to: a built cluster of at most one block per
+    row; its shared memory, pairs included, within SMEM_BUDGET and equal to
+    what it holds; a padded row stride that gives the column pass's lanes
+    32 distinct banks; scratch for what lives outside shared memory."""
+    band, own = -(-n // plan.blocks), -(-m // plan.blocks)
+    assert plan.blocks in fs.BLOCK_SIZES and plan.blocks <= n
+    assert plan.slices in (1, 2, 4, 8, 16, 32) and plan.slices <= band
+    assert plan.smem_bytes <= fs.SMEM_BUDGET
+    assert plan.smem_bytes == (4 * band * plan.f_smem
+                               + (8 * plan.blocks * (own + 1) + 4 * m) * plan.pairs_smem
+                               + 4 * band * plan.stride * plan.resident)
+    assert plan.stride >= m and (plan.resident or plan.stride == m)
+    if plan.stride != m:
+        wc = 32 // plan.slices
+        banks = {(cy * plan.stride + cx) % 32 for cy in range(plan.slices) for cx in range(wc)}
+        assert len(banks) == 32
+    assert plan.scratch_floats >= ((4 * plan.blocks * m + 2 * fs.MAX_BLOCKS + m)
+                                   * (not plan.pairs_smem) + n * (not plan.f_smem))
+
+
+@pytest.mark.parametrize("shape, blocks, resident, pairs_smem, f_smem", PLAN_CASES,
+                         ids=[f"{s[0]}x{s[1]}" for s, *_ in PLAN_CASES])
+def test_fit_rule_and_launch_plan(shape, blocks, resident, pairs_smem, f_smem):
+    """The fit rule, the plan's pick at each shape, and ``blocks=``: every
+    built size up to one block per row is planned (and kept to the same
+    rules); a size not built, or more blocks than rows, raises."""
     assert fs.fits_fused_sinkhorn(1024, 1024) and fs.fits_fused_sinkhorn(1, 1 << 20)
     assert not fs.fits_fused_sinkhorn(4096, 4096) and not fs.fits_fused_sinkhorn(1025, 1024)
     assert not fs.fits_fused_sinkhorn(0, 5)
     assert ops.fits_fused_sinkhorn is fs.fits_fused_sinkhorn
-    main = fs.launch_plan(256, 256)
-    assert main.blocks == 8 and main.resident and main.g_smem and main.f_smem
-    assert main.smem_bytes == 4 * (32 * 256 + 256 + 32)
-    cap = fs.launch_plan(1024, 1024)
-    assert cap.blocks == 8 and not cap.resident and cap.smem_bytes == 4 * (1024 + 128)
-    assert fs.launch_plan(17, 33).blocks == 1 and fs.launch_plan(64, 192).blocks == 2
-    wide = fs.launch_plan(1, 1 << 20)
-    assert wide.blocks == 1 and not wide.g_smem and not wide.resident
-    tall = fs.launch_plan(1 << 20, 1)
-    assert tall.blocks == 8 and not tall.f_smem
-    for n, m in [(256, 256), (1024, 1024), (17, 33), (1, 1 << 20), (1 << 20, 1), (5000, 200)]:
-        plan = fs.launch_plan(n, m)
-        band = -(-n // plan.blocks)
-        assert plan.blocks in (1, 2, 4, 8) and plan.blocks <= n
-        assert plan.smem_bytes <= fs.SMEM_BUDGET
-        assert plan.smem_bytes == 4 * (band * m * plan.resident + m * plan.g_smem
-                                       + band * plan.f_smem)
-        assert plan.scratch_floats >= 4 * plan.blocks * m + 16 + plan.blocks * m + n
     with pytest.raises(ValueError, match="exceeds"):
         fs.launch_plan(4096, 4096)
+    n, m = shape
+    plan = fs.launch_plan(n, m)
+    assert (plan.blocks, plan.resident, plan.pairs_smem, plan.f_smem) == (
+        blocks, resident, pairs_smem, f_smem)
+    _check_plan(plan, n, m)
+    for size in fs.BLOCK_SIZES:
+        if size <= n:
+            forced = fs.launch_plan(n, m, blocks=size)
+            assert forced.blocks == size
+            _check_plan(forced, n, m)
+        else:
+            with pytest.raises(ValueError, match="one block per row"):
+                fs.launch_plan(n, m, blocks=size)
+    for size in (0, 3, 32):
+        with pytest.raises(ValueError, match="blocks must be one of"):
+            fs.launch_plan(n, m, blocks=size)
+    if shape == (256, 256):  # the flow path: 16 rows of 256 + 16 floats a block
+        assert (plan.slices, plan.stride) == (2, 272)
+        assert plan.smem_bytes == 4 * 16 + 8 * 16 * 17 + 4 * 256 + 4 * 16 * 272
 
 
 @pytest.mark.parametrize("fused", ["auto", "off", "force"])

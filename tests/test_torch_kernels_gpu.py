@@ -527,11 +527,18 @@ SINKHORN_CASES = [
 ]
 
 
+#: each case through the public wrapper (the launch plan's cluster, blocks
+#: None) and at every cluster size the kernel takes for its rows
+SINKHORN_RUNS = [(*case, None) for case in SINKHORN_CASES] + [
+    (*case, blocks) for case in SINKHORN_CASES for blocks in tsk.BLOCK_SIZES
+    if blocks <= case[0][0]]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape, reg, cap, tol, damping", SINKHORN_CASES,
-                         ids=[f"{s[0]}x{s[1]}-tol{t:g}-phi{p:.2f}"
-                              for s, _, _, t, p in SINKHORN_CASES])
-def test_sinkhorn_kernel_matches_plain_on_card(cuda, shape, reg, cap, tol, damping):
+@pytest.mark.parametrize("shape, reg, cap, tol, damping, blocks", SINKHORN_RUNS,
+                         ids=[f"{s[0]}x{s[1]}-tol{t:g}-phi{p:.2f}" + (f"-blocks{b}" if b else "")
+                              for s, _, _, t, p, b in SINKHORN_RUNS])
+def test_sinkhorn_kernel_matches_plain_on_card(cuda, shape, reg, cap, tol, damping, blocks):
     """The whole fixed point in one launch against the loop on the CPU: the
     same number of iterations, every entry of the log plan to 1e-4, and a
     gated balanced plan's marginals uniform to rtol 2e-3."""
@@ -540,8 +547,15 @@ def test_sinkhorn_kernel_matches_plain_on_card(cuda, shape, reg, cap, tol, dampi
     x0, x1 = _normal(rng, n, 2), _normal(rng, m, 2) + 1.0
     cost = ((x0[:, None, :] - x1[None, :, :]) ** 2).sum(-1)
     cost = torch.from_numpy((cost / cost.max()).astype(np.float32)).to(cuda)
-    (got, k_iters), (want, p_iters) = _kernel_and_plain(
-        tsk.sinkhorn_log_fused, cuda, cost, reg, cap, tol, damping, return_iters=True)
+    if blocks is None:
+        (got, k_iters), (want, p_iters) = _kernel_and_plain(
+            tsk.sinkhorn_log_fused, cuda, cost, reg, cap, tol, damping, return_iters=True)
+    else:
+        before = tsk.sinkhorn_log_fused.launches
+        got, k_iters = tsk._run(cost, reg, cap, tol, damping, blocks=blocks)
+        assert tsk.sinkhorn_log_fused.launches == before + 1
+        want, p_iters = tsk.sinkhorn_log_plain(cost.cpu(), reg, cap, tol, damping,
+                                               return_iters=True)
     torch.cuda.synchronize()
     assert int(k_iters) == int(p_iters)
     assert torch.isfinite(got).all()

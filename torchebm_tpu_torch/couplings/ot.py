@@ -76,7 +76,8 @@ def sinkhorn_log(C: Tensor, reg: float, n_iters: int, tol: float = 0.0,
     ``n_iters`` is the iteration cap; with ``tol > 0`` the fixed point exits
     once ``max|Δf| <= tol``. ``fused="auto"`` takes the one-launch kernel for
     a CUDA float32 matrix that fits it, ``"off"`` the loop of ``2·n_iters``
-    ``logsumexp`` calls (with ``tol > 0`` one host sync per iteration),
+    ``logsumexp`` calls (with ``tol > 0`` one host sync every
+    ``ops.fused_sinkhorn.CHECK_EVERY`` iterations),
     ``"force"`` the kernel's wrapper on any device. A CUDA matrix sent to the
     kernel launches it or raises.
     """

@@ -41,7 +41,7 @@ COUNTED_SOURCES = {
     "fused_mala.cu": "cc395518a0c9ea11",
     "fused_mlp_langevin.cu": "1c9df0ffe632ed07",
     "fused_pt.cu": "cc295bb989eccc55",
-    "fused_sinkhorn.cu": "d0a19152cfef9635",
+    "fused_sinkhorn.cu": "dcc7fb5e563b09c8",
     "fused_step.cu": "45698a16da6ceaad",
     "tebm_common.cuh": "c0420294bd37e508",
 }
@@ -154,15 +154,17 @@ def work(name: str, args, kw, result) -> dict:
         # the iterations this call ran: the kernel's own count when the call
         # returned it, else the cap (exact at tol == 0)
         iters = int(result[1]) if isinstance(result, tuple) else int(n_iters)
-        # a pass over the matrix is a max sweep (add, max) and a sum sweep (add,
-        # subtract, expf: about 7 FP32 operations around one ex2, add), and an
-        # iteration is a row pass and a column pass; per row and column and
-        # iteration one logf and the update, and per column the bands' merge
-        per_element = {"fp32": 22, "sfu": 2}
+        # an iteration is a row pass and a column pass, each one sweep that
+        # reads an element once: add the potential, the running max, subtract
+        # it, exp2f (one ex2 and about three FP32 operations around it), add
+        # to the sum; per row and column and iteration the lanes' merge, one
+        # log2f and the update, and per column the bands' merge
+        per_element = {"fp32": 14, "sfu": 2}
         per_vector_entry = {"fp32": 14, "sfu": 2}
         ops = _add(_add(per_element, times=n * m * iters),
                    _add(per_vector_entry, times=(n + m) * iters),
-                   {"fp32": 3 * n * m})  # M = C * (-1 / reg) and the plan M + f + g
+                   # M = C * (-log2 e / reg), and the plan (M + f + g) ln 2
+                   {"fp32": 4 * n * m})
         # C read once and the plan written once from device memory; what an
         # iteration re-reads comes from shared memory or L2
         moved = 2 * 4 * n * m

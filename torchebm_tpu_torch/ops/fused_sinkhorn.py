@@ -21,21 +21,23 @@ CUDA device, and :func:`sinkhorn_log_plain`, the same function as a loop of
 PyTorch operations, when ``C`` lies on the CPU; any other device raises. The
 plain version is also the ``fused="off"`` path of
 :func:`torchebm_tpu_torch.couplings.sinkhorn_log`. With ``tol > 0`` the plain
-version reads the error on the host before every iteration (one device sync
-each); the kernel takes the decision on the device.
+version reads its errors on the host once every :data:`CHECK_EVERY`
+iterations (one device sync each) and keeps the potentials of the iteration
+that met ``tol``; the kernel takes the decision on the device.
 
 ``reg``, ``tol``, ``damping`` and ``n_iters`` are run-time arguments of the
 kernel. There is no padding: ragged shapes are handled by bounds.
 :func:`fits_fused_sinkhorn` is this card's fit rule (the matrix and the plan
 stay in the 50 MB L2 cache), :func:`launch_plan` the cluster size and what
-lives in shared memory. The wrapper's ``launches`` attribute counts its kernel
+lives in shared memory, :func:`max_active_clusters` whether the card can hold
+such a cluster. The wrapper's ``launches`` attribute counts its kernel
 launches.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -43,38 +45,52 @@ from . import _build
 
 Tensor = torch.Tensor
 
-__all__ = ["fits_fused_sinkhorn", "launch_plan", "sinkhorn_log_fused", "sinkhorn_log_plain"]
+__all__ = ["fits_fused_sinkhorn", "launch_plan", "max_active_clusters", "sinkhorn_log_fused",
+           "sinkhorn_log_plain"]
 
 #: the largest matrix the kernel takes, the TPU kernel's cap without its
 #: padding: C and the plan (4 MB each) stay in the 50 MB L2 cache
 MAX_ELEMS = 1024 * 1024
 #: dynamic shared memory a block may plan for (of the 232,448 bytes a block
-#: can opt in to; the kernel's static arrays take about 4 KB)
+#: can opt in to; the kernel's static arrays take under 100 bytes)
 SMEM_BUDGET = 216 * 1024
-#: f or g lives in shared memory up to this many entries (32 KB each)
+#: a band's f lives in shared memory up to this many entries (32 KB)
 VEC_SMEM = 8192
-#: a block is worth starting for this many matrix elements
-ELEMS_PER_BLOCK = 4096
-MAX_BLOCKS = 8
+#: the cluster sizes the kernel takes (16 is Hopper's non-portable size)
+BLOCK_SIZES = (1, 2, 4, 8, 16)
+MAX_BLOCKS = BLOCK_SIZES[-1]
+#: threads per block (``kThreads`` of the kernel)
+THREADS = 512
+#: the loop (:func:`sinkhorn_log_plain`) with ``tol > 0`` reads its errors
+#: on the host once every this many iterations
+CHECK_EVERY = 4
 
 #: ``tebm_sinkhorn_log_fused``'s argument types before the stream: cost, out,
-#: scratch, iters, n, m, blocks, resident, g_smem, f_smem, smem_bytes,
-#: -1/reg, n_iters, tol, damping, log_mu, log_nu
-_SIGNATURE = ((_build.PTR,) * 4 + (_build.INT,) * 7 + (_build.FLOAT,) + (_build.INT,)
+#: scratch, iters, n, m, blocks, slices, stride, resident, f_smem, pairs_smem,
+#: smem_bytes, -1/reg, n_iters, tol, damping, log_mu, log_nu
+_SIGNATURE = ((_build.PTR,) * 4 + (_build.INT,) * 9 + (_build.FLOAT,) + (_build.INT,)
               + (_build.FLOAT,) * 4)
 
 
 class LaunchPlan(NamedTuple):
-    """How one call runs: the cluster's ``blocks`` (1, 2, 4 or 8), each on a
-    band of ``ceil(n / blocks)`` rows; whether a band of ``M`` is ``resident``
-    in shared memory (else it stays in the output buffer, in L2); whether
-    ``g`` and a band's ``f`` live in shared memory; the dynamic shared memory
-    per block; and the floats of device scratch."""
+    """How one call runs: one cluster of ``blocks`` (1, 2, 4, 8 or 16), each
+    on a band of ``ceil(n / blocks)`` rows and merging ``ceil(m / blocks)``
+    columns over the bands; ``slices``, the lanes of a warp that split a
+    column in the column pass (each group of ``32 / slices`` lanes spans as
+    many columns); ``stride``, the row stride of the band of ``M`` in floats;
+    whether that band is ``resident`` in shared memory (else it stays in the
+    output buffer, in L2, at stride ``m``); whether a band's ``f`` lives in
+    shared memory; whether the bands' (max, sum) pairs, their errors and ``g``
+    live in and are exchanged through shared memory (``pairs_smem``; else
+    through device scratch); the dynamic shared memory per block; and the
+    floats of device scratch."""
 
     blocks: int
+    slices: int
+    stride: int
     resident: bool
-    g_smem: bool
     f_smem: bool
+    pairs_smem: bool
     smem_bytes: int
     scratch_floats: int
 
@@ -85,23 +101,61 @@ def fits_fused_sinkhorn(n: int, m: int) -> bool:
     return n >= 1 and m >= 1 and n * m <= MAX_ELEMS
 
 
-def launch_plan(n: int, m: int) -> LaunchPlan:
-    """The :class:`LaunchPlan` of an ``(n, m)`` matrix that fits."""
+def _pow2_floor(x: int) -> int:
+    return 1 << (max(1, x).bit_length() - 1)
+
+
+def launch_plan(n: int, m: int, blocks: Optional[int] = None) -> LaunchPlan:
+    """The :class:`LaunchPlan` of an ``(n, m)`` matrix that fits.
+
+    ``blocks=None`` takes as many blocks as there are rows, up to 16 (on an
+    H100 this pick was the fastest size at 12 of 14 shapes from (5, 200) to
+    (70,000, 3), and within 3% of it at the other two); ``blocks`` forces a
+    size of :data:`BLOCK_SIZES` (at most ``n``).
+    In shared memory, in this order while ``SMEM_BUDGET`` holds them: ``f``
+    up to ``VEC_SMEM`` entries; the exchange (the pairs of the columns the
+    block merges, ``blocks * (ceil(m / blocks) + 1)`` float2, and ``g``); then the
+    band of ``M`` at a row stride padded to ``32 / slices`` modulo 32 banks,
+    so the column pass's lanes read distinct banks (unpadded where only that
+    fits)."""
     if not fits_fused_sinkhorn(n, m):
         raise ValueError(
             f"cost matrix ({n}, {m}) exceeds the fused Sinkhorn kernel's {MAX_ELEMS} elements; "
             "use the loop (fused='off')"
         )
-    blocks = 1
-    while blocks < MAX_BLOCKS and 2 * blocks <= n and 2 * blocks * ELEMS_PER_BLOCK <= n * m:
-        blocks *= 2
-    band = -(-n // blocks)
-    g_smem, f_smem = m <= VEC_SMEM, band <= VEC_SMEM
-    vec_bytes = 4 * (m * g_smem + band * f_smem)
-    resident = 4 * band * m + vec_bytes <= SMEM_BUDGET
-    smem_bytes = vec_bytes + 4 * band * m * resident
-    scratch = 4 * blocks * m + 2 * MAX_BLOCKS + blocks * m + n
-    return LaunchPlan(blocks, resident, g_smem, f_smem, smem_bytes, scratch)
+    if blocks is None:
+        blocks = min(MAX_BLOCKS, _pow2_floor(n))
+    elif blocks not in BLOCK_SIZES:
+        raise ValueError(f"blocks must be one of {BLOCK_SIZES}, got {blocks}")
+    elif blocks > n:
+        raise ValueError(f"{blocks} blocks for {n} rows: a cluster has at most one block per row")
+    band, own = -(-n // blocks), -(-m // blocks)
+    slices = min(32, _pow2_floor(THREADS // m), _pow2_floor(band))
+    f_smem = band <= VEC_SMEM
+    used = 4 * band * f_smem
+    exchange = 8 * blocks * (own + 1) + 4 * m  # received pairs, g
+    pairs_smem = used + exchange <= SMEM_BUDGET
+    used += exchange * pairs_smem
+    # the padded stride where it fits, else the band unpadded, else L2
+    stride = m + (32 // slices - m) % 32 if slices > 1 else m
+    if used + 4 * band * stride > SMEM_BUDGET:
+        stride = m
+    resident = used + 4 * band * stride <= SMEM_BUDGET
+    used += 4 * band * stride * resident
+    scratch = (4 * blocks * m + 2 * MAX_BLOCKS + m) * (not pairs_smem) + n * (not f_smem)
+    return LaunchPlan(blocks, slices, stride, resident, f_smem, pairs_smem, used, max(1, scratch))
+
+
+def max_active_clusters(plan: LaunchPlan, device=None) -> int:
+    """How many clusters of ``plan`` the card can hold at once
+    (``cudaOccupancyMaxActiveClusters``); 0 means it cannot launch one."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    with torch.cuda.device(device):
+        count = _build._entry("sinkhorn_max_active_clusters",
+                              (_build.INT, _build.INT))(plan.blocks, plan.smem_bytes, None)
+    if count < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with error {-count}")
+    return count
 
 
 def _check(C: Tensor, reg, n_iters, tol, damping,
@@ -130,7 +184,13 @@ def _check(C: Tensor, reg, n_iters, tol, damping,
 
 
 def _run_plain(C: Tensor, reg: float, n_iters: int, tol: float, damping: float):
-    """The loop; ``(log plan, iterations run as a 0-d int32 tensor)``."""
+    """The loop; ``(log plan, iterations run as a 0-d int32 tensor)``.
+
+    With ``tol > 0`` each iteration's error stays on ``C``'s device; the
+    host reads the last :data:`CHECK_EVERY` of them at once (one sync) and
+    stops at the first that is no larger than ``tol``, with the potentials
+    of that iteration. The plan and the count are those of a loop that reads
+    every error, up to ``CHECK_EVERY - 1`` iterations of work later."""
     n, m = C.shape
     M = C * (-1.0 / reg)
     log_mu, log_nu = -math.log(n), -math.log(m)
@@ -138,14 +198,22 @@ def _run_plain(C: Tensor, reg: float, n_iters: int, tol: float, damping: float):
     g = torch.zeros(m, dtype=C.dtype, device=C.device)
     if C.dtype == torch.float32:  # the kernel compares in float32
         tol = float(torch.tensor(tol, dtype=torch.float32))
-    it, err = 0, math.inf
-    while it < n_iters and (tol <= 0.0 or err > tol):
+    it, recent = 0, []  # (f, g, error) of the iterations since the last read
+    while it < n_iters:
         f_new = damping * (log_mu - torch.logsumexp(M + g[None, :], dim=1))
         g = damping * (log_nu - torch.logsumexp(M + f_new[:, None], dim=0))
         if tol > 0.0:
-            err = float(torch.max(torch.abs(f_new - f)))
+            recent.append((f_new, g, torch.max(torch.abs(f_new - f))))
         f = f_new
         it += 1
+        if recent and (len(recent) == CHECK_EVERY or it == n_iters):
+            errs = torch.stack([e for _, _, e in recent]).tolist()
+            met = next((k for k, e in enumerate(errs) if not e > tol), None)
+            if met is not None:
+                f, g, _ = recent[met]
+                it += met + 1 - len(recent)
+                break
+            recent = []
     iters = torch.tensor(it, dtype=torch.int32, device=C.device)
     return M + f[:, None] + g[None, :], iters
 
@@ -157,6 +225,30 @@ def sinkhorn_log_plain(C: Tensor, reg: float, n_iters: int, tol: float = 0.0,
     it takes a matrix of any float type and size."""
     out, iters = _run_plain(C, *_check(C, reg, n_iters, tol, damping, kernel=False))
     return (out, iters) if return_iters else out
+
+
+def _run(C: Tensor, reg: float, n_iters: int, tol: float = 0.0, damping: float = 1.0, *,
+         blocks: Optional[int] = None) -> Tuple[Tensor, Tensor]:
+    """One launch of the kernel on a CUDA matrix at
+    ``launch_plan(n, m, blocks)``; ``(log plan, iterations)``. A refused
+    launch raises."""
+    reg, n_iters, tol, damping = _check(C, reg, n_iters, tol, damping)
+    if C.device.type != "cuda":
+        raise ValueError(f"the Sinkhorn kernel runs on a CUDA tensor, got {C.device}")
+    n, m = C.shape
+    plan = launch_plan(n, m, blocks)
+    out = torch.empty_like(C)
+    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=C.device)
+    iters = torch.empty((), dtype=torch.int32, device=C.device)
+    p = _build.ptr
+    _build.launch(
+        "sinkhorn_log_fused", _SIGNATURE, C.device,
+        p(C), p(out), p(scratch), p(iters), n, m, plan.blocks, plan.slices, plan.stride,
+        int(plan.resident), int(plan.f_smem), int(plan.pairs_smem), plan.smem_bytes, -1.0 / reg,
+        n_iters, tol, damping, -math.log(n), -math.log(m),
+    )
+    sinkhorn_log_fused.launches += 1
+    return out, iters
 
 
 @_build.counted
@@ -171,23 +263,12 @@ def sinkhorn_log_fused(C: Tensor, reg: float, n_iters: int, tol: float = 0.0,
     ``tol == 0`` runs exactly ``n_iters`` iterations; ``damping`` is
     :math:`\\phi` (1 for balanced Sinkhorn).
     """
-    reg, n_iters, tol, damping = _check(C, reg, n_iters, tol, damping)
-    n, m = C.shape
-    plan = launch_plan(n, m)
-    if C.device.type == "cpu":
+    if isinstance(C, Tensor) and C.device.type == "cuda":
+        out, iters = _run(C, reg, n_iters, tol, damping)
+    else:
+        reg, n_iters, tol, damping = _check(C, reg, n_iters, tol, damping)
+        launch_plan(*C.shape)  # the kernel's fit rule holds on the CPU too
+        if C.device.type != "cpu":
+            raise ValueError(f"sinkhorn_log_fused takes a CPU or CUDA tensor, got {C.device}")
         out, iters = _run_plain(C, reg, n_iters, tol, damping)
-        return (out, iters) if return_iters else out
-    if C.device.type != "cuda":
-        raise ValueError(f"sinkhorn_log_fused takes a CPU or CUDA tensor, got {C.device}")
-    out = torch.empty_like(C)
-    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=C.device)
-    iters = torch.empty((), dtype=torch.int32, device=C.device)
-    p = _build.ptr
-    _build.launch(
-        "sinkhorn_log_fused", _SIGNATURE, C.device,
-        p(C), p(out), p(scratch), p(iters), n, m, plan.blocks, int(plan.resident),
-        int(plan.g_smem), int(plan.f_smem), plan.smem_bytes, -1.0 / reg, n_iters, tol, damping,
-        -math.log(n), -math.log(m),
-    )
-    sinkhorn_log_fused.launches += 1
     return (out, iters) if return_iters else out
