@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --ess-shape`` times only rows 7 and 9 at the ESS
-protocol's shape, rows 10-11 at their main shape and row 14 (the Sinkhorn
+protocol's shape, rows 10-11 at their main shape, row 14 (the Sinkhorn
 kernel's per-iteration slope at (256, 256) and (1,024, 1,024), and the flow
-path's gated call), through the public wrappers, against whichever package
-is imported:
+path's gated call) and row 13 (the neural chain at the CD path's 256 x 2 and
+at 4,096 x 2), through the public wrappers, against whichever package is
+imported:
 ``PYTHONPATH=<checkout> python3 -P chip_smoke.py --ess-shape`` times an
 earlier checkout's kernels on the same card.)
 
@@ -19,7 +20,9 @@ not 0:
    (one ``nvcc`` per source, in parallel) into a clean
    ``build/torch_kernels/``, with each kernel instance's registers and spills
    (an HMC, MALA or ladder instance of the d <= 2 bucket, the main paths',
-   must not spill);
+   and any neural chain instance must not spill), and the neural chain's
+   SASS (``cuobjdump -sass``): every instance must hold TF32 ``HMMA``
+   instructions;
 3. check: every kernel against its plain PyTorch version on the card, on
    injected randomness and on the Philox stream, at the main shapes (10,000
    x 2, 8 components; 4,096 x 32 double well), on rings of 12 and 33
@@ -40,7 +43,11 @@ not 0:
    65,536, a 201-entry beta table); the one-step op at 4,096 x 32 and 16M
    elements; the neural (SiLU-MLP) chain at the CD path's 256 x 2 on
    MLP(128, 128), at 4,096 x 2, at d=32 with three hidden layers, with a
-   clamp, and at hidden (512, 512) (weights streamed), 10 steps; the
+   clamp, at hidden (512, 512) and (256, 256) (weights streamed), at ragged
+   widths and a narrow layer between wide ones, 10 steps, each on
+   ``extract_mlp_layers``' views and on arrays of the JAX layout, on
+   injected noise, an int seed and a device seed, at every (tile, warps,
+   route) that fits; the
    Sinkhorn kernel at (256, 256) with ``reg`` 0.05 (50 iterations at ``tol``
    0, and gated at ``tol`` 1e-3), damped at (64, 192), at ragged shapes, at
    (1,024, 1,024) and on the cost matrix of the flow path's own batch, each
@@ -119,7 +126,10 @@ not 0:
    rung, the one-step op in GB/s beside ``torch.add`` (device time per call
    in batches queued behind a spin, and per call with the host's launch
    work), the neural chain also at
-   4,096 chains, the CD train step with the kernel and on the loop, the
+   4,096 chains (its per-step slope and intercept over 1, 10 and 40 steps
+   at 256 and 4,096 chains, and its plan sweep: device time per call at
+   every (tile, warps, route) over 12 shapes beside the plan's pick), the
+   CD train step with the kernel and on the loop, the
    Sinkhorn kernel gated and at fixed work (its per-iteration slope and
    intercept over 1, 10 and 50 iterations), beside 100 ``torch.logsumexp``
    calls, at every cluster size (slopes at three shapes, device time at the
@@ -134,13 +144,16 @@ not 0:
    which must record device events); for the headline Langevin call also
    its host operations with the most self CPU time;
 7. syncs: the host's synchronising calls per EqM train step (none through
-   the Sinkhorn kernel), per auction and greedy assignment and per dopri5
-   generation (``torch.cuda.set_sync_debug_mode``);
+   the Sinkhorn kernel), per auction and greedy assignment, per dopri5
+   generation, and per CD train step through the neural kernel and on the
+   loop, with where each comes from, and none in the neural sampler's call
+   (its seed stays on the device) (``torch.cuda.set_sync_debug_mode``);
 8. bound: for each kernel the least time the card could take for the timed
    call: the larger of its bytes (inputs read once, outputs written once)
    over 3.35 TB/s and, per instruction class counted from the CUDA source
    (``torchebm_tpu_torch/ops/_counts.py``), the count over the class's rate
-   at the card's maximum SM clock.
+   at the card's maximum SM clock (the neural chain's tensor-core products
+   over the dense TF32 rate, 495 TFLOP/s).
 
 The run's total time is printed before the card's name and power limit;
 the line before the last is the per-kernel JSON summary; the last line is
@@ -159,6 +172,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 #: kernel-vs-plain tolerance (absolute, float32): the kernels contract
 #: multiply-adds and take the mixture softmax online in one pass, the plain
@@ -273,12 +287,23 @@ CD_HIDDEN, CD_BATCH, CD_K, CD_STEP, CD_LR, CD_STEPS = (128, 128), 256, 10, 0.01,
 #: errors of their difference (two sets of runs alike fall beyond with a
 #: chance of about 2e-5: Student's t with 30 degrees of freedom at 5)
 CD_NOISE_SEEDS, CD_SIGMAS = tuple(range(1, 17)), 5.0
-#: the neural chain's checks: (chains, widths (d, H_1, ...), clamp); the last
-#: three take the larger tiles the plan picks once the grid fills the card
+#: the neural chain's checks: (chains, widths (d, H_1, ...), clamp), each at
+#: every (tile, warps, route) that fits: the CD path's, the knee, a
+#: tensor-core first layer, a clamp on a ragged last tile, streamed weights,
+#: ragged widths, a narrow layer between wide ones
 MLP_CHECKS = ((CD_BATCH, (2, *CD_HIDDEN), None), (4096, (2, *CD_HIDDEN), None),
-              (4096, (32, 64, 64, 64), None), (1000, (2, *CD_HIDDEN), (-1.0, 1.0)),
-              (1024, (2, 512, 512), None), (8192, (2, *CD_HIDDEN), None),
-              (16_900, (2, *CD_HIDDEN), None), (8190, (2, 512, 512), None))
+              (1000, (32, 64, 64, 64), None), (37, (2, *CD_HIDDEN), (-1.0, 1.0)),
+              (1024, (2, 512, 512), None), (300, (2, 256, 256), None),
+              (100, (10, 40, 24), None), (77, (9, 300), None), (40, (2, 4, 130, 2), None))
+#: row 13's timing: the chain lengths of its per-step slope; the shapes of
+#: its plan sweep (chains, widths): the CD path's, more chains up to where
+#: tiles of 32 fill the card several times, three hidden layers at d = 32,
+#: and the streamed (256, 256) and (512, 512)
+MLP_SLOPE_STEPS = (1, 10, 40)
+MLP_SWEEP = ((256, (2, *CD_HIDDEN)), (1000, (2, *CD_HIDDEN)), (2048, (2, *CD_HIDDEN)),
+             (4096, (2, *CD_HIDDEN)), (8192, (2, *CD_HIDDEN)), (16_900, (2, *CD_HIDDEN)),
+             (65_536, (2, *CD_HIDDEN)), (1000, (32, 64, 64, 64)), (4096, (32, 64, 64, 64)),
+             (1024, (2, 256, 256)), (512, (2, 512, 512)), (8190, (2, 512, 512)))
 #: the quality gate: the JAX e2e recipe (tests/e2e/test_training_quality.py:90-125)
 #: at MLP(128, 128): two moons, step 0.05, CD-20, Adam 2e-3, 250 steps
 QG_STEP, QG_K, QG_LR, QG_STEPS = 0.05, 20, 2e-3, 250
@@ -325,10 +350,12 @@ SINKHORN_SWEEP = ((8, 128), (5, 200), (17, 33), (64, 64), (64, 192), (128, 128),
                   (70_000, 3))
 SINKHORN_SWEEP_ITERS = 20
 
-#: the card's memory rate, and the per-SM instruction rates per clock of its
-#: FP32 lanes, INT32 lanes and special-function units (H100 SXM)
+#: the card's memory rate, the per-SM instruction rates per clock of its
+#: FP32 lanes, INT32 lanes and special-function units, and its dense TF32
+#: tensor-core rate in operations per second (H100 SXM)
 HBM_BYTES_PER_S = 3.35e12
 RATE_PER_SM_CLOCK = {"fp32": 128, "int32": 64, "sfu": 16}
+TF32_OPS_PER_S = 495e12
 N_SMS = 132
 
 
@@ -437,8 +464,9 @@ def phase_build(build_mod) -> dict:
 def check_instances(instances: dict) -> None:
     """The HMC, MALA and ladder instances of the d <= 2 bucket, the main
     paths' among them (the ring's and the ESS protocol's correlated
-    Gaussian's, chain and trajectory, at every group), must not spill; every
-    instance's registers and spills are printed with the build."""
+    Gaussian's, chain and trajectory, at every group), and no neural chain
+    instance may spill; every instance's registers and spills are printed
+    with the build."""
     for kernel in ("hmc_chain_kernel", "mala_chain_kernel", "pt_chain_kernel"):
         bucket2 = {name: v for name, v in instances.items()
                    if name.startswith(f"{kernel}<2,")}
@@ -449,6 +477,35 @@ def check_instances(instances: dict) -> None:
               f"spill: {spilled or 'none'}")
         if any(v[1] != 0 for v in bucket2.values()):
             raise AssertionError(f"a {kernel} instance of the main path's d <= 2 bucket spills")
+    mlp = {name: v for name, v in instances.items() if name.startswith("mlp_chain_kernel")}
+    print(f"build: {len(mlp)} mlp_chain_kernel instances, at most "
+          f"{max(v[0] for v in mlp.values())} registers; instances that spill: "
+          f"{ {n: v[1] for n, v in mlp.items() if v[1] != 0} or 'none'}")
+    if any(v[1] != 0 for v in mlp.values()):
+        raise AssertionError("an mlp_chain_kernel instance spills")
+
+
+def phase_sass(build_mod) -> None:
+    """The neural chain kernel runs its products on the tensor cores in
+    3xTF32: every ``mlp_chain_kernel`` instance of the built library holds
+    ``HMMA`` instructions on TF32 operands (``cuobjdump -sass``), and none
+    spills."""
+    cuobjdump = Path(build_mod.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build_mod.library_path())], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    counts = {}
+    for section in re.split(r"\n\s*Function : ", sass):
+        name = section.split("\n", 1)[0].strip()
+        k = re.search(r"mlp_chain_kernelI(\w*?)EEv", name)
+        if k:
+            entry = f"mlp_chain_kernel<{','.join(re.findall(r'L[ib](\d+)E', k.group(1)))}>"
+            counts[entry] = (len(re.findall(r"\bHMMA(?:\.\w+)*\.TF32\b", section)),
+                             len(re.findall(r"\bHMMA\b", section)))
+    print(f"build: SASS of mlp_chain_kernel<resident, n8 fragments, warps> (cuobjdump -sass), "
+          f"HMMA instructions on TF32 operands / all HMMA: "
+          + ", ".join(f"{e} {tf}/{hm}" for e, (tf, hm) in sorted(counts.items())))
+    if not counts or any(tf == 0 for tf, _ in counts.values()):
+        raise AssertionError(f"an mlp_chain_kernel instance has no TF32 HMMA: {counts}")
 
 
 def _ring(k: int):
@@ -1356,19 +1413,35 @@ def _mlp_layers(dev, widths, seed: int):
     return extract_mlp_layers(net)
 
 
+def _mlp_arrays(dev, widths, seed: int):
+    """Layers of the JAX layout: ``(in, out)`` arrays (LeCun-scaled weights,
+    small biases) made on the CPU from ``seed``, which the wrapper copies to
+    ``nn.Linear``'s layout."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    dims = list(widths) + [1]
+    return [((torch.randn((i, o), generator=g) * i ** -0.5).to(dev),
+             (0.1 * torch.randn(o, generator=g)).to(dev)) for i, o in zip(dims[:-1], dims[1:])]
+
+
 def phase_check_mlp(ops, dev, errors: dict) -> None:
     """The neural chain kernel against its plain version at MLP_CHECKS: the CD
     path's 256 x 2 on MLP(128, 128), 4,096 chains (the knee of the JAX
     package's batch study, BASELINE.md:256-258), d = 32 with three hidden
-    layers, a clamp on a ragged last tile, hidden (512, 512), whose weights
-    stream through shared memory, and the tiles of 16 and 32 chains
-    (resident and streamed, ragged last tiles); CD_K steps at CD_STEP, on
-    injected noise and on the Philox stream. Fails unless the checks cover
-    every tile and both routes. TOL holds: the kernel contracts its
-    multiply-adds (FMA) and sums in another order than the plain version's
-    matrix products, a rounding difference of about 1e-7 relative in each
-    gradient, which enters the state times the step size; ten steps of a
-    chain started in its basin do not grow it."""
+    layers (a tensor-core first layer), a clamp on a ragged last tile,
+    (512, 512) and (256, 256), whose weights stream through shared memory,
+    ragged widths and a narrow hidden layer between wide ones; each with
+    ``extract_mlp_layers``' views of an MLPEnergy and with arrays of the JAX
+    layout; CD_K steps at CD_STEP, on injected noise, on the Philox stream
+    keyed by an int and by a device seed; at every (tile, warps, route) whose
+    shared memory fits, the plan's own pick through the public wrapper (one
+    counted launch each). Fails unless the checks cover every setting the
+    plan can take. TOL holds: the kernel's 3xTF32 products drop the lo.lo
+    term (2^-22 relative) and sum in another order than the plain version's
+    FP32 matrix products, a rounding difference of about 1e-7 relative in
+    each gradient, which enters the state times the step size; ten steps of
+    a chain started in its basin do not grow it."""
     import torch
 
     mod = ops.fused_mlp_langevin
@@ -1377,30 +1450,46 @@ def phase_check_mlp(ops, dev, errors: dict) -> None:
     smem_bytes, n_sms = mod._card_limits(dev)
     print(f"check: mlp_langevin_chain plans for {n_sms} SMs and {smem_bytes} bytes of shared "
           f"memory per block")
-    plans = set()
+    settings = [mod.MlpPlan(*setting) for setting in mod.SETTINGS]
+    checked = set()
     for i, (n, widths, clamp) in enumerate(MLP_CHECKS):
-        layers = _mlp_layers(dev, widths, 40 + i)
         d = widths[0]
         x0 = torch.randn((n, d), generator=g, device=dev)
-        tile, resident = mod.launch_plan(n, widths, dev)
-        plans.add((tile, resident))
-        for label, noise in (("injected", torch.randn((CD_K, n, d), generator=g, device=dev)),
-                             ("philox", None)):
-            kw = dict(seed=50 + i, clamp=clamp, noise=noise)
-            before = kernel.launches
-            got = kernel(x0, layers, CD_K, CD_STEP, 1.0, **kw)
-            torch.cuda.synchronize()
-            if kernel.launches != before + 1:
-                raise AssertionError("mlp_langevin_chain did not launch its kernel")
-            err = max_err(got, mod.mlp_langevin_chain_plain(x0, layers, CD_K, CD_STEP, 1.0, **kw))
-            errors["mlp_langevin_chain"] = max(errors.get("mlp_langevin_chain", 0.0), err)
-            print(f"check: mlp_langevin_chain [{n}x{d}, hidden {widths[1:]}, clamp {clamp}, "
-                  f"{label}; tile {tile}, weights {'resident' if resident else 'streamed'}] "
-                  f"max|kernel - plain| = {err:.3e} (tol {TOL:g})")
-            if not err <= TOL:
-                raise AssertionError(f"mlp_langevin_chain disagrees with its plain version: {err}")
-    if {t for t, _ in plans} != {8, 16, 32} or {r for _, r in plans} != {True, False}:
-        raise AssertionError(f"the neural chain's checks miss a tile or a route: {sorted(plans)}")
+        noise = torch.randn((CD_K, n, d), generator=g, device=dev)
+        pick = mod.launch_plan(n, widths, dev)
+        for layout, layers in (("views", _mlp_layers(dev, widths, 40 + i)),
+                               ("jax", _mlp_arrays(dev, widths, 40 + i))):
+            for plan in settings:
+                if not mod.fits(widths, plan, dev):
+                    continue
+                errs = []
+                for label, kw in (("injected", dict(seed=50 + i, noise=noise)),
+                                  ("philox", dict(seed=50 + i)),
+                                  ("device seed", dict(seed=torch.tensor(50 + i, device=dev)))):
+                    if plan == pick:
+                        before = kernel.launches
+                        got = kernel(x0, layers, CD_K, CD_STEP, 1.0, clamp=clamp, **kw)
+                        if kernel.launches != before + 1:
+                            raise AssertionError("mlp_langevin_chain did not launch its kernel")
+                    else:
+                        got = mod._launch(x0, layers, list(widths), CD_K, CD_STEP, 1.0,
+                                          kw["seed"], clamp, kw.get("noise"), plan)
+                    torch.cuda.synchronize()
+                    err = max_err(got, mod.mlp_langevin_chain_plain(
+                        x0, layers, CD_K, CD_STEP, 1.0, clamp=clamp, **kw))
+                    errors["mlp_langevin_chain"] = max(errors.get("mlp_langevin_chain", 0.0), err)
+                    errs.append(f"{label} {err:.3e}")
+                    if not err <= TOL:
+                        raise AssertionError(f"mlp_langevin_chain disagrees with its plain "
+                                             f"version at {plan}: {err}")
+                checked.add(plan)
+                print(f"check: mlp_langevin_chain [{n}x{d}, hidden {widths[1:]}, clamp {clamp}, "
+                      f"{layout} weights; tile {plan.tile}, {plan.warps} warps, weights "
+                      f"{'resident' if plan.resident else 'streamed'}"
+                      f"{', the plan' if plan == pick else ''}] max|kernel - plain| = "
+                      f"{', '.join(errs)} (tol {TOL:g})")
+    if set(settings) - checked:
+        raise AssertionError(f"the neural chain's checks miss {sorted(set(settings) - checked)}")
 
 
 def _cd_trainer(dev, step_size: float, k_steps: int, lr: float, fused_neural: str, seed: int,
@@ -2012,8 +2101,9 @@ def pt_main_shape(dev):
 
 def phase_ess_shape(ops, dev, card: str) -> None:
     """``chip_smoke.py --ess-shape``: rows 7 and 9 at the ESS protocol's shape,
-    rows 10-11 (thin 1) at their main shape (:func:`pt_main_shape`) and row
-    14 (:func:`sinkhorn_ab`) through the public wrappers (the plans' groups
+    rows 10-11 (thin 1) at their main shape (:func:`pt_main_shape`), row
+    14 (:func:`sinkhorn_ab`) and row 13 (:func:`mlp_ab`) through the public
+    wrappers (the plans' groups
     and clusters), per call and by device time per call. It runs against
     any revision of the package, so an earlier checkout can be timed beside
     this one on the same card:
@@ -2039,6 +2129,32 @@ def phase_ess_shape(ops, dev, card: str) -> None:
               + (", thin 1" if extra else "") + f"): {ms:.4f} ms per call, device "
               f"{dev_ms:.4f} ms | {card}", flush=True)
     sinkhorn_ab(ops, dev, card)
+    mlp_ab(ops, dev, card)
+
+
+def mlp_ab(ops, dev, card: str) -> None:
+    """Row 13 through the public wrapper, for ``--ess-shape``: at the CD
+    path's 256 x 2 and at 4,096 x 2 on MLP(128, 128) (``extract_mlp_layers``'
+    views of a random MLPEnergy), CD_K steps and an int seed (which every
+    revision takes): the time per call (wrapper included), the device time
+    per call, and the per-step slope and intercept of device time at
+    MLP_SLOPE_STEPS steps."""
+    import torch
+
+    mlp = ops.fused_mlp_langevin
+    layers = _mlp_layers(dev, (2, *CD_HIDDEN), 60)
+    g = torch.Generator(dev).manual_seed(8)
+    for n in (CD_BATCH, 4096):
+        x = torch.randn((n, 2), generator=g, device=dev)
+        run = functools.partial(mlp.mlp_langevin_chain, x, layers, CD_K, CD_STEP, 1.0, seed=24)
+        ms = statistics.median(cuda_times(run, 2, 10))
+        dev_ms = statistics.median(cuda_times(run, 2, 5, batch=10))
+        slope, intercept, _ = device_slope(
+            lambda k: mlp.mlp_langevin_chain(x, layers, k, CD_STEP, 1.0, seed=24),
+            MLP_SLOPE_STEPS)
+        print(f"ess-shape: mlp_langevin_chain (package {ops.__file__}, {n}x2, MLP{CD_HIDDEN}, "
+              f"{CD_K} steps): {ms:.4f} ms per call, device {dev_ms:.4f} ms; {slope:.3f} us per "
+              f"step + {intercept:.2f} us per call | {card}", flush=True)
 
 
 def sinkhorn_ab(ops, dev, card: str) -> None:
@@ -2053,8 +2169,8 @@ def sinkhorn_ab(ops, dev, card: str) -> None:
     g = torch.Generator(dev).manual_seed(7)
     for shape in ((FLOW_BATCH, FLOW_BATCH), (1024, 1024)):
         cost = _pair_cost(g, dev, *shape)
-        slope, intercept, times = sinkhorn_slope(
-            lambda k: sk.sinkhorn_log_fused(cost, FLOW_REG, k))
+        slope, intercept, times = device_slope(
+            lambda k: sk.sinkhorn_log_fused(cost, FLOW_REG, k), SINKHORN_SLOPE_ITERS)
         ms = statistics.median(cuda_times(
             lambda: sk.sinkhorn_log_fused(cost, FLOW_REG, FLOW_ITERS), 2, 10))
         print(f"ess-shape: sinkhorn_log_fused (package {ops.__file__}, {shape[0]}x{shape[1]}, "
@@ -2179,12 +2295,11 @@ def pt_group_timing(ops, dev, card: str, clock: float) -> None:
     plan_sweep("pt", fp, dev, card, [])
 
 
-def sinkhorn_slope(run, iters=None):
+def device_slope(run, iters):
     """``(us per iteration, us per call besides, [device ms per call])`` of
-    ``run(n_iters)`` at ``iters`` (default SINKHORN_SLOPE_ITERS) iterations:
-    the least-squares line through device time per call (10 calls queued
-    behind a spin, median of 5 readings)."""
-    iters = SINKHORN_SLOPE_ITERS if iters is None else iters
+    ``run(n)`` at each ``n`` of ``iters`` (Sinkhorn iterations, chain
+    steps): the least-squares line through device time per call (10 calls
+    queued behind a spin, median of 5 readings)."""
     times = [round(statistics.median(cuda_times(lambda k=k: run(k), 2, 5, batch=10)), 5)
              for k in iters]
     mx, my = statistics.fmean(iters), statistics.fmean(times)
@@ -2205,8 +2320,8 @@ def sinkhorn_cluster_sweep(sk, dev, card: str) -> None:
         cost = _pair_cost(g, dev, *shape)
         cells = []
         for blocks in sk.BLOCK_SIZES:
-            slope, intercept, _ = sinkhorn_slope(
-                lambda k: sk._run(cost, FLOW_REG, k, blocks=blocks))
+            slope, intercept, _ = device_slope(
+                lambda k: sk._run(cost, FLOW_REG, k, blocks=blocks), SINKHORN_SLOPE_ITERS)
             cells.append(f"{blocks}: {slope:.3f} us + {intercept:.2f} us")
         print(f"sinkhorn sweep: {shape[0]}x{shape[1]} per iteration + per call, by cluster size "
               f"(plan {sk.launch_plan(*shape).blocks}): {'; '.join(cells)} | {card}", flush=True)
@@ -2229,6 +2344,39 @@ def sinkhorn_cluster_sweep(sk, dev, card: str) -> None:
               + f" | {card}", flush=True)
     print(f"sinkhorn sweep: the plan's pick is the fastest at {hits} of {len(SINKHORN_SWEEP)} "
           f"shapes | {card}")
+
+
+def mlp_plan_sweep(mlp, dev, card: str) -> None:
+    """Row 13's launch settings: device time per call (CD_K steps, a device
+    seed) at every built (tile, warps) that fits, on the route the plan takes
+    and, where the weights fit, streamed too at the pick's tile, at
+    MLP_SWEEP, the shapes its rule (``launch_plan``) is read from, beside
+    the plan's pick."""
+    import torch
+
+    g = torch.Generator(dev).manual_seed(98)
+    seed = torch.tensor(25, device=dev)
+    hits = 0
+    for n, widths in MLP_SWEEP:
+        layers = _mlp_layers(dev, widths, 70)
+        x = torch.randn((n, widths[0]), generator=g, device=dev)
+        pick = mlp.launch_plan(n, widths, dev)
+        times = {}
+        for setting in mlp.SETTINGS:
+            plan = mlp.MlpPlan(*setting)
+            if mlp.fits(widths, plan, dev) and (plan.resident or not pick.resident
+                                                or plan.tile == pick.tile):
+                times[plan] = device_ms(lambda: mlp._launch(
+                    x, layers, list(widths), CD_K, CD_STEP, 1.0, seed, None, None, plan))
+        best = min(times, key=times.get)
+        hits += pick == best
+        print(f"mlp sweep: {n}x{widths}, {CD_K} steps, device ms per call by (tile, warps, "
+              f"resident): " + ", ".join(f"{tuple(p)}: {t:.4f}" for p, t in times.items())
+              + f"; plan {tuple(pick)}, fastest {tuple(best)}"
+              + ("" if pick == best else f" ({times[pick] / times[best] - 1:.1%} slower)")
+              + f" | {card}", flush=True)
+    print(f"mlp sweep: the plan's pick is the fastest at {hits} of {len(MLP_SWEEP)} shapes | "
+          f"{card}")
 
 
 def phase_timing(ops, dev, card: str) -> dict:
@@ -2266,6 +2414,7 @@ def phase_timing(ops, dev, card: str) -> dict:
                 torch.linspace(0.0, 1.0, AIS_RUNGS + 1, device=dev), 0.05)
     mlp_layers = _mlp_layers(dev, (2, *CD_HIDDEN), 60)
     x_cd = torch.randn((CD_BATCH, 2), generator=g, device=dev)
+    seed_t = torch.tensor(24, device=dev)
     sk_cost = _pair_cost(g, dev, FLOW_BATCH, FLOW_BATCH)
     # name -> (args, kwargs, (updates per call, their unit), plain version's
     # (warm-up, repetitions)): the plain MALA, HMC, PT and AIS versions take
@@ -2293,8 +2442,9 @@ def phase_timing(ops, dev, card: str) -> dict:
         "mixture_ais_run": (ais_args, mix_kw, (AIS_CHAINS * AIS_RUNGS, "chain-rungs"), slow),
         # the function torch.add computes: noise scale 0, no clamp
         "fused_langevin_step": ((big_x, big_g, 0.05, 0.0), {}, (STEP_ELEMS, "elements"), fast),
-        # the CD path's call: one batch of negatives, CD_K steps
-        "mlp_langevin_chain": ((x_cd, mlp_layers, CD_K, CD_STEP, 1.0), dict(seed=24),
+        # the CD path's call: one batch of negatives, CD_K steps, the
+        # sampler's device seed
+        "mlp_langevin_chain": ((x_cd, mlp_layers, CD_K, CD_STEP, 1.0), dict(seed=seed_t),
                                (CD_BATCH * CD_K, "chain-steps"), fast),
         # the flow path's matrix at fixed work: FLOW_ITERS iterations, no gate
         "sinkhorn_log_fused": ((sk_cost, FLOW_REG, FLOW_ITERS), dict(tol=0.0),
@@ -2381,21 +2531,31 @@ def phase_timing(ops, dev, card: str) -> dict:
     # the neural chain at the knee of the JAX batch study: 4,096 chains
     knee = (torch.randn((4096, 2), generator=g, device=dev), mlp_layers, CD_K, CD_STEP, 1.0)
     mlp = ops.fused_mlp_langevin
-    k_ms = statistics.median(cuda_times(lambda: mlp.mlp_langevin_chain(*knee, seed=24), 2, 10))
+    k_ms = statistics.median(cuda_times(lambda: mlp.mlp_langevin_chain(*knee, seed=seed_t), 2,
+                                        10))
     p_ms = statistics.median(cuda_times(lambda: mlp.mlp_langevin_chain_plain(*knee, seed=24),
                                         1, 3))
-    b_ms, b_by = bound_of(work("mlp_langevin_chain", knee, dict(seed=24),
-                               mlp.mlp_langevin_chain(*knee, seed=24)), max_sm_clock_mhz())
+    b_ms, b_by = bound_of(work("mlp_langevin_chain", knee, dict(seed=seed_t),
+                               mlp.mlp_langevin_chain(*knee, seed=seed_t)), max_sm_clock_mhz())
     print(f"timing: mlp_langevin_chain 4096x2, MLP{CD_HIDDEN}, {CD_K} steps: kernel {k_ms:.4f} ms, "
           f"plain {p_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by} ({b_ms / k_ms:.3f} of the bound's "
           f"rate) | {card}")
     # device time per call without the wrapper's host work (batches of 10
-    # queued behind a spin), at the CD path's shape and at the knee
-    for label, args in ((f"{CD_BATCH}x2", (x_cd, *knee[1:])), ("4096x2", knee)):
-        dev_ms = statistics.median(cuda_times(lambda: mlp.mlp_langevin_chain(*args, seed=24),
-                                              2, 10, batch=10))
-        print(f"timing: mlp_langevin_chain {label} device time {dev_ms:.4f} ms per call "
-              f"({dev_ms / CD_K * 1e3:.2f} us per step) | {card}")
+    # queued behind a spin) at MLP_SLOPE_STEPS steps, at the CD path's shape
+    # and at the knee: us per step (the slope) and per call besides (the
+    # intercept); and the host's time per call with the sampler's device seed
+    for label, x in ((f"{CD_BATCH}x2", x_cd), ("4096x2", knee[0])):
+        slope, intercept, fixed = device_slope(
+            lambda k: mlp.mlp_langevin_chain(x, mlp_layers, k, CD_STEP, 1.0, seed=seed_t),
+            MLP_SLOPE_STEPS)
+        host = host_ms(lambda: mlp.mlp_langevin_chain(x, mlp_layers, CD_K, CD_STEP, 1.0,
+                                                      seed=seed_t))
+        print(f"timing: mlp_langevin_chain {label}, MLP{CD_HIDDEN}, plan "
+              f"{tuple(mlp.launch_plan(x.shape[0], (2, *CD_HIDDEN), dev))} (tile, warps, "
+              f"resident): device ms per call at {MLP_SLOPE_STEPS} steps {fixed}: {slope:.3f} us "
+              f"per step (slope), {intercept:.2f} us per call besides (intercept); host "
+              f"{host:.4f} ms per call up to its return (device seed) | {card}")
+    mlp_plan_sweep(mlp, dev, card)
     # the Sinkhorn kernel as the flow path calls it (gated at FLOW_TOL), with
     # the iterations it ran and its bound for that work; and what the loop
     # pays: no single PyTorch call runs the fixed point, 2 x FLOW_ITERS
@@ -2417,8 +2577,8 @@ def phase_timing(ops, dev, card: str) -> dict:
           f"{d_ms:.4f} ms), plain {p_ms:.3f} ms, bound {b_ms:.5f} ms by {b_by} | {card}")
     lse_ms = statistics.median(cuda_times(
         lambda: [torch.logsumexp(sk_cost, dim=i % 2) for i in range(2 * FLOW_ITERS)], 1, 5))
-    slope, intercept, fixed = sinkhorn_slope(
-        lambda k: sk.sinkhorn_log_fused(sk_cost, FLOW_REG, k))
+    slope, intercept, fixed = device_slope(
+        lambda k: sk.sinkhorn_log_fused(sk_cost, FLOW_REG, k), SINKHORN_SLOPE_ITERS)
     print(f"timing: sinkhorn_log_fused {FLOW_BATCH}x{FLOW_BATCH} at tol 0, device ms per call at "
           f"{SINKHORN_SLOPE_ITERS} iterations {fixed}: {slope:.3f} us per iteration (slope), "
           f"{intercept:.2f} us per call besides (intercept); {FLOW_ITERS} iterations "
@@ -2504,11 +2664,11 @@ def phase_timing(ops, dev, card: str) -> dict:
     return times
 
 
-def count_syncs(fn) -> int:
+def sync_sites(fn) -> list:
     """The host's synchronising CUDA calls during ``fn()``, as
     ``torch.cuda.set_sync_debug_mode("warn")`` reports them (one warning
     each: a ``bool()``, ``float()``, ``int()``, ``.cpu()`` or ``.item()`` of a
-    device tensor)."""
+    device tensor), each as the ``file:line`` the warning names."""
     import warnings
 
     import torch
@@ -2521,17 +2681,25 @@ def count_syncs(fn) -> int:
             fn()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message).lower() for w in caught)
+    return [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message).lower()]
+
+
+def count_syncs(fn) -> int:
+    return len(sync_sites(fn))
 
 
 def phase_syncs(ops, dev, card: str) -> None:
-    """Host syncs per call of what the flow slice runs on the host's clock:
+    """Host syncs per call of what the flow and CD slices run on the host's
+    clock:
     the EqM train step through the Sinkhorn kernel (none expected: the
     coupling's draw and the kernel's gate stay on the device) and through the
     loop (at ``tol`` > 0 one per ``CHECK_EVERY`` iterations, where it reads
     its gate), the auction and the greedy
-    assignment on the flow batch's cost matrix (one per round), and a dopri5
-    generation (one per attempted step)."""
+    assignment on the flow batch's cost matrix (one per round), a dopri5
+    generation (one per attempted step), and the CD train step through the
+    neural kernel and on the loop, with the neural sampler's call alone
+    (none expected: its seed stays on the device)."""
     import torch
 
     from torchebm_tpu_torch.couplings import (
@@ -2571,12 +2739,41 @@ def phase_syncs(ops, dev, card: str) -> None:
     if steps["auto"] != 0:
         raise AssertionError(f"the EqM train step through the kernel syncs {steps['auto']} times")
 
+    # the CD train step (config 3) through the neural kernel and on the loop,
+    # and the sampler's call alone: its seed goes to the kernel as a device
+    # tensor, so the call does not sync
+    from torchebm_tpu_torch.samplers import LangevinDynamics
+
+    cd = {}
+    for fused in ("auto", "off"):
+        trainer, net, energy = _cd_trainer(dev, CD_STEP, CD_K, CD_LR, fused, seed=21)
+        gg = torch.Generator(dev).manual_seed(22)
+        batches = _cd_batches(dev, gg, 4, seed=21)
+        state = trainer.init_state(net, gg)
+        for b in batches[:3]:
+            trainer.train_step(state, b)
+        cd[fused] = sync_sites(lambda: trainer.train_step(state, batches[3]))
+    sampler = LangevinDynamics(energy, step_size=CD_STEP, fused_neural="auto")
+    x0 = torch.randn((CD_BATCH, 2), generator=g, device=dev)
+    before = ops.launch_counts()["mlp_langevin_chain"]
+    sample = sync_sites(lambda: sampler.sample(g, x=x0, n_steps=CD_K))
+    print(f"syncs: CD train step config 3: {len(cd['auto'])} through the neural kernel "
+          f"{cd['auto']}, {len(cd['off'])} on the loop {cd['off']}; "
+          f"LangevinDynamics(fused_neural='auto').sample {CD_BATCH}x{CD_K} steps through the "
+          f"kernel: {len(sample)} {sample} | {card}")
+    if ops.launch_counts()["mlp_langevin_chain"] != before + 1:
+        raise AssertionError("the sampler's call did not launch the neural chain kernel")
+    if sample:
+        raise AssertionError(f"the neural chain's sampler call syncs: {sample}")
+
 
 def bound_of(work: dict, clock_mhz: float):
     """``(bound_ms, bound_by)``: the larger of the bytes over the memory rate
-    and, per instruction class, the count over its rate at ``clock_mhz``."""
+    and, per instruction class, the count over its rate at ``clock_mhz`` (the
+    tensor cores' TF32 operations over TF32_OPS_PER_S)."""
     byte_ms = work["bytes"] / HBM_BYTES_PER_S * 1e3
-    op_ms = max(v / (RATE_PER_SM_CLOCK[k] * N_SMS * clock_mhz * 1e6) * 1e3
+    op_ms = max(v / (TF32_OPS_PER_S if k == "tf32" else
+                     RATE_PER_SM_CLOCK[k] * N_SMS * clock_mhz * 1e6) * 1e3
                 for k, v in work["ops"].items())
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
@@ -2755,6 +2952,7 @@ def main() -> None:
         return
 
     check_instances(phase_build(_build))
+    phase_sass(_build)
     errors: dict = {}
     phase_check(ops.fused_langevin, dev, errors)
     phase_check_metropolis(ops, dev, errors)
@@ -2773,7 +2971,8 @@ def main() -> None:
 
     clock = max_sm_clock_mhz()
     print(f"bound: {N_SMS} SMs at {clock:.0f} MHz (nvidia-smi clocks.max.sm), per-SM rates "
-          f"per clock {RATE_PER_SM_CLOCK}, memory {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+          f"per clock {RATE_PER_SM_CLOCK}, TF32 tensor cores {TF32_OPS_PER_S / 1e12:g} TFLOP/s, "
+          f"memory {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
     rows = []
     for name, (_, source, replaces) in KERNELS.items():
         t = times[name]

@@ -61,7 +61,7 @@ def test_every_kernel_has_work_counts(name):
     args, kw = calls[name]
     result = getattr(ops, name)(*args, **kw)
     work = _counts.work(name, args, kw, result)
-    assert set(work["ops"]) == {"fp32", "int32", "sfu"}
+    assert set(work["ops"]) == {"fp32", "int32", "sfu", "tf32"}
     assert work["ops"]["fp32"] > 0 and work["bytes"] > 0
     # every chain kernel draws Philox numbers on these calls; Sinkhorn draws none
     assert (work["ops"]["int32"] > 0) == (name != "sinkhorn_log_fused")
@@ -92,3 +92,19 @@ def test_sinkhorn_work_follows_the_iterations_run():
     per_iter = {k: (capped["ops"][k] - once["ops"][k]) / 6 for k in once["ops"]}
     assert per_iter["fp32"] > 0 and per_iter["sfu"] == 2 * 6 * 9 + 2 * (6 + 9)
     assert once["bytes"] == capped["bytes"]
+
+
+def test_neural_chain_counts_its_products_on_the_tensor_cores():
+    """MLP(128, 128) at d = 2: the 128 x 128 layer's products forward and
+    backward as three TF32 passes, the 2-input layer's on FP32 FMAs."""
+    g = torch.Generator().manual_seed(0)
+    layers = [(torch.randn(2, 128, generator=g), torch.zeros(128)),
+              (torch.randn(128, 128, generator=g), torch.zeros(128)),
+              (torch.randn(128, 1, generator=g), torch.zeros(1))]
+    x0 = torch.randn(4, 2, generator=g)
+    args = (x0, layers, 3, 0.01)
+    work = _counts.work("mlp_langevin_chain", args, {}, ops.mlp_langevin_chain(*args, seed=1))
+    per = 4 * 3
+    assert work["ops"]["tf32"] == per * 2 * 3 * 2 * 128 * 128
+    assert work["ops"]["fp32"] == per * (2 * 2 * 128 + 13 * 256 + 4 * 2 + 60)
+    assert work["ops"]["sfu"] == per * (2 * 256 + 12)

@@ -132,37 +132,181 @@ def test_width_and_depth_probes(widths, ok):
         assert tmlp.launch_plan(4096, widths) is not None
 
 
+#: (chains, widths, the plan on an H100): the CD path's 256 x 2, the smallest
+#: tile whose grid the card holds at once (one block of MLP(128, 128) per SM
+#: at any tile), the largest where none does, and (512, 512) streaming its
+#: weights
+PLAN_CASES = [
+    (256, (2, 128, 128), (8, 8, True)),
+    (1000, (2, 128, 128), (8, 8, True)),
+    (2048, (2, 128, 128), (16, 8, True)),
+    (4096, (2, 128, 128), (32, 8, True)),
+    (8192, (2, 128, 128), (32, 8, True)),
+    (100_000, (2, 128, 128), (32, 8, True)),
+    (1000, (32, 64, 64, 64), (8, 8, True)),
+    (512, (2, 512, 512), (8, 8, False)),
+    (8190, (2, 512, 512), (16, 8, False)),
+    # eight 512-wide layers: only 4 warps' chunks leave room at tile 8
+    (4096, (2,) + (512,) * 8, (8, 4, False)),
+]
+
+
 def test_launch_plan_keeps_weights_resident_and_fills_the_card():
-    """Planned for an H100 (a CPU state): 132 SMs, 227 KB per block."""
+    """Planned for an H100 (a CPU state): 132 SMs, 227 KB per block.
+    MLP(128, 128) keeps its weights in shared memory at every tile; at 4,096
+    chains tiles of 32 fill 128 of the 132 SMs in one wave, where tiles of 16
+    would take two."""
     assert tmlp._card_limits(torch.device("cpu")) == tmlp._H100_LIMITS == (232_448, 132)
-    # MLP(128, 128) at d = 2: 68.6 KB of weights stay in shared memory
-    assert tmlp.launch_plan(256, (2, 128, 128)) == (8, True)
-    assert tmlp.launch_plan(4096, (2, 128, 128)) == (8, True)
-    # the largest tile that still gives two blocks per SM
-    assert tmlp.launch_plan(8192, (2, 128, 128)) == (16, True)
-    assert tmlp.launch_plan(16_900, (2, 128, 128)) == (32, True)
-    assert tmlp.launch_plan(100_000, (2, 128, 128)) == (32, True)
-    # (512, 512): 1 MB of weights, streamed
-    assert tmlp.launch_plan(512, (2, 512, 512)) == (8, False)
-    assert tmlp.launch_plan(8190, (2, 512, 512)) == (16, False)
+    for n in (256, 4096, 100_000):
+        assert tmlp.launch_plan(n, (2, 128, 128)).resident
+    assert tmlp.launch_plan(4096, (2, 128, 128)).tile == 32
+    assert -(-4096 // 32) <= 132 < -(-4096 // 16)
 
 
-@pytest.mark.parametrize("widths, tile, resident", [
-    ((2, 128, 128), 8, True), ((2, 128, 128), 32, True), ((32, 64, 64, 64), 16, True),
-    ((2, 512, 512), 16, False),
+@pytest.mark.parametrize("n, widths, plan", PLAN_CASES)
+def test_launch_plan_picks_tile_warps_and_route(n, widths, plan):
+    got = tmlp.launch_plan(n, widths)
+    assert got == plan and (got.tile, got.warps, got.resident) == plan
+    assert 4 * tmlp._smem_layout(widths, *got).end <= 232_448
+
+
+@pytest.mark.parametrize("widths, setting, ok", [
+    ((2, 128, 128), (32, 8, True), True), ((2, 128, 128), (8, 8, True), True),
+    # (512, 512) streamed at tile 32: its activations alone pass 227 KB
+    ((2, 512, 512), (32, 8, False), False), ((2, 512, 512), (16, 8, False), True),
+    # (256, 256) resident: 512 KB of weights
+    ((2, 256, 256), (8, 8, True), False),
+    # eight 512-wide layers at tile 8: 8 warps' chunks do not fit, 4 warps' do
+    ((2,) + (512,) * 8, (8, 8, False), False), ((2,) + (512,) * 8, (8, 4, False), True),
 ])
-def test_smem_layout_places_each_region_after_the_last(widths, tile, resident):
-    """The plan handed to the kernel: the weights (all of them, or one chunk of
-    rows with the padded pitch), then the tile's state, gradient, every
-    layer's pre-activations and the widest activations."""
-    chunk, x, g, act, h, end = tmlp._smem_layout(widths, tile, resident)
+def test_fits_reads_the_shared_memory_plan(widths, setting, ok):
+    assert tmlp.fits(widths, setting) is ok
+    assert (4 * tmlp._smem_layout(widths, *setting).end <= 232_448) is ok
+
+
+def test_settings_are_what_the_plan_picks_from():
+    """8 warps at every tile and route; 4 warps only streamed."""
+    assert len(set(tmlp.SETTINGS)) == len(tmlp.SETTINGS) == 9
+    assert {(w, r) for _, w, r in tmlp.SETTINGS} == {(8, True), (8, False), (4, False)}
+    for n, widths, plan in PLAN_CASES:
+        assert tuple(tmlp.launch_plan(n, widths)) in tmlp.SETTINGS
+
+
+@pytest.mark.parametrize("widths, tile, warps, resident", [
+    ((2, 128, 128), 8, 8, True), ((2, 128, 128), 32, 4, True), ((32, 64, 64, 64), 16, 8, True),
+    ((2, 512, 512), 16, 8, False), ((10, 40, 24), 8, 4, True), ((3, 5, 7, 3), 32, 8, False),
+    ((9, 300), 8, 8, False), ((2, 128, 128), 16, 4, False), ((32, 64, 64, 64), 32, 8, True),
+])
+def test_smem_layout_places_each_region_after_the_last(widths, tile, warps, resident):
+    """The plan handed to the kernel: each staged weight (FMA layers as (H_p,
+    in); resident tensor-core layers as (H_p, in rounded up to 32) TF32 (hi,
+    lo) pairs; streamed ones not at all), the biases and w_out padded to 16
+    units, the state and gradient, the state as pairs for a tensor-core
+    first layer, every hidden layer's silu' but the last's, the operand
+    buffers of pairs, the normals drawn ahead and the streamed chunks, each
+    region 16-byte aligned."""
+    lay = tmlp._smem_layout(widths, tile, warps, resident)
     d, hidden = widths[0], widths[1:]
-    assert chunk == (0 if resident else tmlp._CHUNK_ROWS)
-    layers = [(torch.zeros(i, o), torch.zeros(o)) for i, o in zip(widths[:-1], widths[1:])]
-    packed = tmlp._pack(layers + [(torch.zeros(hidden[-1], 1), torch.zeros(1))]).numel()
-    assert x == (packed if resident else chunk * (max(hidden) + 1))
-    assert (g - x, act - g, h - act, end - h) == (tile * d, tile * d, tile * sum(hidden),
-                                                  tile * max(hidden))
+    hp = [-(-h // 16) * 16 for h in hidden]
+    off = 0
+    for din, p, w in zip(widths[:-1], hp, lay.w):
+        if din >= tmlp._MMA_MIN_K and not resident:
+            assert w == -1
+            continue
+        assert w == off
+        off += -(-(p * (din if din < tmlp._MMA_MIN_K else 2 * -(-din // 32) * 32)) // 4) * 4
+    assert lay.b == tuple(off + sum(hp[:i]) for i in range(len(hp)))
+    assert lay.out == off + sum(hp)
+    assert lay.x == lay.out + hp[-1]
+    assert lay.xp == -(-d // 16) * 16 + 4 and lay.ap == max(hp) + 4
+    assert lay.g - lay.x == tile * lay.xp
+    split_x = 2 * tile * lay.xp if d >= tmlp._MMA_MIN_K else 0
+    assert lay.xo == (lay.g + tile * lay.xp if split_x else -1)
+    assert lay.act - lay.g == tile * lay.xp + split_x
+    assert lay.op - lay.act == tile * lay.ap * (len(hidden) - 1)
+    assert lay.z - lay.op == 2 * tile * lay.ap * min(len(hidden), 2)
+    quads = -(-d // 4)
+    assert lay.z_steps == max(1, 32 * warps // (tile * quads))
+    assert lay.stage - lay.z == 4 * lay.z_steps * tile * quads
+    assert lay.end - lay.stage == (0 if resident else 2 * warps * 16 * 32)
+    regions = [w for w in lay.w if w >= 0] + list(lay.b) + [lay.out, lay.x, lay.g, lay.act,
+                                                             lay.op, lay.z, lay.stage, lay.end]
+    assert regions == sorted(regions) and all(r % 4 == 0 for r in regions)
+    # the pitches keep the B-fragment loads conflict-free: 4 times an odd number
+    assert (lay.xp // 4) % 2 == 1 and (lay.ap // 4) % 2 == 1
+    assert lay.as_ints() == (lay.out, lay.x, lay.g, lay.xo, lay.act, lay.op, lay.z, lay.stage,
+                             lay.end, lay.xp, lay.ap, lay.z_steps, *lay.w, *lay.b)
+
+
+def test_extract_gives_views_of_the_module_weights():
+    """The main path copies no weight: ``extract_mlp_layers`` hands out
+    views, and the wrapper's ``w.T.contiguous()`` is ``nn.Linear.weight``
+    itself."""
+    net = MLPEnergy(2, (128, 128))
+    layers = tmlp.extract_mlp_layers(net)
+    for (w, b), lin in zip(layers, net.layers):
+        assert w.data_ptr() == lin.weight.data_ptr() and b.data_ptr() == lin.bias.data_ptr()
+        assert w.T.contiguous().data_ptr() == lin.weight.data_ptr()
+
+
+@pytest.mark.parametrize("hidden, d", [((16,), 2), ((32, 16), 3), ((8, 8, 8), 10)])
+def test_plain_takes_both_weight_layouts(hidden, d):
+    """The JAX layout's ``(in, out)`` arrays and ``extract_mlp_layers``' views
+    of the converted module give the same chain."""
+    params, layers, x0, noise = _flax_case(hidden, d, 12, 5, seed=3)
+    views = tmlp.extract_mlp_layers(mlp_energy_from_flax(params))
+    arrays = _torch_layers(layers)
+    assert not arrays[0][0].T.is_contiguous() and views[0][0].T.is_contiguous()
+    kw = dict(noise=torch.tensor(noise))
+    got = tops.mlp_langevin_chain(torch.tensor(x0), views, 5, 0.02, 0.9, **kw)
+    want = tops.mlp_langevin_chain(torch.tensor(x0), arrays, 5, 0.02, 0.9, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    seeded = [tops.mlp_langevin_chain(torch.tensor(x0), ls, 5, 0.02, 0.9, seed=11)
+              for ls in (views, arrays)]
+    torch.testing.assert_close(seeded[0], seeded[1], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 12345, 2**40 + 5])
+def test_seed_as_int_or_tensor_gives_one_stream(seed):
+    """A 0-d int64 tensor seed (the sampler's draw, read by the kernel on the
+    device) keys the same Philox stream as the int."""
+    _, layers, x0, _ = _flax_case((16,), 2, 9, 3, seed=4)
+    tl, x = _torch_layers(layers), torch.tensor(x0)
+    as_int = tops.mlp_langevin_chain(x, tl, 3, 0.02, 1.0, seed=seed)
+    as_tensor = tops.mlp_langevin_chain(x, tl, 3, 0.02, 1.0, seed=torch.tensor(seed))
+    assert torch.equal(as_int, as_tensor)
+    plain = tmlp.mlp_langevin_chain_plain(x, tl, 3, 0.02, 1.0, seed=torch.tensor(seed))
+    assert torch.equal(as_int, plain)
+
+
+def test_seed_tensor_checks():
+    x = torch.zeros(4, 2)
+    layers = [(torch.zeros(2, 8), torch.zeros(8)), (torch.zeros(8, 1), torch.zeros(1))]
+    for bad in (torch.tensor(3, dtype=torch.int32), torch.tensor([3]), torch.tensor(-1)):
+        with pytest.raises(ValueError, match="seed"):
+            tops.mlp_langevin_chain(x, layers, 3, 0.01, seed=bad)
+
+
+def test_sampler_draws_the_kernel_seed_as_a_tensor(monkeypatch):
+    """The neural branch hands the kernel the generator's draw as a tensor,
+    the same draw ``_kernel_seed`` reads on the host."""
+    from torchebm_tpu_torch.samplers import base as sbase
+
+    energy = _energy()
+    seeds = []
+    real = tmlp.mlp_langevin_chain
+
+    def spy(*args, **kwargs):
+        seeds.append(kwargs["seed"])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tmlp, "mlp_langevin_chain", spy)
+    x0 = torch.randn(16, 2, generator=torch.Generator().manual_seed(1))
+    ts.LangevinDynamics(energy, step_size=0.01, fused_neural="force").sample(
+        torch.Generator().manual_seed(5), x=x0, n_steps=3)
+    (seed,) = seeds
+    assert isinstance(seed, torch.Tensor) and seed.dtype == torch.int64 and seed.ndim == 0
+    assert int(seed) == sbase._kernel_seed(torch.Generator().manual_seed(5))
 
 
 def test_wrapper_argument_checks():

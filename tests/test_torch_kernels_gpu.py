@@ -467,11 +467,11 @@ def _mlp_layers(rng, widths):
 
 
 #: (n chains, widths (d, H_1, ...), clamp): the CD path's 256 x 2 on MLP(128,
-#: 128) and 4,096 chains (resident weights, tile 8), d = 32 with three hidden
-#: layers, a ragged last tile, (512, 512), whose weights stream through shared
-#: memory; and the larger tiles the plan picks once the grid fills the card:
-#: 8,192 chains (tile 16, resident), 16,900 (tile 32, resident, a last tile of
-#: 4) and 8,190 on (512, 512) (tile 16, streamed, a last tile of 14)
+#: 128) and 4,096 chains, d = 32 with three hidden layers (a tensor-core
+#: first layer), a ragged last tile, (512, 512), whose weights stream through
+#: shared memory; and the larger tiles the plan picks once the grid fills the
+#: card: 8,192 chains, 16,900 (a last tile of 4) and 8,190 on (512, 512) (a
+#: last tile of 14); ragged widths and a narrow layer between wide ones
 MLP_CASES = [
     (256, (2, 128, 128), None),
     (4096, (2, 128, 128), None),
@@ -481,23 +481,29 @@ MLP_CASES = [
     (8192, (2, 128, 128), None),
     (16_900, (2, 128, 128), None),
     (8190, (2, 512, 512), None),
+    (100, (10, 40, 24), None),
+    (40, (2, 4, 130, 2), None),
 ]
 MLP_IDS = ["256x2", "4096x2", "1000x32-3layers", "37x2-clamp", "512x2-wide", "8192x2-tile16",
-           "16900x2-tile32", "8190x2-wide-tile16"]
+           "16900x2-tile32", "8190x2-wide-tile16", "100x10-ragged", "40x2-narrow"]
+#: every launch setting (tile, warps, resident weights) the kernel is built for
+MLP_SETTINGS = list(tmlp.SETTINGS)
 
 
 @pytest.mark.gpu
 def test_mlp_cases_cover_every_tile_and_route(cuda):
     plans = {tmlp.launch_plan(n, widths, cuda) for n, widths, _ in MLP_CASES}
-    assert {t for t, _ in plans} == {8, 16, 32}
-    assert {r for _, r in plans} == {True, False}
-    assert (16, False) in plans
+    assert {p.tile for p in plans} == {8, 16, 32}
+    assert {p.resident for p in plans} == {True, False}
+    assert (16, 8, False) in plans
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("inject", [True, False], ids=["noise", "philox"])
 @pytest.mark.parametrize("n, widths, clamp", MLP_CASES, ids=MLP_IDS)
 def test_mlp_kernel_matches_plain_on_card(cuda, inject, n, widths, clamp):
+    """Through the public wrapper (the plan's pick), on weights of the JAX
+    layout ``(in, out)``, which the wrapper copies."""
     rng = _rng(7)
     n_steps = 10
     x0 = torch.from_numpy(_normal(rng, n, widths[0])).to(cuda)
@@ -509,6 +515,29 @@ def test_mlp_kernel_matches_plain_on_card(cuda, inject, n, widths, clamp):
     got = tmlp.mlp_langevin_chain(x0, layers, n_steps, 0.01, 1.0, **kw)
     assert tmlp.mlp_langevin_chain.launches == before + 1
     want = tmlp.mlp_langevin_chain_plain(x0, layers, n_steps, 0.01, 1.0, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("setting", MLP_SETTINGS, ids=lambda s: "t{}-w{}-{}".format(
+    s[0], s[1], "resident" if s[2] else "streamed"))
+@pytest.mark.parametrize("n, widths", [(300, (2, 128, 128)), (77, (9, 64, 40))],
+                         ids=["300x2", "77x9"])
+def test_mlp_kernel_matches_plain_at_every_setting(cuda, setting, n, widths):
+    """Each launch setting on ``extract_mlp_layers``' views of an MLPEnergy
+    (the kernel reads ``nn.Linear``'s weights in place) with the sampler's
+    device seed, against the plain version keyed by the same int."""
+    from torchebm_tpu_torch.models import MLPEnergy
+
+    torch.manual_seed(3)
+    net = MLPEnergy(widths[0], widths[1:]).to(cuda)
+    layers = tmlp.extract_mlp_layers(net)
+    x0 = torch.from_numpy(_normal(_rng(8), n, widths[0])).to(cuda)
+    plan = tmlp.MlpPlan(*setting)
+    got = tmlp._launch(x0, layers, list(widths), 10, 0.01, 1.0, torch.tensor(31, device=cuda),
+                       None, None, plan)
+    want = tmlp.mlp_langevin_chain_plain(x0, layers, 10, 0.01, 1.0, seed=31)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 

@@ -8,7 +8,10 @@ elements), and are an approximation (shared-memory loads, the neural
 chain's main other instruction, are not counted): the compiler's own instruction mix is
 not read. Classes: ``"fp32"`` adds, multiplies, FMAs, min/max and compares;
 ``"int32"`` Philox's multiplies, xors and key adds; ``"sfu"`` ex2, lg2, rsq,
-rcp, sin, cos and int-to-float conversions.
+rcp, sin, cos and int-to-float conversions; ``"tf32"`` floating-point
+operations (two per multiply-add) on the tensor cores, at the card's dense
+TF32 rate: the neural chain's products, counted as its three 3xTF32 passes
+(``hi.hi + hi.lo + lo.hi``), whose splits into hi and lo are not counted.
 
 The counts are the algorithm's work, not what a design adds to it. The
 mixture, MALA, HMC and ladder chains (``mixture_langevin*``,
@@ -39,7 +42,7 @@ COUNTED_SOURCES = {
     "fused_hmc.cu": "72f93febded56462",
     "fused_langevin.cu": "ed1abd8c6f146eb2",
     "fused_mala.cu": "cc395518a0c9ea11",
-    "fused_mlp_langevin.cu": "1c9df0ffe632ed07",
+    "fused_mlp_langevin.cu": "a66a000976234979",
     "fused_pt.cu": "cc295bb989eccc55",
     "fused_sinkhorn.cu": "dcc7fb5e563b09c8",
     "fused_step.cu": "45698a16da6ceaad",
@@ -54,7 +57,7 @@ _UNIFORM = {"int32": 84, "fp32": 2, "sfu": 1}
 
 
 def _add(*parts, times=1) -> dict:
-    total = {"fp32": 0.0, "int32": 0.0, "sfu": 0.0}
+    total = {"fp32": 0.0, "int32": 0.0, "sfu": 0.0, "tf32": 0.0}
     for p in parts:
         for k, v in p.items():
             total[k] += v * times
@@ -134,13 +137,19 @@ def work(name: str, args, kw, result) -> dict:
         x0, layers, n_steps = args[:3]
         n, d = x0.shape
         widths = [d] + [w.shape[1] for w, _ in layers[:-1]]
-        fmas = sum(i * o for i, o in zip(widths[:-1], widths[1:]))
+        pairs = list(zip(widths[:-1], widths[1:]))
+        # forward and backward products: a layer of 8 or more inputs on the
+        # tensor cores (2 operations per multiply-add, 3 passes), a narrower
+        # one (the first at d = 2) on FP32 FMAs
+        tensor = sum(2 * 3 * 2 * i * o for i, o in pairs if i >= 8)
+        fmas = sum(2 * i * o for i, o in pairs if i < 8)
         hidden = sum(widths[1:])
-        # forward and backward FMAs; per hidden unit the sigmoid (expf's range
-        # reduction, 1 + e, the reciprocal's refinement: ex2 and rcp on the
-        # SFU), silu and silu', the delta product and the next delta's scale;
-        # per coordinate the update and the clamp
-        per = _add(normals(d), {"fp32": 2 * fmas + 13 * hidden + 4 * d, "sfu": 2 * hidden})
+        # per hidden unit the sigmoid (expf's range reduction, 1 + e, the
+        # reciprocal's refinement: ex2 and rcp on the SFU), silu and silu', the
+        # delta product and the next delta's scale; per coordinate the update
+        # and the clamp
+        per = _add(normals(d), {"fp32": fmas + 13 * hidden + 4 * d, "sfu": 2 * hidden,
+                                "tf32": tensor})
         ops = _add(per, times=n * n_steps)
         moved += nbytes([t for pair in layers for t in pair])
     elif name == "fused_langevin_step":  # fused_step.cu, per quad of elements

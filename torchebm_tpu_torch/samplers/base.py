@@ -103,9 +103,16 @@ def _metropolis_target(sampler, device: torch.device, return_diagnostics: bool, 
     )
 
 
+def _kernel_seed_tensor(generator: torch.Generator) -> Tensor:
+    """The Philox seed of a whole-chain kernel, drawn from ``generator``: a
+    0-d int64 tensor on the generator's device, which a kernel that takes a
+    device seed reads there (no host sync)."""
+    return torch.randint(0, 2**63 - 1, (), generator=generator, device=generator.device)
+
+
 def _kernel_seed(generator: torch.Generator) -> int:
-    """The Philox seed of a whole-chain kernel, drawn from ``generator``."""
-    return int(torch.randint(0, 2**63 - 1, (), generator=generator, device=generator.device))
+    """:func:`_kernel_seed_tensor`'s draw, read on the host."""
+    return int(_kernel_seed_tensor(generator))
 
 
 def _sample_impl(

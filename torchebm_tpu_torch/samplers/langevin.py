@@ -46,6 +46,7 @@ from .base import (
     _concrete_scalar,
     _gaussian_target,
     _kernel_seed,
+    _kernel_seed_tensor,
     _sample_impl,
 )
 
@@ -330,7 +331,8 @@ class LangevinDynamics(BaseSampler):
 
                 return mlp_langevin_chain(
                     x0.contiguous(), layers, int(n_steps), float(self.step_size),
-                    float(self.noise_scale), seed=_kernel_seed(generator), clamp=self.clamp,
+                    float(self.noise_scale), seed=_kernel_seed_tensor(generator),
+                    clamp=self.clamp,
                 )
             # unsupported state, widths or depth: the loop takes the call
         row = self._dispatch_row(generator.device, model_kwargs)
