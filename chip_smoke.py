@@ -10,7 +10,9 @@ path's gated call) and row 13 (the neural chain at the CD path's 256 x 2 and
 at 4,096 x 2), through the public wrappers, against whichever package is
 imported:
 ``PYTHONPATH=<checkout> python3 -P chip_smoke.py --ess-shape`` times an
-earlier checkout's kernels on the same card.)
+earlier checkout's kernels on the same card. ``--ais-shape`` does the same
+for row 12 at its main shapes; ``--ais`` runs only the build and row 12's
+checks, timings, plan sweep and sync count.)
 
 Phases, each printing its lines; any failure raises and the exit code is
 not 0:
@@ -19,8 +21,8 @@ not 0:
 2. build: the CUDA kernels compiled from ``torchebm_tpu_torch/ops/csrc``
    (one ``nvcc`` per source, in parallel) into a clean
    ``build/torch_kernels/``, with each kernel instance's registers and spills
-   (an HMC, MALA or ladder instance of the d <= 2 bucket, the main paths',
-   and any neural chain instance must not spill), and the neural chain's
+   (an HMC, MALA, ladder or AIS instance of the d <= 2 bucket, the main
+   paths', and any neural chain instance must not spill), and the neural chain's
    SASS (``cuobjdump -sass``): every instance must hold TF32 ``HMMA``
    instructions;
 3. check: every kernel against its plain PyTorch version on the card, on
@@ -38,9 +40,12 @@ not 0:
    mass); the ladder and its trajectory twin at every group of lanes per
    replica they are built for (the ring from its modes at R = 3, 4 and 8,
    1,001 chains, a d=16 mixture and a d=16 Gaussian; Philox and injected;
-   final ladder, trajectory and acceptance); AIS at the main path's
-   shapes (the ring from its modes at 16,384 chains, the two Gaussians at
-   65,536, a 201-entry beta table); the one-step op at 4,096 x 32 and 16M
+   final ladder, trajectory and acceptance); AIS at every group of lanes
+   per chain it is built for, at the main path's shapes (the ring from its
+   modes at 16,384 chains with 1 and 2 transitions per rung, the two
+   Gaussians at 65,536, a 201-entry beta table), at 1,001 chains, a d=16
+   mixture, a d=16 and a d=32 Gaussian (Philox with a device seed, and
+   injected); the one-step op at 4,096 x 32 and 16M
    elements; the neural (SiLU-MLP) chain at the CD path's 256 x 2 on
    MLP(128, 128), at 4,096 x 2, at d=32 with three hidden layers, with a
    clamp, at hidden (512, 512) and (256, 256) (weights streamed), at ragged
@@ -123,7 +128,10 @@ not 0:
    each group of lanes per replica and row 10 at each block size, the PT
    plan sweep (34 shapes of ladders, rings, mixtures, Gaussians, chain
    counts and swap intervals), PT per ladder step, AIS per
-   rung, the one-step op in GB/s beside ``torch.add`` (device time per call
+   rung, row 12 at each group of lanes per chain at its main shapes, its
+   per-rung slope over 50, 200 and 1,000 rungs and its plan sweep (45
+   shapes of rings, mixtures, Gaussians, chain counts, rung counts and
+   transitions per rung), the one-step op in GB/s beside ``torch.add`` (device time per call
    in batches queued behind a spin, and per call with the host's launch
    work), the neural chain also at
    4,096 chains (its per-step slope and intercept over 1, 10 and 40 steps
@@ -141,13 +149,15 @@ not 0:
    wall time, device busy time (``torch.profiler``) and idle share
    of the CD and EqM train steps, the flow generation, the sampler paths,
    the HMC warmup and ``summarize_chains`` (the kernel paths first, each of
-   which must record device events); for the headline Langevin call also
-   its host operations with the most self CPU time;
+   which must record device events); for the headline Langevin call and
+   the AIS kernel path also their host operations with the most self CPU
+   time;
 7. syncs: the host's synchronising calls per EqM train step (none through
    the Sinkhorn kernel), per auction and greedy assignment, per dopri5
    generation, and per CD train step through the neural kernel and on the
-   loop, with where each comes from, and none in the neural sampler's call
-   (its seed stays on the device) (``torch.cuda.set_sync_debug_mode``);
+   loop, with where each comes from, none in the neural sampler's call
+   (its seed stays on the device) and none in the AIS call on each of its
+   targets after a warm-up call (``torch.cuda.set_sync_debug_mode``);
 8. bound: for each kernel the least time the card could take for the timed
    call: the larger of its bytes (inputs read once, outputs written once)
    over 3.35 TB/s and, per instruction class counted from the CUDA source
@@ -270,6 +280,8 @@ AIS_CHAINS, AIS_RUNGS, AIS_BASE_VAR = 16_384, 200, 9.0
 #: these targets, read from six seeds of the plain version on a CPU) halves,
 #: so a 0.02 gate sits at 5 sigma
 AIS_GAUSS_CHAINS = 4 * AIS_CHAINS
+#: row 12's timing: the rung counts of the ring's per-rung slope
+AIS_SLOPE_RUNGS = (50, 200, 1000)
 #: the one-step op at 16M elements (64 MB per tensor), where it is bound by memory
 STEP_ELEMS = 1 << 24
 #: the step op's timing: (warm-up, readings, calls per reading), each reading
@@ -462,12 +474,12 @@ def phase_build(build_mod) -> dict:
 
 
 def check_instances(instances: dict) -> None:
-    """The HMC, MALA and ladder instances of the d <= 2 bucket, the main
-    paths' among them (the ring's and the ESS protocol's correlated
-    Gaussian's, chain and trajectory, at every group), and no neural chain
-    instance may spill; every instance's registers and spills are printed
-    with the build."""
-    for kernel in ("hmc_chain_kernel", "mala_chain_kernel", "pt_chain_kernel"):
+    """The HMC, MALA, ladder and AIS instances of the d <= 2 bucket, the
+    main paths' among them (the ring's and the ESS protocol's correlated
+    Gaussian's, chain and trajectory, and the AIS path's Gaussians, at every
+    group), and no neural chain instance may spill; every instance's
+    registers and spills are printed with the build."""
+    for kernel in ("hmc_chain_kernel", "mala_chain_kernel", "pt_chain_kernel", "ais_kernel"):
         bucket2 = {name: v for name, v in instances.items()
                    if name.startswith(f"{kernel}<2,")}
         spilled = {name: v[1] for name, v in instances.items()
@@ -917,19 +929,13 @@ def phase_check_groups(ops, dev, errors: dict) -> None:
 def phase_check_tempering(ops, dev, errors: dict) -> None:
     """The parallel-tempering and AIS kernels against their plain versions
     (flip rule in the module docstring). The ring checks start at exact
-    draws of the ring: PT at noise scale 0.5, so that even the hottest
-    replica (T = 4.1, effective temperature about 1) stays in its mode, and
-    AIS at step 0.005 (at 0.01 the chains that the weak early-rung target
-    lets reach a saddle grew rounding to 9.7e-5 over 50 rungs). AIS runs at
-    the main path's shapes, with the arguments the sampler passes: the ring
-    at AIS_CHAINS chains, the full-covariance (``precision=``) and the
-    isotropic Gaussian (a one-component mixture) at AIS_GAUSS_CHAINS from
-    draws of the base, where they contract everywhere, all with the
-    AIS_RUNGS + 1 entry beta table; the d=32 Gaussians at N_CHAINS."""
+    draws of the ring, PT at noise scale 0.5, so that even the hottest
+    replica (T = 4.1, effective temperature about 1) stays in its mode; the
+    ladders at every group (:func:`_check_pt_groups`), AIS at every group
+    (:func:`_check_ais_groups`)."""
     import torch
 
     from torchebm_tpu_torch.core import GaussianMixtureEnergy
-    from torchebm_tpu_torch.samplers.ais import _fused_target_kwargs
 
     g = torch.Generator(dev).manual_seed(2468)
 
@@ -946,13 +952,6 @@ def phase_check_tempering(ops, dev, errors: dict) -> None:
     mean32 = randn(1, d)
     ring = mix.sample(g, n_rep * n).view(n_rep, n, 2)
     ladder32 = (mean32 + randn(n_rep, n, d, scale=0.7)).contiguous()
-    zero2 = torch.zeros(2, device=dev)
-    ais_betas = torch.linspace(0.0, 1.0, AIS_RUNGS + 1, device=dev)
-
-    def ais_target(target):
-        """The kernel's ``means`` and keywords, as the sampler passes them."""
-        kw = _fused_target_kwargs(target)
-        return kw.pop("means"), kw
 
     for label, inject in (("injected", True), ("philox", False)):
         def pt_rand(dim, seed):
@@ -960,12 +959,6 @@ def phase_check_tempering(ops, dev, errors: dict) -> None:
                 return dict(seed=seed)
             return dict(noise=randn(steps, n_rep, n, dim), swap_uniform=torch.rand(
                 (steps // PT_SWAP_EVERY, n_rep - 1, n), generator=g, device=dev))
-
-        def ais_rand(n_ais, dim, seed, n_tr=1):
-            if not inject:
-                return dict(seed=seed)
-            return dict(noise=randn(AIS_RUNGS * n_tr, n_ais, dim), uniforms=torch.rand(
-                (AIS_RUNGS * n_tr, n_ais), generator=g, device=dev))
 
         for traj in (False, True):
             name = "pt_langevin_chain" + ("_trajectory" if traj else "")
@@ -980,24 +973,8 @@ def phase_check_tempering(ops, dev, errors: dict) -> None:
             _check_flips(ops, name, (ladder32, mean32, steps, 0.02, 1.0, betas, PT_SWAP_EVERY),
                          dict(**gauss_kw, **tkw, **pt_rand(d, 43)), f"d=32 full cov R=4, {label}",
                          errors, n)
-        for target_name, (target, n_ais) in _ais_targets(dev).items():
-            ring_target = isinstance(target, GaussianMixtureEnergy)
-            x0 = (target.sample(g, n_ais) if ring_target
-                  else AIS_BASE_VAR ** 0.5 * randn(n_ais, 2))
-            step = 0.005 if ring_target else 0.05
-            means, target_kw = ais_target(target)
-            for n_tr in ((1, 2) if ring_target else (1,)):
-                _check_flips(ops, "mixture_ais_run",
-                             (x0, zero2, AIS_BASE_VAR ** 0.5, means, ais_betas, step),
-                             dict(n_transitions=n_tr, **ais_rand(n_ais, 2, 44, n_tr),
-                                  **target_kw),
-                             f"{target_name} {n_ais}x{AIS_RUNGS} rungs, step {step}, {n_tr} "
-                             f"transitions, {label}", errors, n_ais)
-        _check_flips(ops, "mixture_ais_run",
-                     (ladder32[0], mean32[0], 2.0, mean32, ais_betas, 0.02),
-                     dict(**gauss_kw, **ais_rand(n, d, 47)),
-                     f"d=32 full cov {n}x{AIS_RUNGS} rungs, {label}", errors, n)
     _check_pt_groups(ops, dev, errors)
+    _check_ais_groups(ops, dev, errors)
 
 
 def _check_pt_groups(ops, dev, errors: dict) -> None:
@@ -1075,6 +1052,109 @@ def _check_pt_groups(ops, dev, errors: dict) -> None:
                     if not err <= TOL or n_flipped > n_c // 1000:
                         raise AssertionError(f"{what} disagrees with its plain version")
     print(f"check: {n_checks} group checks of rows 10-11 within the flip rule")
+
+
+def _ais_kernel_target(target) -> tuple:
+    """The AIS kernel's ``means`` and target keywords for ``target``, as the
+    sampler passes them (``_fused_target_kwargs``)."""
+    from torchebm_tpu_torch.samplers.ais import _fused_target_kwargs
+
+    kw = _fused_target_kwargs(target)
+    return kw.pop("means"), kw
+
+
+def _check_ais_groups(ops, dev, errors: dict) -> None:
+    """Row 12 at every group of lanes per chain its kernel is built for
+    (``fused_ais.ais_groups``) against its plain version (flip rule in the
+    module docstring), with the AIS_RUNGS + 1 entry beta table and the base
+    N(0, AIS_BASE_VAR I): the ring (the sampler's arguments) from its modes
+    at AIS_CHAINS chains at step 0.005 (at 0.01 the chains that the weak
+    early-rung target lets reach a saddle grew rounding to 9.7e-5 over 50
+    rungs) with 1 and 2 transitions per rung, and its first 1,001 chains
+    (groups past the last chain in a partial last warp); the full-covariance
+    (``precision=``) and the isotropic Gaussian (a one-component mixture) at
+    AIS_GAUSS_CHAINS from draws of the base, where they contract everywhere;
+    an 8-component mixture at d=16 from its modes and a d=16
+    full-covariance Gaussian at N_CHAINS (four Philox blocks per transition,
+    drawn by the lanes); the d=32 full-covariance Gaussian (one lane, its
+    own base). Each with Philox (the seed a device tensor; an int at d=32)
+    and injected randomness; the plan's group through the public wrapper
+    and its launch count, every other through ``fused_ais._run``."""
+    import torch
+
+    fa = ops.fused_ais
+    g = torch.Generator(dev).manual_seed(2469)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g, device=dev)
+
+    betas = torch.linspace(0.0, 1.0, AIS_RUNGS + 1, device=dev)
+    s0 = AIS_BASE_VAR ** 0.5
+    zero2, zero16 = torch.zeros(2, device=dev), torch.zeros(16, device=dev)
+    targets = _ais_targets(dev)
+    ring, n_ring = targets["8gauss ring"]
+    x_ring = ring.sample(g, n_ring)
+    ring_means, ring_kw = _ais_kernel_target(ring)
+    # (label, x0, base mean, base scale, means, step, keywords)
+    cases = [(f"8gauss ring {n_ring} chains, {n_tr} transitions", x_ring, zero2, s0, ring_means,
+              0.005, dict(ring_kw, n_transitions=n_tr)) for n_tr in (1, 2)]
+    cases.append(("8gauss ring 1001 chains", x_ring[:1001].contiguous(), zero2, s0, ring_means,
+                  0.005, ring_kw))
+    for name in ("full-cov Gaussian", "isotropic Gaussian"):
+        target, n_g = targets[name]
+        means, kw = _ais_kernel_target(target)
+        cases.append((f"{name} {n_g} chains", randn(n_g, 2, scale=s0), zero2, s0, means, 0.05,
+                      kw))
+    means16 = randn(8, 16, scale=2.0)
+    x16 = (means16[torch.randint(0, 8, (N_CHAINS,), generator=g, device=dev)]
+           + randn(N_CHAINS, 16, scale=0.4)).contiguous()
+    cases.append((f"d=16 K=8 {N_CHAINS} chains", x16, zero16, s0, means16, 0.005,
+                  dict(scale=0.4)))
+    a16 = randn(16, 16, scale=0.1)
+    cases.append((f"Gaussian d=16 {N_CHAINS} chains", randn(N_CHAINS, 16, scale=s0), zero16, s0,
+                  torch.zeros((1, 16), device=dev), 0.05,
+                  dict(precision=(a16 @ a16.T + torch.eye(16, device=dev)).contiguous(),
+                       log_norm_t=0.0)))
+    a32 = randn(32, 32, scale=0.1)
+    mean32 = randn(1, 32)
+    cases.append((f"d=32 full cov {N_CHAINS} chains", (mean32 + randn(N_CHAINS, 32, scale=0.7)),
+                  mean32[0], 2.0, mean32, 0.02,
+                  dict(precision=(a32 @ a32.T + torch.eye(32, device=dev)).contiguous())))
+    n_checks = 0
+    for label, x0, mu0, scale0, means, step, kw in cases:
+        n, d = x0.shape
+        k, gaussian = means.shape[0], kw.get("precision") is not None
+        n_tr = kw.get("n_transitions", 1)
+        pick = fa.ais_launch_plan(n, d, k, gaussian)[0]
+        args = (x0, mu0, scale0, means, betas, step)
+        for inject in (True, False):
+            if inject:
+                rand = dict(noise=randn(AIS_RUNGS * n_tr, n, d), uniforms=torch.rand(
+                    (AIS_RUNGS * n_tr, n), generator=g, device=dev))
+            else:
+                rand = dict(seed=47 if d == 32 else torch.tensor(44, device=dev))
+            want = fa.mixture_ais_run_plain(*args, **kw, **rand)
+            for group in fa.ais_groups(d, k, gaussian):
+                if group == pick:
+                    before = fa.mixture_ais_run.launches
+                    got = fa.mixture_ais_run(*args, **kw, **rand)
+                    launched = fa.mixture_ais_run.launches == before + 1
+                else:
+                    *got, launched = fa._run(*args, **kw, **rand, group=group)
+                torch.cuda.synchronize()
+                what = (f"mixture_ais_run [{label}, {AIS_RUNGS} rungs, step {step}, G={group}"
+                        f"{' (the plan)' if group == pick else ''}, "
+                        f"{'injected' if inject else 'philox'}]")
+                n_flipped, err, _ = _flips(tuple(got), want, n, what)
+                errors["mixture_ais_run"] = max(errors.get("mixture_ais_run", 0.0), err)
+                n_checks += 1
+                print(f"check: {what} max|kernel - plain| = {err:.3e} over the "
+                      f"{n - n_flipped} chains that agree (tol {TOL:g}); flipped chains "
+                      f"{n_flipped} (at most {n // 1000}); mean acceptance "
+                      f"{float(want[-1].mean()):.4f}")
+                if not launched or not err <= TOL or n_flipped > n // 1000:
+                    raise AssertionError(f"{what} disagrees with its plain version")
+    print(f"check: {n_checks} group checks of row 12 within the flip rule")
 
 
 def _ais_targets(dev) -> dict:
@@ -2060,14 +2140,16 @@ def _pt_sweep_cases(fp, dev) -> list:
 
 
 def plan_sweep(family: str, module, dev, card: str, ess: list) -> None:
-    """The shapes the launch plan of ``family`` ("mala", "hmc" or "pt") is
-    read from (:func:`_chain_sweep_cases`, :func:`_pt_sweep_cases`): the
+    """The shapes the launch plan of ``family`` ("mala", "hmc", "pt" or
+    "ais") is read from (:func:`_chain_sweep_cases`, :func:`_pt_sweep_cases`,
+    :func:`_ais_sweep_cases`): the
     kernel's device time per call (:func:`device_ms`) at every group of lanes
     (per chain, or per replica) it is built for, with the fastest group and
     the plan's pick, and a count of the shapes where the pick is fastest."""
     groups = getattr(module, f"{family}_groups")
     plan = getattr(module, f"{family}_launch_plan")
     cases = (_pt_sweep_cases(module, dev) if family == "pt"
+             else _ais_sweep_cases(module, dev) if family == "ais"
              else _chain_sweep_cases(family, module, dev, ess))
     at_pick = 0
     for label, run, shape in cases:
@@ -2097,6 +2179,141 @@ def pt_main_shape(dev):
                          generator=torch.Generator(dev).manual_seed(5), device=dev)
     return ((ladder, mix.means, N_STEPS, 0.05, 1.0, tuple(1.0 / t for t in PT_TEMPS),
              PT_SWAP_EVERY), dict(scale=float(mix.scale), log_weights=mix.log_weights, seed=21))
+
+
+def ais_main_shapes(dev) -> list:
+    """Row 12's main shapes, the AIS path's (``headline.py:223-289``):
+    ``[(label, args, keywords, (n, d, K, gaussian))]`` of the public wrapper
+    on the ring at AIS_CHAINS chains and the full-covariance and isotropic
+    Gaussians at AIS_GAUSS_CHAINS, from draws of the base N(0, AIS_BASE_VAR
+    I), AIS_RUNGS rungs at step 0.05, Philox seed 21, the target arguments
+    the sampler passes (written out, so that an earlier revision takes them
+    too)."""
+    import torch
+
+    g = torch.Generator(dev).manual_seed(61)
+    s0 = AIS_BASE_VAR ** 0.5
+    betas = torch.linspace(0.0, 1.0, AIS_RUNGS + 1, device=dev)
+    shapes = []
+    for name, (target, n) in _ais_targets(dev).items():
+        if name == "8gauss ring":
+            means = target.means
+            kw = dict(scale=float(target.scale), log_weights=target.log_weights)
+        elif name == "full-cov Gaussian":
+            means, kw = target.mean[None, :], dict(precision=target.cov_inv.contiguous(),
+                                                   log_norm_t=0.0)
+        else:
+            means = target.mean[None, :]
+            kw = dict(scale=float(target.cov[0, 0]) ** 0.5, log_norm_t=0.0)
+        x0 = s0 * torch.randn((n, 2), generator=g, device=dev)
+        shapes.append((f"{name} {n}x{AIS_RUNGS} rungs",
+                       (x0, torch.zeros(2, device=dev), s0, means, betas, 0.05),
+                       dict(kw, seed=21), (n, 2, means.shape[0], "precision" in kw)))
+    return shapes
+
+
+def ais_ab(ops, dev, card: str) -> None:
+    """``chip_smoke.py --ais-shape``: row 12 through the public wrapper at
+    its main shapes (:func:`ais_main_shapes`), per call and by device time
+    per call, against whichever package is imported, so that an earlier
+    checkout can be timed beside this one on the same card."""
+    for label, args, kw, _ in ais_main_shapes(dev):
+        run = functools.partial(ops.fused_ais.mixture_ais_run, *args, **kw)
+        ms = statistics.median(cuda_times(run, 2, 10))
+        print(f"ais-shape: mixture_ais_run (package {ops.__file__}, {label}): {ms:.4f} ms per "
+              f"call, device {device_ms(run):.4f} ms | {card}", flush=True)
+
+
+def ais_group_timing(ops, dev, card: str, clock: float) -> None:
+    """Row 12 at its main shapes (:func:`ais_main_shapes`) at each group of
+    lanes per chain its kernel is built for, per call and by device time per
+    call, beside the bound; the ring's per-rung slope and intercept of
+    device time at AIS_SLOPE_RUNGS rungs (the plan's group); then the AIS
+    plan sweep. Launches made here are not counted."""
+    import torch
+
+    from torchebm_tpu_torch.ops._counts import work
+
+    fa = ops.fused_ais
+    shapes = ais_main_shapes(dev)
+    for label, args, kw, shape in shapes:
+        b_ms, b_by = bound_of(work("mixture_ais_run", args, kw, fa.mixture_ais_run(*args, **kw)),
+                              clock)
+        pick = fa.ais_launch_plan(*shape)[0]
+        by_group = {}
+        for group in fa.ais_groups(*shape[1:]):
+            run = functools.partial(fa._run, *args, **kw, group=group)
+            by_group[group] = (statistics.median(cuda_times(run, 2, 10)), device_ms(run))
+        fastest = min(by_group, key=lambda grp: by_group[grp][1])
+        print(f"timing: mixture_ais_run {label}, by lanes per chain G: " + "; ".join(
+            f"G={grp} {ms:.4f} ms per call, device {dev_ms:.4f} ms"
+            for grp, (ms, dev_ms) in by_group.items())
+            + f"; fastest G={fastest}, the plan picks G={pick}; bound {b_ms:.5f} ms by {b_by} "
+            f"({b_ms / by_group[pick][1]:.3f} of the bound's rate by device time at the pick) "
+            f"| {card}", flush=True)
+    label, (x0, mu0, s0, means, _, step), kw, _ = shapes[0]
+    tables = {m: torch.linspace(0.0, 1.0, m + 1, device=dev) for m in AIS_SLOPE_RUNGS}
+    slope, intercept, times = device_slope(
+        lambda m: fa.mixture_ais_run(x0, mu0, s0, means, tables[m], step, **kw), AIS_SLOPE_RUNGS)
+    print(f"timing: mixture_ais_run {label.split(' ')[0]} ring {x0.shape[0]} chains, device "
+          f"time per call at {AIS_SLOPE_RUNGS} rungs: {times} ms; {slope:.4f} us per rung + "
+          f"{intercept:.2f} us per call | {card}", flush=True)
+    plan_sweep("ais", fa, dev, card, [])
+
+
+def _ais_sweep_cases(fa, dev) -> list:
+    """The AIS plan sweep's shapes: ``[(label, run, (n, d, K, gaussian))]``,
+    ``run(group=G)`` one anneal at G lanes per chain from draws of the base
+    N(0, AIS_BASE_VAR I), step 0.05: the ring at AIS_CHAINS chains over 200,
+    50 and 1,000 rungs and with 5 transitions per rung, at 1,001 to 8,192
+    and at 100,000 and 300,000 chains; rings of K components (K = 16 also at
+    4,096 and 100,000 chains); random means of K components at d; the isotropic Gaussian
+    (one component) and the full-covariance Gaussian at d, at AIS_CHAINS
+    and (d = 2) at 4,096, twice AIS_CHAINS and AIS_GAUSS_CHAINS chains."""
+    import torch
+
+    g = torch.Generator(dev).manual_seed(58)
+    s0 = AIS_BASE_VAR ** 0.5
+    cases = []
+
+    def add(label, n, means, kw, rungs=AIS_RUNGS, n_tr=1):
+        d = means.shape[1]
+        x0 = s0 * torch.randn((n, d), generator=g, device=dev)
+        betas = torch.linspace(0.0, 1.0, rungs + 1, device=dev)
+        cases.append((f"{label} d={d} {n}x{rungs} rungs"
+                      + (f", {n_tr} transitions" if n_tr > 1 else ""),
+                      functools.partial(fa._run, x0, torch.zeros(d, device=dev), s0, means, betas,
+                                        0.05, n_transitions=n_tr, seed=21, **kw),
+                      (n, d, means.shape[0], kw.get("precision") is not None)))
+
+    def ring(k):
+        r = _ring(k).to(dev)
+        return r.means, dict(scale=float(r.scale), log_weights=r.log_weights)
+
+    for rungs in (AIS_RUNGS, 50, 1000):
+        add("ring K=8", AIS_CHAINS, *ring(8), rungs=rungs)
+    add("ring K=8", AIS_CHAINS, *ring(8), n_tr=5)
+    for n in (1001, 2048, 4096, 8192, 100_000, 300_000):
+        add("ring K=8", n, *ring(8))
+    for k in SWEEP_RING_K:
+        if k != 8:
+            add(f"ring K={k}", AIS_CHAINS, *ring(k))
+    add("ring K=16", 4096, *ring(16))
+    add("ring K=16", 100_000, *ring(16))
+    for d, k in ((3, 2), (3, 8), (3, 16), (4, 8), (5, 2), (5, 8), (8, 2), (8, 8), (16, 2),
+                 (16, 8)):
+        add(f"mixture K={k}", AIS_CHAINS, 2.0 * torch.randn((k, d), generator=g, device=dev),
+            dict(scale=0.8))
+    for d, n in ((2, 4096), (2, AIS_CHAINS), (2, 2 * AIS_CHAINS), (2, AIS_GAUSS_CHAINS),
+                 (4, AIS_CHAINS), (8, AIS_CHAINS), (16, AIS_CHAINS)):
+        add("isotropic Gaussian", n, torch.zeros((1, d), device=dev),
+            dict(scale=2.0 ** 0.5, log_norm_t=0.0))
+    for d, n in ((2, 4096), (2, AIS_CHAINS), (2, 2 * AIS_CHAINS), (2, AIS_GAUSS_CHAINS),
+                 (4, AIS_CHAINS), (8, AIS_CHAINS), (16, AIS_CHAINS), (32, AIS_CHAINS)):
+        a = 0.1 * torch.randn((d, d), generator=g, device=dev)
+        add("full-covariance Gaussian", n, torch.zeros((1, d), device=dev),
+            dict(precision=(a @ a.T + torch.eye(d, device=dev)).contiguous(), log_norm_t=0.0))
+    return cases
 
 
 def phase_ess_shape(ops, dev, card: str) -> None:
@@ -2195,7 +2412,9 @@ def phase_group_timing(ops, dev, card: str) -> None:
     built for, per call and by device time per call, beside the bound; rows
     7 and 9 at the ESS protocol's shape (the correlated Gaussian: MALA at the
     pilot step, HMC at the tuned step with unit and adapted mass) at each
-    group; then each plan's sweep. Launches made here are not counted."""
+    group; then each plan's sweep; then rows 10-11 and row 12 at each group
+    (:func:`pt_group_timing`, :func:`ais_group_timing`). Launches made here
+    are not counted."""
     import torch
 
     from torchebm_tpu_torch.core import GaussianMixtureEnergy
@@ -2245,6 +2464,7 @@ def phase_group_timing(ops, dev, card: str) -> None:
                       f"device time) | {card}", flush=True)
         plan_sweep(family, module, dev, card, ess)
     pt_group_timing(ops, dev, card, clock)
+    ais_group_timing(ops, dev, card, clock)
 
 
 def pt_group_timing(ops, dev, card: str, clock: float) -> None:
@@ -2765,6 +2985,34 @@ def phase_syncs(ops, dev, card: str) -> None:
         raise AssertionError("the sampler's call did not launch the neural chain kernel")
     if sample:
         raise AssertionError(f"the neural chain's sampler call syncs: {sample}")
+    ais_syncs(ops, dev, card)
+
+
+def ais_syncs(ops, dev, card: str) -> None:
+    """Host syncs of the AIS call through the kernel on each of the path's
+    targets, after a warm-up call (none expected: the seed goes to the kernel
+    as a device tensor, the gates and the base's Cholesky factor are read
+    once per state of their buffers)."""
+    import torch
+
+    from torchebm_tpu_torch.core import GaussianEnergy
+    from torchebm_tpu_torch.samplers import annealed_importance_sampling
+
+    base = GaussianEnergy.create(torch.zeros(2), AIS_BASE_VAR * torch.eye(2)).to(dev)
+    g = torch.Generator(dev).manual_seed(43)
+    sites = {}
+    for name, (target, n) in _ais_targets(dev).items():
+        run = functools.partial(annealed_importance_sampling, g, target, base=base, n_samples=n,
+                                n_rungs=AIS_RUNGS, step_size=0.05)
+        run()
+        before = ops.launch_counts()["mixture_ais_run"]
+        sites[name] = sync_sites(run)
+        if ops.launch_counts()["mixture_ais_run"] != before + 1:
+            raise AssertionError(f"the AIS call on the {name} did not launch its kernel")
+    print("syncs: annealed_importance_sampling through the kernel, after a warm-up call: "
+          + "; ".join(f"{name} {len(v)} {v}" for name, v in sites.items()) + f" | {card}")
+    if any(sites.values()):
+        raise AssertionError(f"the AIS call syncs: {sites}")
 
 
 def bound_of(work: dict, clock_mhz: float):
@@ -2818,7 +3066,9 @@ def host_top_ops(fn, n: int = 6) -> str:
 def phase_profile(dev, card: str) -> None:
     """Wall time (host clock around ``synchronize()``, median of 3 after one
     warm-up), device busy time (one more call under ``torch.profiler``) and
-    the idle share 1 - busy / wall of the sampler paths and the diagnostics."""
+    the idle share 1 - busy / wall of the sampler paths and the diagnostics;
+    for the headline Langevin call and the AIS kernel path also the host
+    operations with the most self CPU time."""
     import torch
 
     from torchebm_tpu_torch.core import GaussianEnergy, GaussianMixtureEnergy
@@ -2926,7 +3176,7 @@ def phase_profile(dev, card: str) -> None:
         device = (f"device busy {busy:.3f} ms, idle share {1.0 - busy / wall:.3f}" if busy > 0
                   else "device busy not measured (the profile recorded no device events)")
         print(f"profile: {label}: wall {wall:.3f} ms, {device} | {card}")
-        if label.startswith("Langevin sample() kernel path"):
+        if label.startswith(("Langevin sample() kernel path", "AIS kernel path")):
             print(f"profile: {label}: host ops by self CPU time (profiled call): "
                   f"{host_top_ops(fn)} | {card}")
 
@@ -2950,9 +3200,22 @@ def main() -> None:
     if sys.argv[1:] == ["--ess-shape"]:
         phase_ess_shape(ops, dev, card)
         return
+    if sys.argv[1:] == ["--ais-shape"]:
+        ais_ab(ops, dev, card)
+        return
+    if sys.argv[1:] == ["--ais"]:
+        check_instances(phase_build(_build))
+        _check_ais_groups(ops, dev, {})
+        ais_group_timing(ops, dev, card, max_sm_clock_mhz())
+        ais_syncs(ops, dev, card)
+        return
+
+    def done(phase: str) -> None:
+        print(f"phase: {phase} done at {time.perf_counter() - started:.1f} s", flush=True)
 
     check_instances(phase_build(_build))
     phase_sass(_build)
+    done("build")
     errors: dict = {}
     phase_check(ops.fused_langevin, dev, errors)
     phase_check_metropolis(ops, dev, errors)
@@ -2960,14 +3223,19 @@ def main() -> None:
     phase_check_tempering(ops, dev, errors)
     phase_check_mlp(ops, dev, errors)
     phase_check_sinkhorn(ops, dev, errors)
+    done("check")
     phase_profile(dev, card)
+    done("profile")
     launches = {name: 0 for name in KERNELS}
     for path in (path_langevin, path_hmc, path_mala, path_gradient_descent, path_pt, path_ais,
                  path_step, path_cd, path_flow):
         for name, n in path(ops, dev, card).items():
             launches[name] += n
+        done(path.__name__)
     times = phase_timing(ops, dev, card)
+    done("timing")
     phase_syncs(ops, dev, card)
+    done("syncs")
 
     clock = max_sm_clock_mhz()
     print(f"bound: {N_SMS} SMs at {clock:.0f} MHz (nvidia-smi clocks.max.sm), per-SM rates "

@@ -186,3 +186,147 @@ class TestFusedDispatch:
         for fused in ("auto", "off"):
             assert AIS(_gen(), mix, dim=2, n_samples=32, n_rungs=5,
                        fused=fused).samples.shape == (32, 2)
+
+
+# ------------------------------------------------------------------ host reads
+
+
+def test_sampler_passes_the_kernel_seed_as_a_tensor(monkeypatch):
+    """The sampler hands the kernel the generator's draw as a 0-d int64
+    tensor (read by the kernel on the card, no host sync), the draw
+    ``_kernel_seed`` reads on the host, taken after the base's draws."""
+    from torchebm_tpu_torch.samplers import base as sbase
+
+    seeds = []
+    real = tais.mixture_ais_run
+
+    def spy(*args, **kwargs):
+        seeds.append(kwargs["seed"])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tais, "mixture_ais_run", spy)
+    mix = tcore.GaussianMixtureEnergy.eight_gaussians()
+    res = AIS(_gen(5), mix, dim=2, n_samples=16, n_rungs=4, fused="force")
+    (seed,) = seeds
+    assert isinstance(seed, torch.Tensor) and seed.dtype == torch.int64 and seed.ndim == 0
+    g = _gen(5)
+    tcore.GaussianEnergy.standard(2).sample(g, 16)
+    assert int(seed) == sbase._kernel_seed(g)
+    monkeypatch.setattr(tais, "mixture_ais_run", real)
+    again = AIS(_gen(5), mix, dim=2, n_samples=16, n_rungs=4, fused="force")
+    assert torch.equal(res.log_weights, again.log_weights)
+
+
+class _CountingCpu:
+    """Counts ``Tensor.cpu`` calls (the gates' host reads of ``cov``)."""
+
+    def __init__(self, monkeypatch):
+        self.calls = 0
+        real = torch.Tensor.cpu
+
+        def cpu(t, *a, **k):
+            self.calls += 1
+            return real(t, *a, **k)
+
+        monkeypatch.setattr(torch.Tensor, "cpu", cpu)
+
+
+def test_isotropic_gate_reads_cov_once_per_state(monkeypatch):
+    """``_isotropic_scale`` reads ``cov`` on the host once per state of the
+    buffer: the same answer twice with no second ``.cpu()``; a new answer
+    after an in-place edit of ``cov`` and after ``.to()`` (a new tensor)."""
+    from torchebm_tpu_torch.samplers.langevin import _isotropic_scale
+
+    counter = _CountingCpu(monkeypatch)
+    e = tcore.GaussianEnergy.create(torch.zeros(2), 4.0 * torch.eye(2))
+    assert _isotropic_scale(e) == pytest.approx(2.0)
+    assert _isotropic_scale(e) == pytest.approx(2.0)
+    assert counter.calls == 1
+    e.cov.mul_(0.25)  # in place: cov = I
+    assert _isotropic_scale(e) == pytest.approx(1.0)
+    assert counter.calls == 2
+    e.cov[0, 1] = 0.5  # no longer isotropic
+    assert _isotropic_scale(e) is None
+    assert counter.calls == 3
+    e.cov[0, 1] = 0.0
+    e = e.to(torch.float64)  # new buffers
+    assert _isotropic_scale(e) == pytest.approx(1.0)
+    assert counter.calls == 4
+    assert _isotropic_scale(e) == pytest.approx(1.0)
+    assert counter.calls == 4
+
+
+def test_fused_target_gate_reads_the_scale_once_per_state(monkeypatch):
+    """``_fused_target_kwargs`` reads the mixture's ``scale`` on the host
+    once per state of the buffer: its ``scale`` and ``log_norm_t`` come back
+    equal with no second read, and anew after an in-place edit."""
+    from torchebm_tpu_torch.samplers.ais import _fused_target_kwargs
+
+    reads = []
+    real = torch.Tensor.__float__
+
+    def counting_float(t):
+        reads.append(1)
+        return real(t)
+
+    monkeypatch.setattr(torch.Tensor, "__float__", counting_float)
+    mix = tcore.GaussianMixtureEnergy.eight_gaussians(scale=0.5)
+    a = _fused_target_kwargs(mix)
+    b = _fused_target_kwargs(mix)
+    assert len(reads) == 1
+    assert (a["scale"], a["log_norm_t"]) == (b["scale"], b["log_norm_t"]) == (
+        0.5, pytest.approx(2 * math.log(0.5) + math.log(2 * math.pi)))
+    mix.scale.fill_(0.25)
+    c = _fused_target_kwargs(mix)
+    assert len(reads) == 2 and c["scale"] == 0.25
+
+
+def test_base_cholesky_factor_is_computed_once_per_state(monkeypatch):
+    """``GaussianEnergy.sample`` factors ``cov`` once per state of the
+    buffer (``torch.linalg.cholesky`` checks its result on the host): the
+    same draws as a fresh factor, and a new factor after an in-place edit."""
+    calls = []
+    real = torch.linalg.cholesky
+
+    def counting(a, *args, **kw):
+        calls.append(1)
+        return real(a, *args, **kw)
+
+    from torchebm_tpu_torch.core import energies
+
+    e = tcore.GaussianEnergy.create(torch.tensor([1.0, -1.0]), torch.tensor([[2.0, 0.3],
+                                                                             [0.3, 1.0]]))
+    fresh = e.mean + torch.randn((8, 2), generator=_gen(3)) @ real(e.cov).T
+    monkeypatch.setattr(energies.torch.linalg, "cholesky", counting)
+    first = e.sample(_gen(3), 8)
+    assert torch.equal(e.sample(_gen(3), 8), first)
+    assert len(calls) == 1
+    torch.testing.assert_close(first, fresh, rtol=0, atol=0)
+    e.cov.mul_(2.0)
+    e.sample(_gen(3), 8)
+    assert len(calls) == 2
+
+
+def test_base_log_z_is_computed_once_per_state(monkeypatch):
+    """``GaussianEnergy.log_z`` takes the log-determinant once per state of
+    ``cov`` (on the card ``slogdet`` is the AIS call's largest host cost):
+    the same value as a fresh ``slogdet``, computed anew after an in-place
+    edit."""
+    from torchebm_tpu_torch.core import energies
+
+    calls = []
+    real = torch.linalg.slogdet
+
+    def counting(a, *args, **kw):
+        calls.append(1)
+        return real(a, *args, **kw)
+
+    e = tcore.GaussianEnergy.create(torch.zeros(2), torch.tensor([[2.0, 0.3], [0.3, 1.0]]))
+    want = math.log(2 * math.pi) + 0.5 * float(real(e.cov)[1])
+    monkeypatch.setattr(energies.torch.linalg, "slogdet", counting)
+    assert float(e.log_z()) == pytest.approx(want, abs=1e-6)
+    assert float(e.log_z()) == pytest.approx(want, abs=1e-6)
+    assert len(calls) == 1
+    e.cov.mul_(2.0)
+    assert float(e.log_z()) == pytest.approx(want + math.log(2.0), abs=1e-5)
+    assert len(calls) == 2

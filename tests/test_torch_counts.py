@@ -108,3 +108,39 @@ def test_neural_chain_counts_its_products_on_the_tensor_cores():
     assert work["ops"]["tf32"] == per * 2 * 3 * 2 * 128 * 128
     assert work["ops"]["fp32"] == per * (2 * 2 * 128 + 13 * 256 + 4 * 2 + 60)
     assert work["ops"]["sfu"] == per * (2 * 256 + 12)
+
+
+def test_doublewell_counts_one_normal_per_element_step():
+    """The double-well chain needs one normal per element-step: a quarter
+    of a Philox block (21 INT32 instructions; the kernel draws a whole block
+    and keeps one normal), half a Box-Muller pair, and 7 FP32 operations
+    for the gradient, the update and the clamp."""
+    x0 = torch.randn(4, 3, generator=torch.Generator().manual_seed(0))
+    args = (x0, 5, 0.01)
+    work = _counts.work("doublewell_langevin_chain", args, {},
+                        ops.doublewell_langevin_chain(*args, seed=1))
+    per = 4 * 3 * 5
+    assert work["ops"] == {"int32": per * 21, "fp32": per * 22, "sfu": per * 3, "tf32": 0.0}
+
+
+@pytest.mark.parametrize("k, gaussian", [(3, False), (1, False), (1, True)],
+                         ids=["mixture", "one-component", "full-covariance"])
+def test_ais_counts_the_base_in_closed_form(k, gaussian):
+    """Per transition the AIS kernel's base is an isotropic Gaussian in
+    closed form (3d + 2 FP32, no special function), and so is a
+    one-component target (plus its log-weight); a mixture of K ≥ 2 and the
+    full-covariance Gaussian keep their evaluators' counts."""
+    g = torch.Generator().manual_seed(0)
+    d, n, rungs = 2, 4, 3
+    x0, means = torch.randn(n, d, generator=g), torch.randn(k, d, generator=g)
+    kw = dict(precision=torch.eye(d)) if gaussian else dict(scale=0.5)
+    args = (x0, torch.zeros(d), 3.0, means, torch.linspace(0.0, 1.0, rungs + 1), 0.05)
+    work = _counts.work("mixture_ais_run", args, kw, ops.mixture_ais_run(*args, **kw, seed=1))
+    target = ({"fp32": d * d + 3 * d + 2, "sfu": 0} if gaussian
+              else {"fp32": 3 * d + 3, "sfu": 0} if k == 1
+              else {"fp32": k * (3 * d + 8) + 2 * d + 6, "sfu": k + 2})
+    per = n * rungs
+    assert work["ops"]["sfu"] == per * (target["sfu"] + 12 + 1 + 2)
+    assert work["ops"]["fp32"] == per * ((3 * d + 2) + target["fp32"] + 60 + 2 + 12 * d + 12) \
+        + 4 * per
+    assert work["ops"]["int32"] == per * 2 * 84

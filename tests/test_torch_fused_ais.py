@@ -29,6 +29,7 @@ from torchebm_tpu_torch import core as tcore
 from torchebm_tpu_torch import ops as tops
 from torchebm_tpu_torch import samplers as ts
 from torchebm_tpu_torch.ops import fused_ais as tais
+from torchebm_tpu_torch.ops import fused_langevin as tfl
 
 torch.set_num_threads(1)
 
@@ -195,3 +196,107 @@ def test_wrapper_rejects_bad_inputs():
                              0.1)
     with pytest.raises(TypeError, match="float32"):
         tais.mixture_ais_run(x0.double(), mu0, 1.0, means, betas, 0.1)
+
+
+@pytest.mark.parametrize("d, mu_scale, inv_var", [(1, 0.0, 1.0), (2, 1.0, 1.0 / 9.0),
+                                                  (5, 3.0, 4.0), (16, 0.5, 0.3), (64, 2.0, 1.7)])
+def test_closed_form_base_equals_the_one_component_mixture(d, mu_scale, inv_var):
+    """The base in closed form, ``(x − μ)/σ²`` and ``−|x − μ|²/(2σ²)``,
+    computes the one-component mixture evaluator's function (a one-term
+    softmax weight is 1, a one-term logsumexp its term)."""
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(3.0 * rng.standard_normal((257, d)).astype(np.float32))
+    mu = torch.from_numpy(mu_scale * rng.standard_normal(d).astype(np.float32))
+    grad, logp = tais._isotropic_grad_logp(x, mu, inv_var)
+    want_grad, want_logp = tfl._mixture_grad_logp(x, mu[None], torch.zeros(1), inv_var)
+    torch.testing.assert_close(grad, want_grad, rtol=0, atol=1e-6)
+    torch.testing.assert_close(logp, want_logp, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("inject", [False, True], ids=["philox", "noise"])
+def test_seed_as_an_int_or_a_tensor_gives_one_stream(inject):
+    """A 0-d int64 seed tensor (what the sampler passes, read by the kernel
+    on the card) keys the same Philox stream as the int; a seed tensor of
+    another type or shape raises."""
+    x0, betas, noise, unif = _inputs(9, 24, 6, 2)
+    _, (tx, tmu, tb, tn, tu) = _both(x0, MU0, betas, noise, unif)
+    args = (tx, tmu, S0, torch.from_numpy(MEANS), tb, 0.05)
+    kw = dict(n_transitions=2, scale=0.7, **(dict(noise=tn, uniforms=tu) if inject else {}))
+    seed = 2**40 + 12345
+    by_int = tais.mixture_ais_run(*args, seed=seed, **kw)
+    for fn in (tais.mixture_ais_run, tais.mixture_ais_run_plain):
+        by_tensor = fn(*args, seed=torch.tensor(seed), **kw)
+        for u, v in zip(by_int, by_tensor):
+            torch.testing.assert_close(u, v, rtol=0, atol=0)
+    if not inject:
+        other = tais.mixture_ais_run(*args, seed=seed + 1, **kw)
+        assert not torch.equal(other[1], by_int[1])
+    for bad in (torch.tensor(3, dtype=torch.int32), torch.tensor([3]), torch.tensor(-1)):
+        with pytest.raises(ValueError, match="seed"):
+            tais.mixture_ais_run(*args, seed=bad, **kw)
+
+
+#: (d, K, gaussian, chains, the plan's group): the main shapes (the ring at
+#: 16,384 chains, the Gaussians at 65,536), few chains (more lanes), many
+#: (halved to 2), more than 8 components at d = 2 (4 lanes), d > 2 (2),
+#: one lane past d = 16
+PLAN_CASES = [
+    (2, 8, False, 16_384, 2), (2, 1, False, 65_536, 1), (2, 1, True, 65_536, 1),
+    (2, 1, True, 16_384, 2), (2, 1, True, 32_768, 1), (2, 1, False, 4096, 8),
+    (2, 8, False, 1001, 8), (2, 8, False, 2048, 8), (2, 8, False, 8192, 4),
+    (2, 8, False, 100_000, 2), (2, 8, False, 300_000, 2), (2, 12, False, 16_384, 4),
+    (2, 33, False, 16_384, 4), (2, 16, False, 100_000, 2), (3, 8, False, 16_384, 2),
+    (16, 8, False, 16_384, 2), (16, 1, True, 16_384, 2), (17, 8, False, 16_384, 1),
+    (32, 1, True, 16_384, 1), (64, 8, False, 16_384, 1),
+]
+
+
+@pytest.mark.parametrize("d, k, gaussian, n, group", PLAN_CASES,
+                         ids=[f"d{d}-k{k}-n{n}" + ("-gauss" if g else "")
+                              for d, k, g, n, _ in PLAN_CASES])
+def test_ais_launch_plan(d, k, gaussian, n, group):
+    """The group the card's timings pick, a grid that holds every chain's
+    group and no block past the last chain, and the same plan when the
+    group is passed back as the override."""
+    got, threads, blocks = tais.ais_launch_plan(n, d, k, gaussian)
+    assert got == group and got in tais.ais_groups(d, k, gaussian)
+    assert threads == tais.AIS_THREADS and threads % 32 == 0
+    assert blocks * threads >= n * group > (blocks - 1) * threads
+    assert tais.ais_launch_plan(n, d, k, gaussian, group=group) == (group, threads, blocks)
+    if group > 2:  # halving stops where the chains' lanes fit the card
+        assert n * group <= tfl.MIXTURE_RESIDENT_THREADS
+
+
+def test_ais_launch_plan_overrides_only_built_groups():
+    """Every built group may be forced (timings compare them): 1, 2, 4, 8 up
+    to d = 16, the one-component mixture (the isotropic Gaussian target)
+    included; one lane above."""
+    for d, k, gaussian, built in ((2, 8, False, (1, 2, 4, 8)), (16, 8, False, (1, 2, 4, 8)),
+                                  (2, 1, True, (1, 2, 4, 8)), (2, 1, False, (1, 2, 4, 8)),
+                                  (16, 1, False, (1, 2, 4, 8)), (17, 8, False, (1,)),
+                                  (32, 1, True, (1,)), (64, 1, False, (1,))):
+        assert tais.ais_groups(d, k, gaussian) == built
+        for group in built:
+            assert tais.ais_launch_plan(10_000, d, k, gaussian, group=group)[0] == group
+    for d, k, gaussian, group in ((2, 8, False, 3), (2, 8, False, 16), (2, 1, False, 16),
+                                  (32, 1, True, 2), (17, 8, False, 2)):
+        with pytest.raises(ValueError, match="no AIS kernel"):
+            tais.ais_launch_plan(100, d, k, gaussian, group=group)
+
+
+@pytest.mark.parametrize("d, k, gaussian", [(2, 8, False), (2, 1, False), (2, 1, True),
+                                            (16, 8, False), (17, 8, False), (32, 1, True)])
+def test_group_rule_lives_in_one_place(d, k, gaussian):
+    """The MALA, HMC, ladder and AIS kernels' built groups all derive from
+    ``fused_langevin.dispatch_groups``; AIS alone splits a one-component
+    mixture over lanes."""
+    from torchebm_tpu_torch.ops import fused_hmc as thmc
+    from torchebm_tpu_torch.ops import fused_mala as tmala
+    from torchebm_tpu_torch.ops import fused_pt as tpt
+
+    rule = tfl.dispatch_groups(d, k, gaussian)
+    assert thmc.hmc_groups(d, k, gaussian) == tmala.mala_groups(d, k, gaussian) == rule
+    assert tpt.pt_groups(4, d, k, gaussian) == rule
+    assert tais.ais_groups(d, k, gaussian) == tfl.dispatch_groups(
+        d, k, gaussian, split_one_component=True)
+    assert thmc.HMC_GROUPS == tfl.DISPATCH_GROUPS == (1, 2, 4, 8)

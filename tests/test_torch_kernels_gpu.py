@@ -436,25 +436,73 @@ def test_pt_kernels_each_group_match_plain_on_card(cuda, inject, shape, group):
         assert flipped <= n // 1000
 
 
+#: the AIS kernel's targets: (d, K, full covariance, chains, transitions
+#: per rung): a ring-like mixture at 4,096 chains with two transitions per
+#: rung and at 1,001 (groups past the last chain in a partial last warp),
+#: the full-covariance and the isotropic (one-component) Gaussian at d = 2,
+#: an 8-component mixture and a full-covariance Gaussian at d = 16 (four
+#: Philox blocks per transition, drawn by the lanes), the d = 32 Gaussian
+#: (one lane)
+AIS_TARGETS = {"mixture": (2, 6, False, 4096, 2), "ragged": (2, 6, False, 1001, 1),
+               "gauss2": (2, 1, True, 4096, 1), "iso2": (2, 1, False, 4096, 1),
+               "d16": (16, 8, False, 4096, 1), "gauss16": (16, 1, True, 4096, 1),
+               "gaussian": (32, 1, True, 4096, 1)}
+AIS_CASES = [(t, grp) for t, (d, k, gaussian, _, _) in AIS_TARGETS.items()
+             for grp in tais.ais_groups(d, k, gaussian)]
+
+
+def _ais_case(rng, target):
+    """``(x0, base_mean, base_scale, means, step, kwargs)`` on the CPU for
+    :data:`AIS_TARGETS`: mixtures started at their modes at step 0.005
+    under the base N(0, 9 I); the Gaussians near their means at step 0.02,
+    where the chains contract."""
+    d, k, gaussian, n, n_tr = AIS_TARGETS[target]
+    kw = dict(n_transitions=n_tr)
+    if target == "iso2":
+        means = torch.from_numpy(_normal(rng, 1, 2))
+        x0 = torch.from_numpy(_normal(rng, n, 2, scale=1.5))
+        return x0, torch.zeros(2), 1.5, means, 0.02, dict(kw, scale=0.8, log_norm_t=0.0)
+    if gaussian:
+        a = _normal(rng, d, d, scale=0.1)
+        means = torch.from_numpy(_normal(rng, 1, d))
+        x0 = means + torch.from_numpy(_normal(rng, n, d, scale=0.7))
+        prec = torch.from_numpy((a @ a.T + np.eye(d)).astype(np.float32))
+        return x0.contiguous(), means[0].clone(), 2.0, means, 0.02, dict(kw, precision=prec)
+    reps, means, tkw = _pt_case(rng, "d16" if d == 16 else "mixture", 1, n)
+    return reps[0], torch.zeros(d), 3.0, means, 0.005, dict(kw, **tkw)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("inject", [True, False], ids=["noise", "philox"])
-@pytest.mark.parametrize("target", ["mixture", "gaussian"])
-@pytest.mark.parametrize("n_transitions", [1, 2])
-def test_ais_kernel_matches_plain_on_card(cuda, inject, target, n_transitions):
+@pytest.mark.parametrize("target, group", AIS_CASES, ids=[f"{t}-G{g}" for t, g in AIS_CASES])
+def test_ais_kernel_matches_plain_on_card(cuda, inject, target, group):
+    """Row 12 at ``group`` lanes per chain against the plain version under
+    the flip rule, over 25 rungs; where the launch plan picks ``group``,
+    through the public wrapper and its launch count, else through
+    ``fused_ais._run``. The Philox cases key the kernel with a device seed
+    tensor and the plain version with the int."""
     rng = _rng(6)
-    n, n_rungs = 4096, 25
-    reps, means, kw = _pt_case(rng, target, 1, n)
-    x0, d = reps[0], reps.shape[-1]
-    base_mean = torch.from_numpy(_normal(rng, d))
-    betas = torch.linspace(0.0, 1.0, n_rungs + 1)
-    kw.update(seed=9, n_transitions=n_transitions)
+    n_rungs = 25
+    x0, base_mean, base_scale, means, step, kw = _ais_case(rng, target)
+    n, d = x0.shape
+    n_tr = kw["n_transitions"]
     if inject:
-        kw["noise"] = torch.from_numpy(_normal(rng, n_rungs * n_transitions, n, d))
+        kw["noise"] = torch.from_numpy(_normal(rng, n_rungs * n_tr, n, d))
         kw["uniforms"] = torch.from_numpy(
-            rng.uniform(size=(n_rungs * n_transitions, n)).astype(np.float32))
-    kw = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
-    got, want = _kernel_and_plain(tais.mixture_ais_run, cuda, x0.to(cuda), base_mean.to(cuda),
-                                  2.0, means.to(cuda), betas.to(cuda), 0.01, **kw)
+            rng.uniform(size=(n_rungs * n_tr, n)).astype(np.float32))
+    args = (x0, base_mean, base_scale, means, torch.linspace(0.0, 1.0, n_rungs + 1), step)
+    on_card = {k: v.to(cuda) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    card_args = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+    seed = {} if inject else dict(seed=torch.tensor(9, device=cuda))
+    planned = tais.ais_launch_plan(n, d, means.shape[0], "precision" in kw)[0] == group
+    before = tais.mixture_ais_run.launches
+    if planned:
+        got = tais.mixture_ais_run(*card_args, **on_card, **seed)
+        assert tais.mixture_ais_run.launches == before + 1
+    else:
+        *got, launched = tais._run(*card_args, **on_card, **seed, group=group)
+        assert launched
+    want = tais.mixture_ais_run(*args, **kw, **({} if inject else dict(seed=9)))
     assert _flipped_chains(got, want, n) <= n // 1000
 
 

@@ -18,6 +18,8 @@ from typing import Any, Callable, Optional
 import torch
 from torch import nn
 
+from .module import tensor_memo
+
 Tensor = torch.Tensor
 
 __all__ = [
@@ -157,6 +159,10 @@ class DoubleWellEnergy(Energy):
         return 4.0 * self.barrier_height * x * (x * x - self.b**2)
 
 
+def _log_abs_det(a: Tensor) -> Tensor:
+    return torch.linalg.slogdet(a)[1]
+
+
 class GaussianEnergy(Energy):
     r"""Gaussian energy :math:`E(x) = \tfrac12 (x-\mu)^\top \Sigma^{-1} (x-\mu)`.
 
@@ -195,8 +201,13 @@ class GaussianEnergy(Energy):
         return (x - self.mean) @ self.cov_inv.T
 
     def sample(self, generator: torch.Generator, n: int) -> Tensor:
-        """Exact i.i.d. draws via Cholesky, on the generator's device."""
-        chol = torch.linalg.cholesky(self.cov)
+        """Exact i.i.d. draws via Cholesky, on the generator's device. The
+        factor is computed once per state of ``cov`` (:func:`tensor_memo`;
+        not for a ``cov`` that requires grad): ``torch.linalg.cholesky``
+        checks its result on the host, so each fresh factor makes the host
+        wait for the device."""
+        chol = (torch.linalg.cholesky(self.cov) if self.cov.requires_grad
+                else tensor_memo(self.cov, torch.linalg.cholesky))
         eps = torch.randn(
             (n, self.mean.shape[0]), generator=generator,
             device=generator.device, dtype=self.mean.dtype,
@@ -205,9 +216,14 @@ class GaussianEnergy(Energy):
 
     def log_z(self) -> Tensor:
         r"""Exact log partition function :math:`\tfrac d2\log 2\pi +
-        \tfrac12\log|\Sigma|` of :math:`e^{-E}`."""
+        \tfrac12\log|\Sigma|` of :math:`e^{-E}`. The log-determinant is
+        computed once per state of ``cov`` (:func:`tensor_memo`; not for a
+        ``cov`` that requires grad): on the card ``slogdet`` issues several
+        kernels, the host's largest cost in an AIS call."""
         d = self.mean.shape[0]
-        return 0.5 * d * math.log(2 * math.pi) + 0.5 * torch.linalg.slogdet(self.cov)[1]
+        logdet = (_log_abs_det(self.cov) if self.cov.requires_grad
+                  else tensor_memo(self.cov, _log_abs_det))
+        return 0.5 * d * math.log(2 * math.pi) + 0.5 * logdet
 
 
 class GaussianMixtureEnergy(Energy):

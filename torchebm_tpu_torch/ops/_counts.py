@@ -14,18 +14,22 @@ TF32 rate: the neural chain's products, counted as its three 3xTF32 passes
 (``hi.hi + hi.lo + lo.hi``), whose splits into hi and lo are not counted.
 
 The counts are the algorithm's work, not what a design adds to it. The
-mixture, MALA, HMC and ladder chains (``mixture_langevin*``,
-``mixture_mala*``, ``mixture_hmc*``, ``pt_langevin*``) split a chain (on the
-ladder, each replica) over a group of lanes: their butterfly shuffles and
+mixture, MALA, HMC, ladder and AIS chains (``mixture_langevin*``,
+``mixture_mala*``, ``mixture_hmc*``, ``pt_langevin*``, ``mixture_ais_run``)
+split a chain (on the ladder, each replica) over a group of lanes: their
+butterfly shuffles and
 broadcasts, the exchange's shuffles, the updates, residual and kinetic sums,
 Metropolis tests and exchange decisions that every lane of a group repeats,
 and the logits that lanes with no component form are overhead, so the counts
 stay one evaluation and update per chain-step, replica-step or leapfrog
-step, ``ceil(d/4)`` Philox blocks of normals and, for MALA and HMC, one
-uniform block per chain-step or chain-draw, for the ladder one per pair
-tried, whatever the group (each block is drawn once, by one lane).
-MALA's bound at its main shapes (the ring, the ESS protocol's 2-D Gaussian)
-is set by its two Philox blocks per step (INT32).
+step, ``ceil(d/4)`` Philox blocks of normals and, for MALA, HMC and AIS,
+one uniform block per chain-step, chain-draw or transition, for the ladder
+one per pair tried, whatever the group (each block is drawn once, by one
+lane). MALA's and AIS's bounds at their main shapes (the ring, the ESS
+protocol's 2-D Gaussian, the AIS path's Gaussians) are set by their two
+Philox blocks per step (INT32). The double-well chain needs one normal per
+element-step: a quarter of a Philox block, though its kernel draws a whole
+block and keeps one normal of four.
 
 :data:`COUNTED_SOURCES` holds the SHA-256 prefix of each source the counts
 were last checked against; a test fails when a source changes, so that an
@@ -38,7 +42,7 @@ __all__ = ["COUNTED_SOURCES", "work"]
 
 #: ``{file under csrc/: sha256 hexdigest[:16]}`` of the sources counted here
 COUNTED_SOURCES = {
-    "fused_ais.cu": "bbb0be8b07f58a41",
+    "fused_ais.cu": "37a6a4cfaa0bb996",
     "fused_hmc.cu": "72f93febded56462",
     "fused_langevin.cu": "ed1abd8c6f146eb2",
     "fused_mala.cu": "cc395518a0c9ea11",
@@ -49,10 +53,11 @@ COUNTED_SOURCES = {
     "tebm_common.cuh": "c0420294bd37e508",
 }
 
-# tebm_common.cuh: one Philox4x32-10 block; normals4 (one block, two
-# Box-Muller pairs); uniform01 (one block, one conversion and scale)
-_PHILOX = {"int32": 84}
+# tebm_common.cuh: normals4 (one Philox4x32-10 block, two Box-Muller
+# pairs); one normal (a quarter of that: one 32-bit word of a block, half a
+# pair); uniform01 (one block, one conversion and scale)
 _NORMALS4 = {"int32": 84, "fp32": 60, "sfu": 12}
+_NORMAL = {k: v / 4 for k, v in _NORMALS4.items()}
 _UNIFORM = {"int32": 84, "fp32": 2, "sfu": 1}
 
 
@@ -72,6 +77,13 @@ def _eval(d: int, k: int, gaussian: bool) -> dict:
     if gaussian:
         return {"fp32": d * d + 3 * d + 2}
     return {"fp32": k * (3 * d + 8) + 2 * d + 6, "sfu": k + 2}
+
+
+def _isotropic(d: int) -> dict:
+    """One evaluation of an isotropic Gaussian in closed form (fused_ais.cu's
+    ``isotropic_grad_logp``): ``x − μ``, its scale and square sum, and the
+    log-density's factor; no special function."""
+    return {"fp32": 3 * d + 2}
 
 
 def work(name: str, args, kw, result) -> dict:
@@ -97,7 +109,9 @@ def work(name: str, args, kw, result) -> dict:
         ops = _add(per, times=n * n_steps)
     elif name.startswith("doublewell"):  # fused_langevin.cu, per element-step
         x0, n_steps = args[:2]
-        ops = _add(_PHILOX, {"fp32": 31, "sfu": 5}, times=x0.numel() * n_steps)
+        # one normal (the kernel draws a whole block of four and keeps one);
+        # the gradient 4h x (x^2 - b^2), the update and the clamp
+        ops = _add(_NORMAL, {"fp32": 7}, times=x0.numel() * n_steps)
     elif name.startswith("mixture_mala"):  # fused_mala.cu, per chain-step, any group
         x0, means, n_steps = args[:3]
         n, d = x0.shape
@@ -130,8 +144,12 @@ def work(name: str, args, kw, result) -> dict:
         n, d = x0.shape
         n_tr = kw.get("n_transitions", 1)
         rungs = betas.shape[0] - 1
-        per = _add(_eval(d, 1, False), _eval(d, means.shape[0], gaussian), normals(d), _UNIFORM,
-                   {"fp32": 12 * d + 12, "sfu": 2})
+        # the base in closed form; a one-component target too, plus its
+        # log-weight
+        k = means.shape[0]
+        target = (_add(_isotropic(d), {"fp32": 1}) if k == 1 and not gaussian
+                  else _eval(d, k, gaussian))
+        per = _add(_isotropic(d), target, normals(d), _UNIFORM, {"fp32": 12 * d + 12, "sfu": 2})
         ops = _add(_add(per, times=n * n_tr * rungs), {"fp32": 4 * n * rungs})
     elif name == "mlp_langevin_chain":  # fused_mlp_langevin.cu, per chain-step
         x0, layers, n_steps = args[:3]

@@ -36,12 +36,13 @@ import torch
 
 from . import _build
 from .fused_langevin import (
-    MIXTURE_GROUP_MAX_DIM,
+    DISPATCH_GROUPS,
     MIXTURE_RESIDENT_THREADS,
     _check_metropolis,
     _check_thin,
     _seed_words,
     _target,
+    dispatch_groups,
     philox_normals,
     philox_uniforms,
 )
@@ -67,7 +68,7 @@ _SIGNATURE = ((_build.PTR,) * 9 + (_build.INT,) * 7 + (_build.FLOAT,) * 2 + (_bu
 #: the HMC chain kernel's block size (``kHmcThreads`` in csrc/fused_hmc.cu)
 HMC_THREADS = 128
 #: lanes per chain the HMC chain kernel is built for at d <= 16
-HMC_GROUPS = (1, 2, 4, 8)
+HMC_GROUPS = DISPATCH_GROUPS
 
 
 def _mass_vector(mass: Mass, d: int, device: torch.device) -> Optional[Tensor]:
@@ -134,11 +135,10 @@ def _run_plain(x0, grad_logp, h, n_leapfrog, mass, n_draws, seed, noise, uniform
 def hmc_groups(d: int, k: int, gaussian: bool) -> Tuple[int, ...]:
     """The groups of lanes per chain the HMC chain kernel is built for on a
     target of ``k`` components (or the full-covariance Gaussian) in ``d``
-    dimensions: :data:`HMC_GROUPS` up to ``MIXTURE_GROUP_MAX_DIM``, one lane
-    above it and for a single component."""
-    if d > MIXTURE_GROUP_MAX_DIM or (k < 2 and not gaussian):
-        return (1,)
-    return HMC_GROUPS
+    dimensions: the shared dispatch's (:func:`.fused_langevin.dispatch_groups`),
+    :data:`HMC_GROUPS` up to ``MIXTURE_GROUP_MAX_DIM``, one lane above it and
+    for a single component."""
+    return dispatch_groups(d, k, gaussian)
 
 
 def hmc_launch_plan(n: int, d: int, k: int, gaussian: bool,

@@ -82,6 +82,24 @@ MIXTURE_GROUPS = (1, 2, 4, 8)
 MIXTURE_RESIDENT_THREADS = 132 * 2048
 #: the largest d a group holds in every lane (``kMaxGroupDim``): above it, one lane
 MIXTURE_GROUP_MAX_DIM = 16
+#: lanes per chain of the MALA, HMC, ladder and AIS chain kernels at
+#: d <= MIXTURE_GROUP_MAX_DIM (``TEBM_DISPATCH_GROUPS``, csrc/tebm_common.cuh)
+DISPATCH_GROUPS = (1, 2, 4, 8)
+
+
+def dispatch_groups(d: int, k: int, gaussian: bool, *,
+                    split_one_component: bool = False) -> Tuple[int, ...]:
+    """The groups of lanes per chain that ``TEBM_DISPATCH_GROUPS``
+    (csrc/tebm_common.cuh) launches a chain kernel at, on a target of ``k``
+    components (or the full-covariance Gaussian) in ``d`` dimensions:
+    :data:`DISPATCH_GROUPS` up to :data:`MIXTURE_GROUP_MAX_DIM`, one lane
+    above it. A one-component mixture takes one lane too, unless
+    ``split_one_component``: its lanes then share only the randomness drawn
+    ahead. The MALA, HMC, ladder and AIS kernels' groups all derive from
+    this rule."""
+    if d > MIXTURE_GROUP_MAX_DIM or (k < 2 and not gaussian and not split_one_component):
+        return (1,)
+    return DISPATCH_GROUPS
 
 _P, _I, _F, _U, _LL = _build.PTR, _build.INT, _build.FLOAT, _build.U32, _build.I64
 #: C entry point (``tebm_<name>``) -> its argument types before the stream
@@ -253,6 +271,25 @@ def _seed_words(seed: int) -> Tuple[int, int]:
     if not 0 <= seed < 1 << 64:
         raise ValueError(f"seed must be in [0, 2^64), got {seed}")
     return seed & _MASK32, seed >> 32
+
+
+def _seed_arg(seed, device) -> Tuple[Optional[Tensor], int, int]:
+    """``(device seed tensor or None, seed lo, seed hi)``. A seed is a Python
+    int in ``[0, 2^64)``, or a non-negative 0-d int64 tensor on the CPU or on
+    the state's device; a kernel that takes a seed pointer reads a device
+    tensor's two words where it lies (no host sync), a plain version takes
+    ``int(seed)``: the same Philox stream either way."""
+    if isinstance(seed, Tensor):
+        on_card = seed.device.type == "cuda"
+        if (seed.dtype != torch.int64 or seed.ndim != 0
+                or seed.device != (device if on_card else torch.device("cpu"))):
+            raise ValueError(f"a tensor seed must be a 0-d int64 tensor on the CPU or on "
+                             f"{device}, got {seed.dtype} of shape {tuple(seed.shape)} on "
+                             f"{seed.device}")
+        if on_card:
+            return seed, 0, 0
+        seed = int(seed)
+    return None, *_seed_words(seed)
 
 
 # ---------------------------------------------------------------------------

@@ -39,13 +39,13 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .fused_hmc import hmc_groups
 from .fused_langevin import (
     MIXTURE_RESIDENT_THREADS,
     _check_metropolis,
     _check_thin,
     _seed_words,
     _target,
+    dispatch_groups,
     philox_normals,
     philox_uniforms,
 )
@@ -116,11 +116,11 @@ def _run_plain(x0, grad_logp, eta, n_steps, seed, noise, uniforms, thin):
 def mala_groups(d: int, k: int, gaussian: bool) -> Tuple[int, ...]:
     """The groups of lanes per chain the MALA chain kernel is built for on a
     target of ``k`` components (or the full-covariance Gaussian) in ``d``
-    dimensions: the HMC chain's (:func:`.fused_hmc.hmc_groups`), since both
-    kernels are instantiated by one dispatch (``TEBM_DISPATCH_GROUPS``,
-    csrc/tebm_common.cuh): 1, 2, 4 and 8 up to ``MIXTURE_GROUP_MAX_DIM``,
-    one lane above it and for a single component."""
-    return hmc_groups(d, k, gaussian)
+    dimensions: the shared dispatch's (:func:`.fused_langevin.dispatch_groups`,
+    ``TEBM_DISPATCH_GROUPS`` of csrc/tebm_common.cuh): 1, 2, 4 and 8 up to
+    ``MIXTURE_GROUP_MAX_DIM``, one lane above it and for a single
+    component."""
+    return dispatch_groups(d, k, gaussian)
 
 
 def mala_launch_plan(n: int, d: int, k: int, gaussian: bool,

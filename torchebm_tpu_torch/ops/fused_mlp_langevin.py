@@ -56,7 +56,14 @@ import torch.nn.functional as F
 
 from . import _build
 from ._build import ptr as _ptr
-from .fused_langevin import _check_common, _clamp_args, _run_plain, _schedule_table, _seed_words
+from .fused_langevin import (
+    _check_common,
+    _clamp_args,
+    _run_plain,
+    _schedule_table,
+    _seed_arg,
+    _seed_words,
+)
 
 Tensor = torch.Tensor
 Layers = List[Tuple[Tensor, Tensor]]
@@ -338,25 +345,6 @@ def _mlp_grad(x: Tensor, layers: Layers) -> Tensor:
         s = torch.sigmoid(a)
         g = (s * (1.0 + a * (1.0 - s)) * g) @ w.T
     return g
-
-
-def _seed_arg(seed, device) -> Tuple[Optional[Tensor], int, int]:
-    """``(device seed tensor or None, seed lo, seed hi)``. A seed is a Python
-    int in ``[0, 2^64)``, or a non-negative 0-d int64 tensor on the CPU or on
-    the state's device; the kernel reads a device tensor's two words where it
-    lies (no host sync), the plain version takes ``int(seed)``: the same
-    Philox stream either way."""
-    if isinstance(seed, Tensor):
-        on_card = seed.device.type == "cuda"
-        if (seed.dtype != torch.int64 or seed.ndim != 0
-                or seed.device != (device if on_card else torch.device("cpu"))):
-            raise ValueError(f"a tensor seed must be a 0-d int64 tensor on the CPU or on "
-                             f"{device}, got {seed.dtype} of shape {tuple(seed.shape)} on "
-                             f"{seed.device}")
-        if on_card:
-            return seed, 0, 0
-        seed = int(seed)
-    return None, *_seed_words(seed)
 
 
 def _plain(x0, layers, n_steps, step_size, noise_scale, seed, clamp, noise) -> Tensor:

@@ -47,13 +47,13 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import _build
-from .fused_hmc import hmc_groups
 from .fused_langevin import (
     _check_tensor,
     _check_thin,
     _clamp_args,
     _seed_words,
     _target,
+    dispatch_groups,
     philox_normals,
     philox_uniforms,
 )
@@ -94,12 +94,12 @@ def pt_groups(n_rep: int, d: int, k: int, gaussian: bool) -> Tuple[int, ...]:
     """The groups of lanes per replica the ladder kernel is built for on
     ``n_rep`` replicas of a target of ``k`` components (or the
     full-covariance Gaussian) in ``d`` dimensions: the HMC and MALA chains'
-    (:func:`.fused_hmc.hmc_groups`, one dispatch, ``TEBM_DISPATCH_GROUPS``
-    of csrc/tebm_common.cuh) that keep a chain's Rp · G lanes in one warp,
-    Rp the next power of two >= ``n_rep``: up to 8 lanes at R ≤ 4, 4 at
-    R ≤ 8, 2 at R ≤ 16, one lane at R > 16."""
+    (:func:`.fused_langevin.dispatch_groups`, one dispatch,
+    ``TEBM_DISPATCH_GROUPS`` of csrc/tebm_common.cuh) that keep a chain's
+    Rp · G lanes in one warp, Rp the next power of two >= ``n_rep``: up to 8
+    lanes at R ≤ 4, 4 at R ≤ 8, 2 at R ≤ 16, one lane at R > 16."""
     rp = _padded_replicas(n_rep)
-    return tuple(g for g in hmc_groups(d, k, gaussian) if rp * g <= 32)
+    return tuple(g for g in dispatch_groups(d, k, gaussian) if rp * g <= 32)
 
 
 def pt_launch_plan(n: int, n_rep: int, d: int, k: int, gaussian: bool,

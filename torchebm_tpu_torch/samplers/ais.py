@@ -30,7 +30,8 @@ from typing import Optional
 import torch
 
 from ..core.energies import Energy, GaussianEnergy, GaussianMixtureEnergy
-from .base import _check_model_device, _kernel_seed
+from ..core.module import tensor_memo
+from .base import _check_model_device, _kernel_seed_tensor
 from .langevin import _isotropic_scale
 
 Tensor = torch.Tensor
@@ -93,12 +94,14 @@ def _fused_target_kwargs(target: Energy) -> Optional[dict]:
     1024) or a Gaussian (isotropic with d ≤ 64, else full covariance with
     d ≤ 32), or None. ``log_norm_t`` is the constant the target's energy holds
     beyond the evaluator's unnormalised log-density: the mixture's
-    normalisation, and nothing for a :class:`GaussianEnergy`."""
+    normalisation, and nothing for a :class:`GaussianEnergy`. The scales
+    are read on the host once per state of their buffers
+    (:func:`~torchebm_tpu_torch.core.module.tensor_memo`)."""
     if type(target) is GaussianMixtureEnergy:
         k, d = target.means.shape
         if d > 64 or k * d > 1024:
             return None
-        scale = float(target.scale)
+        scale = tensor_memo(target.scale, float)
         return dict(means=target.means, scale=scale, log_weights=target.log_weights,
                     log_norm_t=d * math.log(scale) + 0.5 * d * math.log(2 * math.pi))
     if type(target) is GaussianEnergy and target.mean.ndim == 1:
@@ -129,8 +132,9 @@ def _ais_fusable(device: torch.device, target: Energy, base: Energy, fused: str)
 
 def _ais_statistics(base: GaussianEnergy, samples: Tensor, logw: Tensor, acc_mean: Tensor,
                     n_samples: int) -> AISResult:
-    log_z_ratio = torch.logsumexp(logw, dim=0) - math.log(n_samples)
-    ess = torch.exp(2.0 * torch.logsumexp(logw, dim=0) - torch.logsumexp(2.0 * logw, dim=0))
+    lse = torch.logsumexp(logw, dim=0)
+    log_z_ratio = lse - math.log(n_samples)
+    ess = torch.exp(2.0 * lse - torch.logsumexp(2.0 * logw, dim=0))
     return AISResult(
         samples=samples,
         log_weights=logw,
@@ -188,7 +192,7 @@ def annealed_importance_sampling(
         samples, logw, acc = fused_ais.mixture_ais_run(
             x0, base.mean, _isotropic_scale(base), betas=betas.contiguous(),
             step_size=float(step_size), n_transitions=int(n_transitions),
-            seed=_kernel_seed(generator), **_fused_target_kwargs(target),
+            seed=_kernel_seed_tensor(generator), **_fused_target_kwargs(target),
         )
         return _ais_statistics(base, samples, logw, torch.mean(acc), int(n_samples))
     return _ais_impl(target, base, generator, betas, float(step_size), int(n_samples),

@@ -39,6 +39,7 @@ from ..core.energies import (
     GaussianMixtureEnergy,
     WrappedEnergy,
 )
+from ..core.module import tensor_memo
 from ..core.schedulers import BaseScheduler, sched_value
 from ..integrators import EulerMaruyamaIntegrator, resolve_integrator
 from .base import (
@@ -93,14 +94,20 @@ class _FusedRow(NamedTuple):
     trajectory: str
 
 
-def _isotropic_scale(model) -> Optional[float]:
-    """σ if ``model`` is an isotropic Gaussian (cov = σ²I), else None."""
-    cov = model.cov.detach().cpu()
+def _covariance_scale(cov: Tensor) -> Optional[float]:
+    """σ if ``cov`` is σ²I, else None (read on the host)."""
+    cov = cov.detach().cpu()
     var = float(cov[0, 0])
     if var <= 0 or not torch.allclose(cov, var * torch.eye(cov.shape[0], dtype=cov.dtype),
                                       atol=1e-12):
         return None
     return var**0.5
+
+
+def _isotropic_scale(model) -> Optional[float]:
+    """σ if ``model`` is an isotropic Gaussian (cov = σ²I), else None; read
+    on the host once per state of ``model.cov`` (:func:`tensor_memo`)."""
+    return tensor_memo(model.cov, _covariance_scale)
 
 
 def _dw_supports(s: "LangevinDynamics") -> bool:
