@@ -11,8 +11,10 @@ at 4,096 x 2), through the public wrappers, against whichever package is
 imported:
 ``PYTHONPATH=<checkout> python3 -P chip_smoke.py --ess-shape`` times an
 earlier checkout's kernels on the same card. ``--ais-shape`` does the same
-for row 12 at its main shapes; ``--ais`` runs only the build and row 12's
-checks, timings, plan sweep and sync count.)
+for row 12 at its main shapes, ``--dw-shape`` for rows 2-3 at 4,096 x 32 x
+1,000 (an int seed and a constant schedule, which earlier wrappers also
+take); ``--ais`` runs only the build and row 12's checks, timings, plan
+sweep and sync count.)
 
 Phases, each printing its lines; any failure raises and the exit code is
 not 0:
@@ -22,9 +24,11 @@ not 0:
    (one ``nvcc`` per source, in parallel) into a clean
    ``build/torch_kernels/``, with each kernel instance's registers and spills
    (an HMC, MALA, ladder or AIS instance of the d <= 2 bucket, the main
-   paths', and any neural chain instance must not spill), and the neural chain's
-   SASS (``cuobjdump -sass``): every instance must hold TF32 ``HMMA``
-   instructions;
+   paths', and any neural chain or double-well instance must not spill), and
+   the SASS (``cuobjdump -sass``): every neural chain instance must hold
+   TF32 ``HMMA`` instructions, and the double-well instances' Philox
+   multiplies and special functions are counted and may hold no integer
+   division;
 3. check: every kernel against its plain PyTorch version on the card, on
    injected randomness and on the Philox stream, at the main shapes (10,000
    x 2, 8 components; 4,096 x 32 double well), on rings of 12 and 33
@@ -71,6 +75,8 @@ not 0:
    - Langevin: ``LangevinDynamics(GaussianMixtureEnergy.eight_gaussians(),
      step_size=0.05).sample(generator, dim=2, n_samples=10_000,
      n_steps=1_000, return_diagnostics=True)`` and the slice's other rows;
+     the double well at 4,096 x 32 x 1,000, its E|x| and E x^2 within
+     DW_MOMENT_TOL of the generic loop's;
    - HMC: ``HamiltonianMonteCarlo(eight_gaussians, step_size=0.3,
      n_leapfrog_steps=8).sample(...)`` at 10,000 x 1,000, and the ESS protocol
      on the correlated Gaussian (cov [[1, .8], [.8, 1]]): ``warmup``,
@@ -119,7 +125,8 @@ not 0:
    generic loop (``fused="off"``), and the correlated Gaussian's covariance,
    R-hat and ESS (over consecutive draws, R-hat within 0.005 of the loop's);
 5. timing: CUDA events, medians after warm-up: each kernel against its
-   plain version, the mixture, MALA and HMC chains and their trajectory
+   plain version, rows 2-3 also by device time per call (the ``--dw-shape``
+   lines), the mixture, MALA and HMC chains and their trajectory
    twins at each number of lanes per chain the kernels are built for, the
    MALA and HMC trajectories at the ESS protocol's shape with their bound,
    the MALA and HMC plan sweeps (device time per call at every built group
@@ -149,15 +156,16 @@ not 0:
    wall time, device busy time (``torch.profiler``) and idle share
    of the CD and EqM train steps, the flow generation, the sampler paths,
    the HMC warmup and ``summarize_chains`` (the kernel paths first, each of
-   which must record device events); for the headline Langevin call and
-   the AIS kernel path also their host operations with the most self CPU
-   time;
+   which must record device events); for the Langevin kernel calls (the
+   headline's, the double well's final state and trajectory) and the AIS
+   kernel path also their host operations with the most self CPU time;
 7. syncs: the host's synchronising calls per EqM train step (none through
    the Sinkhorn kernel), per auction and greedy assignment, per dopri5
    generation, and per CD train step through the neural kernel and on the
    loop, with where each comes from, none in the neural sampler's call
-   (its seed stays on the device) and none in the AIS call on each of its
-   targets after a warm-up call (``torch.cuda.set_sync_debug_mode``);
+   (its seed stays on the device), none in the AIS call on each of its
+   targets and none in the double-well ``sample()`` calls (final state and
+   trajectory), each after a warm-up call (``torch.cuda.set_sync_debug_mode``);
 8. bound: for each kernel the least time the card could take for the timed
    call: the larger of its bytes (inputs read once, outputs written once)
    over 3.35 TB/s and, per instruction class counted from the CUDA source
@@ -192,6 +200,10 @@ TOL = 1e-4
 CHECK_STEPS = 50
 N_CHAINS, N_STEPS = 10_000, 1_000
 DW_SHAPE = (4096, 32)
+#: the double-well kernel path's E|x| and E x^2 against the generic loop's
+#: over the 131,072 elements of DW_SHAPE, independent seeds: about 4.7
+#: standard errors of the difference
+DW_MOMENT_TOL = 0.01
 
 HMC_LEAPFROG = 8
 CORR_COV = ((1.0, 0.8), (0.8, 1.0))
@@ -477,8 +489,8 @@ def check_instances(instances: dict) -> None:
     """The HMC, MALA, ladder and AIS instances of the d <= 2 bucket, the
     main paths' among them (the ring's and the ESS protocol's correlated
     Gaussian's, chain and trajectory, and the AIS path's Gaussians, at every
-    group), and no neural chain instance may spill; every instance's
-    registers and spills are printed with the build."""
+    group), and no neural chain or double-well instance may spill; every
+    instance's registers and spills are printed with the build."""
     for kernel in ("hmc_chain_kernel", "mala_chain_kernel", "pt_chain_kernel", "ais_kernel"):
         bucket2 = {name: v for name, v in instances.items()
                    if name.startswith(f"{kernel}<2,")}
@@ -489,6 +501,12 @@ def check_instances(instances: dict) -> None:
               f"spill: {spilled or 'none'}")
         if any(v[1] != 0 for v in bucket2.values()):
             raise AssertionError(f"a {kernel} instance of the main path's d <= 2 bucket spills")
+    dw = {name: v for name, v in instances.items() if name.startswith("doublewell_chain_kernel")}
+    print(f"build: doublewell_chain_kernel<TRAJ> instances: "
+          + ", ".join(f"{n} {r} registers, {sp} bytes spill stores"
+                      for n, (r, sp) in sorted(dw.items())))
+    if len(dw) != 2 or any(v[1] != 0 for v in dw.values()):
+        raise AssertionError(f"a doublewell_chain_kernel instance spills or is missing: {dw}")
     mlp = {name: v for name, v in instances.items() if name.startswith("mlp_chain_kernel")}
     print(f"build: {len(mlp)} mlp_chain_kernel instances, at most "
           f"{max(v[0] for v in mlp.values())} registers; instances that spill: "
@@ -497,17 +515,36 @@ def check_instances(instances: dict) -> None:
         raise AssertionError("an mlp_chain_kernel instance spills")
 
 
+#: SASS opcodes counted in each double-well instance: Philox's multiplies
+#: (a 32 x 32 -> 64 product in one IMAD.WIDE.U32, or IMAD.HI and IMAD),
+#: its xors and adds, the special functions, and I2F.U32.RP, the reciprocal
+#: an integer division starts with
+DW_SASS_OPS = ("IMAD.WIDE.U32", "IMAD.HI.U32", "LOP3.LUT", "IADD3", "MUFU", "I2F.U32.RP", "BRA")
+
+
+def _dw_sass_counts(section: str) -> dict:
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", section)
+    counts = {op: sum(1 for o in ops if o == op or o.startswith(op + ".")) for op in DW_SASS_OPS}
+    counts["instructions"] = len(ops)
+    return counts
+
+
 def phase_sass(build_mod) -> None:
     """The neural chain kernel runs its products on the tensor cores in
     3xTF32: every ``mlp_chain_kernel`` instance of the built library holds
     ``HMMA`` instructions on TF32 operands (``cuobjdump -sass``), and none
-    spills."""
+    spills. Each double-well instance's Philox, special-function and branch
+    instructions are counted (``DW_SASS_OPS``: two Philox blocks, the first
+    quad's and the loop's, whatever n_steps), and none may divide."""
     cuobjdump = Path(build_mod.find_nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(build_mod.library_path())], check=True,
                           capture_output=True, text=True, timeout=300).stdout
-    counts = {}
+    counts, dw = {}, {}
     for section in re.split(r"\n\s*Function : ", sass):
         name = section.split("\n", 1)[0].strip()
+        k = re.search(r"doublewell_chain_kernelILb(\d)E", name)
+        if k:
+            dw[f"doublewell_chain_kernel<{k.group(1)}>"] = _dw_sass_counts(section)
         k = re.search(r"mlp_chain_kernelI(\w*?)EEv", name)
         if k:
             entry = f"mlp_chain_kernel<{','.join(re.findall(r'L[ib](\d+)E', k.group(1)))}>"
@@ -518,6 +555,10 @@ def phase_sass(build_mod) -> None:
           + ", ".join(f"{e} {tf}/{hm}" for e, (tf, hm) in sorted(counts.items())))
     if not counts or any(tf == 0 for tf, _ in counts.values()):
         raise AssertionError(f"an mlp_chain_kernel instance has no TF32 HMMA: {counts}")
+    for entry, c in sorted(dw.items()):
+        print(f"build: SASS of {entry}: {c}")
+    if len(dw) != 2 or any(c["I2F.U32.RP"] for c in dw.values()):
+        raise AssertionError(f"a doublewell_chain_kernel instance divides or is missing: {dw}")
 
 
 def _ring(k: int):
@@ -604,6 +645,13 @@ def phase_check(fl, dev, errors: dict) -> None:
             check("doublewell_langevin_chain" + suffix, (xdw, steps, sched / 5, 0.7),
                   dict(**tkw, seed=14, clamp=(-1.5, 1.5), noise=noisedw),
                   f"{dw_label} sched+clamp, {label}")
+        if noisedw is None:
+            # the sampler's form of the seed: a 0-d int64 tensor read on the card
+            seed_t = torch.tensor(13, device=dev)
+            check("doublewell_langevin_chain", (xdw, steps, 0.01), dict(seed=seed_t),
+                  f"{dw_label} const, philox, device seed")
+            check("doublewell_langevin_chain_trajectory", (xdw, steps, 0.01),
+                  dict(thin=7, seed=seed_t), f"{dw_label} const, philox, device seed")
         # the one-step op at the double-well shape and at 16M elements
         xs, gs = randn(*DW_SHAPE), randn(*DW_SHAPE)
         big_x, big_g = randn(STEP_ELEMS), randn(STEP_ELEMS)
@@ -663,16 +711,27 @@ def path_langevin(ops, dev, card: str) -> dict:
     if {k: tuple(v.shape) for k, v in loop_diag.items()} != shapes:
         raise AssertionError("the generic loop's diagnostics have other shapes")
     radius_loop = float(loop.norm(dim=-1).mean())
+    dw_loop = dw.replace(fused="off").sample(torch.Generator(dev).manual_seed(7),
+                                             dim=DW_SHAPE[1], n_samples=DW_SHAPE[0],
+                                             n_steps=N_STEPS)
     dw_abs = float(dw_final.abs().mean())
+    dw_moments = {name: (float(x.abs().mean()), float((x * x).mean()))
+                  for name, x in (("kernel", dw_final), ("generic loop", dw_loop))}
     print(f"main path: mean radius {radius:.4f} (kernel, diagnostics) {radius_final:.4f} "
           f"(kernel) {radius_loop:.4f} (generic loop) {exact:.4f} (exact draws); "
-          f"double well E|x| {dw_abs:.4f} | {card}")
+          f"double well {DW_SHAPE[0]}x{DW_SHAPE[1]}x{N_STEPS} E|x|, E x^2: "
+          + ", ".join(f"{a:.5f}, {b:.5f} ({name})" for name, (a, b) in dw_moments.items())
+          + f" (tol {DW_MOMENT_TOL}) | {card}")
     if not 3.0 < radius < 5.0:
         raise AssertionError(f"sampler off-distribution: mean radius {radius}")
     if abs(radius - radius_loop) > 0.05 or abs(radius_final - radius_loop) > 0.05:
         raise AssertionError("kernel path and generic loop disagree on the mean radius")
     if not 0.5 < dw_abs < 1.5:
         raise AssertionError(f"double-well chain off-distribution: E|x| = {dw_abs}")
+    (k_abs, k_sq), (l_abs, l_sq) = dw_moments.values()
+    if abs(k_abs - l_abs) > DW_MOMENT_TOL or abs(k_sq - l_sq) > DW_MOMENT_TOL:
+        raise AssertionError(f"the double-well kernel path and the generic loop disagree: "
+                             f"{dw_moments}")
     return launches
 
 
@@ -2224,6 +2283,25 @@ def ais_ab(ops, dev, card: str) -> None:
               f"call, device {device_ms(run):.4f} ms | {card}", flush=True)
 
 
+def dw_ab(ops, dev, card: str) -> None:
+    """``chip_smoke.py --dw-shape``: rows 2-3 through the public wrappers at
+    4,096 x 32 elements x 1,000 steps (the trajectory thin 10), an int seed
+    and a constant schedule, per call and by device time per call, against
+    whichever package is imported, so that an earlier checkout can be timed
+    beside this one on the same card."""
+    import torch
+
+    fl = ops.fused_langevin
+    x0 = 0.5 * torch.randn(DW_SHAPE, generator=torch.Generator(dev).manual_seed(9), device=dev)
+    for name, kw in (("doublewell_langevin_chain", {}),
+                     ("doublewell_langevin_chain_trajectory", dict(thin=10))):
+        run = functools.partial(getattr(fl, name), x0, N_STEPS, 0.01, seed=22, **kw)
+        ms = statistics.median(cuda_times(run, 2, 10))
+        print(f"dw-shape: {name} (package {ops.__file__}, {DW_SHAPE[0]}x{DW_SHAPE[1]}x{N_STEPS}"
+              f"{', thin 10' if kw else ''}): {ms:.4f} ms per call, device "
+              f"{device_ms(run):.4f} ms | {card}", flush=True)
+
+
 def ais_group_timing(ops, dev, card: str, clock: float) -> None:
     """Row 12 at its main shapes (:func:`ais_main_shapes`) at each group of
     lanes per chain its kernel is built for, per call and by device time per
@@ -2717,6 +2795,7 @@ def phase_timing(ops, dev, card: str) -> dict:
               + f"; the plan picks G={fl.mixture_launch_plan(n, 2, kr, False)[0]} | {card}")
 
     phase_group_timing(ops, dev, card)
+    dw_ab(ops, dev, card)
 
     for name in ("pt_langevin_chain", "pt_langevin_chain_trajectory"):
         print(f"timing: {name} {N_CHAINS} chains x {len(PT_TEMPS)} replicas: "
@@ -2986,6 +3065,37 @@ def phase_syncs(ops, dev, card: str) -> None:
     if sample:
         raise AssertionError(f"the neural chain's sampler call syncs: {sample}")
     ais_syncs(ops, dev, card)
+    dw_syncs(ops, dev, card)
+
+
+def dw_syncs(ops, dev, card: str) -> None:
+    """Host syncs of the double-well ``sample()`` calls through the kernels,
+    final state and trajectory, at 4,096 x 32 x 1,000, after a warm-up call
+    (none expected: the seed goes to the kernel as a device tensor and the
+    constant schedule as two floats)."""
+    import torch
+
+    from torchebm_tpu_torch.core import DoubleWellEnergy
+    from torchebm_tpu_torch.samplers import LangevinDynamics
+
+    dw = LangevinDynamics(DoubleWellEnergy(), step_size=0.01)
+    g = torch.Generator(dev).manual_seed(44)
+    sites = {}
+    for name, kw in (("doublewell_langevin_chain", {}),
+                     ("doublewell_langevin_chain_trajectory",
+                      dict(thin=10, return_trajectory=True))):
+        run = functools.partial(dw.sample, g, dim=DW_SHAPE[1], n_samples=DW_SHAPE[0],
+                                n_steps=N_STEPS, **kw)
+        run()
+        before = ops.launch_counts()[name]
+        sites[name] = sync_sites(run)
+        if ops.launch_counts()[name] != before + 1:
+            raise AssertionError(f"the double-well sample() call did not launch {name}")
+    print(f"syncs: LangevinDynamics(DoubleWellEnergy()).sample {DW_SHAPE[0]}x{DW_SHAPE[1]}x"
+          f"{N_STEPS} through the kernel, after a warm-up call: "
+          + "; ".join(f"{name} {len(v)} {v}" for name, v in sites.items()) + f" | {card}")
+    if any(sites.values()):
+        raise AssertionError(f"the double-well sample() call syncs: {sites}")
 
 
 def ais_syncs(ops, dev, card: str) -> None:
@@ -3067,11 +3177,12 @@ def phase_profile(dev, card: str) -> None:
     """Wall time (host clock around ``synchronize()``, median of 3 after one
     warm-up), device busy time (one more call under ``torch.profiler``) and
     the idle share 1 - busy / wall of the sampler paths and the diagnostics;
-    for the headline Langevin call and the AIS kernel path also the host
-    operations with the most self CPU time."""
+    for the Langevin kernel calls (the headline's and the double well's) and
+    the AIS kernel path also the host operations with the most self CPU
+    time."""
     import torch
 
-    from torchebm_tpu_torch.core import GaussianEnergy, GaussianMixtureEnergy
+    from torchebm_tpu_torch.core import DoubleWellEnergy, GaussianEnergy, GaussianMixtureEnergy
     from torchebm_tpu_torch.samplers import (
         HamiltonianMonteCarlo,
         LangevinDynamics,
@@ -3085,6 +3196,8 @@ def phase_profile(dev, card: str) -> None:
     g = torch.Generator(dev).manual_seed(6)
     x2 = torch.randn((N_CHAINS, 2), generator=g, device=dev)
     lang = LangevinDynamics(mix, step_size=0.05)
+    dw = LangevinDynamics(DoubleWellEnergy(), step_size=0.01)
+    dw_label = f"{DW_SHAPE[0]}x{DW_SHAPE[1]}x{N_STEPS}"
     hmc = HamiltonianMonteCarlo(mix, step_size=0.3, n_leapfrog_steps=HMC_LEAPFROG)
     mala = MetropolisAdjustedLangevin(mix, step_size=0.05)
     corr, _, (x0, eps) = _hmc_warmup(dev, False)
@@ -3132,6 +3245,11 @@ def phase_profile(dev, card: str) -> None:
             lambda: lang.sample(g, x=x2, n_steps=N_STEPS),
         f"Langevin sample() kernel path + diagnostics {n}x{N_STEPS}":
             lambda: lang.sample(g, x=x2, n_steps=N_STEPS, return_diagnostics=True),
+        f"Langevin sample() kernel path, double well {dw_label}":
+            lambda: dw.sample(g, dim=DW_SHAPE[1], n_samples=DW_SHAPE[0], n_steps=N_STEPS),
+        f"Langevin sample() kernel path, double-well trajectory {dw_label} thin 10":
+            lambda: dw.sample(g, dim=DW_SHAPE[1], n_samples=DW_SHAPE[0], n_steps=N_STEPS,
+                              thin=10, return_trajectory=True),
         f"HMC sample() kernel path {n}x{N_STEPS}": lambda: hmc.sample(g, x=x2, n_steps=N_STEPS),
         f"HMC ESS trajectory kernel path {n}x{ESS_DRAWS} thin {ESS_THIN}":
             lambda: corr.sample(g, x=x0, n_steps=ESS_DRAWS, thin=ESS_THIN,
@@ -3202,6 +3320,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--ais-shape"]:
         ais_ab(ops, dev, card)
+        return
+    if sys.argv[1:] == ["--dw-shape"]:
+        dw_ab(ops, dev, card)
         return
     if sys.argv[1:] == ["--ais"]:
         check_instances(phase_build(_build))

@@ -112,9 +112,9 @@ def test_neural_chain_counts_its_products_on_the_tensor_cores():
 
 def test_doublewell_counts_one_normal_per_element_step():
     """The double-well chain needs one normal per element-step: a quarter
-    of a Philox block (21 INT32 instructions; the kernel draws a whole block
-    and keeps one normal), half a Box-Muller pair, and 7 FP32 operations
-    for the gradient, the update and the clamp."""
+    of a Philox block (21 INT32 instructions; the kernel draws one block
+    per four steps and uses its four normals), half a Box-Muller pair, and
+    7 FP32 operations for the gradient, the update and the clamp."""
     x0 = torch.randn(4, 3, generator=torch.Generator().manual_seed(0))
     args = (x0, 5, 0.01)
     work = _counts.work("doublewell_langevin_chain", args, {},

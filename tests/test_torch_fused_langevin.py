@@ -156,6 +156,7 @@ DOUBLEWELL_CASES = [
     pytest.param((N_CHAINS, 2), 13, None, True, None, id="sched"),
     pytest.param((N_CHAINS, 3), 17, 3, False, None, id="traj-thin3-rem2"),
     pytest.param((5, 4, 3), 16, 5, True, (-1.2, 1.2), id="traj-sched-clamp-3d"),
+    pytest.param((N_CHAINS, 5), 19, 6, True, (-1.4, 1.4), id="traj-thin6-rem3-sched-clamp"),
 ]
 
 
@@ -184,6 +185,98 @@ def test_doublewell_chain_plain_matches_jax_interpret(shape, n_steps, thin, sche
         assert traj.shape == (n_steps // thin, *shape)
         _close(traj, ref_traj)
         _close(final, ref_final)
+
+
+def _quad_stream_by_hand(n_elems, n_steps, seed):
+    """Step t's normals of elements 0..n_elems-1, built from the Philox words:
+    counter (e lo, t // 4, 0, e hi), normal t % 4 of the block's two
+    Box-Muller pairs; and each (element, step)'s (counter, word)."""
+    e = torch.arange(n_elems, dtype=torch.int64)
+    steps, keys = [], []
+    for t in range(n_steps):
+        o = tfl.philox4x32_10(e & M32, t // 4, 0, e >> 32, seed, seed >> 32)
+        steps.append((tfl._box_muller(o[0], o[1]) + tfl._box_muller(o[2], o[3]))[t % 4])
+        keys += [(i & M32, t // 4, 0, i >> 32, t % 4) for i in e.tolist()]
+    return torch.stack(steps), keys
+
+
+@pytest.mark.parametrize("n_steps", [4, 5, 6, 7])
+def test_doublewell_plain_draws_the_quad_stream(n_steps):
+    """The plain twin's normals are the quad stream bit for bit: with no
+    barrier, unit noise coefficient (η = 1/2, noise scale 1) and x0 = 0 each
+    kept state is the running float32 sum of the steps' normals."""
+    seed = (3 << 32) | 9
+    shape = (3, 5)
+    z, _ = _quad_stream_by_hand(15, n_steps, seed)
+    for fn in (tfl.doublewell_langevin_chain_trajectory,
+               tfl.doublewell_langevin_chain_trajectory_plain):
+        traj, final = fn(torch.zeros(shape), n_steps, 0.5, 1.0, barrier_height=0.0, seed=seed)
+        x = torch.zeros(15)
+        for t in range(n_steps):
+            x = x + z[t]
+            assert torch.equal(traj[t].reshape(-1), x), t
+        assert torch.equal(final.reshape(-1), x)
+    assert torch.equal(torch.stack(list(tfl.doublewell_normals(torch.arange(15), n_steps, seed))),
+                       z)
+
+
+def test_doublewell_stream_is_sound():
+    """4,096 elements x 64 steps of the quad stream: standard normals, no
+    correlation between consecutive steps of an element (within a quad and
+    across quads) or between neighbouring elements, and no two (element,
+    step) pairs reading the same Philox (counter, word)."""
+    n, n_steps, seed = 4096, 64, 2024
+    z = torch.stack(list(tfl.doublewell_normals(torch.arange(n), n_steps, seed))).double()
+    want, keys = _quad_stream_by_hand(n, n_steps, seed)
+    assert torch.equal(z.float(), want)
+    assert len(set(keys)) == n * n_steps
+    assert abs(float(z.mean())) < 0.02 and abs(float(z.var()) - 1.0) < 0.03
+
+    def corr(a, b):
+        a, b = a - a.mean(), b - b.mean()
+        return float((a * b).sum() / (a.norm() * b.norm()))
+
+    t = torch.arange(n_steps - 1)
+    within, across = t[t % 4 != 3], t[t % 4 == 3]
+    assert abs(corr(z[within], z[within + 1])) < 0.02
+    assert abs(corr(z[across], z[across + 1])) < 0.02
+    assert abs(corr(z[:, :-1], z[:, 1:])) < 0.02
+
+
+def test_doublewell_constant_schedule_equals_its_table():
+    """A constant (step size, noise scale) pair, which the kernels take as
+    two floats, runs the chain the same (n_steps,) schedule runs from its
+    table: η = 2^-7 and noise scale 0.7 give the same float32 coefficient
+    both ways."""
+    rng = _rng(5)
+    x0 = torch.from_numpy(_normal(rng, 37, 3, scale=0.5))
+    n_steps, h, ns = 11, 2.0**-7, 0.7
+    const = tfl._constant_schedule(h, ns)
+    table = tfl._schedule_table(torch.full((n_steps,), h), torch.full((n_steps,), ns), n_steps,
+                                x0.device)
+    assert torch.equal(table, torch.tensor(const, dtype=torch.float32)[:, None].expand(2, n_steps))
+    kw = dict(seed=41, clamp=(-1.5, 1.5))
+    torch.testing.assert_close(
+        tfl.doublewell_langevin_chain(x0, n_steps, h, ns, **kw),
+        tfl.doublewell_langevin_chain(x0, n_steps, torch.full((n_steps,), h),
+                                      torch.full((n_steps,), ns), **kw), rtol=0, atol=0)
+    a = tfl.doublewell_langevin_chain_trajectory(x0, n_steps, h, ns, thin=3, **kw)
+    b = tfl.doublewell_langevin_chain_trajectory(x0, n_steps, torch.full((n_steps,), h), ns,
+                                                 thin=3, **kw)
+    for u, v in zip(a, b):
+        torch.testing.assert_close(u, v, rtol=0, atol=0)
+
+
+def test_doublewell_seed_as_int_or_tensor():
+    """A 0-d int64 seed tensor keys the same stream as its int; a seed of
+    another type or shape raises."""
+    x0 = torch.zeros(6, 2)
+    a = tfl.doublewell_langevin_chain(x0, 6, 0.1, seed=(5 << 32) | 3)
+    b = tfl.doublewell_langevin_chain(x0, 6, 0.1, seed=torch.tensor((5 << 32) | 3))
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for bad in (torch.tensor([3]), torch.tensor(3, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="0-d int64"):
+            tfl.doublewell_langevin_chain(x0, 6, 0.1, seed=bad)
 
 
 # ------------------------------------------------------------------ one step

@@ -150,22 +150,56 @@ def test_mixture_kernel_draws_the_philox_twin(cuda, d, k):
         torch.testing.assert_close(traj[t].cpu(), want, rtol=0, atol=1e-5)
 
 
+#: (state shape, n_steps): 7,000 and 1,001 elements (not multiples of 32);
+#: 20-23 steps end on a full quad and on partial quads of 1, 2 and 3 steps
+DOUBLEWELL_SHAPES = [((1000, 7), 20), ((1000, 7), 21), ((1001,), 22), ((1000, 7), 23)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("inject", [True, False], ids=["noise", "philox"])
-def test_doublewell_kernels_match_plain_on_card(cuda, inject):
-    rng = _rng(1)
-    shape, n_steps = (1000, 7), 20
+@pytest.mark.parametrize("shape, n_steps", DOUBLEWELL_SHAPES,
+                         ids=[f"{'x'.join(map(str, s))}-{t}steps" for s, t in DOUBLEWELL_SHAPES])
+def test_doublewell_kernels_match_plain_on_card(cuda, inject, shape, n_steps):
+    """Both double-well kernels against their plain versions: a constant
+    schedule (two floats) and a per-step table, with and without the clamp,
+    thin 1, 3 and 6 (kept slots inside and across the quads of the Philox
+    stream)."""
+    rng = _rng(1 + n_steps)
     x0 = torch.from_numpy(_normal(rng, *shape, scale=0.5)).to(cuda)
-    kw = dict(seed=5, clamp=(-2.0, 2.0))
-    if inject:
-        kw["noise"] = torch.from_numpy(_normal(rng, n_steps, *shape)).to(cuda)
-    got, want = _kernel_and_plain(tfl.doublewell_langevin_chain, cuda, x0, n_steps, 0.01, **kw)
+    sched = torch.from_numpy(_schedule(rng, n_steps, 0.005, 0.02)).to(cuda)
+    noise = torch.from_numpy(_normal(rng, n_steps, *shape)).to(cuda) if inject else None
+    for step_size, noise_scale in ((0.01, 0.8), (sched, 0.7)):
+        for clamp in (None, (-1.2, 1.2)):
+            kw = dict(seed=(7 << 32) | 5, clamp=clamp, noise=noise)
+            got, want = _kernel_and_plain(tfl.doublewell_langevin_chain, cuda, x0, n_steps,
+                                          step_size, noise_scale, **kw)
+            torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+            for thin in (1, 3, 6):
+                (gt, gf), (wt, wf) = _kernel_and_plain(
+                    tfl.doublewell_langevin_chain_trajectory, cuda, x0, n_steps, step_size,
+                    noise_scale, thin=thin, **kw)
+                assert gt.shape == (n_steps // thin, *shape)
+                torch.testing.assert_close(gt.cpu(), wt, rtol=0, atol=1e-4)
+                torch.testing.assert_close(gf.cpu(), wf, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_steps", [20, 23])
+def test_doublewell_kernels_take_a_device_seed(cuda, n_steps):
+    """A 0-d int64 seed on the card keys the stream its int keys: both
+    kernels give equal outputs bit for bit."""
+    x0 = torch.from_numpy(_normal(_rng(2), 1000, 7, scale=0.5)).to(cuda)
+    seed = (3 << 32) | 17
+    dev_seed = torch.tensor(seed, device=cuda)
+    a = tfl.doublewell_langevin_chain(x0, n_steps, 0.01, seed=seed)
+    b = tfl.doublewell_langevin_chain(x0, n_steps, 0.01, seed=dev_seed)
+    assert torch.equal(a, b)
+    ta, fa = tfl.doublewell_langevin_chain_trajectory(x0, n_steps, 0.01, thin=3, seed=seed)
+    tb, fb = tfl.doublewell_langevin_chain_trajectory(x0, n_steps, 0.01, thin=3, seed=dev_seed)
+    assert torch.equal(ta, tb) and torch.equal(fa, fb)
+    got, want = _kernel_and_plain(tfl.doublewell_langevin_chain, cuda, x0, n_steps, 0.01,
+                                  seed=dev_seed)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
-    (gt, gf), (wt, wf) = _kernel_and_plain(
-        tfl.doublewell_langevin_chain_trajectory, cuda, x0, n_steps, 0.01, 0.7, thin=6, **kw
-    )
-    torch.testing.assert_close(gt.cpu(), wt, rtol=0, atol=1e-4)
-    torch.testing.assert_close(gf.cpu(), wf, rtol=0, atol=1e-4)
 
 
 def _flipped_chains(got, want, n) -> int:

@@ -135,7 +135,10 @@ class TestFusedDispatch:
         assert shape == (32, 4) and args == ()
         assert (kw["n_steps"], kw["step_size"], kw["noise_scale"]) == (7, 0.01, 1.0)
         assert (kw["barrier_height"], kw["b"], kw["clamp"]) == (2.0, 1.0, None)
-        assert isinstance(kw["seed"], int) and 0 <= kw["seed"] < 2**63
+        # the row's seed stays on the device: a 0-d int64 tensor the kernel reads
+        seed = kw["seed"]
+        assert isinstance(seed, torch.Tensor) and seed.dtype == torch.int64 and seed.ndim == 0
+        assert seed.device == _gen().device and 0 <= int(seed) < 2**63
 
     def test_force_routes_mixture(self, monkeypatch):
         calls = []

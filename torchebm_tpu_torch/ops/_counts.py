@@ -28,8 +28,8 @@ one per pair tried, whatever the group (each block is drawn once, by one
 lane). MALA's and AIS's bounds at their main shapes (the ring, the ESS
 protocol's 2-D Gaussian, the AIS path's Gaussians) are set by their two
 Philox blocks per step (INT32). The double-well chain needs one normal per
-element-step: a quarter of a Philox block, though its kernel draws a whole
-block and keeps one normal of four.
+element-step: a quarter of a Philox block, and its kernel draws one block
+per four steps of an element and uses all four normals.
 
 :data:`COUNTED_SOURCES` holds the SHA-256 prefix of each source the counts
 were last checked against; a test fails when a source changes, so that an
@@ -44,7 +44,7 @@ __all__ = ["COUNTED_SOURCES", "work"]
 COUNTED_SOURCES = {
     "fused_ais.cu": "37a6a4cfaa0bb996",
     "fused_hmc.cu": "72f93febded56462",
-    "fused_langevin.cu": "ed1abd8c6f146eb2",
+    "fused_langevin.cu": "2077046c15dfcbdc",
     "fused_mala.cu": "cc395518a0c9ea11",
     "fused_mlp_langevin.cu": "a66a000976234979",
     "fused_pt.cu": "cc295bb989eccc55",
@@ -109,8 +109,8 @@ def work(name: str, args, kw, result) -> dict:
         ops = _add(per, times=n * n_steps)
     elif name.startswith("doublewell"):  # fused_langevin.cu, per element-step
         x0, n_steps = args[:2]
-        # one normal (the kernel draws a whole block of four and keeps one);
-        # the gradient 4h x (x^2 - b^2), the update and the clamp
+        # one normal (the kernel draws one block per four steps and uses its
+        # four normals); the gradient 4h x (x^2 - b^2), the update and the clamp
         ops = _add(_NORMAL, {"fp32": 7}, times=x0.numel() * n_steps)
     elif name.startswith("mixture_mala"):  # fused_mala.cu, per chain-step, any group
         x0, means, n_steps = args[:3]

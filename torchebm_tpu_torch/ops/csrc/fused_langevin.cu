@@ -13,13 +13,15 @@
 //
 // The (2, n_steps) schedule table [eta_t, c_t] stays in global memory: every
 // thread of the grid reads the same two words per step, so the load is a
-// broadcast served from L1, and chains of any length need no chunking.
+// broadcast served from L1, and chains of any length need no chunking. The
+// double-well chain takes a constant schedule as two floats instead.
 //
-// Randomness: the Philox4x32-10 stream of tebm_common.cuh, counter (index lo,
-// step, block of four coordinates, index hi). At the main shapes (d <= 4,
-// fewer than 2^32 chains) the counter is (index, step, 0, 0). Passing `noise`
-// (n_steps, n, d) replaces the generator with injected normals, as in the JAX
-// signatures.
+// Randomness: the Philox4x32-10 stream of tebm_common.cuh. The mixture chain's
+// counter is (index lo, step, block of four coordinates, index hi); at the
+// main shapes (d <= 4, fewer than 2^32 chains) (index, step, 0, 0). The
+// double-well chain's is (element lo, step / 4, 0, element hi), one block per
+// four steps. Passing `noise` (n_steps, n, d) replaces the generator with
+// injected normals, as in the JAX signatures.
 
 #include "tebm_common.cuh"
 
@@ -187,32 +189,81 @@ __global__ void __launch_bounds__(kMixThreads) mixture_chain_kernel(
 // doublewell_langevin_chain (:442) and doublewell_langevin_chain_trajectory
 // (:716): grad E = 4 h x (x^2 - b^2), elementwise over any state shape.
 //
-// Bound: the generator. Per element-step the gradient is three FMAs; one
-// Philox block (ten rounds) and one Box-Muller pair dominate. No device-memory
-// traffic between steps except the optional trajectory store.
+// Bound: INT32, by the generator. Per element-step the algorithm needs one
+// normal: a quarter of a Philox4x32-10 block (21 INT32 instructions) and half
+// a Box-Muller pair (3 SFU), beside 22 FP32 operations for the normal, the
+// gradient, the update and the clamp (ops/_counts.py): 0.1646 ms at 4,096 x
+// 32 elements x 1,000 steps on an H100 SXM. No device-memory traffic between
+// steps except the optional trajectory store.
 //
-// Design: one thread holds one element in a register for the whole chain and
-// uses the first normal of its counter's block.
+// Design: thread e holds element e in a register for the whole chain (about
+// 31 warps per SM at the main shape; coalesced loads and stores). One Philox
+// block feeds four steps: for the quad of steps 4m..4m+3 the thread draws
+// the block at counter (e lo, m, 0, e hi), and step t takes normal t - 4m of
+// its two Box-Muller pairs, so every word of every block is used once. The
+// step loop is unrolled by four, so each normal's index is a constant (no
+// local array). The noise does not depend on the state, so the next quad's
+// normals are drawn before the current quad's four updates, and their ten
+// dependent Philox rounds overlap the updates. A last partial quad
+// (n_steps % 4 of 1-3 steps) takes the first normals of one more block; the
+// last full quad draws that block whether or not a partial quad follows (one
+// block per element more, and no branch in the loop).
+// Thinning is a countdown and a slot pointer advanced by n per kept state;
+// injected noise is a pointer advanced by n per step: no division and no
+// 64-bit multiply per step. A constant schedule comes as two floats (eta,
+// nc), a per-step one as the (2, n_steps) table [eta_t, c_t]. The Philox key
+// is (seed_lo, seed_hi), or the two words of the int64 the `seed` pointer
+// holds on the device (no host read of a device seed).
 // ---------------------------------------------------------------------------
 template <bool TRAJ>
 __global__ void __launch_bounds__(kThreads) doublewell_chain_kernel(
     const float* __restrict__ x0, float* __restrict__ out, float* __restrict__ traj,
-    const float* __restrict__ sched, const float* __restrict__ noise, long long n, int n_steps,
-    int thin, float coef, float b2, int use_clamp, float lo, float hi, uint32_t seed_lo,
+    const float* __restrict__ sched, const float* __restrict__ noise,
+    const long long* __restrict__ seed, long long n, int n_steps, int thin, float coef,
+    float b2, float eta, float nc, int use_clamp, float lo, float hi, uint32_t seed_lo,
     uint32_t seed_hi) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
+  if (seed != nullptr) {
+    const unsigned long long v = (unsigned long long)__ldg(seed);
+    seed_lo = (uint32_t)v;
+    seed_hi = (uint32_t)(v >> 32);
+  }
   float x = x0[e];
-  for (int t = 0; t < n_steps; ++t) {
+  // the trajectory slot of the next kept state, `until` steps ahead
+  float* slot = TRAJ ? traj + e : nullptr;
+  int until = thin;
+  auto step = [&](int t, float z) {
+    const float h = sched != nullptr ? sched[t] : eta;
+    const float c = sched != nullptr ? sched[n_steps + t] : nc;
     const float grad = coef * x * (x * x - b2);
-    float z[4];
-    if (noise != nullptr) {
-      z[0] = noise[(size_t)t * n + e];
-    } else {
-      normals4((uint64_t)e, t, 0, seed_lo, seed_hi, z);
+    x = clampf(x - h * grad + c * z, use_clamp, lo, hi);
+    if (TRAJ && --until == 0) {
+      *slot = x;
+      slot += n;
+      until = thin;
     }
-    x = clampf(x - sched[t] * grad + sched[n_steps + t] * z[0], use_clamp, lo, hi);
-    if (TRAJ && (t + 1) % thin == 0) traj[(size_t)((t + 1) / thin - 1) * n + e] = x;
+  };
+
+  if (noise != nullptr) {
+    const float* zp = noise + e;
+    for (int t = 0; t < n_steps; ++t, zp += n) step(t, *zp);
+  } else {
+    float z[4], zn[4];
+    normals4((uint64_t)e, 0, 0, seed_lo, seed_hi, z);
+    const int quads = n_steps >> 2;
+    int t = 0;
+    for (int m = 0; m < quads; ++m, t += 4) {
+      // the next quad's normals, ahead of this quad's updates
+      normals4((uint64_t)e, m + 1, 0, seed_lo, seed_hi, zn);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) step(t + q, z[q]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) z[q] = zn[q];
+    }
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+      if (t + q < n_steps) step(t + q, z[q]);
   }
   out[e] = x;
 }
@@ -268,15 +319,18 @@ int launch_mixture(const float* x0, float* out, float* traj, const float* params
   return (int)cudaGetLastError();
 }
 
+// `sched` is the (2, n_steps) table, or null for the constant (eta, nc);
+// `seed` a device int64 whose two words key the Philox stream, or null for
+// (seed_lo, seed_hi).
 template <bool TRAJ>
 int launch_doublewell(const float* x0, float* out, float* traj, const float* sched,
-                      const float* noise, long long n, int n_steps, int thin, float coef, float b2,
-                      int use_clamp, float lo, float hi, uint32_t seed_lo, uint32_t seed_hi,
-                      void* stream) {
+                      const float* noise, const long long* seed, long long n, int n_steps,
+                      int thin, float coef, float b2, float eta, float nc, int use_clamp,
+                      float lo, float hi, uint32_t seed_lo, uint32_t seed_hi, void* stream) {
   const dim3 grid((unsigned)((n + kThreads - 1) / kThreads));
   doublewell_chain_kernel<TRAJ><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x0, out, traj, sched, noise, n, n_steps, thin, coef, b2, use_clamp, lo, hi, seed_lo,
-      seed_hi);
+      x0, out, traj, sched, noise, seed, n, n_steps, thin, coef, b2, eta, nc, use_clamp, lo, hi,
+      seed_lo, seed_hi);
   return (int)cudaGetLastError();
 }
 
@@ -308,20 +362,22 @@ int tebm_mixture_langevin_chain_trajectory(const float* x0, float* out, float* t
 }
 
 int tebm_doublewell_langevin_chain(const float* x0, float* out, const float* sched,
-                                   const float* noise, long long n, int n_steps, float coef,
-                                   float b2, int use_clamp, float lo, float hi, uint32_t seed_lo,
+                                   const float* noise, const long long* seed, long long n,
+                                   int n_steps, float coef, float b2, float eta, float nc,
+                                   int use_clamp, float lo, float hi, uint32_t seed_lo,
                                    uint32_t seed_hi, void* stream) {
-  return launch_doublewell<false>(x0, out, nullptr, sched, noise, n, n_steps, 1, coef, b2,
-                                  use_clamp, lo, hi, seed_lo, seed_hi, stream);
+  return launch_doublewell<false>(x0, out, nullptr, sched, noise, seed, n, n_steps, 1, coef, b2,
+                                  eta, nc, use_clamp, lo, hi, seed_lo, seed_hi, stream);
 }
 
 int tebm_doublewell_langevin_chain_trajectory(const float* x0, float* out, float* traj,
-                                              const float* sched, const float* noise, long long n,
-                                              int n_steps, int thin, float coef, float b2,
+                                              const float* sched, const float* noise,
+                                              const long long* seed, long long n, int n_steps,
+                                              int thin, float coef, float b2, float eta, float nc,
                                               int use_clamp, float lo, float hi,
                                               uint32_t seed_lo, uint32_t seed_hi, void* stream) {
-  return launch_doublewell<true>(x0, out, traj, sched, noise, n, n_steps, thin, coef, b2,
-                                 use_clamp, lo, hi, seed_lo, seed_hi, stream);
+  return launch_doublewell<true>(x0, out, traj, sched, noise, seed, n, n_steps, thin, coef, b2,
+                                 eta, nc, use_clamp, lo, hi, seed_lo, seed_hi, stream);
 }
 
 const char* tebm_error_string(int code) {

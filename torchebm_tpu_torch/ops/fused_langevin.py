@@ -27,7 +27,9 @@ per-step schedule. ``noise`` (``(n_steps, *x0.shape)``) injects the normals;
 without it they come from the Philox4x32-10 stream keyed by ``seed``, which
 :func:`philox4x32_10` reproduces bit for bit in plain PyTorch
 (:func:`philox_normals`; :func:`philox_uniforms` draws the Metropolis
-uniforms of the MALA and HMC kernels from the same stream). The
+uniforms of the MALA and HMC kernels from the same stream, and
+:func:`doublewell_normals` the double-well chains' normals, one block per
+four steps of an element). The
 ``*_trajectory`` variants also return every ``thin``-th state as an
 ``(n_steps // thin, *x0.shape)`` tensor; the trailing ``n_steps % thin``
 steps still run and land in ``final``.
@@ -60,6 +62,7 @@ __all__ = [
     "fused_langevin_step_plain",
     "doublewell_langevin_chain_plain",
     "doublewell_langevin_chain_trajectory_plain",
+    "doublewell_normals",
     "mixture_langevin_chain_plain",
     "mixture_langevin_chain_trajectory_plain",
     "philox4x32_10",
@@ -107,9 +110,9 @@ _SIGNATURES = {
     "mixture_langevin_chain": (_P,) * 6 + (_I,) * 5 + (_F, _I, _F, _F, _U, _U) + (_I,) * 3,
     "mixture_langevin_chain_trajectory":
         (_P,) * 7 + (_I,) * 6 + (_F, _I, _F, _F, _U, _U) + (_I,) * 3,
-    "doublewell_langevin_chain": (_P,) * 4 + (_LL, _I, _F, _F, _I, _F, _F, _U, _U),
+    "doublewell_langevin_chain": (_P,) * 5 + (_LL, _I, _F, _F, _F, _F, _I, _F, _F, _U, _U),
     "doublewell_langevin_chain_trajectory":
-        (_P,) * 5 + (_LL, _I, _I, _F, _F, _I, _F, _F, _U, _U),
+        (_P,) * 6 + (_LL, _I, _I, _F, _F, _F, _F, _I, _F, _F, _U, _U),
     "fused_langevin_step": (_P,) * 4 + (_LL, _F, _F, _I, _F, _F, _U, _U),
 }
 
@@ -194,15 +197,25 @@ def philox_uniforms(index: Tensor, step: int, seed: int) -> Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _constant_schedule(step_size: Schedule,
+                       noise_scale: Schedule) -> Optional[Tuple[float, float]]:
+    """``(η, noise_scale·√(2η))`` for a pair of Python numbers, the
+    coefficient computed in double precision (as the JAX kernels bake it);
+    None for a per-step schedule."""
+    if isinstance(step_size, (int, float)) and isinstance(noise_scale, (int, float)):
+        return float(step_size), float(noise_scale) * math.sqrt(2.0 * float(step_size))
+    return None
+
+
 def _schedule_table(step_size: Schedule, noise_scale: Schedule, n_steps: int,
                     device) -> Tensor:
     """The ``(2, n_steps)`` float32 table ``[η_t, noise_scale_t·√(2η_t)]``.
-    A pair of Python numbers gives a constant table (the coefficient computed
-    in double precision, as the JAX kernels bake it); a ``(n_steps,)``
-    schedule on either side gives the per-step table, scalars broadcast."""
-    if isinstance(step_size, (int, float)) and isinstance(noise_scale, (int, float)):
-        coef = float(noise_scale) * math.sqrt(2.0 * float(step_size))
-        col = torch.tensor([[float(step_size)], [coef]], dtype=torch.float32, device=device)
+    A pair of Python numbers gives a constant table
+    (:func:`_constant_schedule`); a ``(n_steps,)`` schedule on either side
+    gives the per-step table, scalars broadcast."""
+    const = _constant_schedule(step_size, noise_scale)
+    if const is not None:
+        col = torch.tensor([[const[0]], [const[1]]], dtype=torch.float32, device=device)
         return col.expand(2, n_steps).contiguous()
     for name, p in (("step_size", step_size), ("noise_scale", noise_scale)):
         shape = tuple(torch.as_tensor(p).shape)
@@ -318,17 +331,21 @@ def _gaussian_grad_logp(x: Tensor, mean: Tensor, precision: Tensor) -> Tuple[Ten
 
 
 def _run_plain(x0: Tensor, grad_fn, sched: Tensor, n_coords: int, clamp, seed: int,
-               noise: Optional[Tensor], thin: Optional[int]):
+               noise: Optional[Tensor], thin: Optional[int], normals=None):
     """Plain version of every chain kernel: the same update, schedule table and
-    Philox stream (one counter per row of ``x0`` viewed as ``(-1, n_coords)``)."""
+    Philox stream (one counter per row of ``x0`` viewed as ``(-1, n_coords)``
+    and step), or the normals ``normals(t)`` gives for step ``t``."""
     n_steps = sched.shape[1]
     x = x0
-    index = torch.arange(x0.numel() // n_coords, device=x0.device)
+    if normals is None:
+        index = torch.arange(x0.numel() // n_coords, device=x0.device)
+
+        def normals(t):
+            return philox_normals(index, t, n_coords, seed).reshape(x0.shape)
+
     kept = []
     for t in range(n_steps):
-        eps = noise[t] if noise is not None else (
-            philox_normals(index, t, n_coords, seed).reshape(x0.shape)
-        )
+        eps = noise[t] if noise is not None else normals(t)
         x = x - sched[0, t] * grad_fn(x) + sched[1, t] * eps
         if clamp is not None:
             x = torch.clamp(x, clamp[0], clamp[1])
@@ -534,22 +551,71 @@ def mixture_langevin_chain_trajectory(
 # ---------------------------------------------------------------------------
 
 
-def _doublewell_args(x0, n_steps, step_size, noise_scale, barrier_height, b, noise):
+def doublewell_normals(index: Tensor, n_steps: int, seed: int):
+    """The double-well chains' normals for elements ``index``, step by step:
+    steps ``4m … 4m+3`` take the four normals, in order, of the Philox block
+    at counter ``(index lo, m, 0, index hi)`` (its two Box–Muller pairs), so
+    one block feeds four steps of an element and every normal is used once.
+    Yields ``n_steps`` tensors of ``index.shape``, as the kernels draw them."""
+    for m in range(-(-int(n_steps) // 4)):
+        quad = philox_normals(index, m, 4, seed)
+        for q in range(min(4, int(n_steps) - 4 * m)):
+            yield quad[..., q]
+
+
+def _doublewell_args(x0, n_steps, barrier_height, b, seed, noise):
+    """Validate; return ``(coef, b², (device seed or None, seed lo, seed hi))``."""
     _check_common(x0, n_steps, noise)
-    coef, b2 = 4.0 * float(barrier_height), float(b) * float(b)
+    return 4.0 * float(barrier_height), float(b) * float(b), _seed_arg(seed, x0.device)
+
+
+def _doublewell_plain(x0, n_steps, step_size, noise_scale, thin, barrier_height, b, seed, clamp,
+                      noise):
+    """Plain version of both double-well kernels (``thin=None``: final state
+    only) on ``x0``'s device: ``(traj, final)`` from the same update and
+    schedule and the stream of :func:`doublewell_normals`."""
+    coef, b2, _ = _doublewell_args(x0, n_steps, barrier_height, b, seed, noise)
+    seed = int(seed)
     sched = _schedule_table(step_size, noise_scale, int(n_steps), x0.device)
-    return (lambda x: coef * x * (x * x - b2)), coef, b2, sched
+    stream = doublewell_normals(torch.arange(x0.numel(), device=x0.device), n_steps, seed)
+    return _run_plain(x0, lambda x: coef * x * (x * x - b2), sched, 1, clamp, seed, noise, thin,
+                      normals=lambda t: next(stream).reshape(x0.shape))
+
+
+def _doublewell_run(name, x0, n_steps, step_size, noise_scale, thin, barrier_height, b, seed,
+                    clamp, noise):
+    """The body of both double-well wrappers (``thin=None``: final state
+    only): ``(traj, final, launched)``. A CPU ``x0`` runs the plain version; a
+    CUDA ``x0`` launches kernel ``name`` with a constant schedule as two
+    floats (no table) and a device seed read where it lies."""
+    if x0.device.type == "cpu":
+        return (*_doublewell_plain(x0, n_steps, step_size, noise_scale, thin, barrier_height, b,
+                                   seed, clamp, noise), False)
+    coef, b2, (seed_t, seed_lo, seed_hi) = _doublewell_args(
+        x0, n_steps, barrier_height, b, seed, noise)
+    const = _constant_schedule(step_size, noise_scale)
+    sched = None if const else _schedule_table(step_size, noise_scale, int(n_steps), x0.device)
+    eta, nc = const or (0.0, 0.0)
+    out = torch.empty_like(x0)
+    traj = None if thin is None else torch.empty(
+        (int(n_steps) // thin, *x0.shape), dtype=torch.float32, device=x0.device)
+    use_clamp, lo, hi = _clamp_args(clamp)
+    head = (_ptr(x0), _ptr(out)) + (() if thin is None else (_ptr(traj),))
+    tail = () if thin is None else (thin,)
+    _launch(
+        name, x0.device,
+        *head, _ptr(sched), _ptr(noise), _ptr(seed_t), x0.numel(), int(n_steps), *tail,
+        coef, b2, eta, nc, use_clamp, lo, hi, seed_lo, seed_hi,
+    )
+    return traj, out, True
 
 
 def doublewell_langevin_chain_plain(x0, n_steps, step_size, noise_scale=1.0, *,
                                     barrier_height=2.0, b=1.0, seed=0, clamp=None,
                                     noise=None) -> Tensor:
     """Plain PyTorch version of :func:`doublewell_langevin_chain`, on ``x0``'s device."""
-    grad_fn, _, _, sched = _doublewell_args(
-        x0, n_steps, step_size, noise_scale, barrier_height, b, noise
-    )
-    _seed_words(seed)
-    return _run_plain(x0, grad_fn, sched, 1, clamp, seed, noise, None)[1]
+    return _doublewell_plain(x0, n_steps, step_size, noise_scale, None, barrier_height, b, seed,
+                             clamp, noise)[1]
 
 
 def doublewell_langevin_chain_trajectory_plain(x0, n_steps, step_size, noise_scale=1.0, *,
@@ -557,11 +623,8 @@ def doublewell_langevin_chain_trajectory_plain(x0, n_steps, step_size, noise_sca
                                                clamp=None, noise=None) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of :func:`doublewell_langevin_chain_trajectory`."""
     _check_thin(n_steps, thin)
-    grad_fn, _, _, sched = _doublewell_args(
-        x0, n_steps, step_size, noise_scale, barrier_height, b, noise
-    )
-    _seed_words(seed)
-    return _run_plain(x0, grad_fn, sched, 1, clamp, seed, noise, int(thin))
+    return _doublewell_plain(x0, n_steps, step_size, noise_scale, int(thin), barrier_height, b,
+                             seed, clamp, noise)
 
 
 @_build.counted
@@ -573,26 +636,19 @@ def doublewell_langevin_chain(
     *,
     barrier_height: float = 2.0,
     b: float = 1.0,
-    seed: int = 0,
+    seed: Union[int, Tensor] = 0,
     clamp: Optional[Tuple[float, float]] = None,
     noise: Optional[Tensor] = None,
 ) -> Tensor:
     """Full n-step Langevin chain on the double-well energy in one kernel;
-    the state may have any shape and is stepped element by element."""
-    grad_fn, coef, b2, sched = _doublewell_args(
-        x0, n_steps, step_size, noise_scale, barrier_height, b, noise
+    the state may have any shape and is stepped element by element.
+    ``seed``: a Python int, or a 0-d int64 tensor on the CPU or on ``x0``'s
+    device (read there by the kernel, with no host sync)."""
+    _, out, launched = _doublewell_run(
+        "doublewell_langevin_chain", x0, n_steps, step_size, noise_scale, None, barrier_height,
+        b, seed, clamp, noise,
     )
-    seed_lo, seed_hi = _seed_words(seed)
-    if x0.device.type == "cpu":
-        return _run_plain(x0, grad_fn, sched, 1, clamp, seed, noise, None)[1]
-    out = torch.empty_like(x0)
-    use_clamp, lo, hi = _clamp_args(clamp)
-    _launch(
-        "doublewell_langevin_chain", x0.device,
-        _ptr(x0), _ptr(out), _ptr(sched), _ptr(noise), x0.numel(), int(n_steps),
-        coef, b2, use_clamp, lo, hi, seed_lo, seed_hi,
-    )
-    doublewell_langevin_chain.launches += 1
+    doublewell_langevin_chain.launches += launched
     return out
 
 
@@ -606,28 +662,18 @@ def doublewell_langevin_chain_trajectory(
     thin: int = 1,
     barrier_height: float = 2.0,
     b: float = 1.0,
-    seed: int = 0,
+    seed: Union[int, Tensor] = 0,
     clamp: Optional[Tuple[float, float]] = None,
     noise: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor]:
     """:func:`doublewell_langevin_chain` recording every ``thin``-th state:
     returns ``(traj, final)`` with ``traj`` ``(n_steps // thin, *x0.shape)``."""
-    n_kept = _check_thin(n_steps, thin)
-    grad_fn, coef, b2, sched = _doublewell_args(
-        x0, n_steps, step_size, noise_scale, barrier_height, b, noise
+    _check_thin(n_steps, thin)
+    traj, out, launched = _doublewell_run(
+        "doublewell_langevin_chain_trajectory", x0, n_steps, step_size, noise_scale, int(thin),
+        barrier_height, b, seed, clamp, noise,
     )
-    seed_lo, seed_hi = _seed_words(seed)
-    if x0.device.type == "cpu":
-        return _run_plain(x0, grad_fn, sched, 1, clamp, seed, noise, int(thin))
-    out = torch.empty_like(x0)
-    traj = torch.empty((n_kept, *x0.shape), dtype=torch.float32, device=x0.device)
-    use_clamp, lo, hi = _clamp_args(clamp)
-    _launch(
-        "doublewell_langevin_chain_trajectory", x0.device,
-        _ptr(x0), _ptr(out), _ptr(traj), _ptr(sched), _ptr(noise), x0.numel(),
-        int(n_steps), int(thin), coef, b2, use_clamp, lo, hi, seed_lo, seed_hi,
-    )
-    doublewell_langevin_chain_trajectory.launches += 1
+    doublewell_langevin_chain_trajectory.launches += launched
     return traj, out
 
 

@@ -83,7 +83,9 @@ class _FusedRow(NamedTuple):
     parameter gate (the kernels' size caps). ``kernel_kwargs(sampler, x0)``:
     state-shape gate and the target's kernel arguments, or None to fall back
     to the loop. ``chain``/``trajectory``: attribute names in
-    ``ops.fused_langevin``, resolved at call time.
+    ``ops.fused_langevin``, resolved at call time. ``device_seed``: the
+    kernels read their Philox seed as a 0-d device tensor (no host sync);
+    otherwise it is drawn and read on the host.
     """
 
     name: str
@@ -92,6 +94,7 @@ class _FusedRow(NamedTuple):
     kernel_kwargs: Callable[["LangevinDynamics", Tensor], Optional[dict]]
     chain: str
     trajectory: str
+    device_seed: bool = False
 
 
 def _covariance_scale(cov: Tensor) -> Optional[float]:
@@ -205,6 +208,7 @@ FUSED_DISPATCH: Tuple[_FusedRow, ...] = (
         _dw_kwargs,
         "doublewell_langevin_chain",
         "doublewell_langevin_chain_trajectory",
+        device_seed=True,
     ),
     _FusedRow(
         "gaussian",
@@ -356,7 +360,7 @@ class LangevinDynamics(BaseSampler):
                     kargs=kargs,
                     step_size=_sched_table_arg(self.step_size, n_steps, x0.device),
                     noise_scale=_sched_table_arg(self.noise_scale, n_steps, x0.device),
-                    seed=_kernel_seed(generator),
+                    seed=(_kernel_seed_tensor if row.device_seed else _kernel_seed)(generator),
                     clamp=self.clamp,
                 )
             # unsupported state shape or dtype, or n_steps < thin: the loop takes the call
