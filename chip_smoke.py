@@ -14,7 +14,8 @@ earlier checkout's kernels on the same card. ``--ais-shape`` does the same
 for row 12 at its main shapes, ``--dw-shape`` for rows 2-3 at 4,096 x 32 x
 1,000 (an int seed and a constant schedule, which earlier wrappers also
 take); ``--ais`` runs only the build and row 12's checks, timings, plan
-sweep and sync count.)
+sweep and sync count; ``--dit`` only the build and the DiT family's and score
+matching's profile lines and paths.)
 
 Phases, each printing its lines; any failure raises and the exit code is
 not 0:
@@ -121,6 +122,21 @@ not 0:
      energy distance of 1,024 generated samples to fresh data below 0.3 of the
      prior's, through ``FlowSampler`` and through ``EqMEnergy.from_loss`` with
      200 Langevin steps, every mode holding more than 10 samples;
+   - the DiT family (``benchmarks/headline.py:547-606``): the DiT-768x12
+     flow-matching train step at batch 256 in float32, then bfloat16 compute
+     (ms per step by CUDA events, peak memory, the FLOPs that
+     ``torch.utils.flop_counter`` counts and their share of the card's dense
+     peak); the card against the CPU port on one set of random flax-shaped
+     weights at batch 8 (the f32 forward, the parameter gradients, bf16
+     against f32); an EquilibriumMatchingLoss step of the same DiT under
+     config 5's Sinkhorn coupling (one kernel launch and no host sync per
+     step, the loss falling over 30 steps on rendered two-moons images);
+     class-conditional generation through LabelClassifierFreeGuidance and
+     FlowSampler (2 forwards per step, the guided field checked); DSM on
+     config 3's net over two moons, then 10,000 Langevin chains x 1,000
+     steps through the neural chain kernel (one launch, nearer held-out
+     data than the untrained energy's), and ms per DSM, SSM and exact-SM
+     step;
    with the ring's mean radius and the Metropolis acceptance against the
    generic loop (``fused="off"``), and the correlated Gaussian's covariance,
    R-hat and ESS (over consecutive draws, R-hat within 0.005 of the loop's);
@@ -154,7 +170,9 @@ not 0:
    paths, beside the card's name and power limit;
 6. profile (run right after the checks; the run's only profiler sessions):
    wall time, device busy time (``torch.profiler``) and idle share
-   of the CD and EqM train steps, the flow generation, the sampler paths,
+   of the CD and EqM train steps, the flow generation, the DiT train steps
+   (f32, bf16), the DiT EqM step, CFG generation (f32, bf16), the DSM train
+   step, the sampler paths,
    the HMC warmup and ``summarize_chains`` (the kernel paths first, each of
    which must record device events); for the Langevin kernel calls (the
    headline's, the double well's final state and trajectory) and the AIS
@@ -199,6 +217,14 @@ from pathlib import Path
 TOL = 1e-4
 CHECK_STEPS = 50
 N_CHAINS, N_STEPS = 10_000, 1_000
+#: the profile phase's sessions: a session that stopped right after its
+#: ``synchronize()`` lost all of a short call's device events in 8 of 443
+#: sessions and some of them in 4 more (the AIS kernel path, 0.2 ms of device
+#: time, on an H100 with torch 2.11), where one padded by 20 ms of host sleep
+#: on each side of the call lost none (``scripts/probe_profiler_drops.py``).
+#: So every session is padded by PROFILE_PAD_S, and a call whose session
+#: records no device event is profiled again, up to PROFILE_SESSIONS times
+PROFILE_PAD_S, PROFILE_SESSIONS = 0.02, 3
 DW_SHAPE = (4096, 32)
 #: the double-well kernel path's E|x| and E x^2 against the generic loop's
 #: over the 131,072 elements of DW_SHAPE, independent seeds: about 4.7
@@ -373,6 +399,55 @@ SINKHORN_SWEEP = ((8, 128), (5, 200), (17, 33), (64, 64), (64, 192), (128, 128),
                   (256, 256), (200, 333), (512, 512), (1024, 1024), (4096, 64), (64, 4096),
                   (70_000, 3))
 SINKHORN_SWEEP_ITERS = 20
+
+#: the DiT family at the JAX headline's width (benchmarks/headline.py:547-606):
+#: DiT-768x12 (patch 4, 12 heads, cond 768) on 1 x 32 x 32 images, batch 256,
+#: AdamW 1e-4 (optax.adamw's weight decay 1e-4), an MSE onto a fresh normal
+#: target per step; CUDA events, the median of DIT_STEPS steps after
+#: DIT_WARMUP; the card's dense peaks by compute dtype (H100 SXM data sheet)
+DIT_KW = dict(in_channels=1, out_channels=1, input_size=32, patch_size=4, embed_dim=768,
+              depth=12, num_heads=12, cond_dim=768)
+DIT_BATCH, DIT_LR, DIT_DECAY, DIT_WARMUP, DIT_STEPS = 256, 1e-4, 1e-4, 3, 10
+DIT_PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+#: card against CPU on one flax-shaped set of random weights (every leaf
+#: N(0, 0.02^2), numpy seed): the f32 forward within PARITY_FWD_RTOL and the
+#: flow-matching loss's parameter gradients within PARITY_GRAD_RTOL (each the
+#: largest difference over the largest reference entry, per tensor), at
+#: batch PARITY_BATCH; bf16 against f32 on the card within BF16_RTOL: bf16
+#: keeps 8 bits of mantissa (unit roundoff 2^-9, about 2e-3), each of the 12
+#: blocks rounds about 8 activations, and 100 roundings adding as a random
+#: walk give about 10 x 2e-3 = 2e-2; the gate allows 2.5 times that. It
+#: also reads at least BF16_FLOOR: a "bf16" model that computed in float32
+#: would read about 1e-6, as the card's f32 forward does against the CPU's
+PARITY_BATCH, PARITY_FWD_RTOL, PARITY_GRAD_RTOL, BF16_RTOL = 8, 1e-4, 1e-3, 5e-2
+BF16_FLOOR = 1e-4
+#: and the parameter gradients of a second-order loss (the mean square of
+#: EqM's dot energy's input gradient, which differentiates the attention's
+#: backward) at SECOND_ORDER_BATCH, within PARITY_GRAD_RTOL
+SECOND_ORDER_BATCH = 2
+#: the DiT's EqM step (config 5's loss and coupling): scalar t through the
+#: t= lift, SinkhornCoupling(n_iters=50, reg=0.05) over the flattened images,
+#: config 5's Adam 1e-3, EQM_DIT_STEPS steps on one structured batch (two-moons
+#: points rendered as blobs); the mean loss of the last EQM_DIT_TAIL steps must
+#: fall below the first's
+EQM_DIT_STEPS, EQM_DIT_TAIL = 30, 5
+#: class-conditional generation: the example's LabelDiT (examples/90-showcase/
+#: dit_cfg_digits/main.py:37-64) at the width above, 10 classes, label dropout
+#: 0.1, through LabelClassifierFreeGuidance(cfg_scale=2.5, guide_channels=1)
+#: and FlowSampler(integrator="euler"): CFG_SAMPLES samples in CFG_STEPS steps
+CFG_CLASSES, CFG_SCALE, CFG_SAMPLES, CFG_STEPS = 10, 2.5, 256, 20
+#: DSM on config 3's net (MLPEnergy(128, 128)): two moons, batch 256,
+#: noise_scale 0.1, Adam 1e-3, DSM_STEPS steps through BaseTrainer; then
+#: DSM_CHAINS chains x DSM_SAMPLE_STEPS Langevin steps at DSM_SAMPLE_STEP on the
+#: trained energy and on the untrained one, against held-out data
+DSM_NOISE, DSM_LR, DSM_STEPS = 0.1, 1e-3, 200
+DSM_CHAINS, DSM_SAMPLE_STEPS, DSM_SAMPLE_STEP = 10_000, 1_000, 0.005
+#: the neural chain's check at the DSM sampler's site: DSM_CHAINS chains on
+#: MLP(128, 128) at DSM_SAMPLE_STEP for MLP_LONG_STEPS steps, at least three
+#: windows of the Philox normals the kernel stages in shared memory (z_steps
+#: steps a window, up to 32), so that the refills after the first window and
+#: the barriers around them are compared too; CD_K steps stay inside one
+MLP_LONG_STEPS = 100
 
 #: the card's memory rate, the per-SM instruction rates per clock of its
 #: FP32 lanes, INT32 lanes and special-function units, and its dense TF32
@@ -1573,14 +1648,17 @@ def phase_check_mlp(ops, dev, errors: dict) -> None:
     ragged widths and a narrow hidden layer between wide ones; each with
     ``extract_mlp_layers``' views of an MLPEnergy and with arrays of the JAX
     layout; CD_K steps at CD_STEP, on injected noise, on the Philox stream
-    keyed by an int and by a device seed; at every (tile, warps, route) whose
+    keyed by an int and by a device seed; then the DSM sampler's DSM_CHAINS
+    chains for MLP_LONG_STEPS steps at DSM_SAMPLE_STEP, three windows or more
+    of staged normals at every setting; at every (tile, warps, route) whose
     shared memory fits, the plan's own pick through the public wrapper (one
     counted launch each). Fails unless the checks cover every setting the
     plan can take. TOL holds: the kernel's 3xTF32 products drop the lo.lo
     term (2^-22 relative) and sum in another order than the plain version's
     FP32 matrix products, a rounding difference of about 1e-7 relative in
     each gradient, which enters the state times the step size; ten steps of
-    a chain started in its basin do not grow it."""
+    a chain started in its basin do not grow it, and a hundred grow it to
+    about 1e-6 (weights moved by 2e-7 relative, on the CPU)."""
     import torch
 
     mod = ops.fused_mlp_langevin
@@ -1591,10 +1669,17 @@ def phase_check_mlp(ops, dev, errors: dict) -> None:
           f"memory per block")
     settings = [mod.MlpPlan(*setting) for setting in mod.SETTINGS]
     checked = set()
-    for i, (n, widths, clamp) in enumerate(MLP_CHECKS):
+    long_widths = (2, *CD_HIDDEN)
+    windows = {plan: mod._smem_layout(long_widths, plan.tile, plan.warps, plan.resident).z_steps
+               for plan in settings if mod.fits(long_widths, plan, dev)}
+    if MLP_LONG_STEPS < 3 * max(windows.values()):
+        raise AssertionError(f"MLP_LONG_STEPS covers fewer than three windows of {windows}")
+    cases = [(n, widths, clamp, CD_K, CD_STEP) for n, widths, clamp in MLP_CHECKS]
+    cases.append((DSM_CHAINS, long_widths, None, MLP_LONG_STEPS, DSM_SAMPLE_STEP))
+    for i, (n, widths, clamp, n_steps, step_size) in enumerate(cases):
         d = widths[0]
         x0 = torch.randn((n, d), generator=g, device=dev)
-        noise = torch.randn((CD_K, n, d), generator=g, device=dev)
+        noise = torch.randn((n_steps, n, d), generator=g, device=dev)
         pick = mod.launch_plan(n, widths, dev)
         for layout, layers in (("views", _mlp_layers(dev, widths, 40 + i)),
                                ("jax", _mlp_arrays(dev, widths, 40 + i))):
@@ -1607,15 +1692,15 @@ def phase_check_mlp(ops, dev, errors: dict) -> None:
                                   ("device seed", dict(seed=torch.tensor(50 + i, device=dev)))):
                     if plan == pick:
                         before = kernel.launches
-                        got = kernel(x0, layers, CD_K, CD_STEP, 1.0, clamp=clamp, **kw)
+                        got = kernel(x0, layers, n_steps, step_size, 1.0, clamp=clamp, **kw)
                         if kernel.launches != before + 1:
                             raise AssertionError("mlp_langevin_chain did not launch its kernel")
                     else:
-                        got = mod._launch(x0, layers, list(widths), CD_K, CD_STEP, 1.0,
+                        got = mod._launch(x0, layers, list(widths), n_steps, step_size, 1.0,
                                           kw["seed"], clamp, kw.get("noise"), plan)
                     torch.cuda.synchronize()
                     err = max_err(got, mod.mlp_langevin_chain_plain(
-                        x0, layers, CD_K, CD_STEP, 1.0, clamp=clamp, **kw))
+                        x0, layers, n_steps, step_size, 1.0, clamp=clamp, **kw))
                     errors["mlp_langevin_chain"] = max(errors.get("mlp_langevin_chain", 0.0), err)
                     errs.append(f"{label} {err:.3e}")
                     if not err <= TOL:
@@ -1623,7 +1708,10 @@ def phase_check_mlp(ops, dev, errors: dict) -> None:
                                              f"version at {plan}: {err}")
                 checked.add(plan)
                 print(f"check: mlp_langevin_chain [{n}x{d}, hidden {widths[1:]}, clamp {clamp}, "
-                      f"{layout} weights; tile {plan.tile}, {plan.warps} warps, weights "
+                      f"{n_steps} steps at {step_size:g}, {layout} weights; tile {plan.tile}, "
+                      f"{plan.warps} warps, windows of "
+                      f"{mod._smem_layout(widths, plan.tile, plan.warps, plan.resident).z_steps} "
+                      f"steps, weights "
                       f"{'resident' if plan.resident else 'streamed'}"
                       f"{', the plan' if plan == pick else ''}] max|kernel - plain| = "
                       f"{', '.join(errs)} (tol {TOL:g})")
@@ -2039,6 +2127,513 @@ def path_flow(ops, dev, card: str) -> dict:
         _flow_quality_gate(ops, dev, mode, card)
     return launches
 
+
+
+# ------------------------------------------------------------- the DiT family
+
+
+def _release() -> None:
+    """Free what the card's caching allocator holds of dropped tensors."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _dit(dev, dtype_name: str, seed: int):
+    """A fresh DiT_KW DiT computing in ``dtype_name``, its weights initialised
+    on the card from ``seed``."""
+    import torch
+
+    from torchebm_tpu_torch.models import ConditionalTransformer2D
+
+    torch.manual_seed(seed)
+    with torch.device(dev):
+        return ConditionalTransformer2D(**DIT_KW, dtype=getattr(torch, dtype_name))
+
+
+def _dit_train_step(dev, dtype_name: str, seed: int):
+    """``(step, model, x, cond)``: the JAX headline's flow-matching train step
+    of a fresh DiT: random x and cond from a seeded generator, a fresh normal
+    target per step, the MSE, AdamW; ``step()`` returns the loss."""
+    import torch
+
+    model = _dit(dev, dtype_name, seed)
+    g = torch.Generator(dev).manual_seed(seed)
+    size = DIT_KW["input_size"]
+    x = torch.randn((DIT_BATCH, DIT_KW["in_channels"], size, size), generator=g, device=dev)
+    cond = torch.randn((DIT_BATCH, DIT_KW["cond_dim"]), generator=g, device=dev)
+    opt = torch.optim.AdamW(model.parameters(), lr=DIT_LR, weight_decay=DIT_DECAY)
+
+    def step():
+        target = torch.randn(x.shape, generator=g, device=dev)
+        loss = torch.mean(torch.square(model(x, cond) - target))
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    return step, model, x, cond
+
+
+def _counted_flops(fn) -> int:
+    """The floating-point operations of one call of ``fn()`` that
+    ``torch.utils.flop_counter`` counts from the shapes the call runs: its
+    matrix products and attention, forward and backward."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return counter.get_total_flops()
+
+
+def _rel(got, want) -> float:
+    """The largest difference over the largest reference entry."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _flax_dit_tree(rng) -> dict:
+    """A flax-shaped DIT_KW parameter tree (the JAX package's layout), every
+    leaf N(0, 0.02^2) from the numpy generator ``rng``."""
+    import numpy as np
+
+    d, cd, p2 = DIT_KW["embed_dim"], DIT_KW["cond_dim"], DIT_KW["patch_size"] ** 2
+
+    def dense(n_in, n_out):
+        return {"kernel": 0.02 * rng.standard_normal((n_in, n_out), dtype=np.float32),
+                "bias": 0.02 * rng.standard_normal(n_out, dtype=np.float32)}
+
+    tree = {"ConvPatchEmbed2d_0": {"proj": dense(DIT_KW["in_channels"] * p2, d)},
+            "head": {"modulation": dense(cd, 2 * d), "proj": dense(d, p2 * DIT_KW["out_channels"])}}
+    for i in range(DIT_KW["depth"]):
+        tree[f"block_{i}"] = {
+            "modulation": dense(cd, 6 * d),
+            "MultiheadSelfAttention_0": {"qkv": dense(d, 3 * d), "out_proj": dense(d, d)},
+            "FeedForward_0": {"Dense_0": dense(d, 4 * d), "Dense_1": dense(4 * d, d)},
+        }
+    return {"params": tree}
+
+
+def _dit_parity(dev, card: str) -> None:
+    """The card against the CPU port on one flax-shaped set of random weights
+    converted by ``conditional_transformer_2d_from_flax``, at PARITY_BATCH:
+    the f32 forward, the flow-matching loss's parameter gradients, those of
+    a second-order loss (through the attention's differentiable backward),
+    and bf16 against f32 on the card."""
+    import numpy as np
+    import torch
+
+    from torchebm_tpu_torch.utils import conditional_transformer_2d_from_flax
+
+    rng = np.random.default_rng(71)
+    tree = _flax_dit_tree(rng)
+    size = DIT_KW["input_size"]
+    x = rng.standard_normal((PARITY_BATCH, DIT_KW["in_channels"], size, size), dtype=np.float32)
+    cond = rng.standard_normal((PARITY_BATCH, DIT_KW["cond_dim"]), dtype=np.float32)
+    target = rng.standard_normal((PARITY_BATCH, DIT_KW["out_channels"], size, size),
+                                 dtype=np.float32)
+    kw = dict(num_heads=DIT_KW["num_heads"], input_size=size, patch_size=DIT_KW["patch_size"])
+    runs = []
+    for where in (torch.device("cpu"), dev):
+        net = conditional_transformer_2d_from_flax(tree, device=where, **kw)
+        xx, cc, tt = (torch.from_numpy(a).to(where) for a in (x, cond, target))
+        out = net(xx, cc)
+        torch.mean(torch.square(out - tt)).backward()
+        first = {n: p.grad.cpu() for n, p in net.named_parameters()}
+        net.zero_grad()  # new grad tensors: on the CPU, first holds the old ones
+        x2 = xx[:SECOND_ORDER_BATCH].clone().requires_grad_()
+        (gx,) = torch.autograd.grad(torch.sum(x2 * net(x2, cc[:SECOND_ORDER_BATCH])), x2,
+                                    create_graph=True)
+        torch.mean(torch.square(gx)).backward()
+        runs.append((out.detach().cpu(), first,
+                     {n: p.grad.cpu() for n, p in net.named_parameters() if p.grad is not None}))
+    (cpu_out, cpu_grads, cpu_second), (card_out, card_grads, card_second) = runs
+    fwd = _rel(card_out, cpu_out)
+    grads = {n: _rel(card_grads[n], cpu_grads[n]) for n in cpu_grads}
+    worst = max(grads, key=grads.get)
+    second = {n: _rel(card_second[n], cpu_second[n]) for n in cpu_second
+              if cpu_second[n].abs().max() > 0}
+    worst2 = max(second, key=second.get)
+    bf16 = conditional_transformer_2d_from_flax(tree, device=dev, dtype=torch.bfloat16, **kw)
+    with torch.no_grad():
+        bf16_out = bf16(torch.from_numpy(x).to(dev), torch.from_numpy(cond).to(dev)).cpu()
+    bf = _rel(bf16_out, card_out)
+    print(f"check: DiT-768x12 on converted flax weights (every leaf N(0, 0.02^2)), batch "
+          f"{PARITY_BATCH}: the card's f32 forward against the CPU port's {fwd:.3e} relative "
+          f"(gate {PARITY_FWD_RTOL:g}); the flow-matching loss's parameter gradients, worst of "
+          f"{len(grads)} tensors {grads[worst]:.3e} ({worst}; gate {PARITY_GRAD_RTOL:g}); the "
+          f"parameter gradients of the mean square of EqM's dot-energy input gradient (a "
+          f"second-order derivative, batch {SECOND_ORDER_BATCH}), worst of {len(second)} "
+          f"{second[worst2]:.3e} ({worst2}; gate {PARITY_GRAD_RTOL:g}); bf16 "
+          f"against f32 on the card {bf:.3e} (gate {BF16_FLOOR:g} to {BF16_RTOL:g}); output max |.| "
+          f"{float(cpu_out.abs().max()):.4f} | {card}")
+    if not (torch.isfinite(card_out).all() and torch.isfinite(bf16_out).all()):
+        raise AssertionError("the DiT's output on the card is not finite")
+    if not fwd <= PARITY_FWD_RTOL:
+        raise AssertionError(f"the DiT forward on the card differs from the CPU port's: {fwd}")
+    if not grads[worst] <= PARITY_GRAD_RTOL:
+        raise AssertionError(f"the DiT gradient {worst} differs from the CPU port's: "
+                             f"{grads[worst]}")
+    if not second[worst2] <= PARITY_GRAD_RTOL:
+        raise AssertionError(f"the DiT's second-order gradient {worst2} differs from the CPU "
+                             f"port's: {second[worst2]}")
+    if not BF16_FLOOR <= bf <= BF16_RTOL:
+        raise AssertionError(f"the bf16 DiT differs from the f32 one by {bf}, outside "
+                             f"[{BF16_FLOOR}, {BF16_RTOL}]")
+
+
+def path_dit(ops, dev, card: str) -> dict:
+    """The JAX headline's DiT train step (``benchmarks/headline.py:547-606``)
+    in float32, then bfloat16 (the first model released before the second):
+    ms per step, peak memory, counted FLOPs and their share of the card's
+    dense peak; then the card against the CPU port."""
+    import torch
+
+    for dtype_name in ("float32", "bfloat16"):
+        _release()
+        torch.cuda.reset_peak_memory_stats()
+        step, model, x, cond = _dit_train_step(dev, dtype_name, seed=61)
+        ms = statistics.median(cuda_times(step, DIT_WARMUP, DIT_STEPS))
+        peak = torch.cuda.max_memory_allocated()
+        train = _counted_flops(step)
+        with torch.no_grad():
+            fwd = _counted_flops(lambda: model(x, cond))
+            out = model(x, cond)
+        loss = float(step())
+        rate = train / (ms * 1e-3)
+        precision = (f"; float32 matmul precision {torch.get_float32_matmul_precision()!r}"
+                     if dtype_name == "float32" else "")
+        print(f"main path: DiT-768x12 flow-matching train step, {dtype_name} compute over "
+              f"float32 parameters (batch {DIT_BATCH}, 1x32x32, patch 4, AdamW {DIT_LR}): "
+              f"{ms:.3f} ms per step (CUDA events, median of {DIT_STEPS} after {DIT_WARMUP}); "
+              f"peak memory {peak / 2**30:.3f} GiB (max_memory_allocated); counted "
+              f"{fwd / 1e12:.4f} TFLOP per forward, {train / 1e12:.4f} per train step "
+              f"(torch.utils.flop_counter): {rate / 1e12:.2f} TFLOP/s, "
+              f"{rate / DIT_PEAK_FLOPS[dtype_name]:.3f} of the dense {dtype_name} peak "
+              f"{DIT_PEAK_FLOPS[dtype_name] / 1e12:g} TFLOP/s{precision}; loss {loss:.5f} | {card}")
+        if tuple(out.shape) != tuple(x.shape) or out.dtype != torch.float32:
+            raise AssertionError(f"DiT output {tuple(out.shape)} {out.dtype}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"the DiT train step's loss is not finite: {loss}")
+        del step, model, x, cond, out
+    _release()
+    _dit_parity(dev, card)
+    _release()
+    return {}
+
+
+def _moons_images(dev, n: int, seed: int):
+    """``n`` structured 1 x 32 x 32 images in [-1, 1]: each a blob (standard
+    deviation 1.5 pixels) at a two-moons point mapped onto the central
+    24 x 24 pixels."""
+    import torch
+
+    from torchebm_tpu_torch.datasets import make_two_moons
+
+    pts = make_two_moons(torch.Generator(dev).manual_seed(seed), n)
+    lo = torch.tensor([-1.25, -0.75], device=dev)
+    hi = torch.tensor([2.25, 1.25], device=dev)
+    centres = 4.0 + 24.0 * (pts - lo) / (hi - lo)
+    axis = torch.arange(DIT_KW["input_size"], dtype=torch.float32, device=dev)
+    dx = axis[None, None, :] - centres[:, 0, None, None]
+    dy = axis[None, :, None] - centres[:, 1, None, None]
+    return (2.0 * torch.exp(-(dx**2 + dy**2) / (2 * 1.5**2)) - 1.0)[:, None]
+
+
+def _dit_eqm_step(dev, seed: int):
+    """``(trainer, state, batch)``: BaseTrainer with config 5's Adam around
+    its EquilibriumMatchingLoss (SinkhornCoupling(n_iters=50, reg=0.05), the
+    kernel by default) on a fresh f32 DiT, and one structured batch."""
+    import torch
+
+    from torchebm_tpu_torch.core.trainer import BaseTrainer
+    from torchebm_tpu_torch.couplings import SinkhornCoupling
+    from torchebm_tpu_torch.losses import EquilibriumMatchingLoss
+
+    model = _dit(dev, "float32", seed)
+    loss = EquilibriumMatchingLoss(model=model,
+                                   coupling=SinkhornCoupling(n_iters=FLOW_ITERS, reg=FLOW_REG))
+    trainer = BaseTrainer(loss, functools.partial(torch.optim.Adam, lr=FLOW_LR))
+    state = trainer.init_state(model, torch.Generator(dev).manual_seed(seed + 1))
+    return trainer, state, _moons_images(dev, DIT_BATCH, seed + 2)
+
+
+def path_dit_eqm(ops, dev, card: str) -> dict:
+    """An EquilibriumMatchingLoss step of the DiT (scalar t through the t=
+    lift, the images flattened into the coupling's cost): EQM_DIT_STEPS
+    steps, one Sinkhorn kernel launch each, no host sync, the tail's mean
+    loss below the head's."""
+    import torch
+
+    _release()
+    trainer, state, batch = _dit_eqm_step(dev, 81)
+    ops.reset_launch_counts()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(EQM_DIT_STEPS):
+        state, metrics = trainer.train_step(state, batch)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / EQM_DIT_STEPS
+    launches = read_counts(ops, "DiT EqM", ["sinkhorn_log_fused"])
+    syncs = sync_sites(lambda: trainer.train_step(state, batch))
+    curve = torch.stack(losses).tolist()
+    head, tail = (statistics.fmean(v) for v in (curve[:EQM_DIT_TAIL], curve[-EQM_DIT_TAIL:]))
+    print(f"main path: DiT-768x12 EqM step (f32, batch {DIT_BATCH} structured 1x32x32 images, "
+          f"t= lift, SinkhornCoupling(n_iters={FLOW_ITERS}, reg={FLOW_REG}), Adam {FLOW_LR}), "
+          f"{EQM_DIT_STEPS} steps: {ms:.3f} ms per step (host clock, first step included); "
+          f"sinkhorn_log_fused launches {launches['sinkhorn_log_fused']}; host syncs in one more "
+          f"step {len(syncs)} {syncs}; mean loss of the first {EQM_DIT_TAIL} steps {head:.5f}, of "
+          f"the last {tail:.5f} | {card}")
+    if launches["sinkhorn_log_fused"] != EQM_DIT_STEPS:
+        raise AssertionError(f"{launches['sinkhorn_log_fused']} Sinkhorn launches in "
+                             f"{EQM_DIT_STEPS} DiT EqM steps, expected one per step")
+    if syncs:
+        raise AssertionError(f"the DiT EqM step syncs: {syncs}")
+    if not (all(math.isfinite(v) for v in curve) and tail < head):
+        raise AssertionError(f"the DiT EqM loss did not fall: {curve}")
+    del trainer, state, batch
+    _release()
+    return launches
+
+
+def _label_dit(dtype_name: str):
+    """The example's LabelDiT (``examples/90-showcase/dit_cfg_digits/main.py:37-64``)
+    at DIT_KW's width: timestep embedding plus label embedding (label dropout
+    0.1) as the DiT's conditioning."""
+    import torch
+    from torch import nn
+
+    from torchebm_tpu_torch.models import (
+        ConditionalTransformer2D,
+        LabelEmbedder,
+        MLPTimestepEmbedder,
+    )
+
+    class LabelDiT(nn.Module):
+        def __init__(self, dtype):
+            super().__init__()
+            self.t_embed = MLPTimestepEmbedder(DIT_KW["embed_dim"], dtype=dtype)
+            self.y_embed = LabelEmbedder(CFG_CLASSES, DIT_KW["embed_dim"], dropout_prob=0.1)
+            self.dit = ConditionalTransformer2D(**DIT_KW, dtype=dtype)
+
+        def forward(self, x, t, *, y, train=False, generator=None):
+            c = self.t_embed(t) + self.y_embed(y, train=train, generator=generator)
+            return self.dit(x, c)
+
+    return LabelDiT(getattr(torch, dtype_name))
+
+
+def _label_dits(dev, seed: int) -> dict:
+    """``{dtype name: LabelDiT}`` in float32 and bfloat16 on one set of
+    weights: the init with every parameter moved by N(0, 0.02^2) (a fresh
+    adaLN-Zero DiT outputs zero)."""
+    import torch
+
+    torch.manual_seed(seed)
+    nets = {}
+    g = torch.Generator(dev).manual_seed(seed)
+    for name in ("float32", "bfloat16"):
+        with torch.device(dev):
+            nets[name] = _label_dit(name)
+    with torch.no_grad():
+        for p in nets["float32"].parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=g, device=dev))
+    nets["bfloat16"].load_state_dict(nets["float32"].state_dict())
+    return nets
+
+
+def _cfg_sampler(net, cfg_scale: float):
+    from torchebm_tpu_torch.models import LabelClassifierFreeGuidance
+    from torchebm_tpu_torch.samplers import FlowSampler
+
+    cfg = LabelClassifierFreeGuidance(base=net, null_label_id=net.y_embed.null_label_id,
+                                      cfg_scale=cfg_scale, guide_channels=1)
+    return FlowSampler(model=cfg, integrator="euler")
+
+
+def _cfg_generate(sampler, g, labels):
+    size = DIT_KW["input_size"]
+    return sampler.sample(g, dim=(DIT_KW["in_channels"], size, size), n_samples=len(labels),
+                          n_steps=CFG_STEPS, model_kwargs={"y": labels})
+
+
+def path_cfg(ops, dev, card: str) -> dict:
+    """Class-conditional generation through LabelClassifierFreeGuidance and
+    FlowSampler(integrator="euler"), in f32 and bf16: ms per step, forward
+    hooks counting 2 forwards per step (1 at cfg_scale 1), and the guided
+    field against uncond + scale (cond - uncond) at one step."""
+    import torch
+
+    _release()
+    nets = _label_dits(dev, 91)
+    g = torch.Generator(dev).manual_seed(92)
+    labels = torch.arange(CFG_SAMPLES, device=dev) % CFG_CLASSES
+    null = torch.full_like(labels, nets["float32"].y_embed.null_label_id)
+    size = DIT_KW["input_size"]
+    for name, net in nets.items():
+        calls = []
+        hook = net.register_forward_hook(lambda *_: calls.append(1))
+        guided = _cfg_sampler(net, CFG_SCALE)
+        _cfg_generate(guided, g, labels)
+        guided_calls = len(calls)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen = _cfg_generate(guided, g, labels)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / CFG_STEPS
+        calls.clear()
+        _cfg_generate(_cfg_sampler(net, 1.0), g, labels)
+        plain_calls = len(calls)
+        x = torch.randn((CFG_SAMPLES, DIT_KW["in_channels"], size, size), generator=g, device=dev)
+        t = torch.full((CFG_SAMPLES,), 0.3, device=dev)
+        with torch.no_grad():
+            field = guided.model(x, t, y=labels)
+            cond, uncond = net(x, t, y=labels), net(x, t, y=null)
+        err = float((field - (uncond + CFG_SCALE * (cond - uncond))).abs().max())
+        hook.remove()
+        print(f"main path: CFG generation, LabelDiT-768x12 {name} ({CFG_CLASSES} classes, "
+              f"cfg_scale {CFG_SCALE}, guide_channels 1), FlowSampler euler {CFG_SAMPLES} x "
+              f"{CFG_STEPS} steps: {ms:.3f} ms per step (host clock, one generation after a "
+              f"warm-up one); forwards {guided_calls} ({plain_calls} at cfg_scale 1); guided "
+              f"field at t 0.3 against uncond + {CFG_SCALE} (cond - uncond): {err:.3e} (gate "
+              f"1e-5); samples mean {float(gen.mean()):.4f}, std {float(gen.std()):.4f} | {card}")
+        if tuple(gen.shape) != (CFG_SAMPLES, DIT_KW["in_channels"], size, size) or not bool(
+                torch.isfinite(gen).all()):
+            raise AssertionError(f"CFG generation ({name}) is malformed")
+        if guided_calls != 2 * CFG_STEPS or plain_calls != CFG_STEPS:
+            raise AssertionError(f"CFG ({name}) ran {guided_calls} and {plain_calls} forwards "
+                                 f"in {CFG_STEPS} steps")
+        if not err <= 1e-5:
+            raise AssertionError(f"the guided field ({name}) is off by {err}")
+    del nets
+    _release()
+    return {}
+
+
+def _sm_trainer(dev, seed: int, loss_cls, **kw):
+    """``(trainer, net, energy)``: BaseTrainer with Adam around ``loss_cls`` on
+    a fresh MLPEnergy(2, CD_HIDDEN) on the card, its weights from ``seed``."""
+    import torch
+
+    from torchebm_tpu_torch.core import as_energy
+    from torchebm_tpu_torch.core.trainer import BaseTrainer
+    from torchebm_tpu_torch.models import MLPEnergy
+
+    torch.manual_seed(seed)
+    net = MLPEnergy(2, CD_HIDDEN).to(dev)
+    energy = as_energy(net)
+    trainer = BaseTrainer(loss_cls(model=energy, **kw),
+                          functools.partial(torch.optim.Adam, lr=DSM_LR))
+    return trainer, net, energy
+
+
+def path_score(ops, dev, card: str) -> dict:
+    """DSM on config 3's net over two moons through BaseTrainer (no host
+    sync per step), then LangevinDynamics on the trained energy: one neural
+    chain launch, and samples nearer held-out data (energy distance) than
+    those of the untrained energy; then ms per DSM, SSM and exact-SM step."""
+    import copy
+
+    import torch
+
+    from torchebm_tpu_torch.datasets import make_two_moons
+    from torchebm_tpu_torch.losses import (
+        DenoisingScoreMatching,
+        ScoreMatching,
+        SlicedScoreMatching,
+    )
+    from torchebm_tpu_torch.samplers import LangevinDynamics
+
+    trainer, net, energy = _sm_trainer(dev, 101, DenoisingScoreMatching, noise_scale=DSM_NOISE)
+    untrained = copy.deepcopy(energy)
+    g = torch.Generator(dev).manual_seed(102)
+    state = trainer.init_state(net, g)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DSM_STEPS):
+        state, metrics = trainer.train_step(state, make_two_moons(g, CD_BATCH))
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t0) * 1e3 / DSM_STEPS
+    batch = make_two_moons(g, CD_BATCH)
+    syncs = sync_sites(lambda: trainer.train_step(state, batch))
+    curve = torch.stack(losses).tolist()
+
+    held = make_two_moons(torch.Generator(dev).manual_seed(103), DSM_CHAINS)
+    ops.reset_launch_counts()
+    trained = LangevinDynamics(energy, step_size=DSM_SAMPLE_STEP, fused_neural="auto").sample(
+        g, dim=2, n_samples=DSM_CHAINS, n_steps=DSM_SAMPLE_STEPS)
+    launches = read_counts(ops, "DSM sampling", ["mlp_langevin_chain"])
+    base = LangevinDynamics(untrained, step_size=DSM_SAMPLE_STEP, fused_neural="auto").sample(
+        g, dim=2, n_samples=DSM_CHAINS, n_steps=DSM_SAMPLE_STEPS)
+    ed_trained, ed_base = _energy_distance(trained, held), _energy_distance(base, held)
+
+    steps = {}
+    for label, (cls, kw) in {
+            "DSM": (DenoisingScoreMatching, dict(noise_scale=DSM_NOISE)),
+            "SSM (5 Rademacher projections)": (SlicedScoreMatching, dict(n_projections=5)),
+            "exact SM": (ScoreMatching, {})}.items():
+        tr, tnet, _ = _sm_trainer(dev, 104, cls, **kw)
+        st = tr.init_state(tnet, torch.Generator(dev).manual_seed(105))
+        steps[label] = statistics.median(cuda_times(lambda: tr.train_step(st, batch), 3, 10))
+    print(f"main path: DSM config 3 net (MLPEnergy{CD_HIDDEN}, two moons, batch {CD_BATCH}, "
+          f"noise_scale {DSM_NOISE}, Adam {DSM_LR}), {DSM_STEPS} steps: {train_ms:.3f} ms per "
+          f"step (host clock, first step included); loss first 10 "
+          f"{statistics.fmean(curve[:10]):.4f}, last 10 {statistics.fmean(curve[-10:]):.4f}; "
+          f"host syncs in one more step {len(syncs)} {syncs} | {card}")
+    print(f"main path: LangevinDynamics on the DSM energy, {DSM_CHAINS} chains x "
+          f"{DSM_SAMPLE_STEPS} steps at {DSM_SAMPLE_STEP}: mlp_langevin_chain launches "
+          f"{launches['mlp_langevin_chain']}; energy distance to held-out two moons: trained "
+          f"{ed_trained:.4f}, untrained {ed_base:.4f} | {card}")
+    print("timing: score-matching train steps on MLPEnergy" + str(CD_HIDDEN) + f", batch "
+          f"{CD_BATCH} (CUDA events, median of 10 after 3): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in steps.items()) + f" | {card}")
+    if launches["mlp_langevin_chain"] != 1:
+        raise AssertionError(f"{launches['mlp_langevin_chain']} neural chain launches in one "
+                             "sampler call on the DSM energy")
+    if syncs:
+        raise AssertionError(f"the DSM train step syncs: {syncs}")
+    if not (all(math.isfinite(v) for v in curve) and bool(torch.isfinite(trained).all())):
+        raise AssertionError("DSM training or sampling is not finite")
+    if not ed_trained < ed_base:
+        raise AssertionError(f"the DSM energy's samples ({ed_trained}) are not nearer the data "
+                             f"than the untrained energy's ({ed_base})")
+    return launches
+
+
+def _dit_family_calls(dev) -> dict:
+    """The profile phase's calls of the DiT family and score matching: the
+    DiT train step in f32 and bf16, the DiT EqM step, CFG generation in f32
+    and bf16, and the DSM train step."""
+    import torch
+
+    from torchebm_tpu_torch.datasets import make_two_moons
+    from torchebm_tpu_torch.losses import DenoisingScoreMatching
+
+    calls = {}
+    for name in ("float32", "bfloat16"):
+        step = _dit_train_step(dev, name, seed=62)[0]
+        calls[f"DiT-768x12 train step {name} (batch {DIT_BATCH})"] = step
+    trainer, state, batch = _dit_eqm_step(dev, 85)
+    calls[f"DiT-768x12 EqM step, Sinkhorn kernel (batch {DIT_BATCH})"] = (
+        lambda: trainer.train_step(state, batch))
+    g = torch.Generator(dev).manual_seed(93)
+    labels = torch.arange(CFG_SAMPLES, device=dev) % CFG_CLASSES
+    for name, net in _label_dits(dev, 94).items():
+        sampler = _cfg_sampler(net, CFG_SCALE)
+        calls[f"CFG generation LabelDiT-768x12 {name} {CFG_SAMPLES}x{CFG_STEPS}"] = (
+            lambda s=sampler: _cfg_generate(s, g, labels))
+    dsm, net, _ = _sm_trainer(dev, 106, DenoisingScoreMatching, noise_scale=DSM_NOISE)
+    dsm_state = dsm.init_state(net, g)
+    moons = make_two_moons(g, CD_BATCH)
+    calls[f"DSM train step config 3 net (batch {CD_BATCH})"] = (
+        lambda: dsm.train_step(dsm_state, moons))
+    return calls
 
 def run_kw(family: str, **kw) -> dict:
     """``fused_mala._run``'s (``family`` "mala") or ``fused_hmc._run``'s
@@ -3144,33 +3739,70 @@ def max_sm_clock_mhz() -> float:
     return float(out.strip().splitlines()[0])
 
 
-def device_busy_ms(fn) -> float:
-    """Device time of one call of ``fn()``: the sum of the self time that
-    ``torch.profiler`` records for its CUDA kernels and copies; 0.0 when it
-    records none."""
+def device_events(prof) -> list:
+    """The profile's device events by name: its CUDA kernels and copies. A
+    user annotation's span on the device (``Optimizer.step#AdamW.step``)
+    covers kernels counted on their own, so it is left out."""
+    import torch
+
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def profiled(fn):
+    """One call of ``fn()`` under ``torch.profiler`` (host and CUDA
+    activities), padded by PROFILE_PAD_S of host sleep before the call and
+    after its ``synchronize()``; the finished profile."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        time.sleep(PROFILE_PAD_S)
+    return prof
+
+
+def device_busy_ms(fn) -> tuple:
+    """Device time of one call of ``fn()``: the sum of the self time that
+    ``torch.profiler`` records for its CUDA kernels and copies, from the
+    first of up to PROFILE_SESSIONS sessions that records any; (ms, sessions
+    taken), (0.0, PROFILE_SESSIONS) when none does."""
+    for n in range(1, PROFILE_SESSIONS + 1):
+        busy = sum(e.self_device_time_total for e in device_events(profiled(fn))) / 1e3
+        if busy > 0:
+            return busy, n
+    return 0.0, PROFILE_SESSIONS
 
 
 def host_top_ops(fn, n: int = 6) -> str:
     """The ``n`` host operations of one call of ``fn()`` with the most self
     CPU time under ``torch.profiler`` (a synchronising call's time includes
     its wait for the device), as "name ms" pairs."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    prof = profiled(fn)
     ops = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
                  key=lambda e: -e.self_cpu_time_total)[:n]
     return ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.3f} ms" for e in ops)
+
+
+def device_breakdown(fn, n: int = 5) -> str:
+    """One call of ``fn()`` under ``torch.profiler``: its device time by
+    class (matrix products, attention, the rest: elementwise, reductions,
+    copies, the optimizer) and the ``n`` kernels with the most device time,
+    as "name ms" pairs."""
+    kernels = [e for e in device_events(profiled(fn)) if e.self_device_time_total > 0]
+    classes = {"products": 0.0, "attention": 0.0, "rest": 0.0}
+    for e in kernels:
+        name = e.key.lower()
+        key = ("attention" if any(k in name for k in ("attention", "fmha", "flash")) else
+               "products" if any(k in name for k in ("gemm", "xmma", "cutlass", "nvjet")) else
+               "rest")
+        classes[key] += e.self_device_time_total / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:n]
+    return (", ".join(f"{k} {v:.3f} ms" for k, v in classes.items()) + "; top kernels: "
+            + ", ".join(f"{e.key[:70]} {e.self_device_time_total / 1e3:.3f} ms" for e in top))
 
 
 def phase_profile(dev, card: str) -> None:
@@ -3224,12 +3856,11 @@ def phase_profile(dev, card: str) -> None:
     flow = FlowSampler(model=eqm_steps["auto"][1].model, integrator="euler", negate_velocity=True)
     # The kernel paths and the other short calls are profiled first, the
     # generic loops after them and the HMC warmup (about 190,000 profiler
-    # events, 40,000 on the device) last: after a session that large, every
-    # later session of the process drops some of its device events, and
-    # more after each such session (on an H100 with torch 2.11), while
-    # sessions before it record them all. So this phase runs first and is
-    # the only one that profiles, and every call of the first group must
-    # record device events.
+    # events, 40,000 on the device) last: after a session that large, later
+    # sessions of the process have dropped some of their device events (on
+    # an H100 with torch 2.11). So this phase is the only one that profiles,
+    # and every call of the first group must record device events in one of
+    # its PROFILE_SESSIONS padded sessions (see PROFILE_PAD_S).
     first = {
         f"EqM train step config 5 Sinkhorn kernel (batch {FLOW_BATCH})":
             lambda: eqm_steps["auto"][0].train_step(*eqm_steps["auto"][1:]),
@@ -3278,7 +3909,22 @@ def phase_profile(dev, card: str) -> None:
         f"HMC warmup (generic loop) {n}x{loop_steps}":
             lambda: corr.warmup(g, dim=2, n_warmup=loop_steps, n_samples=n),
     }
-    for label, fn in (*first.items(), *loops.items()):
+    first.update(_dit_family_calls(dev))
+    profile_calls(first, card, require_events=True)
+    profile_calls(loops, card, require_events=False)
+    first.clear()
+    _release()
+
+
+def profile_calls(calls: dict, card: str, require_events: bool) -> None:
+    """For each ``label: fn`` of ``calls``, the wall time (host clock around
+    ``synchronize()``, median of 3 after one warm-up), the device busy time
+    (one more call under ``torch.profiler``, see :func:`device_busy_ms`) and
+    the idle share; fails if a call records no device events in any of its
+    sessions and ``require_events``."""
+    import torch
+
+    for label, fn in calls.items():
         fn()
         torch.cuda.synchronize()
         walls = []
@@ -3288,15 +3934,24 @@ def phase_profile(dev, card: str) -> None:
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
         wall = statistics.median(walls)
-        busy = device_busy_ms(fn)
-        if busy <= 0 and label in first:
-            raise AssertionError(f"profile: {label}: the profile recorded no device events")
+        busy, sessions = device_busy_ms(fn)
+        if busy <= 0 and require_events:
+            raise AssertionError(f"profile: {label}: {sessions} profiles recorded no device events")
         device = (f"device busy {busy:.3f} ms, idle share {1.0 - busy / wall:.3f}" if busy > 0
-                  else "device busy not measured (the profile recorded no device events)")
+                  else f"device busy not measured ({sessions} profiles recorded no device events)")
+        if 1 < sessions and busy > 0:
+            device += f" (profile {sessions}: the earlier ones recorded no device events)"
         print(f"profile: {label}: wall {wall:.3f} ms, {device} | {card}")
         if label.startswith(("Langevin sample() kernel path", "AIS kernel path")):
             print(f"profile: {label}: host ops by self CPU time (profiled call): "
                   f"{host_top_ops(fn)} | {card}")
+        if label.startswith("DiT-768x12 train step"):
+            print(f"profile: {label}: device time by class (profiled call): "
+                  f"{device_breakdown(fn)} | {card}")
+
+
+#: the DiT family's and score matching's paths, in the order they run
+DIT_PATHS = (path_dit, path_dit_eqm, path_cfg, path_score)
 
 
 def main() -> None:
@@ -3331,8 +3986,22 @@ def main() -> None:
         ais_syncs(ops, dev, card)
         return
 
+    last = [started]
+
     def done(phase: str) -> None:
-        print(f"phase: {phase} done at {time.perf_counter() - started:.1f} s", flush=True)
+        now = time.perf_counter()
+        print(f"phase: {phase} done at {now - started:.1f} s ({now - last[0]:.1f} s)", flush=True)
+        last[0] = now
+
+    if sys.argv[1:] == ["--dit"]:
+        check_instances(phase_build(_build))
+        done("build")
+        profile_calls(_dit_family_calls(dev), card, require_events=True)
+        done("profile")
+        for path in DIT_PATHS:
+            path(ops, dev, card)
+            done(path.__name__)
+        return
 
     check_instances(phase_build(_build))
     phase_sass(_build)
@@ -3349,7 +4018,7 @@ def main() -> None:
     done("profile")
     launches = {name: 0 for name in KERNELS}
     for path in (path_langevin, path_hmc, path_mala, path_gradient_descent, path_pt, path_ais,
-                 path_step, path_cd, path_flow):
+                 path_step, path_cd, path_flow, *DIT_PATHS):
         for name, n in path(ops, dev, card).items():
             launches[name] += n
         done(path.__name__)

@@ -21,8 +21,11 @@ the whole-chain neural Langevin kernel), the flow slice (interpolants, the
 minibatch couplings with the one-launch Sinkhorn kernel, the fixed-step,
 adaptive and implicit Runge-Kutta integrators, ``FlowSampler`` with ODE and
 SDE generation and ``log_prob``, the Equilibrium Matching and Energy Matching
-losses, ``MLPVelocityField`` and ``EqMEnergy``), and parameter, sampler and
-network conversion from the JAX package.
+losses, ``MLPVelocityField`` and ``EqMEnergy``), the DiT family
+(``ConditionalTransformer2D`` and its components, the label embedder,
+classifier-free guidance, the interaction energy), the score-matching
+losses (exact and approximate Hyvärinen, denoising, sliced), and parameter,
+sampler and network conversion from the JAX package.
 
 Subpackages and symbols load lazily through module ``__getattr__``.
 """
@@ -79,6 +82,7 @@ _LAZY_SYMBOLS = {
     "VariancePreservingInterpolant": "interpolants",
     "get_interpolant": "interpolants",
     "resolve_interpolant": "interpolants",
+    "expand_t_like_x": "interpolants",
     # couplings
     "CouplingResult": "couplings",
     "IndependentCoupling": "couplings",
@@ -115,14 +119,31 @@ _LAZY_SYMBOLS = {
     "PersistentContrastiveDivergence": "losses",
     "ParallelTemperingCD": "losses",
     "ReplayBuffer": "losses",
+    "ScoreMatching": "losses",
+    "DenoisingScoreMatching": "losses",
+    "SlicedScoreMatching": "losses",
+    "BaseScoreMatching": "losses",
     "EquilibriumMatchingLoss": "losses",
     "EnergyMatchingLoss": "losses",
     # models
-    "MLPEnergy": "models",
-    "ConvEnergy2D": "models",
-    "MLPVelocityField": "models",
-    "MLPTimestepEmbedder": "models",
+    "ConditionalTransformer2D": "models",
+    "LabelClassifierFreeGuidance": "models",
+    "InteractionModel": "models",
     "EqMEnergy": "models",
+    "MLPEnergy": "models",
+    "MLPVelocityField": "models",
+    "ConvEnergy2D": "models",
+    "patchify2d": "models",
+    "unpatchify2d": "models",
+    "ConvPatchEmbed2d": "models",
+    "build_2d_sincos_pos_embed": "models",
+    "MLPTimestepEmbedder": "models",
+    "LabelEmbedder": "models",
+    "modulate": "models",
+    "MultiheadSelfAttention": "models",
+    "FeedForward": "models",
+    "AdaLNZeroBlock": "models",
+    "AdaLNZeroPatchHead": "models",
     # datasets
     "DATASET_REGISTRY": "datasets",
     "load_mnist": "datasets",

@@ -1,6 +1,7 @@
 """Training objectives (counterpart of ``torchebm_tpu.losses``): the loss
-contract, the shared utilities, CD/PCD/PT-CD, Equilibrium Matching and Energy
-Matching. Score matching comes with a later slice."""
+contract, the shared utilities, CD/PCD/PT-CD, score matching (exact and
+approximate Hyvärinen, denoising, sliced), Equilibrium Matching and Energy
+Matching."""
 
 from .base import BaseLoss, inject_params
 from .contrastive_divergence import (
@@ -11,6 +12,12 @@ from .contrastive_divergence import (
 )
 from .energy_matching import EnergyMatchingLoss
 from .equilibrium_matching import EquilibriumMatchingLoss
+from .score_matching import (
+    BaseScoreMatching,
+    DenoisingScoreMatching,
+    ScoreMatching,
+    SlicedScoreMatching,
+)
 from .loss_utils import (
     compute_eqm_ct,
     compute_flow_weight,
@@ -26,6 +33,10 @@ __all__ = [
     "PersistentContrastiveDivergence",
     "ParallelTemperingCD",
     "ReplayBuffer",
+    "ScoreMatching",
+    "DenoisingScoreMatching",
+    "SlicedScoreMatching",
+    "BaseScoreMatching",
     "EquilibriumMatchingLoss",
     "EnergyMatchingLoss",
     "mean_flat",

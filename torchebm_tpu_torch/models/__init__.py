@@ -1,9 +1,43 @@
-"""Networks and wrappers (counterpart of ``torchebm_tpu.models``): the
-SiLU-MLP energy, the conv energy, the time-conditioned MLP vector field with
-its timestep embedder, and the EqM-field → energy adapter."""
+"""Networks and wrappers (counterpart of ``torchebm_tpu.models``): the DiT
+backbone (``ConditionalTransformer2D``) with its components, the SiLU-MLP
+energy, the conv energy, the time-conditioned MLP vector field with its
+timestep embedder, classifier-free guidance, the interaction energy and the
+EqM-field → energy adapter."""
 
-from .components import MLPTimestepEmbedder
+from .components import (
+    AdaLNZeroBlock,
+    AdaLNZeroPatchHead,
+    ConvPatchEmbed2d,
+    FeedForward,
+    LabelEmbedder,
+    MLPTimestepEmbedder,
+    MultiheadSelfAttention,
+    build_2d_sincos_pos_embed,
+    modulate,
+    patchify2d,
+    unpatchify2d,
+)
+from .conditional_transformer_2d import ConditionalTransformer2D
 from .nets import ConvEnergy2D, MLPEnergy, MLPVelocityField
-from .wrappers import EqMEnergy
+from .wrappers import EqMEnergy, InteractionModel, LabelClassifierFreeGuidance
 
-__all__ = ["MLPEnergy", "MLPVelocityField", "ConvEnergy2D", "MLPTimestepEmbedder", "EqMEnergy"]
+__all__ = [
+    "ConditionalTransformer2D",
+    "LabelClassifierFreeGuidance",
+    "InteractionModel",
+    "EqMEnergy",
+    "MLPEnergy",
+    "MLPVelocityField",
+    "ConvEnergy2D",
+    "patchify2d",
+    "unpatchify2d",
+    "ConvPatchEmbed2d",
+    "build_2d_sincos_pos_embed",
+    "MLPTimestepEmbedder",
+    "LabelEmbedder",
+    "modulate",
+    "MultiheadSelfAttention",
+    "FeedForward",
+    "AdaLNZeroBlock",
+    "AdaLNZeroPatchHead",
+]

@@ -1,18 +1,99 @@
-r"""Model wrappers (counterpart of :mod:`torchebm_tpu.models.wrappers`): the
-EqM-field → energy adapter. The classifier-free-guidance and interaction
-wrappers come with the DiT family."""
+r"""Model wrappers (counterpart of :mod:`torchebm_tpu.models.wrappers`):
+classifier-free guidance, the pairwise-repulsion interaction energy and the
+EqM-field → energy adapter."""
 
 from __future__ import annotations
 
-from typing import Any, Callable
+import dataclasses
+from typing import Any, Callable, Union
 
 import torch
+from torch import nn
 
 from ..core.energies import Energy
+from ..core.schedulers import BaseScheduler, sched_value
 
 Tensor = torch.Tensor
 
-__all__ = ["EqMEnergy"]
+__all__ = ["LabelClassifierFreeGuidance", "InteractionModel", "EqMEnergy"]
+
+
+class LabelClassifierFreeGuidance(nn.Module):
+    """Classifier-free guidance over a label-conditioned field.
+
+    ``base`` is any ``model(x, t, y=..., **kw) -> (B, C, H, W)`` callable (a
+    DiT field ``nn.Module``, registered as a submodule, or a plain function,
+    which is wrapped in :class:`~torchebm_tpu_torch.samplers.flow.WrappedField`
+    as the JAX package wraps it). Two forwards, with the labels and with the
+    null label, guide the first ``guide_channels`` channels,
+    ``uncond + cfg_scale·(cond − uncond)``; the other channels keep the
+    unconditional values. ``cfg_scale <= 1`` short-circuits to the
+    conditional pass.
+    """
+
+    def __init__(self, base: Any = None, null_label_id: int = 0, cfg_scale: float = 1.0,
+                 guide_channels: int = 3):
+        super().__init__()
+        if (callable(base) and not isinstance(base, nn.Module)
+                and not dataclasses.is_dataclass(base)):
+            from ..samplers.flow import WrappedField
+
+            base = WrappedField(fn=base)
+        self.base = base
+        self.null_label_id = int(null_label_id)
+        self.cfg_scale = float(cfg_scale)
+        self.guide_channels = int(guide_channels)
+
+    def forward(self, x: Tensor, t: Tensor, *, y: Tensor, **kwargs: Any) -> Tensor:
+        if self.cfg_scale <= 1.0:
+            return self.base(x, t, y=y, **kwargs)
+        y_null = torch.full_like(y, self.null_label_id)
+        cond = self.base(x, t, y=y, **kwargs)
+        uncond = self.base(x, t, y=y_null, **kwargs)
+        c = min(self.guide_channels, cond.shape[1])
+        guided = uncond[:, :c] + self.cfg_scale * (cond[:, :c] - uncond[:, :c])
+        if c == cond.shape[1]:
+            return guided
+        return torch.cat([guided, uncond[:, c:]], dim=1)
+
+
+class InteractionModel(Energy):
+    r"""Potential with pairwise repulsion for diverse sampling (Balcerak et
+    al. 2025).
+
+    .. math::
+        E_i = V(x_i) - \tfrac12 \frac{s}{\sigma_W^2} \sum_j \|x_i - x_j\|^2
+
+    The squared-distance sum uses the exact :math:`O(B d)` expansion
+    :math:`B\|x_i\|^2 + \sum_j \|x_j\|^2 - 2 x_i \cdot \sum_j x_j` (``cdist``
+    has a NaN derivative on the zero diagonal). ``strength`` is schedulable:
+    the samplers thread their step index to step-aware energies
+    (``wants_step``), so a ``TemperatureScheduler(..., sqrt=False)`` scales
+    the interaction in lockstep with the noise schedule.
+
+    Stability: the repulsive drift scales as :math:`2 s B / \sigma_W^2\,(x_i -
+    \bar x)`; keep :math:`2 s B \Delta t / \sigma_W^2 \ll 1`.
+    """
+
+    wants_step = True
+
+    def __init__(self, model: Energy = None, sigma_w: float = 1.0,
+                 strength: Union[float, BaseScheduler] = 1.0):
+        super().__init__()
+        if sigma_w <= 0:
+            raise ValueError(f"sigma_w must be positive, got {sigma_w}")
+        self.model = model
+        self.sigma_w = float(sigma_w)
+        self.strength = strength
+
+    def energy(self, x: Tensor, step=None, **model_kwargs: Any) -> Tensor:
+        s = sched_value(self.strength, 0 if step is None else step)
+        batch = x.shape[0]
+        flat = x.reshape(batch, -1)
+        sq_norms = torch.sum(flat * flat, dim=1)
+        pair_sq = batch * sq_norms + torch.sum(sq_norms) - 2.0 * flat @ torch.sum(flat, dim=0)
+        w = 0.5 * (s / self.sigma_w**2) * pair_sq
+        return self.model.energy(x, **model_kwargs) - w
 
 _ENERGY_TYPES = ("dot", "mean", "l2", "implicit")
 

@@ -297,6 +297,13 @@ class FlowSampler(BaseSampler):
         per element and stage) or the unbiased Hutchinson–Rademacher
         estimator (``hutchinson=True``; requires ``generator``; ``n_probes``
         probes, fixed along the trajectory). ODE mode with ``reverse=False``.
+
+        The exact trace probes every row of the batch with the same unit
+        vector at once, one forward-mode pass per element of the event. This
+        equals the JAX package's per-sample ``jacfwd`` only when the field's
+        rows do not interact, i.e. row i of the output depends on row i of
+        the input alone (no batch statistics, no attention across samples).
+        Every field of the library meets that, the DiT included.
         """
         if self.mode != "ode":
             raise ValueError("log_prob requires mode='ode' (probability-flow ODE)")

@@ -3,8 +3,10 @@ JAX package, EMA and checkpoints, precision policies, batch stacking and
 prefetch, profiling."""
 
 from .convert import (
+    conditional_transformer_2d_from_flax,
     conv_energy_from_flax,
     energy_from_arrays,
+    label_embedder_from_flax,
     mlp_energy_from_flax,
     mlp_velocity_field_from_flax,
     sampler_from_fields,
@@ -28,6 +30,8 @@ __all__ = [
     "mlp_energy_from_flax",
     "conv_energy_from_flax",
     "mlp_velocity_field_from_flax",
+    "conditional_transformer_2d_from_flax",
+    "label_embedder_from_flax",
     "stack_batches",
     "prefetch_to_device",
     "update_ema",

@@ -18,6 +18,13 @@ Networks come across from their flax parameter trees (numpy arrays under
     mlp_energy_from_flax(params)                       # MLPEnergy
     conv_energy_from_flax(params, image_size=(28, 28)) # ConvEnergy2D
     mlp_velocity_field_from_flax(params)               # MLPVelocityField
+    conditional_transformer_2d_from_flax(params, num_heads=12, input_size=32,
+                                         patch_size=4)  # ConditionalTransformer2D
+    label_embedder_from_flax(params, dropout_prob=0.1)  # LabelEmbedder
+
+A model that nests these (a label-conditioned DiT) converts each subtree:
+``conditional_transformer_2d_from_flax(tree["ConditionalTransformer2D_0"],
+...)``, ``label_embedder_from_flax(tree["LabelEmbedder_0"], 0.1)``.
 """
 
 from __future__ import annotations
@@ -30,11 +37,15 @@ import torch
 from .. import samplers
 from ..core import energies, schedulers
 from ..core.module import default_device
+from ..models.components import LabelEmbedder
+from ..models.conditional_transformer_2d import ConditionalTransformer2D
 from ..models.nets import ConvEnergy2D, MLPEnergy, MLPVelocityField
 
 __all__ = [
+    "conditional_transformer_2d_from_flax",
     "conv_energy_from_flax",
     "energy_from_arrays",
+    "label_embedder_from_flax",
     "mlp_energy_from_flax",
     "mlp_velocity_field_from_flax",
     "sampler_from_fields",
@@ -126,10 +137,15 @@ def sampler_from_fields(name: str, fields: Mapping[str, Any],
     return getattr(samplers, name)(model=energy, **{f: convert(v) for f, v in fields.items()})
 
 
+def _tree(params: Mapping[str, Any]) -> Mapping[str, Any]:
+    """A flax tree with its ``params`` collection unwrapped."""
+    return params["params"] if "params" in params else params
+
+
 def _flax_layers(params: Mapping[str, Any], prefix: str) -> list:
     """``[(kernel, bias), ...]`` of ``<prefix>_0, <prefix>_1, ...`` as float32
     numpy arrays, in index order."""
-    tree = params["params"] if "params" in params else params
+    tree = _tree(params)
     names = sorted((n for n in tree if n.startswith(f"{prefix}_")),
                    key=lambda n: int(n.split("_")[1]))
     return [(np.array(tree[n]["kernel"], np.float32), np.array(tree[n]["bias"], np.float32))
@@ -200,3 +216,78 @@ def conv_energy_from_flax(params: Mapping[str, Any], image_size=(28, 28),
     _load_linear(net.dense, *dense[0])
     _load_linear(net.head, *dense[1])
     return net.to(default_device() if device is None else device)
+
+
+def _load_dense(layer: torch.nn.Linear, node: Mapping[str, Any]) -> None:
+    _load_linear(layer, np.array(node["kernel"], np.float32), np.array(node["bias"], np.float32))
+
+
+def conditional_transformer_2d_from_flax(params: Mapping[str, Any], *, num_heads: int,
+                                         input_size: int, patch_size: int,
+                                         mlp_ratio: float = 4.0,
+                                         use_sincos_pos_embed: bool = True,
+                                         dtype: torch.dtype = torch.float32,
+                                         device: Optional[torch.device] = None
+                                         ) -> ConditionalTransformer2D:
+    """The port's :class:`ConditionalTransformer2D` with the weights of the
+    JAX package's parameter tree (``ConvPatchEmbed2d_0/proj``, ``block_i/
+    {MultiheadSelfAttention_0/{qkv, out_proj}, FeedForward_0/{Dense_0,
+    Dense_1}, modulation}``, ``head/{modulation, proj}``). Widths, depth and
+    channels are read from the kernels; what they do not fix is passed. On
+    ``device``, as :func:`mlp_energy_from_flax`."""
+    tree = _tree(params)
+    p2 = patch_size * patch_size
+    patch = tree["ConvPatchEmbed2d_0"]["proj"]
+    head = tree["head"]
+    depth = sum(1 for n in tree if n.startswith("block_"))
+    c_p2, embed_dim = np.shape(patch["kernel"])
+    cond_dim = np.shape(head["modulation"]["kernel"])[0]
+    net = ConditionalTransformer2D(
+        in_channels=int(c_p2) // p2,
+        out_channels=int(np.shape(head["proj"]["kernel"])[1]) // p2,
+        input_size=input_size, patch_size=patch_size, embed_dim=int(embed_dim), depth=depth,
+        num_heads=num_heads, cond_dim=int(cond_dim),
+        mlp_ratio=mlp_ratio, use_sincos_pos_embed=use_sincos_pos_embed, dtype=dtype)
+    _load_dense(net.patch_embed.proj, patch)
+    for i, block in enumerate(net.blocks):
+        _load_block(block, tree[f"block_{i}"])
+    _load_head(net.head, head)
+    return net.to(default_device() if device is None else device)
+
+
+def _load_attention(attn: torch.nn.Module, node: Mapping[str, Any]) -> None:
+    """A ``MultiheadSelfAttention`` from its flax subtree ``{qkv, out_proj}``."""
+    _load_dense(attn.qkv, node["qkv"])
+    _load_dense(attn.out_proj, node["out_proj"])
+
+
+def _load_feedforward(mlp: torch.nn.Module, node: Mapping[str, Any]) -> None:
+    """A ``FeedForward`` from its flax subtree ``{Dense_0, Dense_1}``."""
+    for j, layer in enumerate(mlp.layers):
+        _load_dense(layer, node[f"Dense_{j}"])
+
+
+def _load_block(block: torch.nn.Module, node: Mapping[str, Any]) -> None:
+    """An ``AdaLNZeroBlock`` from its flax subtree."""
+    _load_dense(block.modulation, node["modulation"])
+    _load_attention(block.attn, node["MultiheadSelfAttention_0"])
+    _load_feedforward(block.mlp, node["FeedForward_0"])
+
+
+def _load_head(head: torch.nn.Module, node: Mapping[str, Any]) -> None:
+    """An ``AdaLNZeroPatchHead`` from its flax subtree ``{modulation, proj}``."""
+    _load_dense(head.modulation, node["modulation"])
+    _load_dense(head.proj, node["proj"])
+
+
+def label_embedder_from_flax(params: Mapping[str, Any], dropout_prob: float,
+                             device: Optional[torch.device] = None) -> LabelEmbedder:
+    """The port's :class:`LabelEmbedder` with the table of the JAX package's
+    ``LabelEmbedder`` tree (``Embed_0/embedding``, one row more than classes
+    when ``dropout_prob > 0``). On ``device``, as :func:`mlp_energy_from_flax`."""
+    table = np.array(_tree(params)["Embed_0"]["embedding"], np.float32)
+    rows = table.shape[0] - (1 if dropout_prob > 0 else 0)
+    emb = LabelEmbedder(rows, table.shape[1], dropout_prob=dropout_prob)
+    with torch.no_grad():
+        emb.embed.weight.copy_(torch.from_numpy(table))
+    return emb.to(default_device() if device is None else device)
