@@ -15,7 +15,8 @@ for row 12 at its main shapes, ``--dw-shape`` for rows 2-3 at 4,096 x 32 x
 1,000 (an int seed and a constant schedule, which earlier wrappers also
 take); ``--ais`` runs only the build and row 12's checks, timings, plan
 sweep and sync count; ``--dit`` only the build and the DiT family's and score
-matching's profile lines and paths.)
+matching's profile lines and paths; ``--mcmc`` only the build, the RMHMC,
+NUTS and NUTS->HMC handoff paths and their sync counts.)
 
 Phases, each printing its lines; any failure raises and the exit code is
 not 0:
@@ -84,6 +85,25 @@ not 0:
      ``replace(step_size=eps).sample(..., return_trajectory=True)`` (1,000
      kept draws of 4,000, and 1,000 consecutive draws),
      ``summarize_chains``, again with ``warmup(adapt_mass=True)``;
+   - RMHMC (on the generic loop, no kernel): the identity metric on the
+     correlated Gaussian against ``HamiltonianMonteCarlo(fused="off")`` from
+     one generator seed, 4,096 chains x 50 draws x 5 leapfrog steps, to
+     1e-5; the radial metric G(x) = (1 + |x|^2) I on N(0, I), 4,096 x 600
+     draws (last acceptance above 0.5, means within 5 standard errors of 0,
+     variances within 10% of 1); one call at d = 16; one draw profiled;
+   - NUTS at the sampler shootout's protocol (``benchmarks/headline.py:
+     333-361``): 256 chains on the correlated Gaussian, ``max_tree_depth=8``,
+     ``warmup`` of 200 transitions, 250 draws, with unit and with adapted
+     mass (means within 5 standard errors, variances within 10%, the
+     correlation within 0.05 of 0.8, the last acceptance within 0.1 of the
+     target, divergences below 1%; step, tree depth, ESS, ms per draw,
+     ESS/s); one draw profiled;
+   - the NUTS->HMC handoff: ``tune_trajectory_length`` on the same target
+     (256 chains), then ``HamiltonianMonteCarlo`` at the tuned step,
+     ``n_leapfrog`` and mass over the ESS protocol's draws: exactly one
+     ``mixture_hmc_chain_trajectory`` launch, checked like the HMC path's
+     ESS runs against the loop; row 9 timed at the tuned ``n_leapfrog``;
+     the tuning call profiled;
    - MALA: the same two calls (pilot-tuned step on the correlated Gaussian);
    - gradient descent on the Langevin mixture row at noise 0;
    - parallel tempering (the JAX package's headline configuration,
@@ -168,7 +188,9 @@ not 0:
    train step with the kernel, on the loop and with
    ``IndependentCoupling``, the generation in samples/s, and the sampler
    paths, beside the card's name and power limit;
-6. profile (run right after the checks; the run's only profiler sessions):
+6. profile (run right after the checks; the run's other profiler sessions
+   are the advanced HMC paths' own: one RMHMC and one NUTS draw, the d = 16
+   RMHMC call and the tuning call):
    wall time, device busy time (``torch.profiler``) and idle share
    of the CD and EqM train steps, the flow generation, the DiT train steps
    (f32, bf16), the DiT EqM step, CFG generation (f32, bf16), the DSM train
@@ -182,8 +204,10 @@ not 0:
    generation, and per CD train step through the neural kernel and on the
    loop, with where each comes from, none in the neural sampler's call
    (its seed stays on the device), none in the AIS call on each of its
-   targets and none in the double-well ``sample()`` calls (final state and
-   trajectory), each after a warm-up call (``torch.cuda.set_sync_debug_mode``);
+   targets, none in the double-well ``sample()`` calls (final state and
+   trajectory) and in an RMHMC draw, at most one per doubling after the
+   first in a NUTS transition, each after a warm-up call
+   (``torch.cuda.set_sync_debug_mode``);
 8. bound: for each kernel the least time the card could take for the timed
    call: the larger of its bytes (inputs read once, outputs written once)
    over 3.35 TB/s and, per instruction class counted from the CUDA source
@@ -1428,6 +1452,276 @@ def path_hmc(ops, dev, card: str) -> dict:
         _check_corr_trajectory(f"HMC corr-Gaussian, {label}", traj, loop, (consecutive, loop1),
                                card)
     return launches
+
+
+#: the advanced HMC samplers' paths, after the HMC path. RMHMC at 4,096
+#: chains: the identity metric on the correlated Gaussian against HMC's
+#: generic loop from one generator seed (50 draws of 5 leapfrog steps, equal
+#: to RMHMC_TOL), the radial metric G(x) = (1 + |x|^2) I of
+#: tests/samplers/test_rmhmc_moments.py:102-120 on N(0, I) (600 draws), and
+#: one call at d = 16, the cap of benchmarks/registry.py:114 (3 steps)
+RMHMC_CHAINS, RMHMC_LEAPFROG, RMHMC_ID_DRAWS, RMHMC_DRAWS = 4096, 5, 50, 600
+RMHMC_WIDE_D, RMHMC_WIDE_LEAPFROG, RMHMC_WIDE_DRAWS = 16, 3, 10
+RMHMC_TOL = 1e-5
+#: NUTS at the sampler shootout's protocol (benchmarks/headline.py:333-361):
+#: 256 chains on the correlated Gaussian, step 0.2 before warmup, tree depth
+#: at most 8, 200 warmup transitions, 250 draws; the NUTS->HMC handoff
+#: (tune_trajectory_length) tunes on the same 256 chains
+NUTS_CHAINS, NUTS_STEP, NUTS_DEPTH, NUTS_WARMUP, NUTS_DRAWS = 256, 0.2, 8, 200, 250
+
+
+def _identity_metric(x):
+    import torch
+
+    d = x.shape[-1]
+    return torch.eye(d, dtype=x.dtype, device=x.device).expand(x.shape[0], d, d)
+
+
+def _radial_metric(x):
+    import torch
+
+    scale = 1.0 + torch.sum(x * x, dim=-1, keepdim=True)
+    return torch.diag_embed(scale.expand(x.shape))
+
+
+def _timed(fn):
+    """``(fn(), host milliseconds to the end of its device work)``."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _moments(name: str, traj, corr_want, card: str):
+    """Gates of a sampler's trajectory ``(chains, draws, d)`` on a Gaussian of
+    unit variances: each mean within 5 standard errors of 0 (the standard
+    error from ``summarize_chains``' ESS), each variance within 10% of 1,
+    the correlation of the first two coordinates within 0.05 of
+    ``corr_want`` (when given); returns the minimum ESS."""
+    import torch
+
+    from torchebm_tpu_torch.samplers import summarize_chains
+
+    if not torch.isfinite(traj).all():
+        raise AssertionError(f"{name}: trajectory is not finite")
+    flat = traj.reshape(-1, traj.shape[-1]).double()
+    mean, var = flat.mean(0), flat.var(0)
+    ess = summarize_chains(traj)["ess"].double()
+    se = torch.sqrt(var / ess)
+    corr = float(torch.corrcoef(flat[:, :2].T)[0, 1])
+    print(f"main path: {name} {tuple(traj.shape)}: mean {[round(float(v), 5) for v in mean]} "
+          f"(standard error {[round(float(v), 5) for v in se]}), variance "
+          f"{[round(float(v), 5) for v in var]}, correlation {corr:.5f}, min ESS "
+          f"{float(ess.min()):.1f} | {card}")
+    if not bool((mean.abs() <= 5.0 * se).all()):
+        raise AssertionError(f"{name}: a mean lies beyond 5 standard errors of 0")
+    if not bool(((var - 1.0).abs() <= 0.1).all()):
+        raise AssertionError(f"{name}: a variance lies beyond 10% of 1")
+    if corr_want is not None and not abs(corr - corr_want) <= 0.05:
+        raise AssertionError(f"{name}: correlation {corr}, not within 0.05 of {corr_want}")
+    return float(ess.min())
+
+
+def path_rmhmc(ops, dev, card: str) -> dict:
+    """Riemannian-manifold HMC on the generic loop (no kernel row claims it):
+    the identity metric against HMC's loop from one seed, the radial metric's
+    moments, one call at d = 16, and one draw's wall time, device busy time
+    and idle share."""
+    import torch
+
+    from torchebm_tpu_torch.core import GaussianEnergy
+    from torchebm_tpu_torch.samplers import HamiltonianMonteCarlo, RiemannianManifoldHMC
+
+    corr = _corr_gaussian(dev)
+    ops.reset_launch_counts()
+    kw = dict(step_size=0.3, n_leapfrog_steps=RMHMC_LEAPFROG)
+    run = dict(dim=2, n_samples=RMHMC_CHAINS, n_steps=RMHMC_ID_DRAWS, return_trajectory=True,
+               return_diagnostics=True)
+    rm = RiemannianManifoldHMC(corr, metric_fn=_identity_metric, **kw)
+    (got, diag), wall = _timed(lambda: rm.sample(torch.Generator(dev).manual_seed(90), **run))
+    want, diag_hmc = HamiltonianMonteCarlo(corr, fused="off", **kw).sample(
+        torch.Generator(dev).manual_seed(90), **run)
+    err = float((got - want).abs().max())
+    acc_err = float((diag["acceptance_rate"] - diag_hmc["acceptance_rate"]).abs().max())
+    print(f"main path: RMHMC identity metric, corr-Gaussian {RMHMC_CHAINS}x{RMHMC_ID_DRAWS} "
+          f"draws x {RMHMC_LEAPFROG} leapfrog: against HMC(fused='off') from one seed max |error| "
+          f"{err:.3e} over the trajectory, acceptance {acc_err:.3e} (tol {RMHMC_TOL:g}); "
+          f"mean acceptance {float(diag['acceptance_rate'].mean()):.4f}; {wall:.1f} ms, "
+          f"{wall / RMHMC_ID_DRAWS:.3f} ms per draw | {card}")
+    if not torch.isfinite(got).all() or not err <= RMHMC_TOL or not acc_err <= RMHMC_TOL:
+        raise AssertionError(f"RMHMC with the identity metric is not HMC: {err}, {acc_err}")
+
+    radial = RiemannianManifoldHMC(GaussianEnergy.standard(2).to(dev), metric_fn=_radial_metric,
+                                   step_size=0.15, n_leapfrog_steps=RMHMC_LEAPFROG)
+    g = torch.Generator(dev).manual_seed(91)
+    (traj, diag), wall = _timed(lambda: radial.sample(
+        g, dim=2, n_samples=RMHMC_CHAINS, n_steps=RMHMC_DRAWS, return_trajectory=True,
+        return_diagnostics=True))
+    acc = float(diag["acceptance_rate"][-1])
+    print(f"main path: RMHMC radial metric, N(0, I) {RMHMC_CHAINS}x{RMHMC_DRAWS} draws x "
+          f"{RMHMC_LEAPFROG} leapfrog at 0.15: last acceptance {acc:.4f}; {wall:.1f} ms, "
+          f"{wall / RMHMC_DRAWS:.3f} ms per draw | {card}")
+    if not acc > 0.5:
+        raise AssertionError(f"RMHMC radial metric: last acceptance {acc} <= 0.5")
+    _moments("RMHMC radial metric", traj, None, card)
+
+    x_last = traj[:, -1].contiguous()
+    wide = RiemannianManifoldHMC(GaussianEnergy.standard(RMHMC_WIDE_D).to(dev),
+                                 metric_fn=_identity_metric, step_size=0.3,
+                                 n_leapfrog_steps=RMHMC_WIDE_LEAPFROG)
+    x_wide = torch.randn((RMHMC_CHAINS, RMHMC_WIDE_D), generator=g, device=dev)
+    wide_label = (f"RMHMC identity metric d={RMHMC_WIDE_D} {RMHMC_CHAINS}x{RMHMC_WIDE_DRAWS} "
+                  f"draws x {RMHMC_WIDE_LEAPFROG} leapfrog")
+    rows = profile_calls({
+        f"RMHMC draw, radial metric {RMHMC_CHAINS} chains x {RMHMC_LEAPFROG} leapfrog":
+            lambda: radial.sample(g, x=x_last, n_steps=1),
+        wide_label: lambda: wide.sample(g, x=x_wide, n_steps=RMHMC_WIDE_DRAWS),
+    }, card, require_events=True)
+    wall, busy = rows[wide_label]
+    print(f"main path: {wide_label}: {wall / RMHMC_WIDE_DRAWS:.3f} ms per draw, device busy "
+          f"{busy / RMHMC_WIDE_DRAWS:.3f} ms per draw, idle share {1.0 - busy / wall:.3f} "
+          f"| {card}")
+    return read_counts(ops, "RMHMC", [])
+
+
+def _nuts_run(dev, adapt_mass: bool):
+    """The shootout protocol's NUTS: ``(tuned sampler, warmed x, trajectory,
+    diagnostics, ms of the 250 draws)``."""
+    import torch
+
+    from torchebm_tpu_torch.samplers import NoUTurnSampler
+
+    nuts = NoUTurnSampler(_corr_gaussian(dev), step_size=NUTS_STEP, max_tree_depth=NUTS_DEPTH)
+    g = torch.Generator(dev).manual_seed(95 + adapt_mass)
+    x0, eps, *mass = nuts.warmup(g, dim=2, n_warmup=NUTS_WARMUP, n_samples=NUTS_CHAINS,
+                                 adapt_mass=adapt_mass)
+    tuned = nuts.replace(step_size=eps, mass=mass[0] if mass else None)
+    (traj, diag), wall = _timed(lambda: tuned.sample(
+        g, x=x0, n_steps=NUTS_DRAWS, return_trajectory=True, return_diagnostics=True))
+    return tuned, x0, traj, diag, wall
+
+
+def path_nuts(ops, dev, card: str) -> dict:
+    """NUTS at the sampler shootout's protocol (``benchmarks/headline.py:
+    333-361``), with unit and with adapted diagonal mass: the moment,
+    acceptance and divergence gates, the adapted step, mean tree depth, min
+    ESS, ms per draw and ESS/s, and one draw's wall time, device busy time
+    and idle share."""
+    import torch
+
+    ops.reset_launch_counts()
+    for adapt_mass in (False, True):
+        tuned, x0, traj, diag, wall = _nuts_run(dev, adapt_mass)
+        label = "adapted diagonal mass" if adapt_mass else "unit mass"
+        name = f"NUTS corr-Gaussian, {label}"
+        min_ess = _moments(name, traj, CORR_COV[0][1], card)
+        acc = float(diag["acceptance_rate"][-1])
+        div = float(diag["divergence_rate"].mean())
+        mass = None if tuned.mass is None else [round(float(m), 5) for m in tuned.mass]
+        print(f"main path: {name} {NUTS_CHAINS}x{NUTS_DRAWS} draws after {NUTS_WARMUP} warmup "
+              f"transitions: step size {tuned.step_size:.5f}, mass {mass}, mean tree depth "
+              f"{float(diag['tree_depth'].mean()):.4f} (largest per-draw mean "
+              f"{float(diag['tree_depth'].max()):.4f}), last acceptance {acc:.4f} (target "
+              f"{tuned.target_accept}), divergence rate {div:.5f}, min ESS {min_ess:.1f}, "
+              f"{wall / NUTS_DRAWS:.3f} ms per draw (diagnostics and trajectory included), "
+              f"ESS/s {min_ess / (wall / 1e3):.1f} | {card}")
+        if not abs(acc - tuned.target_accept) <= 0.1:
+            raise AssertionError(f"{name}: last acceptance {acc} not within 0.1 of the target")
+        if not div < 0.01:
+            raise AssertionError(f"{name}: divergence rate {div} >= 1%")
+    g = torch.Generator(dev).manual_seed(97)
+    profile_calls({f"NUTS draw, corr-Gaussian {NUTS_CHAINS} chains, tree depth <= {NUTS_DEPTH}":
+                   lambda: tuned.sample(g, x=x0, n_steps=1)}, card, require_events=True)
+    return read_counts(ops, "NUTS", [])
+
+
+def path_handoff(ops, dev, card: str) -> dict:
+    """The NUTS->HMC handoff: ``tune_trajectory_length`` on the correlated
+    Gaussian (256 chains), then ``HamiltonianMonteCarlo`` at the tuned step,
+    trajectory length and mass over the ESS protocol's draws, one
+    ``mixture_hmc_chain_trajectory`` launch, gated against the same HMC on
+    the generic loop; row 9 timed at the tuned trajectory length; the
+    tuning call's wall time, device busy time and idle share."""
+    import torch
+
+    from torchebm_tpu_torch.ops import fused_hmc
+    from torchebm_tpu_torch.ops._counts import work
+    from torchebm_tpu_torch.samplers import (
+        HamiltonianMonteCarlo,
+        summarize_chains,
+        tune_trajectory_length,
+    )
+    from torchebm_tpu_torch.samplers.base import _gaussian_target
+
+    corr = _corr_gaussian(dev)
+
+    def tune():
+        return tune_trajectory_length(torch.Generator(dev).manual_seed(100), corr, dim=2,
+                                      n_samples=NUTS_CHAINS)
+
+    ops.reset_launch_counts()
+    t, tune_wall = _timed(tune)
+    hmc = HamiltonianMonteCarlo(corr, step_size=t.step_size, n_leapfrog_steps=t.n_leapfrog,
+                                mass=t.mass)
+    g = torch.Generator(dev).manual_seed(101)
+    before = fused_hmc.mixture_hmc_chain_trajectory.launches
+    traj, wall = _timed(lambda: hmc.sample(g, x=t.x, n_steps=ESS_DRAWS, thin=ESS_THIN,
+                                           return_trajectory=True))
+    if fused_hmc.mixture_hmc_chain_trajectory.launches != before + 1:
+        raise AssertionError("the handoff's HMC call did not launch mixture_hmc_chain_trajectory "
+                             "exactly once")
+    consecutive = hmc.sample(g, x=t.x, n_steps=N_STEPS, return_trajectory=True)
+    launches = read_counts(ops, "NUTS->HMC handoff", ["mixture_hmc_chain_trajectory"])
+    # one trajectory launch for the ESS draws, one for the consecutive draws
+    if (launches["mixture_hmc_chain"], launches["mixture_hmc_chain_trajectory"]) != (0, 2):
+        raise AssertionError(f"the handoff made {launches} launches, not 2 trajectory launches")
+    group = fused_hmc.hmc_launch_plan(NUTS_CHAINS, 2, 1, True)[0]
+    print(f"main path: NUTS->HMC handoff: tune_trajectory_length (corr-Gaussian, {NUTS_CHAINS} "
+          f"chains, NUTS warmup 200, pilot 100, HMC warmup 200) {tune_wall:.1f} ms: mean tree "
+          f"depth {t.mean_tree_depth:.4f}, n_leapfrog {t.n_leapfrog}, step size "
+          f"{t.step_size:.5f}; the HMC plan's group G={group} | {card}")
+    looped = hmc.replace(fused="off")
+    g = torch.Generator(dev).manual_seed(102)
+    loop = looped.sample(g, x=t.x, n_steps=ESS_DRAWS, thin=ESS_THIN, return_trajectory=True)
+    loop1 = looped.sample(g, x=t.x, n_steps=N_STEPS, return_trajectory=True)
+    _check_corr_trajectory("NUTS->HMC handoff", traj, loop, (consecutive, loop1), card)
+    min_ess = float(summarize_chains(traj)["ess"].min())
+    print(f"main path: NUTS->HMC handoff production draws {tuple(traj.shape)} (one kernel "
+          f"launch, its first call): {wall:.3f} ms, min ESS {min_ess:.1f}, ESS/s "
+          f"{min_ess / (wall / 1e3):.1f} | {card}")
+
+    # row 9 at the tuned trajectory length, at the handoff's chains and at
+    # the ESS protocol's 10,000
+    means, prec = _gaussian_target(corr)
+    kw = dict(thin=ESS_THIN, precision=prec.contiguous(), mass=t.mass, seed=21)
+    clock = max_sm_clock_mhz()
+    name = "mixture_hmc_chain_trajectory"
+    for x0 in (t.x, torch.randn((N_CHAINS, 2), generator=g, device=dev)):
+        args = (x0.contiguous(), means, ESS_DRAWS, t.step_size, t.n_leapfrog)
+        run = functools.partial(fused_hmc.mixture_hmc_chain_trajectory, *args, **kw)
+        b_ms, b_by = bound_of(work(name, args, kw, run()), clock)
+        ms = statistics.median(cuda_times(run, 2, 10))
+        dev_ms = device_ms(run)
+        print(f"timing: {name} at the handoff's tuning (corr-Gaussian d=2, {x0.shape[0]}x"
+              f"{ESS_DRAWS} thin {ESS_THIN}, n_leapfrog {t.n_leapfrog}, step {t.step_size:.5f}, "
+              f"G={fused_hmc.hmc_launch_plan(x0.shape[0], 2, 1, True)[0]}): {ms:.4f} ms per "
+              f"call, device {dev_ms:.4f} ms; bound {b_ms:.5f} ms by {b_by} "
+              f"({b_ms / dev_ms:.3f} of the bound's rate by device time) | {card}", flush=True)
+    busy, sessions = device_busy_ms(tune)
+    if busy <= 0:
+        raise AssertionError(f"profile: tune_trajectory_length: {sessions} profiles recorded no "
+                             "device events")
+    print(f"profile: tune_trajectory_length corr-Gaussian {NUTS_CHAINS} chains (the path's "
+          f"call): wall {tune_wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+          f"{1.0 - busy / tune_wall:.3f} | {card}")
+    return launches
+
+
+#: the advanced HMC samplers' paths, in the order they run
+MCMC_PATHS = (path_rmhmc, path_nuts, path_handoff)
 
 
 def path_mala(ops, dev, card: str) -> dict:
@@ -3661,6 +3955,41 @@ def phase_syncs(ops, dev, card: str) -> None:
         raise AssertionError(f"the neural chain's sampler call syncs: {sample}")
     ais_syncs(ops, dev, card)
     dw_syncs(ops, dev, card)
+    mcmc_syncs(dev, card)
+
+
+def mcmc_syncs(dev, card: str) -> None:
+    """Host syncs of one RMHMC draw on the radial metric (none expected: the
+    metric's factor keeps its status on the device) and of one NUTS
+    transition at the shootout's settings (at most one per doubling after
+    the first: whether any tree still grows), each after a warm-up call."""
+    import torch
+
+    from torchebm_tpu_torch.core import GaussianEnergy
+    from torchebm_tpu_torch.samplers import NoUTurnSampler, RiemannianManifoldHMC
+
+    g = torch.Generator(dev).manual_seed(45)
+    rm = RiemannianManifoldHMC(GaussianEnergy.standard(2).to(dev), metric_fn=_radial_metric,
+                               step_size=0.15, n_leapfrog_steps=RMHMC_LEAPFROG)
+    run = functools.partial(rm.sample, g, dim=2, n_samples=RMHMC_CHAINS, n_steps=1)
+    run()
+    rm_sites = sync_sites(run)
+    nuts = NoUTurnSampler(_corr_gaussian(dev), step_size=NUTS_STEP, max_tree_depth=NUTS_DEPTH)
+    x = torch.randn((NUTS_CHAINS, 2), generator=g, device=dev)
+    run = functools.partial(nuts.sample, g, x=x, n_steps=1)
+    run()
+    nuts_sites = sync_sites(run)
+    _, diag = nuts.sample(g, x=x, n_steps=1, return_diagnostics=True)
+    print(f"syncs: RiemannianManifoldHMC radial metric, one draw of {RMHMC_CHAINS} chains x "
+          f"{RMHMC_LEAPFROG} leapfrog: {len(rm_sites)} {rm_sites}; NoUTurnSampler one transition "
+          f"of {NUTS_CHAINS} chains at step {NUTS_STEP}, max_tree_depth {NUTS_DEPTH}: "
+          f"{len(nuts_sites)} {nuts_sites} (a like transition's mean tree depth "
+          f"{float(diag['tree_depth'][-1]):.3f}) | {card}")
+    if rm_sites:
+        raise AssertionError(f"the RMHMC draw syncs: {rm_sites}")
+    if len(nuts_sites) > NUTS_DEPTH:
+        raise AssertionError(f"the NUTS transition syncs {len(nuts_sites)} times, more than "
+                             f"max_tree_depth {NUTS_DEPTH}")
 
 
 def dw_syncs(ops, dev, card: str) -> None:
@@ -3766,12 +4095,21 @@ def profiled(fn):
 
 
 def device_busy_ms(fn) -> tuple:
-    """Device time of one call of ``fn()``: the sum of the self time that
-    ``torch.profiler`` records for its CUDA kernels and copies, from the
-    first of up to PROFILE_SESSIONS sessions that records any; (ms, sessions
-    taken), (0.0, PROFILE_SESSIONS) when none does."""
+    """Device time of one call of ``fn()``: the sum of the durations that
+    ``torch.profiler`` records for its CUDA kernels and copies (not a user
+    annotation's span), from the first of up to PROFILE_SESSIONS sessions
+    that records any; (ms, sessions taken), (0.0, PROFILE_SESSIONS) when none
+    does. The durations are read from the session's raw events: building
+    its per-event tables (``key_averages``) took minutes for the million
+    events of a ``tune_trajectory_length`` call, on an H100's host with
+    torch 2.11."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
     for n in range(1, PROFILE_SESSIONS + 1):
-        busy = sum(e.self_device_time_total for e in device_events(profiled(fn))) / 1e3
+        events = profiled(fn).profiler.kineto_results.events()
+        busy = sum(e.duration_ns() for e in events
+                   if e.device_type() == cuda and not e.is_user_annotation()) / 1e6
         if busy > 0:
             return busy, n
     return 0.0, PROFILE_SESSIONS
@@ -3858,9 +4196,10 @@ def phase_profile(dev, card: str) -> None:
     # generic loops after them and the HMC warmup (about 190,000 profiler
     # events, 40,000 on the device) last: after a session that large, later
     # sessions of the process have dropped some of their device events (on
-    # an H100 with torch 2.11). So this phase is the only one that profiles,
-    # and every call of the first group must record device events in one of
-    # its PROFILE_SESSIONS padded sessions (see PROFILE_PAD_S).
+    # an H100 with torch 2.11). So this phase profiles every call but the
+    # advanced HMC paths' four, and every call of the first group must
+    # record device events in one of its PROFILE_SESSIONS padded sessions
+    # (see PROFILE_PAD_S).
     first = {
         f"EqM train step config 5 Sinkhorn kernel (batch {FLOW_BATCH})":
             lambda: eqm_steps["auto"][0].train_step(*eqm_steps["auto"][1:]),
@@ -3916,14 +4255,15 @@ def phase_profile(dev, card: str) -> None:
     _release()
 
 
-def profile_calls(calls: dict, card: str, require_events: bool) -> None:
+def profile_calls(calls: dict, card: str, require_events: bool) -> dict:
     """For each ``label: fn`` of ``calls``, the wall time (host clock around
     ``synchronize()``, median of 3 after one warm-up), the device busy time
     (one more call under ``torch.profiler``, see :func:`device_busy_ms`) and
     the idle share; fails if a call records no device events in any of its
-    sessions and ``require_events``."""
+    sessions and ``require_events``. Returns ``{label: (wall ms, busy ms)}``."""
     import torch
 
+    readings = {}
     for label, fn in calls.items():
         fn()
         torch.cuda.synchronize()
@@ -3935,6 +4275,7 @@ def profile_calls(calls: dict, card: str, require_events: bool) -> None:
             walls.append((time.perf_counter() - t0) * 1e3)
         wall = statistics.median(walls)
         busy, sessions = device_busy_ms(fn)
+        readings[label] = (wall, busy)
         if busy <= 0 and require_events:
             raise AssertionError(f"profile: {label}: {sessions} profiles recorded no device events")
         device = (f"device busy {busy:.3f} ms, idle share {1.0 - busy / wall:.3f}" if busy > 0
@@ -3948,6 +4289,7 @@ def profile_calls(calls: dict, card: str, require_events: bool) -> None:
         if label.startswith("DiT-768x12 train step"):
             print(f"profile: {label}: device time by class (profiled call): "
                   f"{device_breakdown(fn)} | {card}")
+    return readings
 
 
 #: the DiT family's and score matching's paths, in the order they run
@@ -3993,6 +4335,15 @@ def main() -> None:
         print(f"phase: {phase} done at {now - started:.1f} s ({now - last[0]:.1f} s)", flush=True)
         last[0] = now
 
+    if sys.argv[1:] == ["--mcmc"]:
+        check_instances(phase_build(_build))
+        done("build")
+        for path in MCMC_PATHS:
+            path(ops, dev, card)
+            done(path.__name__)
+        mcmc_syncs(dev, card)
+        done("syncs")
+        return
     if sys.argv[1:] == ["--dit"]:
         check_instances(phase_build(_build))
         done("build")
@@ -4017,8 +4368,8 @@ def main() -> None:
     phase_profile(dev, card)
     done("profile")
     launches = {name: 0 for name in KERNELS}
-    for path in (path_langevin, path_hmc, path_mala, path_gradient_descent, path_pt, path_ais,
-                 path_step, path_cd, path_flow, *DIT_PATHS):
+    for path in (path_langevin, path_hmc, *MCMC_PATHS, path_mala, path_gradient_descent, path_pt,
+                 path_ais, path_step, path_cd, path_flow, *DIT_PATHS):
         for name, n in path(ops, dev, card).items():
             launches[name] += n
         done(path.__name__)

@@ -359,7 +359,7 @@ def test_sampler_fields_carry_a_numpy_mass_across():
     assert isinstance(tm2.step_size, tcore.ExponentialDecayScheduler)
     assert tm.step_size == 0.1
     with pytest.raises(ValueError, match="Unknown sampler"):
-        sampler_from_fields("NoUTurnSampler", {}, te)
+        sampler_from_fields("NoSuchSampler", {}, te)
 
 
 # ------------------------------------------------------------------ distribution

@@ -17,11 +17,9 @@ import torchebm_tpu_torch
 
 ROOT = Path(__file__).resolve().parents[1] / "torchebm_tpu"
 
-#: what the port does not have yet: the generalised leapfrog and RMHMC, NUTS,
-#: trajectory tuning, and the distributed helpers (``parallel``)
+#: what the port does not have yet: the distributed helpers (``parallel``)
 NOT_YET = {
-    "GeneralisedLeapfrogIntegrator", "RiemannianManifoldHMC", "NoUTurnSampler",
-    "TrajectoryTuning", "tune_trajectory_length", "parallel",
+    "parallel",
     "make_mesh", "batch_sharding", "replicated_sharding", "shard_batch", "replicate",
     "fsdp_shard_params", "init_distributed", "local_shard_bounds", "is_distributed",
     "get_rank", "get_world_size", "all_gather_cat", "broadcast_object", "psum_mean",
@@ -86,3 +84,15 @@ def test_this_slice_resolves_at_models_or_losses_and_the_top_level():
         for name in names:
             assert getattr(torchebm_tpu_torch, name) is getattr(module, name), name
             assert name in torchebm_tpu_torch.__all__
+
+
+def test_the_advanced_hmc_slice_resolves_at_its_subpackages_and_the_top_level():
+    for sub, names in (
+        ("samplers", ("RiemannianManifoldHMC", "NoUTurnSampler", "TrajectoryTuning",
+                      "tune_trajectory_length")),
+        ("integrators", ("GeneralisedLeapfrogIntegrator",)),
+    ):
+        module = importlib.import_module(f"torchebm_tpu_torch.{sub}")
+        for name in names:
+            assert getattr(torchebm_tpu_torch, name) is getattr(module, name), name
+            assert name in torchebm_tpu_torch.__all__ and name in module.__all__

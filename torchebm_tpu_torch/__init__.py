@@ -12,7 +12,9 @@ built at first use.
 Ported so far: the Langevin sampling path (energies, schedulers,
 Euler–Maruyama, the sampling loop, ``LangevinDynamics`` with its dispatch
 rows and kernels), the gradient-MCMC slice (gradient descent, Nesterov,
-MALA, leapfrog, HMC with dual-averaging warmup, R̂/ESS diagnostics),
+MALA, leapfrog, HMC with dual-averaging warmup, R̂/ESS diagnostics), the
+advanced HMC samplers (the generalised leapfrog and Riemannian-manifold HMC,
+batched NUTS with dual-averaging warmup, the NUTS→HMC trajectory tuning),
 replica exchange (``ParallelTemperingLangevin``) and annealed importance
 sampling, the public ``ops.fused_langevin_step``, CD/PCD training (the
 SiLU-MLP and conv energies, the synthetic datasets and image loading, the CD,
@@ -67,6 +69,7 @@ _LAZY_SYMBOLS = {
     "resolve_integrator": "integrators",
     "EulerMaruyamaIntegrator": "integrators",
     "LeapfrogIntegrator": "integrators",
+    "GeneralisedLeapfrogIntegrator": "integrators",
     "BackwardEulerMaruyamaIntegrator": "integrators",
     "HeunIntegrator": "integrators",
     "MidpointIntegrator": "integrators",
@@ -101,6 +104,10 @@ _LAZY_SYMBOLS = {
     "HamiltonianMonteCarlo": "samplers",
     "DualAveragingState": "samplers",
     "dual_averaging_update": "samplers",
+    "RiemannianManifoldHMC": "samplers",
+    "NoUTurnSampler": "samplers",
+    "TrajectoryTuning": "samplers",
+    "tune_trajectory_length": "samplers",
     "potential_scale_reduction": "samplers",
     "effective_sample_size": "samplers",
     "tail_effective_sample_size": "samplers",

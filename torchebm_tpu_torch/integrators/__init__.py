@@ -1,6 +1,6 @@
 """Numerical integrators (counterpart of ``torchebm_tpu.integrators``): the
 Runge-Kutta (fixed-step, embedded-pair adaptive and DIRK), SDE and symplectic
-bases, the twelve ported methods and the registry."""
+bases, the thirteen methods and the registry."""
 
 from .adaptive_heun import AdaptiveHeunIntegrator
 from .base import (
@@ -14,7 +14,7 @@ from .bosh3 import Bosh3Integrator
 from .dopri import Dopri5Integrator, Dopri8Integrator
 from .euler_maruyama import BackwardEulerMaruyamaIntegrator, EulerMaruyamaIntegrator
 from .heun import HeunIntegrator
-from .leapfrog import LeapfrogIntegrator
+from .leapfrog import GeneralisedLeapfrogIntegrator, LeapfrogIntegrator
 from .midpoint import MidpointIntegrator
 from .registry import INTEGRATOR_REGISTRY, get_integrator, resolve_integrator
 from .rk4 import RK438Integrator, RK4Integrator
@@ -36,6 +36,7 @@ __all__ = [
     "Dopri5Integrator",
     "Dopri8Integrator",
     "LeapfrogIntegrator",
+    "GeneralisedLeapfrogIntegrator",
     "INTEGRATOR_REGISTRY",
     "get_integrator",
     "resolve_integrator",

@@ -1,7 +1,6 @@
 r"""Integrator registry: name → class resolution with family validation.
 
-Counterpart of :mod:`torchebm_tpu.integrators.registry`. The generalised
-leapfrog comes with Riemannian HMC.
+Counterpart of :mod:`torchebm_tpu.integrators.registry`.
 """
 
 from __future__ import annotations
@@ -14,7 +13,7 @@ from .bosh3 import Bosh3Integrator
 from .dopri import Dopri5Integrator, Dopri8Integrator
 from .euler_maruyama import BackwardEulerMaruyamaIntegrator, EulerMaruyamaIntegrator
 from .heun import HeunIntegrator
-from .leapfrog import LeapfrogIntegrator
+from .leapfrog import GeneralisedLeapfrogIntegrator, LeapfrogIntegrator
 from .midpoint import MidpointIntegrator
 from .rk4 import RK438Integrator, RK4Integrator
 
@@ -34,6 +33,8 @@ INTEGRATOR_REGISTRY = {
     "dopri5": Dopri5Integrator,
     "dopri8": Dopri8Integrator,
     "leapfrog": LeapfrogIntegrator,
+    "generalised_leapfrog": GeneralisedLeapfrogIntegrator,
+    "generalized_leapfrog": GeneralisedLeapfrogIntegrator,
 }
 
 

@@ -1,8 +1,9 @@
 """MCMC samplers (counterpart of ``torchebm_tpu.samplers``): the shared loop,
 Langevin dynamics with its whole-chain kernel dispatch, gradient descent and
-Nesterov, MALA, HMC with dual-averaging warmup, the R̂/ESS diagnostics,
-parallel tempering, annealed importance sampling, and the flow sampler (ODE
-and SDE generation from a trained field)."""
+Nesterov, MALA, HMC with dual-averaging warmup, Riemannian-manifold HMC,
+NUTS and the NUTS→HMC trajectory tuning, the R̂/ESS diagnostics, parallel
+tempering, annealed importance sampling, and the flow sampler (ODE and SDE
+generation from a trained field)."""
 
 from .ais import AISResult, annealed_importance_sampling
 from .base import BaseSampler
@@ -17,7 +18,10 @@ from .gradient_descent import GradientDescentSampler, NesterovSampler
 from .hmc import DualAveragingState, HamiltonianMonteCarlo, dual_averaging_update
 from .langevin import FUSED_DISPATCH, LangevinDynamics
 from .mala import MetropolisAdjustedLangevin
+from .nuts import NoUTurnSampler
 from .parallel_tempering import ParallelTemperingLangevin
+from .rmhmc import RiemannianManifoldHMC
+from .tuning import TrajectoryTuning, tune_trajectory_length
 
 __all__ = [
     "BaseSampler",
@@ -29,6 +33,10 @@ __all__ = [
     "HamiltonianMonteCarlo",
     "DualAveragingState",
     "dual_averaging_update",
+    "RiemannianManifoldHMC",
+    "NoUTurnSampler",
+    "TrajectoryTuning",
+    "tune_trajectory_length",
     "potential_scale_reduction",
     "effective_sample_size",
     "tail_effective_sample_size",

@@ -108,6 +108,7 @@ def scheduler_from_fields(name: str, fields: Mapping[str, Any]) -> schedulers.Ba
 _SAMPLERS = (
     "LangevinDynamics", "MetropolisAdjustedLangevin", "HamiltonianMonteCarlo",
     "GradientDescentSampler", "ParallelTemperingLangevin", "FlowSampler",
+    "NoUTurnSampler", "RiemannianManifoldHMC",
 )
 
 
@@ -117,9 +118,9 @@ def sampler_from_fields(name: str, fields: Mapping[str, Any],
     field ``model(x, t)``), built from the JAX sampler's field values;
     interpolants and integrators are given by their registry names.
 
-    Numbers and strings pass as they are; a numpy array (an HMC ``mass``)
-    becomes a float32 tensor on the device of ``energy``'s buffers (the CPU
-    when it has none); a scheduler is given as a ``(name, fields)`` pair, as
+    Numbers, strings and callables (an RMHMC ``metric_fn``) pass as they
+    are; a numpy array (an HMC or NUTS ``mass``) becomes a float32 tensor on
+    the device of ``energy``'s buffers (the CPU when it has none); a scheduler is given as a ``(name, fields)`` pair, as
     in :func:`scheduler_from_fields`.
     """
     if name not in _SAMPLERS:
