@@ -16,7 +16,10 @@ for row 12 at its main shapes, ``--dw-shape`` for rows 2-3 at 4,096 x 32 x
 take); ``--ais`` runs only the build and row 12's checks, timings, plan
 sweep and sync count; ``--dit`` only the build and the DiT family's and score
 matching's profile lines and paths; ``--mcmc`` only the build, the RMHMC,
-NUTS and NUTS->HMC handoff paths and their sync counts.)
+NUTS and NUTS->HMC handoff paths and their sync counts; ``--parallel`` only
+the build and the distributed layer's path; ``--offset-shape`` times rows 4,
+5 and 13 at their main shapes through the public wrappers, against whichever
+package is imported, as ``--ess-shape`` does.)
 
 Phases, each printing its lines; any failure raises and the exit code is
 not 0:
@@ -157,6 +160,18 @@ not 0:
      steps through the neural chain kernel (one launch, nearer held-out
      data than the untrained energy's), and ms per DSM, SSM and exact-SM
      step;
+   - the distributed layer (``torchebm_tpu_torch.parallel``) on a real NCCL
+     world of one brought up by ``init_distributed`` from torchrun's
+     variables, meshes ``("data",) = (1,)`` and ``("data", "fsdp") = (1,
+     1)``: config 1 sharded through ``sample`` (final state and trajectory)
+     against the unsharded call, rows 4-5 as two launches at chain offsets 0
+     and 5,000 against one, the second against its plain version; config 3's
+     CD step under HSDP (weights from the flax layout) for 20 steps against
+     the unsharded trainer to 1e-6, row 13 split the same way, both steps
+     profiled, a DCP save and restore of the sharded state (bitwise, then
+     one more step); the DiT-768x12 step under HSDP in f32 and bf16 against
+     the unsharded step (loss and gradients; ms per step of each); config
+     5's Sinkhorn coupling on a sharded batch through row 14;
    with the ring's mean radius and the Metropolis acceptance against the
    generic loop (``fused="off"``), and the correlated Gaussian's covariance,
    R-hat and ESS (over consecutive draws, R-hat within 0.005 of the loop's);
@@ -472,6 +487,14 @@ DSM_CHAINS, DSM_SAMPLE_STEPS, DSM_SAMPLE_STEP = 10_000, 1_000, 0.005
 #: steps a window, up to 32), so that the refills after the first window and
 #: the barriers around them are compared too; CD_K steps stay inside one
 MLP_LONG_STEPS = 100
+
+#: the distributed layer on the card (PR 17): a real NCCL world of one,
+#: meshes ("data",) = (1,) and ("data", "fsdp") = (1, 1); config 3's CD step
+#: under HSDP for PAR_CD_STEPS steps against the unsharded trainer (loss and
+#: parameters within PAR_CD_TOL); the DiT step under HSDP timed over
+#: PAR_DIT_STEPS after DIT_WARMUP; the sharded Sinkhorn coupling on a batch
+#: of FLOW_BATCH
+PAR_CD_STEPS, PAR_CD_TOL, PAR_DIT_STEPS = 20, 1e-6, 5
 
 #: the card's memory rate, the per-SM instruction rates per clock of its
 #: FP32 lanes, INT32 lanes and special-function units, and its dense TF32
@@ -2900,6 +2923,392 @@ def path_score(ops, dev, card: str) -> dict:
     return launches
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _flax_mlp_tree(rng, widths) -> dict:
+    """A flax-shaped MLPEnergy tree (``Dense_0 ... Dense_L``, the JAX
+    package's layout) with LeCun-scaled weights from the numpy generator."""
+    import numpy as np
+
+    dims = list(widths) + [1]
+    return {"params": {f"Dense_{i}": {
+        "kernel": (rng.standard_normal((a, b)) * a ** -0.5).astype(np.float32),
+        "bias": (0.1 * rng.standard_normal(b)).astype(np.float32)}
+        for i, (a, b) in enumerate(zip(dims[:-1], dims[1:]))}}
+
+
+def _rows_in_halves(fn, x0, split: int, *args, **kw):
+    """``fn`` over rows ``[0, split)`` and ``[split, n)`` of ``x0``, each at
+    its first row as ``chain_offset``, concatenated along the chains (the
+    trajectory's dim 1)."""
+    import torch
+
+    parts = [fn(x0[:split], *args, chain_offset=0, **kw),
+             fn(x0[split:], *args, chain_offset=split, **kw)]
+    if isinstance(parts[0], tuple):
+        return (torch.cat([parts[0][0], parts[1][0]], dim=1),
+                torch.cat([parts[0][1], parts[1][1]], dim=0))
+    return torch.cat(parts, dim=0)
+
+
+def _par_langevin(ops, dev, mesh, card: str) -> dict:
+    """Config 1 sharded through ``sample``; rows 4 and 5 as two offset
+    launches against one; each half against its plain version."""
+    import torch
+
+    from torchebm_tpu_torch.core import GaussianMixtureEnergy
+    from torchebm_tpu_torch.parallel import shard_batch
+    from torchebm_tpu_torch.samplers import LangevinDynamics
+
+    mix = GaussianMixtureEnergy.eight_gaussians().to(dev)
+    sampler = LangevinDynamics(mix, step_size=0.05)
+    x0 = torch.randn((N_CHAINS, 2), generator=torch.Generator(dev).manual_seed(40), device=dev)
+    xs = shard_batch(x0, mesh)
+    ops.reset_launch_counts()
+    final = sampler.sample(torch.Generator(dev).manual_seed(41), x=xs, n_steps=N_STEPS)
+    traj = sampler.sample(torch.Generator(dev).manual_seed(42), x=xs, n_steps=N_STEPS, thin=10,
+                          return_trajectory=True)
+    launches = read_counts(ops, "sharded config 1", ["mixture_langevin_chain",
+                                                      "mixture_langevin_chain_trajectory"])
+    plain_final = sampler.sample(torch.Generator(dev).manual_seed(41), x=x0, n_steps=N_STEPS)
+    plain_traj = sampler.sample(torch.Generator(dev).manual_seed(42), x=x0, n_steps=N_STEPS,
+                                thin=10, return_trajectory=True)
+    errs = {"sample": max_err(final.full_tensor(), plain_final),
+            "sample trajectory": max_err(traj.full_tensor(), plain_traj)}
+    if tuple(final.placements) != tuple(xs.placements) or tuple(traj.shape) != (
+            N_CHAINS, N_STEPS // 10, 2):
+        raise AssertionError(f"sharded sample: {final.placements}, {tuple(traj.shape)}")
+    fl = ops.fused_langevin
+    half = N_CHAINS // 2
+    kw = dict(scale=float(mix.scale), log_weights=mix.log_weights, seed=2**40 + 17)
+    # against the plain version from draws of the target at noise 0.5, where
+    # the chains contract, as phase_check's 8-Gaussians checks do
+    at_target = mix.sample(torch.Generator(dev).manual_seed(43), N_CHAINS)[half:]
+    for name, fn, extra in (("row 4", fl.mixture_langevin_chain, {}),
+                            ("row 5", fl.mixture_langevin_chain_trajectory, {"thin": 10})):
+        whole = fn(x0, mix.means, N_STEPS, 0.05, **extra, **kw)
+        halves = _rows_in_halves(fn, x0, half, mix.means, N_STEPS, 0.05, **extra, **kw)
+        errs[f"{name} halves"] = max_err(halves, whole)
+        plain = getattr(fl, fn.__name__ + "_plain")
+        errs[f"{name} at offset {half} against its plain version"] = max_err(
+            fn(at_target, mix.means, CHECK_STEPS, 0.05, 0.5, chain_offset=half, **extra, **kw),
+            plain(at_target, mix.means, CHECK_STEPS, 0.05, 0.5, chain_offset=half, **extra,
+                  **kw))
+    print(f"check: parallel, config 1 ({N_CHAINS} x {N_STEPS}) sharded over ('data',) = (1,) "
+          f"against unsharded, rows 4-5 as two launches at offsets 0 and {half} against one, "
+          f"the second half at offset {half} against its plain version ({CHECK_STEPS} steps "
+          f"from draws of the target at noise 0.5): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tol {TOL}); radius {float(final.to_local().norm(dim=-1).mean()):.4f} | {card}")
+    for key, e in errs.items():
+        if not e <= TOL:
+            raise AssertionError(f"parallel config 1: {key} differs by {e}")
+    return launches
+
+
+def _par_cd_trainer(dev, tree, mesh=None):
+    """Config 3's trainer over the MLPEnergy of the flax tree ``tree``
+    (``mlp_energy_from_flax``), sharded by FSDP2 over ``mesh`` when given."""
+    from torchebm_tpu_torch.core import as_energy
+    from torchebm_tpu_torch.core.trainer import ContrastiveDivergenceTrainer
+    from torchebm_tpu_torch.losses import ContrastiveDivergence
+    from torchebm_tpu_torch.parallel import fsdp_shard_params
+    from torchebm_tpu_torch.samplers import LangevinDynamics
+    from torchebm_tpu_torch.utils import mlp_energy_from_flax
+
+    net = mlp_energy_from_flax(tree, device=dev)
+    energy = as_energy(net)
+    if mesh is not None:
+        fsdp_shard_params(net, mesh)
+    sampler = LangevinDynamics(energy, step_size=CD_STEP, fused_neural="auto")
+    cd = ContrastiveDivergence(model=energy, sampler=sampler, k_steps=CD_K)
+    return ContrastiveDivergenceTrainer(cd, learning_rate=CD_LR, ema_decay=0.999), net
+
+
+def _full(t):
+    from torchebm_tpu_torch.parallel.mesh import is_dtensor
+
+    return (t.full_tensor() if is_dtensor(t) else t).detach()
+
+
+def _par_cd(ops, dev, mesh, card: str, tmp: str) -> dict:
+    """Config 3's CD step under HSDP, through row 13, against the unsharded
+    trainer; row 13 as two offset launches; the profile of both steps; a
+    DCP save and restore of the sharded state."""
+    import numpy as np
+    import torch
+
+    from torchebm_tpu_torch.ops import fused_mlp_langevin as nops
+    from torchebm_tpu_torch.parallel import shard_batch
+
+    tree = _flax_mlp_tree(np.random.default_rng(43), (2, *CD_HIDDEN))
+    ref, ref_net = _par_cd_trainer(dev, tree)
+    trainer, net = _par_cd_trainer(dev, tree, mesh)
+    placements = {n: str(tuple(p.placements)) if hasattr(p, "placements") else "plain"
+                  for n, p in net.named_parameters()}
+    batches = _cd_batches(dev, torch.Generator(dev).manual_seed(44), PAR_CD_STEPS, seed=44)
+    ref_state = ref.init_state(ref_net, torch.Generator(dev).manual_seed(45))
+    state = trainer.init_state(net, torch.Generator(dev).manual_seed(45))
+    losses = []
+    for b in batches:
+        ref_state, m_ref = ref.train_step(ref_state, b)
+    ops.reset_launch_counts()
+    for b in batches:
+        state, m = trainer.train_step(state, shard_batch(b, mesh))
+        losses.append(m["loss"])
+    launches = read_counts(ops, "HSDP CD, config 3", ["mlp_langevin_chain"])
+    ref_params = dict(ref_net.named_parameters())
+    loss_err = abs(float(torch.stack(losses)[-1]) - float(m_ref["loss"]))
+    param_err = max(max_err(_full(p), ref_params[n].detach()) for n, p in net.named_parameters())
+    ema_err = max(max_err(_full(v), ref_state.ema_params[n])
+                  for n, v in state.ema_params.items())
+    kept = {n: str(tuple(p.placements)) if hasattr(p, "placements") else "plain"
+            for n, p in net.named_parameters()}
+    layers = nops.extract_mlp_layers(ref_net)
+    x0 = batches[0].contiguous()
+    seed = torch.tensor(46, device=dev)
+    whole = nops.mlp_langevin_chain(x0, layers, CD_K, CD_STEP, seed=seed)
+    half = CD_BATCH // 2
+    halves = _rows_in_halves(nops.mlp_langevin_chain, x0, half, layers, CD_K, CD_STEP, seed=seed)
+    plain = nops.mlp_langevin_chain_plain(x0[half:], layers, CD_K, CD_STEP, seed=46,
+                                          chain_offset=half)
+    at_offset = nops.mlp_langevin_chain(x0[half:], layers, CD_K, CD_STEP, seed=seed,
+                                        chain_offset=half)
+    errs = {"row 13 halves": max_err(halves, whole),
+            f"row 13 at offset {half} against its plain version": max_err(at_offset, plain)}
+    print(f"check: parallel, config 3's CD step under HSDP over ('data', 'fsdp') = (1, 1) "
+          f"(weights from the flax layout by mlp_energy_from_flax; placements {placements}), "
+          f"{PAR_CD_STEPS} steps against the unsharded trainer: last loss "
+          f"{float(m_ref['loss']):.6f}, "
+          f"|loss error| {loss_err:.3e}, parameters {param_err:.3e}, EMA {ema_err:.3e} "
+          f"(tol {PAR_CD_TOL:g}); placements kept {kept == placements}; "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (tol {TOL}) | {card}")
+    if not (loss_err <= PAR_CD_TOL and param_err <= PAR_CD_TOL and ema_err <= PAR_CD_TOL):
+        raise AssertionError("the HSDP CD step drifts from the unsharded trainer")
+    if kept != placements or "Shard" not in "".join(placements.values()):
+        raise AssertionError(f"HSDP placements: {placements} -> {kept}")
+    for key, e in errs.items():
+        if not e <= TOL:
+            raise AssertionError(f"parallel: {key} differs by {e}")
+
+    b_sharded = shard_batch(batches[-1], mesh)
+    profile_calls({
+        "CD train step, config 3, neural kernel, unsharded":
+            lambda: ref.train_step(ref_state, batches[-1]),
+        "CD train step, config 3, neural kernel, HSDP (1, 1)":
+            lambda: trainer.train_step(state, b_sharded),
+    }, card, require_events=True)
+
+    trainer.save(state, tmp)
+    saved = {n: _full(p).clone() for n, p in net.named_parameters()}
+    saved_ema = {n: _full(v).clone() for n, v in state.ema_params.items()}
+    fresh_trainer, fresh = _par_cd_trainer(
+        dev, _flax_mlp_tree(np.random.default_rng(47), (2, *CD_HIDDEN)), mesh)
+    restored = fresh_trainer.restore(tmp, fresh_trainer.init_state(
+        fresh, torch.Generator(dev).manual_seed(48)))
+    exact = (all(torch.equal(_full(p), saved[n]) for n, p in fresh.named_parameters())
+             and all(torch.equal(_full(v), saved_ema[n]) for n, v in restored.ema_params.items())
+             and restored.step == state.step
+             and torch.equal(restored.generator.get_state(), state.generator.get_state()))
+    restored, m_next = fresh_trainer.train_step(restored, b_sharded)
+    files = sorted(p.name for p in (Path(tmp) / f"step_{state.step:08d}").iterdir())
+    print(f"check: parallel, DCP save and restore of the sharded CD state at step {state.step} "
+          f"({files}): parameters, EMA, step and generator bitwise {exact}; one more step, loss "
+          f"{float(m_next['loss']):.6f} at step {restored.step} | {card}")
+    if not exact or restored.step != state.step + 1 or not math.isfinite(float(m_next["loss"])):
+        raise AssertionError("the DCP round trip of the sharded CD state failed")
+    return launches
+
+
+def _par_dit(dev, mesh, card: str) -> None:
+    """The DiT-768x12 train step under HSDP on the (1, 1) mesh, f32 and bf16:
+    loss and gradients against the unsharded model on the same weights
+    (``path_dit``'s fresh model with every leaf moved by N(0, 0.02^2)) and
+    batch, then ms per step of each by CUDA events, and each step's wall,
+    device busy time, idle share and device time by class (profiled)."""
+    import torch
+
+    from torchebm_tpu_torch.parallel import fsdp_shard_params, shard_batch
+
+    for dtype_name in ("float32", "bfloat16"):
+        _release()
+        g = torch.Generator(dev).manual_seed(63)
+        ref = _dit(dev, dtype_name, seed=62)
+        with torch.no_grad():  # every leaf moved, so that every gradient is nonzero
+            for p in ref.parameters():
+                p.add_(0.02 * torch.randn(p.shape, generator=g, device=dev))
+        hsdp = _dit(dev, dtype_name, seed=62)
+        hsdp.load_state_dict(ref.state_dict())
+        models = {"unsharded": ref, "HSDP": fsdp_shard_params(hsdp, mesh)}
+        size = DIT_KW["input_size"]
+        x = torch.randn((DIT_BATCH, DIT_KW["in_channels"], size, size), generator=g, device=dev)
+        cond = torch.randn((DIT_BATCH, DIT_KW["cond_dim"]), generator=g, device=dev)
+        target = torch.randn(x.shape, generator=g, device=dev)
+        xs, cs = shard_batch(x, mesh).to_local(), shard_batch(cond, mesh).to_local()
+        grads, loss = {}, {}
+        for label, model in models.items():
+            out = model(xs, cs) if label == "HSDP" else model(x, cond)
+            step_loss = torch.mean(torch.square(out - target))
+            step_loss.backward()
+            loss[label] = step_loss.detach()
+            grads[label] = {n: _full(p.grad) for n, p in model.named_parameters()}
+        gerr = {n: _rel(grads["HSDP"][n], grads["unsharded"][n]) for n in grads["unsharded"]
+                if grads["unsharded"][n].abs().max() > 0}
+        worst = max(gerr, key=gerr.get)
+        lerr = _rel(loss["HSDP"], loss["unsharded"])
+        sharded = sum(hasattr(p, "placements") for p in models["HSDP"].parameters())
+        ms, steps = {}, {}
+        for label, model in models.items():
+            model.zero_grad(set_to_none=True)
+            opt = torch.optim.AdamW(model.parameters() if label == "unsharded" else [
+                {"params": [p for p in model.parameters() if hasattr(p, "placements")]},
+                {"params": [p for p in model.parameters() if not hasattr(p, "placements")]}],
+                lr=DIT_LR, weight_decay=DIT_DECAY)
+            inputs = (xs, cs) if label == "HSDP" else (x, cond)
+
+            def step(model=model, opt=opt, inputs=inputs):
+                torch.mean(torch.square(model(*inputs) - target)).backward()
+                opt.step()
+                opt.zero_grad(set_to_none=True)
+
+            ms[label] = statistics.median(cuda_times(step, DIT_WARMUP, PAR_DIT_STEPS))
+            steps[f"DiT-768x12 train step {dtype_name} (batch {DIT_BATCH}), {label}"] = step
+        profile_calls(steps, card, require_events=True)
+        print(f"check: parallel, DiT-768x12 train step under HSDP over ('data', 'fsdp') = "
+              f"(1, 1), "
+              f"{dtype_name} ({sharded} of {len(grads['unsharded'])} parameters sharded by "
+              f"FSDP2): loss {float(loss['unsharded']):.5f}, relative error {lerr:.3e} (gate "
+              f"{PARITY_FWD_RTOL:g}); gradients, worst of {len(gerr)} {gerr[worst]:.3e} "
+              f"({worst}; "
+              f"gate {PARITY_GRAD_RTOL:g}); ms per step (CUDA events, median of {PAR_DIT_STEPS} "
+              f"after {DIT_WARMUP}): HSDP {ms['HSDP']:.3f}, unsharded {ms['unsharded']:.3f} "
+              f"| {card}")
+        if not (lerr <= PARITY_FWD_RTOL and gerr[worst] <= PARITY_GRAD_RTOL) or not sharded:
+            raise AssertionError(f"the HSDP DiT step ({dtype_name}) differs from the "
+                                 "unsharded one")
+        del models, grads, ref, hsdp
+    _release()
+
+
+def _par_sinkhorn(ops, dev, mesh, card: str) -> dict:
+    """``SinkhornCoupling`` on a sharded batch of FLOW_BATCH through row 14
+    against the unsharded call."""
+    import torch
+
+    from torchebm_tpu_torch.couplings import SinkhornCoupling
+    from torchebm_tpu_torch.parallel import shard_batch
+
+    x1 = _flow_batch(dev)
+    x0 = torch.randn(x1.shape, generator=torch.Generator(dev).manual_seed(48), device=dev)
+    coupling = _config5_coupling("auto")
+    ops.reset_launch_counts()
+    got = coupling(shard_batch(x0, mesh), shard_batch(x1, mesh),
+                   generator=torch.Generator(dev).manual_seed(49))
+    launches = read_counts(ops, "sharded Sinkhorn coupling", ["sinkhorn_log_fused"])
+    want = coupling(x0, x1, generator=torch.Generator(dev).manual_seed(49))
+    err = max_err(got.x1.full_tensor(), want.x1)
+    print(f"check: parallel, SinkhornCoupling (config 5's) on a sharded batch of {x0.shape[0]} "
+          f"against the unsharded call: x1 {err:.3e}, placements {tuple(got.x1.placements)}, "
+          f"{launches['sinkhorn_log_fused']} row-14 launch | {card}")
+    if not err <= TOL or launches["sinkhorn_log_fused"] != 1:
+        raise AssertionError("the sharded Sinkhorn coupling differs from the unsharded call")
+    return launches
+
+
+def path_parallel(ops, dev, card: str) -> dict:
+    """The distributed layer on the card: a real NCCL world of one brought up
+    by ``init_distributed`` from torchrun's environment and torn down at the
+    end, meshes ``("data",) = (1,)`` and ``("data", "fsdp") = (1, 1)``;
+    sharded config 1 (rows 4-5), config 3's CD step under HSDP (row 13) with
+    a DCP round trip, the DiT-768x12 step under HSDP, the Sinkhorn coupling
+    on a sharded batch (row 14). Cross-process behaviour is the CPU tests'
+    (``tests/test_torch_parallel.py``); NCCL takes one rank per card."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from torchebm_tpu_torch.parallel import init_distributed, is_distributed, make_mesh
+
+    t0 = time.perf_counter()
+    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()), WORLD_SIZE="1", RANK="0",
+               LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    launches = {name: 0 for name in KERNELS}
+    try:
+        rank_world = init_distributed()
+        backend = dist.get_backend()
+        if rank_world != (0, 1) or backend != "nccl" or is_distributed():
+            raise AssertionError(f"init_distributed gave {rank_world} on {backend}")
+        mesh1 = make_mesh(("data",))
+        mesh2 = make_mesh(("data", "fsdp"), (1, 1))
+        print(f"main path: parallel: NCCL world of one by init_distributed, meshes "
+              f"{mesh1} and {mesh2} | {card}")
+        with tempfile.TemporaryDirectory() as tmp:
+            for part in (_par_langevin(ops, dev, mesh1, card),
+                         _par_cd(ops, dev, mesh2, card, tmp),
+                         _par_sinkhorn(ops, dev, mesh1, card)):
+                for name, n in part.items():
+                    launches[name] += n
+        _par_dit(dev, mesh2, card)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"main path: parallel: {time.perf_counter() - t0:.1f} s of wall time, launches "
+          f"{ {k: v for k, v in launches.items() if v} } | {card}")
+    return launches
+
+
+def offset_ab(ops, dev, card: str) -> None:
+    """Rows 4, 5 and 13 by device time per call at their main shapes
+    (config 1's 10,000 x 1,000 ring, thin 10 for row 5, the schedule as
+    device tables; config 3's 256 x 2 x 10 steps on MLP(128, 128)) through
+    the public wrappers at their default arguments, against whichever
+    package is imported (an earlier checkout's wrappers take no
+    ``chain_offset``):
+    ``PYTHONPATH=<checkout> python3 -P chip_smoke.py --offset-shape``."""
+    import torch
+
+    from torchebm_tpu_torch.core import GaussianMixtureEnergy
+    from torchebm_tpu_torch.ops import fused_mlp_langevin as nops
+
+    mix = GaussianMixtureEnergy.eight_gaussians().to(dev)
+    g = torch.Generator(dev).manual_seed(50)
+    x0 = torch.randn((N_CHAINS, 2), generator=g, device=dev)
+    kw = dict(scale=float(mix.scale), log_weights=mix.log_weights, seed=51)
+    # the schedule as device tables: no pageable copy for the host to wait on
+    eta = torch.full((N_STEPS,), 0.05, device=dev)
+    one = torch.ones((N_STEPS,), device=dev)
+    fl = ops.fused_langevin
+    layers = _mlp_layers(dev, (2, *CD_HIDDEN), seed=52)
+    xm = torch.randn((CD_BATCH, 2), generator=g, device=dev)
+    calls = {
+        "row 4": lambda: fl.mixture_langevin_chain(x0, mix.means, N_STEPS, eta, one, **kw),
+        "row 5": lambda: fl.mixture_langevin_chain_trajectory(x0, mix.means, N_STEPS, eta, one,
+                                                              thin=10, **kw),
+        "row 13": lambda: nops.mlp_langevin_chain(xm, layers, CD_K, CD_STEP, seed=53),
+    }
+    for name, fn in calls.items():
+        dev_ms = cuda_times(fn, 3, 7, batch=5)
+        call_ms = statistics.median(cuda_times(fn, 3, 20))
+        print(f"offset-shape: {name}: device ms per call {statistics.median(dev_ms):.4f} "
+              f"(readings of 5 calls queued behind a spin: "
+              f"{', '.join(f'{v:.4f}' for v in dev_ms)}), per call with the host's "
+              f"work {call_ms:.4f} | {ops.__file__} | {card}")
+
+
 def _dit_family_calls(dev) -> dict:
     """The profile phase's calls of the DiT family and score matching: the
     DiT train step in f32 and bf16, the DiT EqM step, CFG generation in f32
@@ -4321,6 +4730,9 @@ def main() -> None:
     if sys.argv[1:] == ["--dw-shape"]:
         dw_ab(ops, dev, card)
         return
+    if sys.argv[1:] == ["--offset-shape"]:
+        offset_ab(ops, dev, card)
+        return
     if sys.argv[1:] == ["--ais"]:
         check_instances(phase_build(_build))
         _check_ais_groups(ops, dev, {})
@@ -4343,6 +4755,12 @@ def main() -> None:
             done(path.__name__)
         mcmc_syncs(dev, card)
         done("syncs")
+        return
+    if sys.argv[1:] == ["--parallel"]:
+        check_instances(phase_build(_build))
+        done("build")
+        path_parallel(ops, dev, card)
+        done("path_parallel")
         return
     if sys.argv[1:] == ["--dit"]:
         check_instances(phase_build(_build))
@@ -4369,7 +4787,7 @@ def main() -> None:
     done("profile")
     launches = {name: 0 for name in KERNELS}
     for path in (path_langevin, path_hmc, *MCMC_PATHS, path_mala, path_gradient_descent, path_pt,
-                 path_ais, path_step, path_cd, path_flow, *DIT_PATHS):
+                 path_ais, path_step, path_cd, path_flow, *DIT_PATHS, path_parallel):
         for name, n in path(ops, dev, card).items():
             launches[name] += n
         done(path.__name__)

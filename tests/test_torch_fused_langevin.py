@@ -102,6 +102,49 @@ def test_mixture_chain_plain_matches_jax_interpret(d, k, n_steps, thin, sched, c
     assert _build.launch_counts() == counts  # the CPU path launches no kernel
 
 
+@pytest.mark.parametrize("trajectory", [False, True], ids=["final", "trajectory"])
+@pytest.mark.parametrize("precision", [False, True], ids=["ring", "precision"])
+def test_mixture_chain_offset_reproduces_the_whole_launch(trajectory, precision):
+    """The plain version over chains ``[a, b)`` at ``chain_offset=a`` equals
+    rows ``[a, b)`` of the launch over every chain (a sharded batch's
+    shards); at offset 0 it is the call without the argument; injected noise
+    ignores it. The whole launch's own stream is held to the JAX kernel by
+    the tests above. Tolerance 1e-6: the CPU's products round by batch size
+    (a wrong stream would differ by O(1))."""
+    rng = _rng(7 + precision)
+    d, k = (3, 1) if precision else (2, 8)
+    x0 = torch.from_numpy(_normal(rng, N_CHAINS, d))
+    means = torch.from_numpy(_normal(rng, k, d, scale=2.0))
+    kw = dict(scale=0.7, seed=2**40 + 3)
+    if precision:
+        a = _normal(rng, d, d, scale=0.3)
+        kw["precision"] = torch.from_numpy((a @ a.T + np.eye(d)).astype(np.float32))
+    wrapper = tfl.mixture_langevin_chain_trajectory if trajectory else tfl.mixture_langevin_chain
+    plain = (tfl.mixture_langevin_chain_trajectory_plain if trajectory
+             else tfl.mixture_langevin_chain_plain)
+    if trajectory:
+        kw["thin"] = 3
+
+    def run(fn, x, **more):
+        out = fn(x, means, 10, 0.05, 0.9, **kw, **more)
+        return torch.cat([out[0].movedim(1, 0).flatten(1), out[1]], dim=1) if trajectory else out
+
+    def close(got, want):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+    whole = run(wrapper, x0)
+    for a, b in ((0, 5), (5, 20), (20, N_CHAINS)):
+        for fn in (wrapper, plain):
+            close(run(fn, x0[a:b], chain_offset=a), whole[a:b])
+    assert torch.equal(run(wrapper, x0, chain_offset=0), whole)
+    assert (run(wrapper, x0[5:], chain_offset=5) - run(wrapper, x0[5:])).abs().max() > 0.1
+    noise = torch.from_numpy(_normal(rng, 10, N_CHAINS - 5, d))
+    assert torch.equal(run(wrapper, x0[5:], noise=noise, chain_offset=5),
+                       run(wrapper, x0[5:], noise=noise))
+    with pytest.raises(ValueError, match="chain_offset"):
+        run(wrapper, x0, chain_offset=-1)
+
+
 # (d, K, gaussian): K at d = 2 (the ring is K = 8), a d in every bucket 1-64
 # at K = 8, the full-covariance Gaussian
 PLAN_TARGETS = (

@@ -91,6 +91,29 @@ def test_philox_path_is_the_twin_stream():
     assert not torch.equal(drawn, tops.mlp_langevin_chain(x, tl, 4, 0.02, 0.7, seed=seed + 1))
 
 
+def test_chain_offset_reproduces_the_whole_launch():
+    """Chains ``[a, b)`` at ``chain_offset=a`` equal rows ``[a, b)`` of the
+    launch over every chain, in the wrapper (its plain path here) and the
+    plain version; offset 0 is the call without it; injected noise ignores
+    it; a negative offset raises. Tolerance 1e-6: the CPU's products round
+    by batch size (a wrong stream would differ by O(1))."""
+    _, layers, x0, noise = _flax_case((16, 8), 3, 29, 6, seed=4)
+    tl, x = _torch_layers(layers), torch.tensor(x0)
+    seed = 2**33 + 11
+    whole = tops.mlp_langevin_chain(x, tl, 6, 0.02, 0.8, seed=seed)
+    for a, b in ((0, 8), (8, 17), (17, 29)):
+        for fn in (tops.mlp_langevin_chain, tmlp.mlp_langevin_chain_plain):
+            torch.testing.assert_close(fn(x[a:b], tl, 6, 0.02, 0.8, seed=seed, chain_offset=a),
+                                       whole[a:b], rtol=0, atol=1e-6)
+    assert torch.equal(tops.mlp_langevin_chain(x, tl, 6, 0.02, 0.8, seed=seed, chain_offset=0),
+                       whole)
+    inj = torch.tensor(noise)[:, 8:].contiguous()
+    assert torch.equal(tops.mlp_langevin_chain(x[8:], tl, 6, 0.02, 0.8, noise=inj, chain_offset=8),
+                       tops.mlp_langevin_chain(x[8:], tl, 6, 0.02, 0.8, noise=inj))
+    with pytest.raises(ValueError, match="chain_offset"):
+        tops.mlp_langevin_chain(x, tl, 6, 0.02, 0.8, chain_offset=-3)
+
+
 def test_extract_reads_the_module_and_rejects_other_structures():
     net = MLPEnergy(3, (8, 4))
     layers = tmlp.extract_mlp_layers(net)

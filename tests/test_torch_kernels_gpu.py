@@ -108,6 +108,35 @@ def test_mixture_kernels_match_plain_on_card(cuda, inject, n, d, k, precision, a
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d, k, precision", [(2, 8, False), (5, 3, False), (3, 1, True)],
+                         ids=["ring", "d5-k3", "gaussian"])
+def test_mixture_kernels_with_a_chain_offset(cuda, d, k, precision):
+    """A sharded batch's shards: the kernels over chains ``[a, b)`` at
+    ``chain_offset=a`` equal rows ``[a, b)`` of the launch over every chain,
+    and each equals its plain version at that offset."""
+    rng = _rng(11)
+    n, n_steps = 5001, 30
+    means = torch.from_numpy(_normal(rng, k, d, scale=2.0)).to(cuda)
+    x0 = torch.from_numpy(_normal(rng, n, d)).to(cuda)
+    kw = dict(scale=0.9, seed=2**40 + 7)
+    if precision:
+        a = _normal(rng, d, d, scale=0.1)
+        kw["precision"] = torch.from_numpy((a @ a.T + np.eye(d)).astype(np.float32)).to(cuda)
+    whole = tfl.mixture_langevin_chain(x0, means, n_steps, 0.03, **kw)
+    traj, final = tfl.mixture_langevin_chain_trajectory(x0, means, n_steps, 0.03, thin=5, **kw)
+    for a, b in ((0, 2500), (2500, n)):
+        part = tfl.mixture_langevin_chain(x0[a:b], means, n_steps, 0.03, chain_offset=a, **kw)
+        torch.testing.assert_close(part, whole[a:b], rtol=0, atol=1e-4)
+        plain = tfl.mixture_langevin_chain_plain(x0[a:b], means, n_steps, 0.03, chain_offset=a,
+                                                 **kw)
+        torch.testing.assert_close(part, plain, rtol=0, atol=1e-4)
+        pt, pf = tfl.mixture_langevin_chain_trajectory(x0[a:b], means, n_steps, 0.03, thin=5,
+                                                       chain_offset=a, **kw)
+        torch.testing.assert_close(pt, traj[:, a:b], rtol=0, atol=1e-4)
+        torch.testing.assert_close(pf, final[a:b], rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("inject", [True, False], ids=["noise", "philox"])
 @pytest.mark.parametrize("group", [2, 4, 8])
 @pytest.mark.parametrize("d, k", [(2, 8), (2, 12), (5, 8)])
@@ -599,6 +628,26 @@ def test_mlp_kernel_matches_plain_on_card(cuda, inject, n, widths, clamp):
     want = tmlp.mlp_langevin_chain_plain(x0, layers, n_steps, 0.01, 1.0, **kw)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, widths", [(256, (2, 128, 128)), (1000, (2, 512, 512))],
+                         ids=["256x2", "1000x2-wide"])
+def test_mlp_kernel_with_a_chain_offset(cuda, n, widths):
+    """Two offset launches (a shard's first chain in the middle of a tile)
+    equal one launch over every chain and the plain version at that offset."""
+    rng = _rng(12)
+    x0 = torch.from_numpy(_normal(rng, n, widths[0])).to(cuda)
+    layers = [(w.to(cuda), b.to(cuda)) for w, b in _mlp_layers(rng, widths)]
+    kw = dict(seed=torch.tensor(41, device=cuda))
+    whole = tmlp.mlp_langevin_chain(x0, layers, 10, 0.01, 1.0, **kw)
+    half = n // 2 + 3
+    for a, b in ((0, half), (half, n)):
+        part = tmlp.mlp_langevin_chain(x0[a:b], layers, 10, 0.01, 1.0, chain_offset=a, **kw)
+        torch.testing.assert_close(part, whole[a:b], rtol=0, atol=1e-4)
+        plain = tmlp.mlp_langevin_chain_plain(x0[a:b], layers, 10, 0.01, 1.0, chain_offset=a,
+                                              seed=41)
+        torch.testing.assert_close(part, plain, rtol=0, atol=1e-4)
 
 
 @pytest.mark.gpu

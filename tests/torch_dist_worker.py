@@ -1,0 +1,403 @@
+"""One process of a spawned gloo world on the CPU, for
+``tests/test_torch_parallel.py``: checks of the port's distributed layer
+(``torchebm_tpu_torch.parallel`` and what consumes it), each against the
+unsharded computation that every process also runs on its own.
+
+    python tests/torch_dist_worker.py {data|hsdp} OUT_DIR
+
+with torchrun's environment (``MASTER_ADDR``, ``MASTER_PORT``,
+``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``): the world comes up through
+``init_distributed()``. ``data`` is a 2-process ``("data",)`` world,
+``hsdp`` a 4-process ``("data", "fsdp") = (2, 2)`` one. Each check's result
+(or its traceback) goes to ``OUT_DIR/rank<r>.json``. Imports no JAX.
+
+Where CUDA is visible each process runs on card ``LOCAL_RANK`` over NCCL
+(the kernels launch where the CPU runs their plain versions), as under
+``torchrun --nproc_per_node 4 tests/torch_dist_worker.py hsdp OUT_DIR`` on a
+machine with four cards; the CPU tests hide the cards and run on gloo.
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+import os
+import sys
+import traceback
+
+sys.path.insert(0, os.path.abspath(os.path.join(os.path.dirname(__file__), "..")))
+
+import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+
+import torchebm_tpu_torch as tt  # noqa: E402
+from torchebm_tpu_torch.parallel import (  # noqa: E402
+    all_gather_cat,
+    batch_sharding,
+    broadcast_object,
+    fsdp_shard_params,
+    get_rank,
+    get_world_size,
+    init_distributed,
+    is_distributed,
+    local_shard_bounds,
+    make_mesh,
+    psum_mean,
+    replicate,
+    shard_batch,
+    shard_replay_buffer,
+    shuffle_sharded,
+)
+from torchebm_tpu_torch.parallel.mesh import is_dtensor, row_shard  # noqa: E402
+
+
+#: this process's device: card LOCAL_RANK where CUDA is visible, else the CPU
+DEV = (torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0"))) if torch.cuda.is_available()
+       else torch.device("cpu"))
+
+
+def G(seed: int) -> torch.Generator:
+    return torch.Generator(DEV).manual_seed(seed)
+
+
+def err(a, b) -> float:
+    a = a.full_tensor() if is_dtensor(a) else a
+    b = b.full_tensor() if is_dtensor(b) else b
+    return float((a - b).abs().max())
+
+
+def placements(t) -> str:
+    return str(tuple(t.placements)) if is_dtensor(t) else "plain"
+
+
+# ----------------------------------------------------------------- ("data",)
+
+
+def check_shim(mesh) -> dict:
+    from torchebm_tpu_torch.utils import prefetch_to_device
+
+    x = torch.arange(16.0).reshape(8, 2)
+    xs = shard_batch(x, mesh)
+    rank = get_rank()
+    pre = next(prefetch_to_device([x], device="cpu", sharding=(mesh, batch_sharding(mesh, 2))))
+    return {
+        "is_distributed": is_distributed(), "rank": rank, "world": get_world_size(),
+        "placements": placements(xs), "local": xs.to_local().tolist(),
+        "replicated": placements(replicate({"w": torch.ones(3, 3)}, mesh)["w"]),
+        "gathered": all_gather_cat(torch.full((2,), float(rank))).tolist(),
+        "gathered_stacked": list(all_gather_cat(torch.zeros(3), tiled=False).shape),
+        "gathered_dtensor": bool(torch.equal(all_gather_cat(xs), x)),
+        "psum_mean": float(psum_mean(torch.tensor(float(rank)))),
+        "broadcast": broadcast_object({"from": rank}, src=1)["from"],
+        "bounds": list(local_shard_bounds(8)),
+        "prefetch": placements(pre), "prefetch_equal": bool(torch.equal(pre.full_tensor(), x)),
+    }
+
+
+def check_langevin(mesh) -> dict:
+    """Sharded against unsharded: the mixture row's plain version (chain
+    offsets), its trajectory, the generic loop and the neural row; and the
+    shards of one seed draw apart."""
+    energy = tt.GaussianMixtureEnergy.eight_gaussians()
+    x0 = torch.randn(64, 2, generator=G(1))
+    out = {}
+    for fused in ("force", "off"):
+        s = tt.LangevinDynamics(energy, step_size=0.05, fused=fused)
+        plain = s.sample(G(2), x=x0, n_steps=30)
+        sharded = s.sample(G(2), x=shard_batch(x0, mesh), n_steps=30)
+        out[f"final_{fused}"] = err(sharded, plain)
+        out[f"placements_{fused}"] = placements(sharded)
+        traj = s.sample(G(3), x=shard_batch(x0, mesh), n_steps=30, thin=5, return_trajectory=True)
+        out[f"trajectory_{fused}"] = err(traj, s.sample(G(3), x=x0, n_steps=30, thin=5,
+                                                        return_trajectory=True))
+        out[f"trajectory_shape_{fused}"] = list(traj.shape)
+        zeros = s.sample(G(0), x=shard_batch(torch.zeros(64, 2), mesh), n_steps=5)
+        out[f"local_sum_{fused}"] = float(zeros.to_local().sum())
+        out[f"shared_sum_{fused}"] = float(s.sample(G(0), x=torch.zeros(32, 2), n_steps=5).sum())
+    torch.manual_seed(0)
+    e = tt.core.as_energy(tt.MLPEnergy(2, (16, 16)))
+    s = tt.LangevinDynamics(e, step_size=0.01, fused_neural="force")
+    out["neural"] = err(s.sample(G(4), x=shard_batch(x0, mesh), n_steps=10),
+                        s.sample(G(4), x=x0, n_steps=10))
+    return out
+
+
+def check_diagnostics(mesh) -> dict:
+    traj = torch.randn(16, 40, 2, generator=G(5)) + torch.linspace(0, 0.5, 16)[:, None, None]
+    sharded = shard_batch(traj, mesh)
+    out = {
+        "r_hat": err(tt.potential_scale_reduction(sharded), tt.potential_scale_reduction(traj)),
+        "ess": err(tt.effective_sample_size(sharded), tt.effective_sample_size(traj)),
+        "tail_ess": err(tt.tail_effective_sample_size(sharded),
+                        tt.tail_effective_sample_size(traj)),
+    }
+    got = tt.summarize_chains(sharded, rank_normalized=True)
+    want = tt.summarize_chains(traj, rank_normalized=True)
+    out["summary"] = {k: (err(got[k], want[k]) if isinstance(want[k], torch.Tensor)
+                          else float(got[k] != want[k])) for k in want}
+    out["r_hat_value"] = tt.potential_scale_reduction(traj).tolist()
+    return out
+
+
+def check_buffer(mesh) -> dict:
+    """The global shuffle, and a PCD step on a sharded buffer."""
+    from torchebm_tpu_torch.losses import ReplayBuffer
+
+    buf = ReplayBuffer(samples=torch.arange(32.0)[:, None] * torch.ones(1, 2), ptr=5)
+    sb = shard_replay_buffer(buf, mesh)
+    shuffled = shuffle_sharded(G(3), sb)
+    whole = shuffled.samples.full_tensor()
+    out = {
+        "placements": placements(sb.samples), "ptr": shuffled.ptr,
+        "shuffled_placements": placements(shuffled.samples),
+        "same_rows": sorted(whole[:, 0].tolist()) == sorted(buf.samples[:, 0].tolist()),
+        "moved": float((whole - buf.samples).abs().max()),
+        "equal_unsharded": err(whole, shuffle_sharded(G(3), buf).samples),
+    }
+    torch.manual_seed(0)
+    net = tt.MLPEnergy(2, (16, 16))
+    e = tt.core.as_energy(net)
+    cd = tt.PersistentContrastiveDivergence(
+        model=e, sampler=tt.LangevinDynamics(e, step_size=0.01, fused_neural="force"),
+        k_steps=3, buffer_size=32, init_steps=0)
+    trainer = tt.ContrastiveDivergenceTrainer(cd, learning_rate=1e-3)
+    pcd_buf = shard_replay_buffer(cd.init_buffer(G(4), (2,)), mesh)
+    before = pcd_buf.samples.to_local().clone()
+    state = trainer.init_state(net, G(5), loss_state=pcd_buf)
+    state, metrics = trainer.train_step(state, shard_batch(torch.randn(8, 2, generator=G(6)), mesh))
+    after = state.loss_state.samples.to_local()
+    out["pcd_written_rows"] = torch.nonzero((after != before).any(dim=1)).flatten().tolist()
+    out["pcd_ptr"] = state.loss_state.ptr
+    out["pcd_loss"] = float(metrics["loss"])
+    out["pcd_buffer_placements"] = placements(state.loss_state.samples)
+    out["pcd_param_sum"] = float(sum(p.detach().double().sum() for p in net.parameters()))
+    return out
+
+
+def check_sinkhorn(mesh) -> dict:
+    x0 = torch.randn(32, 2, generator=G(7))
+    x1 = torch.randn(32, 2, generator=G(8)) + 2.0
+    c = tt.SinkhornCoupling(n_iters=30, fused="force")
+    got = c(shard_batch(x0, mesh), shard_batch(x1, mesh), generator=G(9))
+    want = c(x0, x1, generator=G(9))
+    return {"x1": err(got.x1, want.x1), "x0": err(got.x0, want.x0),
+            "placements": placements(got.x1)}
+
+
+# ------------------------------------------------------- ("data", "fsdp")
+
+
+def _cd_trainer(fused_neural: str, net):
+    e = tt.core.as_energy(net)
+    cd = tt.ContrastiveDivergence(
+        model=e, sampler=tt.LangevinDynamics(e, step_size=0.01, fused_neural=fused_neural),
+        k_steps=5)
+    return tt.ContrastiveDivergenceTrainer(cd, learning_rate=1e-2, ema_decay=0.9)
+
+
+def _mlp(seed: int = 0):
+    torch.manual_seed(seed)
+    return tt.MLPEnergy(2, (64, 64))
+
+
+def _shard(net, mesh):
+    return fsdp_shard_params(net, mesh, min_size=1024)
+
+
+def check_fsdp_placements(mesh) -> dict:
+    net = _shard(_mlp(), mesh)
+    tree = fsdp_shard_params({"big": torch.randn(64, 32, generator=G(1)), "small": torch.ones(4),
+                              "odd": torch.randn(33, 7, generator=G(2))}, mesh, min_size=64)
+    return {"module": {n: placements(p) for n, p in net.named_parameters()},
+            "tree": {k: placements(v) for k, v in tree.items()},
+            "tree_equal": err(tree["big"], torch.randn(64, 32, generator=G(1)))}
+
+
+def check_fsdp_local_batches(mesh) -> dict:
+    """An FSDP2 model trained on plain (not DTensor) batches, a different
+    quarter of one batch in each process: FSDP2 averages its own gradients
+    over the mesh and the trainer the replicated parameters', so one step
+    equals the unsharded step on the whole batch."""
+    x = torch.randn(16, 2, generator=G(40))
+
+    def loss_of(net):
+        return lambda params, xb, generator, model_kwargs=None: torch.mean(torch.square(net(xb)))
+
+    ref_net = _mlp()
+    ref = tt.BaseTrainer(loss_of(ref_net), functools.partial(torch.optim.Adam, lr=1e-2))
+    ref.train_step(ref.init_state(ref_net, G(41)), x)
+    net = _shard(_mlp(), mesh)
+    trainer = tt.BaseTrainer(loss_of(net), functools.partial(torch.optim.Adam, lr=1e-2))
+    rank = get_rank()
+    trainer.train_step(trainer.init_state(net, G(41)), x[4 * rank:4 * rank + 4])
+    ref_params = dict(ref_net.named_parameters())
+    return {name: err(p, ref_params[name]) for name, p in net.named_parameters()}
+
+
+def check_hsdp_cd(mesh) -> dict:
+    """The HSDP CD step against the replicated one, through the neural
+    kernel's plain version and through the generic loop."""
+    out = {}
+    batches = [torch.randn(16, 2, generator=G(10 + i)) for i in range(2)]
+    for mode in ("force", "off"):
+        ref_net = _mlp()
+        ref = _cd_trainer(mode, ref_net)
+        ref_state = ref.init_state(ref_net, G(7))
+        net = _shard(_mlp(), mesh)
+        trainer = _cd_trainer(mode, net)
+        state = trainer.init_state(net, G(7))
+        before = {n: placements(p) for n, p in net.named_parameters()}
+        losses = []
+        for b in batches:
+            ref_state, m_ref = ref.train_step(ref_state, b)
+            state, m = trainer.train_step(state, shard_batch(b, mesh))
+            losses.append(abs(float(m["loss"]) - float(m_ref["loss"])))
+            for key in ("pos_energy", "neg_energy"):
+                losses.append(abs(float(m[key]) - float(m_ref[key])))
+        ref_params = dict(ref_net.named_parameters())
+        out[mode] = {
+            "loss": max(losses),
+            "loss_value": float(m_ref["loss"]),
+            "params": max(err(p, ref_params[n]) for n, p in net.named_parameters()),
+            "ema": max(err(v, ref_state.ema_params[n]) for n, v in state.ema_params.items()),
+            "placements_kept": before == {n: placements(p) for n, p in net.named_parameters()},
+            "ema_placements": {n: placements(v) for n, v in state.ema_params.items()} == before,
+            "sharded": sorted(n for n, pl in before.items() if "Shard" in pl),
+        }
+    return out
+
+
+def _label_dit():
+    from torch import nn
+
+    from torchebm_tpu_torch.models import (
+        ConditionalTransformer2D,
+        LabelEmbedder,
+        MLPTimestepEmbedder,
+    )
+
+    class LabelDiT(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.t_embed = MLPTimestepEmbedder(32)
+            self.y_embed = LabelEmbedder(10, 32, dropout_prob=0.1)
+            self.dit = ConditionalTransformer2D(in_channels=1, out_channels=1, input_size=8,
+                                                patch_size=4, embed_dim=32, depth=1,
+                                                num_heads=4, cond_dim=32)
+
+        def forward(self, x, t, *, y, drop):
+            return self.dit(x, self.t_embed(t) + self.y_embed(y, force_drop_mask=drop))
+
+    torch.manual_seed(3)
+    return LabelDiT()
+
+
+def _flow_matching_loss(net):
+    """The JAX dryrun's CFG flow-matching loss (``__graft_entry__.py``):
+    noise, times and label drops drawn for the whole batch and cut to the
+    local rows of a sharded one; the local rows' mean."""
+
+    def loss(params, x1, generator, model_kwargs=None):
+        y = model_kwargs["y"]
+        start, n = 0, x1.shape[0]
+        if is_dtensor(x1):
+            x1, start, n = row_shard(x1)
+            y = y.to_local()
+        rows = slice(start, start + x1.shape[0])
+        x0 = torch.randn((n, *x1.shape[1:]), generator=generator)[rows]
+        t = torch.rand((n,), generator=generator)[rows]
+        drop = (torch.rand((n,), generator=generator) < 0.1)[rows]
+        tt_ = t[:, None, None, None]
+        xt, ut = (1 - tt_) * x0 + tt_ * x1, x1 - x0
+        return torch.mean(torch.square(net(xt, t, y=y, drop=drop) - ut))
+
+    return loss
+
+
+def check_dit(mesh) -> dict:
+    x1 = torch.randn(8, 1, 8, 8, generator=G(20))
+    y = torch.randint(0, 10, (8,), generator=G(21))
+    opt = functools.partial(torch.optim.AdamW, lr=1e-3, weight_decay=1e-4)
+    ref_net = _label_dit()
+    ref = tt.BaseTrainer(_flow_matching_loss(ref_net), opt)
+    ref_state, m_ref = ref.train_step(ref.init_state(ref_net, G(22)), (x1, {"y": y}))
+    net = fsdp_shard_params(_label_dit(), mesh, min_size=512)
+    trainer = tt.BaseTrainer(_flow_matching_loss(net), opt)
+    before = {n: placements(p) for n, p in net.named_parameters()}
+    state, m = trainer.train_step(trainer.init_state(net, G(22)),
+                                  (shard_batch(x1, mesh), {"y": shard_batch(y, mesh)}))
+    ref_params = dict(ref_net.named_parameters())
+    return {
+        "loss": abs(float(psum_mean(m["loss"].detach(), "data", mesh=mesh)) - float(m_ref["loss"])),
+        "finite": bool(torch.isfinite(m["loss"])),
+        "params": max(err(p, ref_params[n]) for n, p in net.named_parameters()),
+        "placements_kept": before == {n: placements(p) for n, p in net.named_parameters()},
+        "sharded": sorted(n for n, pl in before.items() if "Shard" in pl),
+    }
+
+
+def check_dcp(mesh, ckpt: str) -> dict:
+    """A sharded CD state saved by every process, restored onto a fresh
+    sharded template bitwise and stepped again alike; restore_or_init."""
+    net = _shard(_mlp(), mesh)
+    trainer = _cd_trainer("force", net)
+    state = trainer.init_state(net, G(30))
+    state, _ = trainer.train_step(state, shard_batch(torch.randn(16, 2, generator=G(31)), mesh))
+    trainer.save(state, ckpt)
+    saved = {n: (p.full_tensor() if is_dtensor(p) else p).detach().clone()
+             for n, p in net.named_parameters()}
+    fresh = _shard(_mlp(seed=5), mesh)
+    fresh_trainer = _cd_trainer("force", fresh)
+    restored = fresh_trainer.restore(ckpt, fresh_trainer.init_state(fresh, G(99)))
+    out = {
+        "files": sorted(os.listdir(os.path.join(ckpt, "step_00000001"))),
+        "params": max(err(p, saved[n]) for n, p in fresh.named_parameters()),
+        "ema": max(err(v, state.ema_params[n]) for n, v in restored.ema_params.items()),
+        "step": restored.step,
+        "generator": bool(torch.equal(restored.generator.get_state(), state.generator.get_state())),
+        "placements": {n: placements(p) for n, p in fresh.named_parameters()}
+        == {n: placements(p) for n, p in net.named_parameters()},
+        "adam_state": max(err(restored.optimizer.state[p][k], state.optimizer.state[q][k])
+                          for p, q in zip(fresh.parameters(), net.parameters())
+                          for k in ("step", "exp_avg", "exp_avg_sq")),
+    }
+    batch = shard_batch(torch.randn(16, 2, generator=G(32)), mesh)
+    restored, m = fresh_trainer.train_step(restored, batch)
+    state, m_orig = trainer.train_step(state, batch)
+    out["resumed_step"] = restored.step
+    out["resumed_loss"] = abs(float(m["loss"]) - float(m_orig["loss"]))
+    out["resumed_params"] = max(err(p, q) for p, q in zip(fresh.parameters(), net.parameters()))
+    other = _shard(_mlp(seed=6), mesh)
+    again = _cd_trainer("force", other).restore_or_init(ckpt, other, G(0))
+    out["restore_or_init_step"] = again.step
+    out["restore_or_init_params"] = max(err(p, saved[n]) for n, p in other.named_parameters())
+    return out
+
+
+def main() -> None:
+    kind, out_dir = sys.argv[1], sys.argv[2]
+    rank, world = init_distributed()
+    results = {"init": {"rank": rank, "world": world, "again": list(init_distributed()),
+                        "backend": dist.get_backend(), "device": str(DEV)}}
+    torch.set_default_device(DEV)  # the checks' tensors and models
+    if kind == "data":
+        mesh = make_mesh(("data",), devices=DEV.type)
+        checks = (check_shim, check_langevin, check_diagnostics, check_buffer, check_sinkhorn)
+    else:
+        mesh = make_mesh(("data", "fsdp"), (2, 2), devices=DEV.type)
+        checks = (check_fsdp_placements, check_fsdp_local_batches, check_hsdp_cd, check_dit,
+                  functools.partial(check_dcp, ckpt=os.path.join(out_dir, "ckpt")))
+    results["mesh"] = {"shape": list(mesh.shape), "names": list(mesh.mesh_dim_names)}
+    for check in checks:
+        name = getattr(check, "__name__", None) or check.func.__name__
+        try:
+            results[name] = check(mesh)
+        except Exception:  # recorded: the test of this check fails with the traceback
+            results[name] = {"error": traceback.format_exc()}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

@@ -26,8 +26,10 @@ SDE generation and ``log_prob``, the Equilibrium Matching and Energy Matching
 losses, ``MLPVelocityField`` and ``EqMEnergy``), the DiT family
 (``ConditionalTransformer2D`` and its components, the label embedder,
 classifier-free guidance, the interaction energy), the score-matching
-losses (exact and approximate Hyvärinen, denoising, sliced), and parameter,
-sampler and network conversion from the JAX package.
+losses (exact and approximate Hyvärinen, denoising, sliced), parameter,
+sampler and network conversion from the JAX package, and the distributed
+layer (``parallel``: ``DeviceMesh``, DTensor placements, FSDP2 and sharded
+checkpoints on ``torch.distributed``).
 
 Subpackages and symbols load lazily through module ``__getattr__``.
 """
@@ -39,7 +41,7 @@ import importlib
 __version__ = "0.5.0"
 
 _SUBMODULES = ("core", "integrators", "interpolants", "couplings", "samplers", "losses", "models",
-               "datasets", "ops", "utils")
+               "datasets", "ops", "utils", "parallel")
 
 # name -> submodule path for lazily re-exported symbols
 _LAZY_SYMBOLS = {

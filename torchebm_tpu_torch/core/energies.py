@@ -117,6 +117,18 @@ class WrappedEnergy(Energy):
         return torch.reshape(out, (x.shape[0],) if x.ndim > 1 else out.shape)
 
 
+def _module_class(model: Any) -> type:
+    """``type(model)``, or the class FSDP2's ``fully_shard`` wrapped: it swaps
+    a module's class for ``FSDP<name>(FSDPModule, <class>)``."""
+    cls = type(model)
+    if torch.distributed.is_available() and len(cls.__bases__) == 2:
+        from torch.distributed.fsdp import FSDPModule
+
+        if cls.__bases__[0] is FSDPModule:
+            return cls.__bases__[1]
+    return cls
+
+
 def as_energy(model: Any, params: Any = None) -> Energy:
     """Coerce ``model`` into an :class:`Energy`: an :class:`Energy` is returned
     as it is, any other callable (an ``nn.Module`` included) is wrapped.
@@ -124,14 +136,16 @@ def as_energy(model: Any, params: Any = None) -> Energy:
     The library's :class:`~torchebm_tpu_torch.models.MLPEnergy` gets
     ``arch="silu_mlp"``. The match is on the class itself: a user class merely
     *named* ``MLPEnergy``, or a subclass that may change the activation, gets
-    no tag, since the neural chain kernel computes a SiLU gradient.
+    no tag, since the neural chain kernel computes a SiLU gradient. An
+    ``MLPEnergy`` that FSDP2's ``fully_shard`` wrapped (its class swapped for
+    ``FSDPMLPEnergy``, which adds no computation) keeps the tag.
     """
     if isinstance(model, Energy):
         return model
     if callable(model):
         from ..models.nets import MLPEnergy
 
-        arch = "silu_mlp" if type(model) is MLPEnergy and params is None else None
+        arch = "silu_mlp" if _module_class(model) is MLPEnergy and params is None else None
         return WrappedEnergy(fn=model, params=params, arch=arch)
     raise TypeError(f"Cannot interpret {model!r} as an energy function.")
 

@@ -19,8 +19,26 @@ parameters by the optimizer, the buffer by its ring write) and returns it, so
 - Callbacks: ``on_train_start/end``, ``on_epoch_start/end``,
   ``on_batch_start/end``.
 
-The JAX package's mesh handling (``_param_shardings``, ``_constrain``,
-``_align_state_mesh``) comes with the distributed slice.
+Mesh handling, for a model sharded by
+:func:`~torchebm_tpu_torch.parallel.fsdp_shard_params` (FSDP2, DTensor
+parameters) before :meth:`BaseTrainer.init_state` and batches sharded on
+their rows (:func:`~torchebm_tpu_torch.parallel.shard_batch`):
+
+- ``init_state`` puts the DTensor parameters and the plain ones (FSDP2's
+  replicated ``ignored_params``) in two parameter groups of the optimizer,
+  since a multi-tensor update takes no mix of the two;
+- ``_param_shardings`` records each parameter's placements before a step and
+  ``_constrain`` holds the parameters and the EMA copy to them after the
+  optimizer and EMA updates (an EMA entry is redistributed where needed);
+- the gradients of the parameters that are not DTensors are averaged over
+  the processes that hold other rows of a sharded batch (over the
+  parameters' mesh when the batch is not sharded): FSDP2 reduces only its
+  own;
+- a state holding DTensors is saved and restored through
+  ``torch.distributed.checkpoint``, each process writing its own shards and
+  a restore landing on the template's placements; ``_align_state_mesh``
+  then gives every process rank 0's step and generator state, and places an
+  EMA entry that is not a DTensor onto its parameter's placements.
 """
 
 from __future__ import annotations
@@ -35,6 +53,8 @@ import torch
 from torch import nn
 
 from ..losses.contrastive_divergence import ContrastiveDivergence
+from ..parallel.mesh import is_dtensor, row_shards, sum_over_rows
+from ..parallel.shim import broadcast_object, psum_mean
 from ..utils.training import latest_checkpoint_step, load_checkpoint, save_checkpoint, update_ema
 
 Tensor = torch.Tensor
@@ -135,8 +155,15 @@ class BaseTrainer:
     def init_state(self, model: nn.Module, generator: torch.Generator,
                    loss_state: Any = None) -> TrainState:
         """A fresh state training ``model`` (the module the loss's energy
-        evaluates), with every random draw from ``generator``."""
-        optimizer = self.optimizer(model.parameters())
+        evaluates), with every random draw from ``generator``. A model
+        sharded by FSDP2 must be sharded before this call."""
+        params = list(model.parameters())
+        sharded = [p for p in params if is_dtensor(p)]
+        if sharded and len(sharded) < len(params):
+            groups = [{"params": sharded}, {"params": [p for p in params if not is_dtensor(p)]}]
+            optimizer = self.optimizer(groups)
+        else:
+            optimizer = self.optimizer(params)
         ema = ({n: p.detach().clone() for n, p in model.named_parameters()}
                if self.ema_decay is not None else None)
         return TrainState(model=model, optimizer=optimizer, step=0, generator=generator,
@@ -145,6 +172,69 @@ class BaseTrainer:
     def compute_metrics(self, loss: Tensor, aux: Any, model: nn.Module, x: Tensor,
                         mk) -> Dict[str, Tensor]:
         return {"loss": loss}
+
+    # ------------------------------------------------------------ mesh
+
+    @staticmethod
+    def _param_shardings(params: Dict[str, Tensor]) -> Optional[Dict[str, tuple]]:
+        """``{name: placements}`` of the DTensor entries of ``params``, or
+        None when none is a DTensor."""
+        shardings = {n: tuple(p.placements) for n, p in params.items() if is_dtensor(p)}
+        return shardings or None
+
+    @staticmethod
+    def _constrain(params: Dict[str, Tensor],
+                   shardings: Optional[Dict[str, tuple]]) -> Dict[str, Tensor]:
+        """``params`` with every recorded entry on its recorded placements
+        (redistributed where it moved); raises if one is no DTensor now."""
+        if shardings is None:
+            return params
+        out = dict(params)
+        for name, placements in shardings.items():
+            t = params[name]
+            if not is_dtensor(t):
+                raise RuntimeError(f"{name} lost its placements {placements}")
+            if tuple(t.placements) != placements:
+                out[name] = t.redistribute(t.device_mesh, placements)
+        return out
+
+    @staticmethod
+    def _mean_replicated_grads(model: nn.Module, x) -> None:
+        """Average the gradients of the parameters that are not DTensors over
+        the processes holding other rows of the sharded batch ``x``, or over
+        the whole mesh of the DTensor parameters when ``x`` is not sharded."""
+        plain = [p for p in model.parameters() if p.grad is not None and not is_dtensor(p)]
+        if not plain:
+            return
+        if is_dtensor(x):
+            for p in plain:
+                p.grad = sum_over_rows(p.grad, x) / row_shards(x)
+            return
+        mesh = next(p.device_mesh for p in model.parameters() if is_dtensor(p))
+        for p in plain:
+            g = p.grad
+            for axis in mesh.mesh_dim_names:
+                g = psum_mean(g, axis, mesh=mesh)
+            p.grad = g
+
+    @staticmethod
+    def _align_state_mesh(state: TrainState) -> TrainState:
+        """After a restore: rank 0's step, pending accumulation and generator
+        state on every process, and each EMA entry that is not a DTensor
+        placed as its parameter is."""
+        step, accum, gen = broadcast_object(
+            (state.step, state.accum_count, state.generator.get_state()))
+        state.step, state.accum_count = int(step), int(accum)
+        state.generator.set_state(gen)
+        if state.ema_params is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            params = state.params
+            for name, e in state.ema_params.items():
+                p = params[name]
+                if is_dtensor(p) and not is_dtensor(e):
+                    state.ema_params[name] = distribute_tensor(e, p.device_mesh, p.placements)
+        return state
 
     def _loss(self, x: Tensor, generator: torch.Generator, loss_state: Any, mk):
         """``(loss, aux, new_loss_state)`` of one micro-batch."""
@@ -172,11 +262,18 @@ class BaseTrainer:
         """One optimisation step (or one micro-batch of an accumulated one),
         in place; returns ``(state, metrics)`` with device-resident metrics."""
         x, mk = _split_batch(batch)
+        shardings = self._param_shardings(state.params)
         loss, aux, new_loss_state = self._loss(x, state.generator, state.loss_state, mk)
         loss.backward()
+        if shardings is not None or is_dtensor(x):
+            self._mean_replicated_grads(state.model, x)
         self._optimizer_step(state)
+        params = self._constrain(state.params, shardings)
+        if any(params[n] is not p for n, p in state.params.items()):
+            raise RuntimeError("the optimizer step moved a parameter off its placements")
         if self.ema_decay is not None:
-            update_ema(state.ema_params, state.params, self.ema_decay)
+            update_ema(state.ema_params, params, self.ema_decay)
+            state.ema_params = self._constrain(state.ema_params, shardings)
         with torch.no_grad():
             metrics = self.compute_metrics(loss.detach(), aux, state.model, x, mk)
         state.loss_state = new_loss_state
@@ -255,12 +352,33 @@ class BaseTrainer:
 
     # ------------------------------------------------------- checkpointing
 
+    @staticmethod
+    def _sharded(state: TrainState) -> bool:
+        """Whether the state holds DTensors (parameters, or a sharded buffer)."""
+        tree = _loss_state_tree(state.loss_state)
+        leaves = tree.values() if isinstance(tree, dict) else (tree,)
+        return any(is_dtensor(p) for p in state.model.parameters()) or any(
+            is_dtensor(t) for t in leaves)
+
+    @staticmethod
+    def _payload(state: TrainState, sharded: bool) -> Tuple[Dict[str, Any], Any]:
+        """``(params, opt_state)`` of ``state``: FQN-keyed state dicts of
+        ``torch.distributed.checkpoint`` when ``sharded``."""
+        if sharded:
+            from torch.distributed.checkpoint.state_dict import get_state_dict
+
+            return get_state_dict(state.model, state.optimizer)
+        return ({n: p.detach() for n, p in state.params.items()},
+                state.optimizer.state_dict())
+
     def save(self, state: TrainState, ckpt_dir: str) -> str:
         """Write the whole state (parameters, optimizer, EMA, step, generator
-        state, loss state, pending accumulation) as a step-numbered checkpoint."""
+        state, loss state, pending accumulation) as a step-numbered checkpoint:
+        a sharded state through ``torch.distributed.checkpoint`` (each process
+        its own shards), any other as one file (written by rank 0)."""
+        params, opt_state = self._payload(state, self._sharded(state))
         return save_checkpoint(
-            ckpt_dir, state.step, {n: p.detach() for n, p in state.params.items()},
-            ema_params=state.ema_params, opt_state=state.optimizer.state_dict(),
+            ckpt_dir, state.step, params, ema_params=state.ema_params, opt_state=opt_state,
             extra={"generator": state.generator.get_state(),
                    "loss_state": _loss_state_tree(state.loss_state),
                    "accum_count": state.accum_count},
@@ -269,8 +387,12 @@ class BaseTrainer:
     def restore(self, ckpt_dir: str, template: TrainState,
                 step: Optional[int] = None) -> TrainState:
         """Load a checkpoint into ``template`` (a state from :meth:`init_state`
-        of the same shapes) and return it; ``step=None`` takes the latest.
-        The loss state keeps the template's type (a replay buffer stays one)."""
+        of the same shapes, sharded as the saved one was) and return it;
+        ``step=None`` takes the latest. The loss state keeps the template's
+        type (a replay buffer stays one). A sharded checkpoint lands on the
+        template's placements."""
+        if self._sharded(template):
+            return self._restore_sharded(ckpt_dir, template, step)
         device = next(template.model.parameters()).device
         payload = load_checkpoint(ckpt_dir, step, map_location=device)
         with torch.no_grad():
@@ -279,6 +401,11 @@ class BaseTrainer:
         template.optimizer.load_state_dict(payload["opt_state"])
         if template.ema_params is not None:
             template.ema_params = {n: t.clone() for n, t in payload["ema_params"].items()}
+        self._restore_extra(template, payload)
+        return template
+
+    @staticmethod
+    def _restore_extra(template: TrainState, payload: Dict[str, Any]) -> None:
         extra = payload["extra"]
         template.generator.set_state(extra["generator"].cpu())
         loss_state = extra["loss_state"]
@@ -287,7 +414,25 @@ class BaseTrainer:
         template.loss_state = loss_state
         template.accum_count = int(extra["accum_count"])
         template.step = int(payload["step"])
-        return template
+
+    def _restore_sharded(self, ckpt_dir: str, template: TrainState,
+                         step: Optional[int]) -> TrainState:
+        """:meth:`restore` of a ``torch.distributed.checkpoint`` checkpoint,
+        read in place into the template's tensors (its EMA copy included)."""
+        from torch.distributed.checkpoint.state_dict import set_state_dict
+
+        params, opt_state = self._payload(template, True)
+        payload = {"step": 0, "params": params, "opt_state": opt_state,
+                   "extra": {"generator": template.generator.get_state(),
+                             "loss_state": _loss_state_tree(template.loss_state),
+                             "accum_count": 0}}
+        if template.ema_params is not None:
+            payload["ema_params"] = template.ema_params
+        payload = load_checkpoint(ckpt_dir, step, template=payload)
+        set_state_dict(template.model, template.optimizer,
+                       model_state_dict=payload["params"], optim_state_dict=payload["opt_state"])
+        self._restore_extra(template, payload)
+        return self._align_state_mesh(template)
 
     def restore_or_init(self, ckpt_dir: str, model: nn.Module, generator: torch.Generator,
                         loss_state: Any = None) -> TrainState:

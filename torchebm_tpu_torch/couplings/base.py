@@ -11,6 +11,12 @@ solvers require it; deterministic ones ignore it), and its
 ``stop_gradient`` on the result becomes ``detach()``: a coupling's result
 carries no graph. Couplings are tensor-free dataclasses; they run on the
 device of the batches they are given.
+
+The cost-based couplings take batches sharded on their rows (DTensors): the
+cost matrix is batch-global, so each process gathers both batches, solves
+the whole coupling (every process's generator in the same state: the same
+draws, one Sinkhorn launch on each), and keeps its own rows, with the
+input's placement. The result equals the unsharded call's rows.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+
+from ..parallel.mesh import is_dtensor, like_rows, row_shard
 
 Tensor = torch.Tensor
 
@@ -87,12 +95,26 @@ class BaseCostCoupling(BaseCoupling):
     @torch.no_grad()
     def couple(self, x0, x1=None, *, generator=None, **kwargs) -> CouplingResult:
         x1 = self._require_x1(x1)
+        if is_dtensor(x0) or is_dtensor(x1):
+            return self._couple_sharded(x0, x1, generator, kwargs)
         self._check_batch(x0, x1)
         if x0.shape[0] == 1:
             return CouplingResult(x0.detach(), x1.detach())
         cost = self.compute_cost(x0, x1, **kwargs)
         idx = self._solve(cost, generator=generator)
         return CouplingResult(x0.detach(), x1.detach()[idx])
+
+    def _couple_sharded(self, x0, x1, generator, kwargs) -> CouplingResult:
+        """:meth:`couple` of two batches sharded alike on their rows: the
+        whole batches gathered, coupled, and this process's rows kept."""
+        if not (is_dtensor(x0) and is_dtensor(x1)) or x0.placements != x1.placements:
+            raise ValueError("a sharded coupling takes x0 and x1 sharded alike (DTensors of "
+                             "one placement)")
+        local, start, _ = row_shard(x0)
+        whole = self.couple(x0.full_tensor(), x1.full_tensor(), generator=generator, **kwargs)
+        rows = slice(start, start + local.shape[0])
+        weights = None if whole.weights is None else like_rows(whole.weights[rows], x0)
+        return CouplingResult(x0.detach(), like_rows(whole.x1[rows], x1), weights=weights)
 
 
 class BaseModelCoupling(BaseCoupling):

@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 
 from ..ops import fused_sinkhorn as _fs
+from ..parallel.mesh import is_dtensor
 from .base import BaseCostCoupling, BaseCoupling, BaseModelCoupling, CouplingResult
 
 Tensor = torch.Tensor
@@ -301,6 +302,8 @@ class UnbalancedSinkhornCoupling(BaseCostCoupling):
     @torch.no_grad()
     def couple(self, x0, x1=None, *, generator=None, **kwargs) -> CouplingResult:
         x1 = self._require_x1(x1)
+        if is_dtensor(x0) or is_dtensor(x1):
+            return self._couple_sharded(x0, x1, generator, kwargs)
         self._check_batch(x0, x1)
         if x0.shape[0] == 1:
             return CouplingResult(x0.detach(), x1.detach())

@@ -17,6 +17,18 @@ energies of the data and of the negatives. :meth:`loss_and_energies` also
 returns the mean energies the loss was made of, detached, for the trainer's
 metrics.
 
+A batch sharded on its rows (``x`` a DTensor, from
+:func:`~torchebm_tpu_torch.parallel.shard_batch`) runs on each process's
+rows: the chains start there and run on the unsharded call's streams
+(:class:`~torchebm_tpu_torch.samplers.LangevinDynamics` takes the sharded
+starts), the energies of the local rows and negatives make the loss, and a
+sharded PCD buffer is read and written in its local rows only (the pointer
+counts local rows). The loss's value and the logged energies are the whole
+batch's (a sum all-reduce); its gradient is the local rows' mean scaled by
+the shard's share, so that the mean over processes that FSDP2 takes, and the
+trainer takes for the parameters FSDP2 leaves replicated, is the whole
+batch's gradient.
+
 One repair of the JAX package: :meth:`ContrastiveDivergence.init_buffer`
 lets an exception of the warm-up sampler propagate, where the JAX package
 catches every exception and keeps the chunk's noise. On the card that catch
@@ -33,7 +45,8 @@ import torch
 
 from ..core.energies import Energy
 from ..core.module import warn_once
-from ..samplers.base import BaseSampler
+from ..parallel.mesh import is_dtensor, like_rows, row_shard, row_shards, sum_over_rows
+from ..samplers.base import BaseSampler, _refuse_sharded
 from .base import BaseLoss, inject_params
 
 Tensor = torch.Tensor
@@ -82,11 +95,19 @@ def _stratified_indices(g: torch.Generator, size: int, batch: int) -> Tensor:
 
 
 def _cd_loss(model, x: Tensor, negatives: Tensor, generator, mk, add_noise_to_real: bool,
-             noise_scale: float, energy_reg_weight: float) -> Tuple[Tensor, Dict[str, Tensor]]:
+             noise_scale: float, energy_reg_weight: float,
+             rows=None) -> Tuple[Tensor, Dict[str, Tensor]]:
     """``E[E(x)] - E[E(x⁻)]`` plus the energy-magnitude regulariser, with the
     non-finite guard (a non-finite loss reads 0.1); and the two means,
-    detached, as ``{"pos_energy", "neg_energy"}``."""
-    x_in = x + noise_scale * _normal(generator, x.shape, x.dtype) if add_noise_to_real else x
+    detached, as ``{"pos_energy", "neg_energy"}``. ``rows=(start, n)``: ``x``
+    holds rows ``[start, start + len(x))`` of a batch of ``n``, whose noise
+    is drawn whole and cut to them."""
+    if add_noise_to_real:
+        start, n = (0, x.shape[0]) if rows is None else rows
+        noise = _normal(generator, (n, *x.shape[1:]), x.dtype)[start:start + x.shape[0]]
+        x_in = x + noise_scale * noise
+    else:
+        x_in = x
     x_energy = model.energy(x_in, **mk)
     neg_energy = model.energy(negatives, **mk)
     pos_mean, neg_mean = torch.mean(x_energy), torch.mean(neg_energy)
@@ -205,6 +226,8 @@ class ContrastiveDivergence(BaseLoss):
         sampler = self.sampler
         if params is not None:
             sampler = sampler.replace(model=inject_params(sampler.model, params))
+        if is_dtensor(x):
+            return self._sharded_loss(model, sampler, x, generator, buffer, mk)
         starts = self._start_points(x, buffer, generator)
         with torch.no_grad():
             negatives = sampler.sample(generator, x=starts, n_steps=self.k_steps,
@@ -212,6 +235,33 @@ class ContrastiveDivergence(BaseLoss):
         new_buffer = buffer.push(negatives) if (self.persistent and buffer is not None) else None
         loss, energies = _cd_loss(model, x, negatives, generator, mk, self.add_noise_to_real,
                                   self.noise_scale, self.energy_reg_weight)
+        return loss, (negatives, new_buffer), energies
+
+    def _sharded_loss(self, model, sampler, x, generator, buffer, mk):
+        """:meth:`loss_and_energies` on a batch sharded on its rows (module
+        docstring): the negatives a DTensor like ``x``, a sharded buffer
+        written in its local rows."""
+        x_local, start, n = row_shard(x)
+        local_buffer = None
+        if buffer is not None:
+            samples = buffer.samples.to_local() if is_dtensor(buffer.samples) else buffer.samples
+            local_buffer = ReplayBuffer(samples=samples, ptr=buffer.ptr)
+        starts = self._start_points(x_local, local_buffer, generator)
+        with torch.no_grad():
+            negatives = sampler.sample(generator, x=like_rows(starts, x), n_steps=self.k_steps,
+                                       model_kwargs=mk)
+        neg_local = negatives.to_local()
+        new_buffer = None
+        if self.persistent and buffer is not None:
+            # the local rows are the DTensor's own storage: the ring write lands in it
+            new_buffer = ReplayBuffer(samples=buffer.samples, ptr=local_buffer.push(neg_local).ptr)
+        loss, energies = _cd_loss(model, x_local, neg_local, generator, mk, self.add_noise_to_real,
+                                  self.noise_scale, self.energy_reg_weight, rows=(start, n))
+        b = x_local.shape[0]
+        share = b * row_shards(x) / n
+        whole = sum_over_rows(loss.detach() * b, x) / n
+        loss = loss * share + (whole - loss.detach() * share)
+        energies = {k: sum_over_rows(v * b, x) / n for k, v in energies.items()}
         return loss, (negatives, new_buffer), energies
 
 
@@ -309,6 +359,7 @@ class ParallelTemperingCD(BaseLoss):
                           model_kwargs: Optional[Dict[str, Any]] = None):
         """:meth:`__call__`'s result and the loss's mean energies, detached,
         as :meth:`ContrastiveDivergence.loss_and_energies` gives them."""
+        _refuse_sharded("ParallelTemperingCD", x)
         mk = model_kwargs or {}
         model = self._model(params)
         sampler = self.sampler

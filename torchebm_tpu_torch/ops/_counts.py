@@ -29,7 +29,10 @@ lane). MALA's and AIS's bounds at their main shapes (the ring, the ESS
 protocol's 2-D Gaussian, the AIS path's Gaussians) are set by their two
 Philox blocks per step (INT32). The double-well chain needs one normal per
 element-step: a quarter of a Philox block, and its kernel draws one block
-per four steps of an element and uses all four normals.
+per four steps of an element and uses all four normals. The mixture and
+neural chains' ``chain_offset`` (a sharded batch's first row) is one 64-bit
+add per chain (per tile for the neural chain) outside the step loop, and is
+not counted.
 
 :data:`COUNTED_SOURCES` holds the SHA-256 prefix of each source the counts
 were last checked against; a test fails when a source changes, so that an
@@ -44,9 +47,9 @@ __all__ = ["COUNTED_SOURCES", "work"]
 COUNTED_SOURCES = {
     "fused_ais.cu": "37a6a4cfaa0bb996",
     "fused_hmc.cu": "72f93febded56462",
-    "fused_langevin.cu": "2077046c15dfcbdc",
+    "fused_langevin.cu": "1866f3f643f9e33e",
     "fused_mala.cu": "cc395518a0c9ea11",
-    "fused_mlp_langevin.cu": "a66a000976234979",
+    "fused_mlp_langevin.cu": "888d1218c33b7485",
     "fused_pt.cu": "cc295bb989eccc55",
     "fused_sinkhorn.cu": "dcc7fb5e563b09c8",
     "fused_step.cu": "45698a16da6ceaad",

@@ -18,7 +18,11 @@
 //
 // Randomness: the Philox4x32-10 stream of tebm_common.cuh. The mixture chain's
 // counter is (index lo, step, block of four coordinates, index hi); at the
-// main shapes (d <= 4, fewer than 2^32 chains) (index, step, 0, 0). The
+// main shapes (d <= 4, fewer than 2^32 chains) (index, step, 0, 0). The index
+// is the chain's row plus `chain_offset`, added once per chain before the
+// step loop: a launch over rows [a, b) of a batch with chain_offset = a (one
+// rank's shard of a sharded batch) draws what those rows draw in the launch
+// over the whole batch. The
 // double-well chain's is (element lo, step / 4, 0, element hi), one block per
 // four steps. Passing `noise` (n_steps, n, d) replaces the generator with
 // injected normals, as in the JAX signatures.
@@ -83,7 +87,7 @@ __global__ void __launch_bounds__(kMixThreads) mixture_chain_kernel(
     const float* __restrict__ params_a, const float* __restrict__ params_b,
     const float* __restrict__ sched, const float* __restrict__ noise, int n, int d, int k,
     int n_steps, int thin, float inv_var, int use_clamp, float lo, float hi, uint32_t seed_lo,
-    uint32_t seed_hi) {
+    uint32_t seed_hi, unsigned long long chain_offset) {
   __shared__ float s_a[kMaxParams];
   __shared__ float s_b[kMaxParams];
   stage_target<GAUSS>(s_a, s_b, params_a, params_b, d, k);
@@ -94,6 +98,9 @@ __global__ void __launch_bounds__(kMixThreads) mixture_chain_kernel(
   const int r = threadIdx.x & (G - 1);
   const int c = lane / G;
   const bool live = c < n;
+  // the chain's Philox index: its row in the whole batch of which this
+  // launch may hold a shard
+  const uint64_t pc = (uint64_t)c + chain_offset;
 
   float x[DMAX], g[DMAX];
 #pragma unroll
@@ -116,7 +123,7 @@ __global__ void __launch_bounds__(kMixThreads) mixture_chain_kernel(
           for (int q = 0; q < 4; ++q)
             z[q] = live && 4 * j + q < d ? noise[((size_t)t * n + c) * d + 4 * j + q] : 0.0f;
         } else {
-          normals4((uint64_t)c, t, j, seed_lo, seed_hi, z);
+          normals4(pc, t, j, seed_lo, seed_hi, z);
         }
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
@@ -155,12 +162,12 @@ __global__ void __launch_bounds__(kMixThreads) mixture_chain_kernel(
           zl[b] = live && i < d ? noise[((size_t)t * n + c) * d + i] : 0.0f;
         }
       } else if constexpr (kBlocks == 1) {
-        if (s == 0) normals4((uint64_t)c, t + r, 0, seed_lo, seed_hi, zs);
+        if (s == 0) normals4(pc, t + r, 0, seed_lo, seed_hi, zs);
       } else {
 #pragma unroll
         for (int b = 0; b < kDraws; ++b) {
           const int j = r + G * b;
-          if (4 * j < d) normals4((uint64_t)c, t, j, seed_lo, seed_hi, zq[b]);
+          if (4 * j < d) normals4(pc, t, j, seed_lo, seed_hi, zq[b]);
         }
       }
       // every coordinate's normal from the lane that holds it, with no
@@ -275,8 +282,9 @@ template <bool TRAJ>
 int launch_mixture(const float* x0, float* out, float* traj, const float* params_a,
                    const float* params_b, const float* sched, const float* noise, int n, int d,
                    int k, int gaussian, int n_steps, int thin, float inv_var, int use_clamp,
-                   float lo, float hi, uint32_t seed_lo, uint32_t seed_hi, int group, int threads,
-                   int blocks, void* stream) {
+                   float lo, float hi, uint32_t seed_lo, uint32_t seed_hi,
+                   unsigned long long chain_offset, int group, int threads, int blocks,
+                   void* stream) {
   if (threads < 32 || threads > kMixThreads || threads % 32 != 0 || blocks < 1 ||
       (long long)blocks * threads < (long long)n * group)
     return (int)cudaErrorInvalidValue;
@@ -284,7 +292,7 @@ int launch_mixture(const float* x0, float* out, float* traj, const float* params
 #define TEBM_LAUNCH(DM, GS, G, NJ)                                                            \
   mixture_chain_kernel<DM, GS, TRAJ, G, NJ><<<blocks, threads, 0, s>>>(                       \
       x0, out, traj, params_a, params_b, sched, noise, n, d, k, n_steps, thin, inv_var,      \
-      use_clamp, lo, hi, seed_lo, seed_hi)
+      use_clamp, lo, hi, seed_lo, seed_hi, chain_offset)
 #define TEBM_ONE_LANE(DM, GS) TEBM_LAUNCH(DM, GS, 1, 1)
 #define TEBM_GROUPS(DM, NJ)                          \
   switch (group) {                                   \
@@ -342,11 +350,11 @@ int tebm_mixture_langevin_chain(const float* x0, float* out, const float* params
                                 const float* params_b, const float* sched, const float* noise,
                                 int n, int d, int k, int gaussian, int n_steps, float inv_var,
                                 int use_clamp, float lo, float hi, uint32_t seed_lo,
-                                uint32_t seed_hi, int group, int threads, int blocks,
-                                void* stream) {
+                                uint32_t seed_hi, long long chain_offset, int group, int threads,
+                                int blocks, void* stream) {
   return launch_mixture<false>(x0, out, nullptr, params_a, params_b, sched, noise, n, d, k,
                                gaussian, n_steps, 1, inv_var, use_clamp, lo, hi, seed_lo, seed_hi,
-                               group, threads, blocks, stream);
+                               (unsigned long long)chain_offset, group, threads, blocks, stream);
 }
 
 int tebm_mixture_langevin_chain_trajectory(const float* x0, float* out, float* traj,
@@ -354,11 +362,12 @@ int tebm_mixture_langevin_chain_trajectory(const float* x0, float* out, float* t
                                            const float* sched, const float* noise, int n, int d,
                                            int k, int gaussian, int n_steps, int thin,
                                            float inv_var, int use_clamp, float lo, float hi,
-                                           uint32_t seed_lo, uint32_t seed_hi, int group,
-                                           int threads, int blocks, void* stream) {
+                                           uint32_t seed_lo, uint32_t seed_hi,
+                                           long long chain_offset, int group, int threads,
+                                           int blocks, void* stream) {
   return launch_mixture<true>(x0, out, traj, params_a, params_b, sched, noise, n, d, k, gaussian,
-                              n_steps, thin, inv_var, use_clamp, lo, hi, seed_lo, seed_hi, group,
-                              threads, blocks, stream);
+                              n_steps, thin, inv_var, use_clamp, lo, hi, seed_lo, seed_hi,
+                              (unsigned long long)chain_offset, group, threads, blocks, stream);
 }
 
 int tebm_doublewell_langevin_chain(const float* x0, float* out, const float* sched,

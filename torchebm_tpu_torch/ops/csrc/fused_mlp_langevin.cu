@@ -61,7 +61,9 @@
 //   and passes the regions' offsets, which the kernel only reads.
 //
 // Randomness: the Philox4x32-10 stream of tebm_common.cuh, counter (chain lo,
-// step, block of four coordinates, chain hi), as in the other chain kernels;
+// step, block of four coordinates, chain hi), as in the other chain kernels,
+// the chain numbered from `chain_offset` (added once per tile) so that a
+// shard of a sharded batch draws its rows' normals of the whole batch;
 // the key is (seed_lo, seed_hi), or the two words of the int64 the `seed`
 // pointer holds on the device (no host read of a device seed). A Philox
 // block's rounds are one thread's serial chain, so the normals of several
@@ -460,7 +462,8 @@ template <bool RESIDENT, int NT, int WARPS>
 __global__ void __launch_bounds__(WARPS * 32) mlp_chain_kernel(
     const float* __restrict__ x0, float* __restrict__ out, const float* __restrict__ noise,
     const long long* __restrict__ seed, const MlpShape s, int n, int n_steps, float eta,
-    float noise_coef, int use_clamp, float lo, float hi, uint32_t seed_lo, uint32_t seed_hi) {
+    float noise_coef, int use_clamp, float lo, float hi, uint32_t seed_lo, uint32_t seed_hi,
+    unsigned long long chain_offset) {
   constexpr int THREADS = WARPS * 32;
   constexpr int T = NT * 8;
   extern __shared__ __align__(16) float smem[];
@@ -475,6 +478,9 @@ __global__ void __launch_bounds__(WARPS * 32) mlp_chain_kernel(
   auto op = [&](int i) { return smem + s.op_off + (i & 1) * 2 * T * ap; };
   const int first = blockIdx.x * T;
   const int n_here = min(T, n - first);
+  // the Philox index of the tile's first chain: its row in the whole batch
+  // of which this launch may hold a shard
+  const uint64_t pfirst = (uint64_t)first + chain_offset;
   if (seed != nullptr) {
     const unsigned long long v = (unsigned long long)__ldg(seed);
     seed_lo = (uint32_t)v;
@@ -522,7 +528,7 @@ __global__ void __launch_bounds__(WARPS * 32) mlp_chain_kernel(
       for (int i = threadIdx.x; i < s.z_steps * T * quads; i += THREADS) {
         const int c = i % T, rest = i / T, j = rest % quads, k = rest / quads;
         float z[4];
-        normals4((uint64_t)(first + c), step + k, j, seed_lo, seed_hi, z);
+        normals4(pfirst + c, step + k, j, seed_lo, seed_hi, z);
         reinterpret_cast<float4*>(s_z)[(k * T + c) * quads + j] =
             make_float4(z[0], z[1], z[2], z[3]);
       }
@@ -602,6 +608,7 @@ struct MlpArgs {
   int use_clamp;
   float lo, hi;
   uint32_t seed_lo, seed_hi;
+  unsigned long long chain_offset;
 };
 
 template <bool RESIDENT, int NT, int WARPS>
@@ -614,7 +621,7 @@ int launch_mlp(const MlpArgs& a, const MlpShape& s, cudaStream_t stream) {
   const dim3 grid((a.n + NT * 8 - 1) / (NT * 8));
   kernel<<<grid, WARPS * 32, bytes, stream>>>(a.x0, a.out, a.noise, a.seed, s, a.n, a.n_steps,
                                               a.eta, a.noise_coef, a.use_clamp, a.lo, a.hi,
-                                              a.seed_lo, a.seed_hi);
+                                              a.seed_lo, a.seed_hi, a.chain_offset);
   return (int)cudaGetLastError();
 }
 
@@ -650,7 +657,8 @@ int tebm_mlp_max_smem_bytes(int device) {
 // `weights` is a host array of n_hidden + 1 device pointers: each layer's
 // contiguous (out, in) weight (nn.Linear's layout), then w_out; `biases` one
 // of n_hidden. `seed` is a device int64 whose two words key the Philox stream,
-// or null for (seed_lo, seed_hi). `widths` is the host array (d, H_1, ...,
+// or null for (seed_lo, seed_hi); `chain_offset` is added to every chain's
+// Philox index (a shard's first row in its whole batch). `widths` is the host array (d, H_1, ...,
 // H_L); `layout` the host array of the wrapper's shared-memory plan:
 // {w_out, state, gradient, split state (-1: none), silu', operand buffers,
 // normals, chunks, end, state pitch, operand pitch, steps of normals drawn at
@@ -662,7 +670,7 @@ int tebm_mlp_langevin_chain(const float* x0, float* out, const float* const* wei
                             const int* widths, const int* layout, int n_hidden, int resident,
                             int n, int tile, int warps, int n_steps, float eta, float noise_coef,
                             int use_clamp, float lo, float hi, uint32_t seed_lo, uint32_t seed_hi,
-                            void* stream) {
+                            long long chain_offset, void* stream) {
   if (n_hidden < 1 || n_hidden > kMlpMaxHidden || n < 1) return (int)cudaErrorInvalidValue;
   MlpShape s;
   s.n_hidden = n_hidden;
@@ -693,7 +701,7 @@ int tebm_mlp_langevin_chain(const float* x0, float* out, const float* const* wei
     if ((widths[l] < kMmaMinK || resident) && s.w_off[l] < 0) return (int)cudaErrorInvalidValue;
   }
   const MlpArgs a{x0, out, noise, seed, n, n_steps, eta, noise_coef, use_clamp, lo, hi,
-                  seed_lo, seed_hi};
+                  seed_lo, seed_hi, (unsigned long long)chain_offset};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return resident ? launch_tile<true>(a, s, tile, warps, st)
                   : launch_tile<false>(a, s, tile, warps, st);

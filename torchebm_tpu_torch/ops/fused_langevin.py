@@ -107,9 +107,9 @@ def dispatch_groups(d: int, k: int, gaussian: bool, *,
 _P, _I, _F, _U, _LL = _build.PTR, _build.INT, _build.FLOAT, _build.U32, _build.I64
 #: C entry point (``tebm_<name>``) -> its argument types before the stream
 _SIGNATURES = {
-    "mixture_langevin_chain": (_P,) * 6 + (_I,) * 5 + (_F, _I, _F, _F, _U, _U) + (_I,) * 3,
+    "mixture_langevin_chain": (_P,) * 6 + (_I,) * 5 + (_F, _I, _F, _F, _U, _U, _LL) + (_I,) * 3,
     "mixture_langevin_chain_trajectory":
-        (_P,) * 7 + (_I,) * 6 + (_F, _I, _F, _F, _U, _U) + (_I,) * 3,
+        (_P,) * 7 + (_I,) * 6 + (_F, _I, _F, _F, _U, _U, _LL) + (_I,) * 3,
     "doublewell_langevin_chain": (_P,) * 5 + (_LL, _I, _F, _F, _F, _F, _I, _F, _F, _U, _U),
     "doublewell_langevin_chain_trajectory":
         (_P,) * 6 + (_LL, _I, _I, _F, _F, _F, _F, _I, _F, _F, _U, _U),
@@ -331,14 +331,16 @@ def _gaussian_grad_logp(x: Tensor, mean: Tensor, precision: Tensor) -> Tuple[Ten
 
 
 def _run_plain(x0: Tensor, grad_fn, sched: Tensor, n_coords: int, clamp, seed: int,
-               noise: Optional[Tensor], thin: Optional[int], normals=None):
+               noise: Optional[Tensor], thin: Optional[int], normals=None,
+               chain_offset: int = 0):
     """Plain version of every chain kernel: the same update, schedule table and
-    Philox stream (one counter per row of ``x0`` viewed as ``(-1, n_coords)``
-    and step), or the normals ``normals(t)`` gives for step ``t``."""
+    Philox stream (one counter per row of ``x0`` viewed as ``(-1, n_coords)``,
+    numbered from ``chain_offset``, and step), or the normals ``normals(t)``
+    gives for step ``t``."""
     n_steps = sched.shape[1]
     x = x0
     if normals is None:
-        index = torch.arange(x0.numel() // n_coords, device=x0.device)
+        index = torch.arange(x0.numel() // n_coords, device=x0.device) + chain_offset
 
         def normals(t):
             return philox_normals(index, t, n_coords, seed).reshape(x0.shape)
@@ -405,29 +407,40 @@ def _mixture_args(x0, means, n_steps, step_size, noise_scale, scale, log_weights
     return (lambda x: grad_logp(x)[0]), pa, pb, gaussian, sched, inv_var
 
 
+def _chain_offset(chain_offset: int, n: int) -> int:
+    """``chain_offset`` checked: the Philox index of a launch's last chain
+    must fit the counter's 64 bits."""
+    chain_offset = int(chain_offset)
+    if not 0 <= chain_offset <= (1 << 63) - 1 - n:
+        raise ValueError(f"chain_offset must be in [0, 2^63 - n_chains), got {chain_offset}")
+    return chain_offset
+
+
 def mixture_langevin_chain_plain(x0, means, n_steps, step_size, noise_scale=1.0, *, scale=1.0,
                                  log_weights=None, precision=None, seed=0, clamp=None,
-                                 noise=None) -> Tensor:
+                                 noise=None, chain_offset=0) -> Tensor:
     """Plain PyTorch version of :func:`mixture_langevin_chain`, on ``x0``'s
     device: the same update, schedule table and Philox stream."""
     grad_fn, *_, sched, _ = _mixture_args(
         x0, means, n_steps, step_size, noise_scale, scale, log_weights, precision, noise
     )
     _seed_words(seed)
-    return _run_plain(x0, grad_fn, sched, x0.shape[1], clamp, seed, noise, None)[1]
+    return _run_plain(x0, grad_fn, sched, x0.shape[1], clamp, seed, noise, None,
+                      chain_offset=_chain_offset(chain_offset, x0.shape[0]))[1]
 
 
 def mixture_langevin_chain_trajectory_plain(x0, means, n_steps, step_size, noise_scale=1.0, *,
                                             thin=1, scale=1.0, log_weights=None,
                                             precision=None, seed=0, clamp=None,
-                                            noise=None) -> Tuple[Tensor, Tensor]:
+                                            noise=None, chain_offset=0) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of :func:`mixture_langevin_chain_trajectory`."""
     _check_thin(n_steps, thin)
     grad_fn, *_, sched, _ = _mixture_args(
         x0, means, n_steps, step_size, noise_scale, scale, log_weights, precision, noise
     )
     _seed_words(seed)
-    return _run_plain(x0, grad_fn, sched, x0.shape[1], clamp, seed, noise, int(thin))
+    return _run_plain(x0, grad_fn, sched, x0.shape[1], clamp, seed, noise, int(thin),
+                      chain_offset=_chain_offset(chain_offset, x0.shape[0]))
 
 
 def mixture_launch_plan(n: int, d: int, k: int, gaussian: bool,
@@ -458,7 +471,7 @@ def mixture_launch_plan(n: int, d: int, k: int, gaussian: bool,
 
 
 def _mixture_run(name, x0, means, n_steps, step_size, noise_scale, thin, scale, log_weights,
-                 precision, seed, clamp, noise, group=None):
+                 precision, seed, clamp, noise, group=None, chain_offset=0):
     """The body of both mixture wrappers (``thin=None``: final state only):
     ``(traj, final, launched)``. A CPU ``x0`` runs the plain version; a CUDA
     ``x0`` launches kernel ``name`` with :func:`mixture_launch_plan`, whose
@@ -467,8 +480,10 @@ def _mixture_run(name, x0, means, n_steps, step_size, noise_scale, thin, scale, 
         x0, means, n_steps, step_size, noise_scale, scale, log_weights, precision, noise
     )
     seed_lo, seed_hi = _seed_words(seed)
+    chain_offset = _chain_offset(chain_offset, x0.shape[0])
     if x0.device.type == "cpu":
-        return (*_run_plain(x0, grad_fn, sched, x0.shape[1], clamp, seed, noise, thin), False)
+        return (*_run_plain(x0, grad_fn, sched, x0.shape[1], clamp, seed, noise, thin,
+                            chain_offset=chain_offset), False)
     n, d = x0.shape
     k = means.shape[0]
     plan = mixture_launch_plan(n, d, k, bool(gaussian), group)
@@ -482,7 +497,7 @@ def _mixture_run(name, x0, means, n_steps, step_size, noise_scale, thin, scale, 
         name, x0.device,
         *head, _ptr(pa), _ptr(pb), _ptr(sched), _ptr(noise),
         n, d, k, gaussian, int(n_steps), *tail, inv_var,
-        use_clamp, lo, hi, seed_lo, seed_hi, *plan,
+        use_clamp, lo, hi, seed_lo, seed_hi, chain_offset, *plan,
     )
     return traj, out, True
 
@@ -501,15 +516,20 @@ def mixture_langevin_chain(
     seed: int = 0,
     clamp: Optional[Tuple[float, float]] = None,
     noise: Optional[Tensor] = None,
+    chain_offset: int = 0,
 ) -> Tensor:
     """Full n-step Langevin chain on a d-dim isotropic Gaussian mixture (or,
     with ``precision``, a full-covariance Gaussian) in one kernel.
 
     ``x0``: ``(n_chains, d)``; ``means``: ``(K, d)``. Returns the final state.
+    ``chain_offset`` numbers the chains' Philox streams from it: a launch over
+    chains ``[a, b)`` of a batch with ``chain_offset=a`` draws what rows
+    ``[a, b)`` of the launch over the whole batch draw (a sharded batch's
+    shard; a Python int, so it costs no host sync). Injected ``noise`` ignores it.
     """
     _, out, launched = _mixture_run(
         "mixture_langevin_chain", x0, means, n_steps, step_size, noise_scale, None, scale,
-        log_weights, precision, seed, clamp, noise,
+        log_weights, precision, seed, clamp, noise, chain_offset=chain_offset,
     )
     mixture_langevin_chain.launches += launched
     return out
@@ -530,6 +550,7 @@ def mixture_langevin_chain_trajectory(
     seed: int = 0,
     clamp: Optional[Tuple[float, float]] = None,
     noise: Optional[Tensor] = None,
+    chain_offset: int = 0,
 ) -> Tuple[Tensor, Tensor]:
     """:func:`mixture_langevin_chain` recording every ``thin``-th state.
 
@@ -540,7 +561,7 @@ def mixture_langevin_chain_trajectory(
     _check_thin(n_steps, thin)
     traj, out, launched = _mixture_run(
         "mixture_langevin_chain_trajectory", x0, means, n_steps, step_size, noise_scale,
-        int(thin), scale, log_weights, precision, seed, clamp, noise,
+        int(thin), scale, log_weights, precision, seed, clamp, noise, chain_offset=chain_offset,
     )
     mixture_langevin_chain_trajectory.launches += launched
     return traj, out

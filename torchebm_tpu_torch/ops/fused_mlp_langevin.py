@@ -57,6 +57,7 @@ import torch.nn.functional as F
 from . import _build
 from ._build import ptr as _ptr
 from .fused_langevin import (
+    _chain_offset,
     _check_common,
     _clamp_args,
     _run_plain,
@@ -85,7 +86,7 @@ MAX_WIDTH = 512
 MAX_HIDDEN = 8
 
 _P, _I, _F, _U = _build.PTR, _build.INT, _build.FLOAT, _build.U32
-_SIGNATURE = (_P,) * 8 + (_I,) * 6 + (_F, _F, _I, _F, _F, _U, _U)
+_SIGNATURE = (_P,) * 8 + (_I,) * 6 + (_F, _F, _I, _F, _F, _U, _U, _build.I64)
 
 #: candidate tiles (chains per block), largest first, and SETTINGS, every
 #: (tile, warps, resident) the kernel is built for, in the plan's order of
@@ -347,27 +348,30 @@ def _mlp_grad(x: Tensor, layers: Layers) -> Tensor:
     return g
 
 
-def _plain(x0, layers, n_steps, step_size, noise_scale, seed, clamp, noise) -> Tensor:
+def _plain(x0, layers, n_steps, step_size, noise_scale, seed, clamp, noise,
+           chain_offset=0) -> Tensor:
     layers = [(w.detach(), b.detach()) for w, b in layers]
     seed = int(seed)
     _seed_words(seed)
     sched = _schedule_table(float(step_size), float(noise_scale), int(n_steps), x0.device)
     return _run_plain(x0, lambda x: _mlp_grad(x, layers), sched, x0.shape[1], clamp, seed,
-                      noise, None)[1]
+                      noise, None, chain_offset=chain_offset)[1]
 
 
 def mlp_langevin_chain_plain(x0: Tensor, layers: Layers, n_steps: int, step_size: float,
                              noise_scale: float = 1.0, *, seed=0, clamp=None,
-                             noise: Optional[Tensor] = None) -> Tensor:
+                             noise: Optional[Tensor] = None, chain_offset: int = 0) -> Tensor:
     """Plain PyTorch version of :func:`mlp_langevin_chain`, on ``x0``'s
     device: the same update, gradient and Philox stream."""
     _mlp_args(x0, layers, n_steps, noise)
     _seed_arg(seed, x0.device)
-    return _plain(x0, layers, n_steps, step_size, noise_scale, seed, clamp, noise)
+    return _plain(x0, layers, n_steps, step_size, noise_scale, seed, clamp, noise,
+                  _chain_offset(chain_offset, x0.shape[0]))
 
 
 def _launch(x0: Tensor, layers: Layers, widths: Sequence[int], n_steps: int, step_size: float,
-            noise_scale: float, seed, clamp, noise: Optional[Tensor], plan: MlpPlan) -> Tensor:
+            noise_scale: float, seed, clamp, noise: Optional[Tensor], plan: MlpPlan,
+            chain_offset: int = 0) -> Tensor:
     """One launch of the kernel on the checked arguments at ``plan``. The
     weights go as ``w.T.contiguous()``: for :func:`extract_mlp_layers`' views
     that is the module's own ``nn.Linear.weight``, no copy; an ``(in, out)``
@@ -389,6 +393,7 @@ def _launch(x0: Tensor, layers: Layers, widths: Sequence[int], n_steps: int, ste
         _ptr(noise), _ptr(seed_t), ctypes.addressof(c_widths), ctypes.addressof(c_layout),
         len(widths) - 1, int(plan.resident), x0.shape[0], plan.tile, plan.warps, int(n_steps),
         eta, coef, use_clamp, lo, hi, seed_lo, seed_hi,
+        _chain_offset(chain_offset, x0.shape[0]),
     )
     return out
 
@@ -404,19 +409,25 @@ def mlp_langevin_chain(
     seed=0,
     clamp: Optional[Tuple[float, float]] = None,
     noise: Optional[Tensor] = None,
+    chain_offset: int = 0,
 ) -> Tensor:
     """Full n-step Langevin chain on a SiLU-MLP energy in one kernel launch.
 
     ``x0``: ``(n_chains, d)`` float32; ``layers``: :func:`extract_mlp_layers`'s
     list, or ``(in, out)`` arrays of the JAX layout. ``seed``: a Python int
     or a 0-d int64 tensor on ``x0``'s device, read by the kernel where it
-    lies. Returns the final state, with no gradient.
+    lies. ``chain_offset``: the first chain's Philox index, so that a shard
+    of rows ``[a, b)`` launched at ``a`` draws what those rows draw in the
+    launch over the whole batch (a Python int: no host sync). Returns the
+    final state, with no gradient.
     """
     widths = _mlp_args(x0, layers, n_steps, noise)
     _seed_arg(seed, x0.device)
+    chain_offset = _chain_offset(chain_offset, x0.shape[0])
     if x0.device.type == "cpu":
-        return _plain(x0, layers, n_steps, step_size, noise_scale, seed, clamp, noise)
+        return _plain(x0, layers, n_steps, step_size, noise_scale, seed, clamp, noise,
+                      chain_offset)
     out = _launch(x0, layers, widths, n_steps, step_size, noise_scale, seed, clamp, noise,
-                  launch_plan(x0.shape[0], widths, x0.device))
+                  launch_plan(x0.shape[0], widths, x0.device), chain_offset)
     mlp_langevin_chain.launches += 1
     return out

@@ -31,7 +31,7 @@ import torch
 
 from ..core.energies import Energy, GaussianEnergy, GaussianMixtureEnergy
 from ..core.module import tensor_memo
-from .base import _check_model_device, _kernel_seed_tensor
+from .base import _check_model_device, _kernel_seed_tensor, _refuse_sharded
 from .langevin import _isotropic_scale
 
 Tensor = torch.Tensor
@@ -185,6 +185,8 @@ def annealed_importance_sampling(
         raise ValueError("betas must be a 1D schedule with at least 2 entries")
     for model in (target, base):
         _check_model_device(model, device)
+    _refuse_sharded("annealed_importance_sampling", betas,
+                    *(t for m in (target, base) for t in m.buffers()))
     if _ais_fusable(device, target, base, fused):
         from ..ops import fused_ais
 

@@ -18,16 +18,23 @@ autograd for their gradient enable it locally.
 
 Subclasses implement ``init_carry`` / ``step`` / ``extra_diagnostics`` and
 inherit the loop :func:`_sample_impl`.
+
+A batch sharded on its rows (a DTensor ``x``) is taken by
+:class:`~torchebm_tpu_torch.samplers.LangevinDynamics` only; every other
+sampler raises ``ValueError`` on one (:func:`_refuse_sharded`).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import itertools
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
+
+from ..parallel.mesh import is_dtensor
 
 Tensor = torch.Tensor
 
@@ -113,6 +120,49 @@ def _kernel_seed_tensor(generator: torch.Generator) -> Tensor:
 def _kernel_seed(generator: torch.Generator) -> int:
     """:func:`_kernel_seed_tensor`'s draw, read on the host."""
     return int(_kernel_seed_tensor(generator))
+
+
+def _refuse_sharded(what: str, *tensors) -> None:
+    """Raise ``ValueError`` when one of ``tensors`` is a DTensor: ``what``
+    would run each shard on its own copy of the generator's stream, so the
+    shards of one seed would draw alike."""
+    if any(is_dtensor(t) for t in tensors):
+        raise ValueError(
+            f"{what} does not take a sharded (DTensor) chain batch yet: its shards would draw "
+            "the same noise. Only LangevinDynamics runs a shard on the unsharded call's "
+            "stream; a chain offset for the other samplers' kernels is queued in ROADMAP.md "
+            "(queue 2, K8). Pass x.full_tensor() to sample the whole batch on every process."
+        )
+
+
+class _RowsOfGlobalNoise:
+    """An SDE integrator whose step draws the normals of the whole batch,
+    ``n_global`` rows, from the generator and keeps rows ``[start, start +
+    len(x))``: a shard then draws what its rows draw in the unsharded call
+    (O(n_global) draws on every process)."""
+
+    def __init__(self, integrator, start: int, n_global: int):
+        self.integrator, self.start, self.n_global = integrator, start, n_global
+
+    def step(self, state, step_size, **kwargs):
+        g = kwargs.get("generator")
+        if kwargs.get("noise") is None and g is not None:
+            x = state["x"]
+            whole = torch.randn((self.n_global, *x.shape[1:]), generator=g, device=x.device,
+                                dtype=x.dtype)
+            kwargs["noise"] = whole[self.start:self.start + x.shape[0]]
+        return self.integrator.step(state, step_size, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self.integrator, name)
+
+
+def _with_global_noise(sampler, start: int, n_global: int):
+    """A shallow copy of ``sampler`` whose integrator draws
+    :class:`_RowsOfGlobalNoise`."""
+    out = copy.copy(sampler)
+    out.integrator = _RowsOfGlobalNoise(sampler.integrator, start, n_global)
+    return out
 
 
 def _sample_impl(
@@ -217,6 +267,7 @@ class BaseSampler:
         n_samples: int,
     ) -> Tensor:
         """``x`` as given (on the generator's device), or ``N(0, I)`` draws."""
+        _refuse_sharded(type(self).__name__, x)
         if x is not None:
             x = torch.as_tensor(x)
             if not _same_device(x.device, generator.device):

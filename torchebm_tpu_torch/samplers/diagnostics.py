@@ -9,11 +9,21 @@ trajectory's device.
 
 Convention: trajectories are ``(n_chains, n_draws, dim)``, the layout of
 ``sample(..., return_trajectory=True)``.
+
+A trajectory sharded over its chains (a DTensor split on dim 0, as a sharded
+``sample`` returns it) gives the unsharded values on every process:
+split-R̂, ESS and the means pool per-chain sums over the processes
+(:class:`_Chains`); the rank-normalised variants and tail-ESS, which rank or
+sort the pooled draws, gather the trajectory first.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from ..parallel.mesh import is_dtensor, row_shard, sum_over_rows
 
 Tensor = torch.Tensor
 
@@ -67,10 +77,43 @@ def _fold(traj: Tensor) -> Tensor:
     return torch.abs(traj - _quantile(traj.reshape(-1, traj.shape[-1]), 0.5))
 
 
-def _prepare(traj: Tensor, split: bool) -> Tensor:
+class _Chains:
+    """Means and variances over the chain axis (dim 0) of per-chain values:
+    over this process's chains, or with ``like`` (the sharded trajectory) over
+    every process's, ``m`` chains in all."""
+
+    def __init__(self, m: int, like=None):
+        self.m, self.like = m, like
+
+    def mean(self, t: Tensor) -> Tensor:
+        if self.like is None:
+            return torch.mean(t, dim=0)
+        return sum_over_rows(torch.sum(t, dim=0), self.like) / self.m
+
+    def var(self, t: Tensor) -> Tensor:
+        """The unbiased variance (``correction=1``), two passes when pooled."""
+        if self.like is None:
+            return torch.var(t, dim=0, correction=1)
+        centred = torch.sum(torch.square(t - self.mean(t)), dim=0)
+        return sum_over_rows(centred, self.like) / (self.m - 1)
+
+
+def _prepare(traj: Tensor, split: bool, gather: bool = False):
+    """``(local (M, N, D) draws, their _Chains)``: split in halves where
+    ``split``; a sharded trajectory pooled, or gathered whole where
+    ``gather``."""
+    like = None
+    if is_dtensor(traj):
+        if gather:
+            traj = traj.full_tensor()
+        else:
+            like, traj = traj, row_shard(traj)[0]
     if traj.ndim == 2:
         traj = traj[..., None]
-    return _split_chains(traj) if split else traj
+    m = traj.shape[0] if like is None else like.shape[0]
+    if split:
+        traj, m = _split_chains(traj), 2 * m
+    return traj, _Chains(m, like)
 
 
 def potential_scale_reduction(traj: Tensor, split: bool = True,
@@ -84,20 +127,21 @@ def potential_scale_reduction(traj: Tensor, split: bool = True,
     ``max(R̂(z), R̂(z_folded))`` over rank-normalised draws and folded draws.
     Returns a ``(dim,)`` tensor.
     """
-    traj = _prepare(traj, split)
+    traj, chains = _prepare(traj, split, gather=rank_normalized)
     if rank_normalized:
         bulk = _rhat_raw(_rank_normalize(traj))
         folded = _rhat_raw(_rank_normalize(_fold(traj)))
         return torch.maximum(bulk, folded)
-    return _rhat_raw(traj)
+    return _rhat_raw(traj, chains)
 
 
-def _rhat_raw(traj: Tensor) -> Tensor:
+def _rhat_raw(traj: Tensor, chains: Optional[_Chains] = None) -> Tensor:
+    chains = _Chains(traj.shape[0]) if chains is None else chains
     n = traj.shape[1]
     chain_means = torch.mean(traj, dim=1)  # (M, D)
     chain_vars = torch.var(traj, dim=1, correction=1)  # (M, D)
-    w = torch.mean(chain_vars, dim=0)
-    b = n * torch.var(chain_means, dim=0, correction=1)
+    w = chains.mean(chain_vars)
+    b = n * chains.var(chain_means)
     var_plus = (n - 1) / n * w + b / n
     return torch.sqrt(var_plus / torch.clamp(w, min=1e-30))
 
@@ -112,15 +156,16 @@ def _autocov_fft(x: Tensor) -> Tensor:
     return acov / n
 
 
-def _ess_raw(traj: Tensor) -> Tensor:
+def _ess_raw(traj: Tensor, chains: Optional[_Chains] = None) -> Tensor:
     """Geyer initial-monotone ESS per dimension of ``(M, N, D)`` draws."""
-    m, n, _ = traj.shape
+    chains = _Chains(traj.shape[0]) if chains is None else chains
+    m, n = chains.m, traj.shape[1]
     acov = _autocov_fft(traj)  # (M, N, D)
     chain_var = acov[:, 0] * n / max(n - 1, 1)  # (M, D)
-    w = torch.mean(chain_var, dim=0)  # (D,)
-    mean_acov = torch.mean(acov, dim=0)  # (N, D)
+    w = chains.mean(chain_var)  # (D,)
+    mean_acov = chains.mean(acov)  # (N, D)
     if m > 1:
-        b_over_n = torch.var(torch.mean(traj, dim=1), dim=0, correction=1)
+        b_over_n = chains.var(torch.mean(traj, dim=1))
     else:
         b_over_n = torch.zeros_like(w)
     var_plus = (n - 1) / n * w + b_over_n
@@ -145,17 +190,17 @@ def effective_sample_size(traj: Tensor, split: bool = True,
     ``rank_normalized=True`` gives bulk-ESS (Vehtari et al. 2021), the same
     estimator on rank-normalised draws. Returns a ``(dim,)`` tensor.
     """
-    traj = _prepare(traj, split)
+    traj, chains = _prepare(traj, split, gather=rank_normalized)
     if rank_normalized:
-        traj = _rank_normalize(traj)
-    return _ess_raw(traj)
+        return _ess_raw(_rank_normalize(traj))
+    return _ess_raw(traj, chains)
 
 
 def tail_effective_sample_size(traj: Tensor, split: bool = True) -> Tensor:
     r"""Tail-ESS per dimension (Vehtari et al. 2021 §4.3): the smaller ESS
     of the 5% and 95% quantile indicators :math:`I(x \le \hat q_\alpha)`.
     Returns a ``(dim,)`` tensor."""
-    traj = _prepare(traj, split)
+    traj, _ = _prepare(traj, split, gather=True)
     flat = traj.reshape(-1, traj.shape[-1])
     ess05 = _ess_raw((traj <= _quantile(flat, 0.05)).to(torch.float32))
     ess95 = _ess_raw((traj <= _quantile(flat, 0.95)).to(torch.float32))
@@ -166,16 +211,24 @@ def summarize_chains(traj: Tensor, rank_normalized: bool = False) -> dict:
     """Mean, std, split-R̂ and ESS per dimension, with ``n_chains`` and
     ``n_draws``; ``rank_normalized=True`` adds ``r_hat_rank`` (max of bulk
     and folded rank-R̂), ``ess_bulk`` and ``ess_tail``."""
-    if traj.ndim == 2:
-        traj = traj[..., None]
-    flat = traj.reshape(-1, traj.shape[-1])
+    like = traj if is_dtensor(traj) else None
+    local = traj if like is None else row_shard(traj)[0]
+    if local.ndim == 2:
+        local = local[..., None]
+    flat = local.reshape(-1, local.shape[-1])
+    if like is None:
+        mean, std = torch.mean(flat, dim=0), torch.std(flat, dim=0, correction=0)
+    else:
+        total = like.shape[0] * local.shape[1]
+        mean = sum_over_rows(torch.sum(flat, dim=0), like) / total
+        std = torch.sqrt(sum_over_rows(torch.sum(torch.square(flat - mean), dim=0), like) / total)
     out = {
-        "mean": torch.mean(flat, dim=0),
-        "std": torch.std(flat, dim=0, correction=0),
+        "mean": mean,
+        "std": std,
         "r_hat": potential_scale_reduction(traj),
         "ess": effective_sample_size(traj),
         "n_chains": traj.shape[0],
-        "n_draws": traj.shape[1],
+        "n_draws": local.shape[1],
     }
     if rank_normalized:
         out["r_hat_rank"] = potential_scale_reduction(traj, rank_normalized=True)

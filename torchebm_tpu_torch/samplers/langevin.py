@@ -23,6 +23,16 @@ gives): the whole chain, forward and backward pass of the net included, runs
 as one CUDA kernel (:mod:`torchebm_tpu_torch.ops.fused_mlp_langevin`). It is
 off by default, as in the JAX package; ``"auto"`` takes the kernel for a
 CUDA state, ``"force"`` its plain version on the CPU as well.
+
+A chain batch sharded on its rows (``x`` a DTensor, e.g. from
+:func:`~torchebm_tpu_torch.parallel.shard_batch`) gives a DTensor of the
+same placement and the values of the unsharded call: each process runs its
+rows, the kernel rows and the neural row with ``chain_offset`` at the
+shard's first row (the Philox streams of those rows in the whole batch;
+under FSDP2 the neural row gathers the net's weights once per call), the
+generic loop with each step's normals drawn for the whole batch and cut to
+the shard's rows (O(global batch) draws per process). The double-well row
+and ``return_diagnostics`` refuse a sharded batch.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ from ..core.energies import (
 from ..core.module import tensor_memo
 from ..core.schedulers import BaseScheduler, sched_value
 from ..integrators import EulerMaruyamaIntegrator, resolve_integrator
+from ..parallel.mesh import is_dtensor, like_rows, row_shard
 from .base import (
     BaseSampler,
     _concrete_scalar,
@@ -49,6 +60,7 @@ from .base import (
     _kernel_seed,
     _kernel_seed_tensor,
     _sample_impl,
+    _with_global_noise,
 )
 
 Tensor = torch.Tensor
@@ -177,7 +189,8 @@ def _fused_gates_ok(sampler, device: torch.device, model_kwargs, *, schedulables
 
 
 def _call_fused_row(row, x0, model, *, n_steps, thin, return_trajectory,
-                    return_diagnostics, kargs, step_size, noise_scale, seed, clamp):
+                    return_diagnostics, kargs, step_size, noise_scale, seed, clamp,
+                    chain_offset=0):
     """Invoke a dispatch row's chain/trajectory kernel and package outputs in
     the loop's shapes; diagnostics come from the kernel's trajectory."""
     from ..ops import fused_langevin as ops
@@ -186,6 +199,8 @@ def _call_fused_row(row, x0, model, *, n_steps, thin, return_trajectory,
         n_steps=int(n_steps), step_size=step_size, noise_scale=noise_scale,
         seed=seed, clamp=clamp,
     )
+    if chain_offset:
+        common["chain_offset"] = chain_offset
     if return_trajectory or return_diagnostics:
         traj, final = getattr(ops, row.trajectory)(x0, thin=int(thin), **kargs, **common)
         out = traj.movedim(0, 1) if return_trajectory else final
@@ -292,7 +307,9 @@ class LangevinDynamics(BaseSampler):
 
     def _neural_layers(self, x0: Tensor):
         """The MLP's layers when the kernel takes this state, else None: a
-        shape decision made before any launch (the loop takes the call)."""
+        shape decision made before any launch (the loop takes the call).
+        Weights that FSDP2 shards (DTensors) are gathered whole, one
+        all-gather each per call, for the kernel reads no gradient path."""
         from ..ops import fused_mlp_langevin as nops
 
         if x0.ndim != 2 or x0.dtype != torch.float32:
@@ -303,7 +320,7 @@ class LangevinDynamics(BaseSampler):
         widths = [x0.shape[1]] + [w.shape[1] for w, _ in layers[:-1]]
         if any(w.dtype != torch.float32 for w, _ in layers) or not nops.supports(widths, x0.device):
             return None
-        return layers
+        return [tuple(t.full_tensor() if is_dtensor(t) else t for t in layer) for layer in layers]
 
     def _dispatch_row(self, device: torch.device, model_kwargs) -> Optional[_FusedRow]:
         """Generic fused gates and row lookup in one pass (None = loop)."""
@@ -332,8 +349,29 @@ class LangevinDynamics(BaseSampler):
         """Run the chain: the neural chain kernel for a tagged SiLU-MLP energy
         under ``fused_neural``, a whole-chain kernel where a dispatch row
         claims the call, the generic loop otherwise. A kernel's Philox seed is
-        drawn from ``generator`` after the initial state."""
+        drawn from ``generator`` after the initial state. A DTensor ``x``
+        (a batch sharded on its rows; every process's generator in the same
+        state) gives a DTensor of the unsharded call's values (module
+        docstring)."""
+        if is_dtensor(x):
+            local, start, n = row_shard(x)
+            if return_diagnostics:
+                raise ValueError("return_diagnostics reduces over every chain; it does not take "
+                                 "a sharded batch (summarize a sharded trajectory with "
+                                 "samplers.summarize_chains)")
+            x0 = self._start(generator, local, None, 1, n_steps, thin)
+            out = self._run(generator, x0, n_steps, thin, return_trajectory, False,
+                            model_kwargs, rows=(start, n))
+            return like_rows(out, x)
         x0 = self._start(generator, x, dim, n_samples, n_steps, thin)
+        return self._run(generator, x0, n_steps, thin, return_trajectory, return_diagnostics,
+                         model_kwargs)
+
+    def _run(self, generator, x0, n_steps, thin, return_trajectory, return_diagnostics,
+             model_kwargs, rows=None):
+        """:meth:`sample` from the state ``x0``; ``rows=(start, n)``: ``x0``
+        holds rows ``[start, start + len(x0))`` of a batch of ``n``."""
+        chain_offset = 0 if rows is None else rows[0]
         if self._neural_fusable(generator.device, return_trajectory, return_diagnostics, thin,
                                 model_kwargs):
             layers = self._neural_layers(x0)
@@ -343,10 +381,17 @@ class LangevinDynamics(BaseSampler):
                 return mlp_langevin_chain(
                     x0.contiguous(), layers, int(n_steps), float(self.step_size),
                     float(self.noise_scale), seed=_kernel_seed_tensor(generator),
-                    clamp=self.clamp,
+                    clamp=self.clamp, chain_offset=chain_offset,
                 )
             # unsupported state, widths or depth: the loop takes the call
         row = self._dispatch_row(generator.device, model_kwargs)
+        if row is not None and row.name == "doublewell" and rows is not None:
+            raise ValueError(
+                "LangevinDynamics' double-well row does not take a sharded (DTensor) chain batch "
+                "yet: its kernel has no chain offset, so the shards would draw the same noise "
+                "(ROADMAP.md, queue 2, K8). Pass fused='off' for the generic loop, which takes "
+                "one, or x.full_tensor()."
+            )
         if row is not None:
             kargs = row.kernel_kwargs(self, x0) if x0.dtype == torch.float32 else None
             if kargs is not None and (
@@ -361,10 +406,11 @@ class LangevinDynamics(BaseSampler):
                     step_size=_sched_table_arg(self.step_size, n_steps, x0.device),
                     noise_scale=_sched_table_arg(self.noise_scale, n_steps, x0.device),
                     seed=(_kernel_seed_tensor if row.device_seed else _kernel_seed)(generator),
-                    clamp=self.clamp,
+                    clamp=self.clamp, chain_offset=chain_offset,
                 )
             # unsupported state shape or dtype, or n_steps < thin: the loop takes the call
+        sampler = self if rows is None else _with_global_noise(self, *rows)
         return _sample_impl(
-            self, x0, generator, n_steps, thin,
+            sampler, x0, generator, n_steps, thin,
             bool(return_trajectory), bool(return_diagnostics), model_kwargs or {},
         )

@@ -38,6 +38,7 @@ from .base import (
     _check_model_device,
     _concrete_scalar,
     _kernel_seed,
+    _refuse_sharded,
     _same_device,
     _sample_impl,
 )
@@ -238,6 +239,7 @@ class ParallelTemperingLangevin(BaseSampler):
         :meth:`sample`."""
         if not isinstance(generator, torch.Generator):
             raise TypeError(f"run_replicas needs a torch.Generator, got {type(generator).__name__}")
+        _refuse_sharded("ParallelTemperingLangevin.run_replicas", replicas)
         replicas = torch.as_tensor(replicas)
         if replicas.ndim < 2 or replicas.shape[0] != self.n_replicas:
             raise ValueError(

@@ -5,14 +5,15 @@
   takes (a leading steps axis on every tensor).
 - :func:`prefetch_to_device` keeps a bounded queue of batches in flight
   ahead of the consumer: copies from pinned host memory with
-  ``non_blocking=True`` overlap the device's work.
+  ``non_blocking=True`` overlap the device's work; with ``sharding=(mesh,
+  placements)`` each batch arrives as a DTensor laid out so.
 """
 
 from __future__ import annotations
 
 import collections
 import itertools
-from typing import Any, Callable, Iterable, Iterator, Optional
+from typing import Any, Callable, Iterable, Iterator, Optional, Sequence, Tuple
 
 import torch
 
@@ -55,12 +56,21 @@ def stack_batches(batches: Iterable[Any]) -> Any:
 
 
 def prefetch_to_device(batches: Iterable[Any], size: int = 2,
-                       device: Optional[torch.device] = None) -> Iterator[Any]:
+                       device: Optional[torch.device] = None,
+                       sharding: Optional[Tuple[Any, Sequence[Any]]] = None) -> Iterator[Any]:
     """Yield ``batches`` moved to ``device`` (the current CUDA device when
     there is one, else the CPU), with up to ``size`` copies queued ahead of
-    the consumer."""
+    the consumer.
+
+    ``sharding=(mesh, placements)`` (e.g. ``(mesh, batch_sharding(mesh,
+    ndim))``) makes each tensor a DTensor on the mesh's device with those
+    placements instead: every process passes the whole batch, rank 0's copy
+    is distributed."""
     if size < 1:
         raise ValueError("size must be >= 1")
+    if sharding is not None:
+        mesh, placements = sharding
+        device = torch.device(mesh.device_type)
     device = default_device() if device is None else torch.device(device)
 
     def put(b):
@@ -69,7 +79,12 @@ def prefetch_to_device(batches: Iterable[Any], size: int = 2,
                 return t
             if device.type == "cuda" and t.device.type == "cpu":
                 t = t.pin_memory()
-            return t.to(device, non_blocking=True)
+            t = t.to(device, non_blocking=True)
+            if sharding is None:
+                return t
+            from torch.distributed.tensor import distribute_tensor
+
+            return distribute_tensor(t, mesh, placements)
 
         return _map(move, b)
 

@@ -8,7 +8,12 @@ r"""Training utilities: EMA, parameter freezing, checkpoints (counterpart of
   ``<ckpt_dir>/step_XXXXXXXX/state.pt``, the JAX package's names (it writes
   Orbax checkpoints there). They hold tensors, numbers, strings and
   containers only, so :func:`load_checkpoint` reads them with
-  ``weights_only=True``.
+  ``weights_only=True``. In a multi-process run rank 0 alone writes one.
+- A payload that holds DTensors (a model sharded by FSDP2, a sharded replay
+  buffer) is written to the same directory by
+  ``torch.distributed.checkpoint``: every process writes its own shards, and
+  :func:`load_checkpoint` reads them back in place into a ``template`` of
+  the same structure, onto the template's placements.
 """
 
 from __future__ import annotations
@@ -18,7 +23,11 @@ import re
 from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from ..parallel.mesh import is_dtensor
+from ..parallel.shim import get_rank, is_distributed
 
 Tensor = torch.Tensor
 
@@ -59,11 +68,21 @@ def _step_dir(ckpt_dir: str, step: int) -> str:
     return os.path.join(os.path.abspath(ckpt_dir), f"step_{int(step):08d}")
 
 
+def _holds_dtensor(tree: Any) -> bool:
+    if isinstance(tree, dict):
+        return any(_holds_dtensor(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_holds_dtensor(v) for v in tree)
+    return is_dtensor(tree)
+
+
 def save_checkpoint(ckpt_dir: str, step: int, params: Mapping[str, Tensor], *,
                     ema_params: Optional[Mapping[str, Tensor]] = None,
                     opt_state: Any = None, extra: Optional[Dict[str, Any]] = None) -> str:
     """Write a step-numbered checkpoint; returns its directory. ``extra``
-    carries replay buffers, generator states and the like."""
+    carries replay buffers, generator states and the like. A payload holding
+    DTensors goes through ``torch.distributed.checkpoint`` (a call every
+    process makes); any other is one file that rank 0 writes."""
     path = _step_dir(ckpt_dir, step)
     os.makedirs(path, exist_ok=True)
     payload = {"step": int(step), "params": dict(params)}
@@ -73,9 +92,17 @@ def save_checkpoint(ckpt_dir: str, step: int, params: Mapping[str, Tensor], *,
         payload["opt_state"] = opt_state
     if extra:
         payload["extra"] = extra
-    tmp = os.path.join(path, f"{_FILE}.{os.getpid()}.tmp")
-    torch.save(payload, tmp)
-    os.replace(tmp, os.path.join(path, _FILE))
+    if _holds_dtensor(payload):
+        import torch.distributed.checkpoint as dcp
+
+        dcp.save(payload, checkpoint_id=path)
+        return path
+    if get_rank() == 0:
+        tmp = os.path.join(path, f"{_FILE}.{os.getpid()}.tmp")
+        torch.save(payload, tmp)
+        os.replace(tmp, os.path.join(path, _FILE))
+    if is_distributed():
+        dist.barrier()
     return path
 
 
@@ -88,12 +115,29 @@ def latest_checkpoint_step(ckpt_dir: str) -> Optional[int]:
 
 
 def load_checkpoint(ckpt_dir: str, step: Optional[int] = None, *,
-                    map_location: Any = None) -> Dict[str, Any]:
+                    map_location: Any = None, template: Optional[Dict[str, Any]] = None
+                    ) -> Dict[str, Any]:
     """The payload of a checkpoint (the latest step when ``step`` is None),
-    its tensors on ``map_location`` (where they were saved by default)."""
+    its tensors on ``map_location`` (where they were saved by default).
+
+    A checkpoint of ``torch.distributed.checkpoint`` needs ``template``, a
+    payload of the saved structure (``{"step", "params", ...}``): its tensors
+    are filled in place, each on its own placement and device, its other
+    leaves replaced, and it is returned."""
     if step is None:
         step = latest_checkpoint_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"No checkpoints found under {ckpt_dir}")
-    return torch.load(os.path.join(_step_dir(ckpt_dir, step), _FILE),
-                      map_location=map_location, weights_only=True)
+    path = _step_dir(ckpt_dir, step)
+    if os.path.exists(os.path.join(path, _FILE)):
+        return torch.load(os.path.join(path, _FILE), map_location=map_location,
+                          weights_only=True)
+    if not os.path.exists(os.path.join(path, ".metadata")):
+        raise FileNotFoundError(f"No checkpoint at {path}")
+    if template is None:
+        raise ValueError(f"{path} holds a sharded checkpoint: pass template=, a payload of its "
+                         "structure on the placements to restore onto")
+    import torch.distributed.checkpoint as dcp
+
+    dcp.load(template, checkpoint_id=path)
+    return template
