@@ -17,9 +17,10 @@ take); ``--ais`` runs only the build and row 12's checks, timings, plan
 sweep and sync count; ``--dit`` only the build and the DiT family's and score
 matching's profile lines and paths; ``--mcmc`` only the build, the RMHMC,
 NUTS and NUTS->HMC handoff paths and their sync counts; ``--parallel`` only
-the build and the distributed layer's path; ``--offset-shape`` times rows 4,
-5 and 13 at their main shapes through the public wrappers, against whichever
-package is imported, as ``--ess-shape`` does.)
+the build and the distributed layer's path; ``--offset-shape`` times rows
+2-13 but 1 (every kernel with a chain offset) at their main shapes through
+the public wrappers, against whichever package is imported, as
+``--ess-shape`` does.)
 
 Phases, each printing its lines; any failure raises and the exit code is
 not 0:
@@ -165,7 +166,15 @@ not 0:
      variables, meshes ``("data",) = (1,)`` and ``("data", "fsdp") = (1,
      1)``: config 1 sharded through ``sample`` (final state and trajectory)
      against the unsharded call, rows 4-5 as two launches at chain offsets 0
-     and 5,000 against one, the second against its plain version; config 3's
+     and 5,000 against one, the second against its plain version; every
+     other sampler on a sharded batch at its main shape (MALA, HMC, PT's
+     ``sample`` and ``run_replicas`` with the ladder sharded on its chains,
+     AIS on a replicated schedule, the double well, gradient descent, NUTS
+     at 256 chains, RMHMC, the HMC warmup) bitwise the unsharded call, its
+     pooled statistics to 1e-6; rows 2-3 and 6-12 as two launches at chain
+     offsets 0 and n/2 against one, bitwise, the second half against its
+     plain version (the flip rule for Metropolis and exchange decisions);
+     config 3's
      CD step under HSDP (weights from the flax layout) for 20 steps against
      the unsharded trainer to 1e-6, row 13 split the same way, both steps
      profiled, a DCP save and restore of the sharded state (bitwise, then
@@ -3221,14 +3230,259 @@ def _par_sinkhorn(ops, dev, mesh, card: str) -> dict:
     return launches
 
 
+def _on_rows(x, mesh, dim):
+    """``x`` split on ``dim`` over the mesh, or replicated (``dim`` None)."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from torchebm_tpu_torch.parallel import replicate
+
+    return replicate(x, mesh) if dim is None else distribute_tensor(x, mesh, [Shard(dim)])
+
+
+#: the sharded samplers' kernels: every chain kernel with a chain offset
+#: that a sampler reaches (row 4 through gradient descent)
+PAR_SAMPLER_KERNELS = ("doublewell_langevin_chain", "doublewell_langevin_chain_trajectory",
+                       "mixture_langevin_chain", "mixture_mala_chain",
+                       "mixture_mala_chain_trajectory", "mixture_hmc_chain",
+                       "mixture_hmc_chain_trajectory", "pt_langevin_chain",
+                       "pt_langevin_chain_trajectory", "mixture_ais_run")
+#: draws and warmup transitions of the loops in the sharded samplers' path
+PAR_NUTS_DRAWS, PAR_RMHMC_DRAWS, PAR_WARMUP = 10, 5, 20
+
+
+def _par_sampler_calls(dev):
+    """``{label: (run, x, row dim)}`` of the sharded samplers' path:
+    ``run(x, generator)`` returns ``(states, statistics)`` of one call at its
+    main shape on the batch ``x`` (plain or sharded; AIS's ``x`` is its
+    schedule, replicated)."""
+    import torch
+
+    from torchebm_tpu_torch.core import DoubleWellEnergy, GaussianEnergy, GaussianMixtureEnergy
+    from torchebm_tpu_torch.samplers import (
+        GradientDescentSampler,
+        HamiltonianMonteCarlo,
+        LangevinDynamics,
+        MetropolisAdjustedLangevin,
+        NoUTurnSampler,
+        ParallelTemperingLangevin,
+        RiemannianManifoldHMC,
+        annealed_importance_sampling,
+    )
+
+    g = torch.Generator(dev).manual_seed(70)
+    mix = GaussianMixtureEnergy.eight_gaussians().to(dev)
+    corr = _corr_gaussian(dev)
+    x0 = torch.randn((N_CHAINS, 2), generator=g, device=dev)
+    mala = MetropolisAdjustedLangevin(mix, step_size=0.05)
+    hmc = HamiltonianMonteCarlo(mix, step_size=0.3, n_leapfrog_steps=HMC_LEAPFROG)
+    pt = ParallelTemperingLangevin(mix, temperatures=PT_TEMPS, step_size=0.05,
+                                   swap_every=PT_SWAP_EVERY)
+    dw = LangevinDynamics(DoubleWellEnergy(), step_size=0.01)
+    base = GaussianEnergy.create(torch.zeros(2), AIS_BASE_VAR * torch.eye(2)).to(dev)
+    nuts = NoUTurnSampler(corr, step_size=NUTS_STEP, max_tree_depth=NUTS_DEPTH)
+    warm = HamiltonianMonteCarlo(corr, step_size=0.2, n_leapfrog_steps=HMC_LEAPFROG)
+    rmhmc = RiemannianManifoldHMC(corr, metric_fn=_identity_metric, step_size=0.3,
+                                  n_leapfrog_steps=RMHMC_LEAPFROG)
+
+    def states(*xs):
+        return xs, {}
+
+    def ais(betas, gen):
+        r = annealed_importance_sampling(gen, mix, base=base, n_samples=AIS_CHAINS,
+                                         step_size=0.05, betas=betas)
+        return (r.samples, r.log_weights), {k: getattr(r, k) for k in (
+            "log_z", "ess", "acceptance_rate")}
+
+    def run_replicas(ladder, gen):
+        out, acc = pt.run_replicas(gen, ladder, N_STEPS)
+        return (out,), {"swap acceptance": acc}
+
+    def nuts_draws(x, gen):
+        out, diag = nuts.sample(gen, x=x, n_steps=PAR_NUTS_DRAWS, return_diagnostics=True)
+        return (out,), diag
+
+    def warmup(x, gen):
+        out, eps, mass = warm.warmup(gen, x=x, n_warmup=PAR_WARMUP, adapt_mass=True)
+        return (out, mass), {"step size": torch.tensor(eps)}
+
+    traj = dict(thin=10, return_trajectory=True)
+    return {
+        "MALA sample": (lambda x, gen: states(mala.sample(gen, x=x, n_steps=N_STEPS)), x0, 0),
+        "MALA trajectory": (lambda x, gen: states(mala.sample(gen, x=x, n_steps=N_STEPS,
+                                                              **traj)), x0, 0),
+        "HMC sample": (lambda x, gen: states(hmc.sample(gen, x=x, n_steps=N_STEPS)), x0, 0),
+        "HMC trajectory": (lambda x, gen: states(hmc.sample(gen, x=x, n_steps=N_STEPS, **traj)),
+                           x0, 0),
+        "PT sample": (lambda x, gen: states(pt.sample(gen, x=x, n_steps=N_STEPS)), x0, 0),
+        "PT trajectory": (lambda x, gen: states(pt.sample(gen, x=x, n_steps=N_STEPS, **traj)),
+                          x0, 0),
+        "PT run_replicas": (run_replicas, torch.randn((len(PT_TEMPS), N_CHAINS, 2),
+                                                      generator=g, device=dev), 1),
+        "AIS": (ais, torch.linspace(0.0, 1.0, AIS_RUNGS + 1, device=dev), None),
+        "double well": (lambda x, gen: states(dw.sample(gen, x=x, n_steps=N_STEPS)),
+                        0.5 * torch.randn(DW_SHAPE, generator=g, device=dev), 0),
+        "double-well trajectory": (lambda x, gen: states(dw.sample(gen, x=x, n_steps=N_STEPS,
+                                                                   **traj)),
+                                   0.5 * torch.randn(DW_SHAPE, generator=g, device=dev), 0),
+        "gradient descent": (lambda x, gen: states(GradientDescentSampler(
+            mix, step_size=0.05).sample(gen, x=x, n_steps=N_STEPS)), x0, 0),
+        "NUTS": (nuts_draws, torch.randn((NUTS_CHAINS, 2), generator=g, device=dev), 0),
+        "RMHMC": (lambda x, gen: states(rmhmc.sample(gen, x=x, n_steps=PAR_RMHMC_DRAWS)),
+                  torch.randn((RMHMC_CHAINS, 2), generator=g, device=dev), 0),
+        "HMC warmup": (warmup, x0, 0),
+    }
+
+
+def _par_samplers(ops, dev, mesh, card: str) -> dict:
+    """Every sampler with a chain kernel (rows 2-3 and 6-12; gradient descent
+    through row 4), NUTS and RMHMC on their loops and the HMC warmup, each on
+    a batch sharded over ``mesh`` at its main shape, against the unsharded
+    call from the same seed: states bitwise, pooled statistics to 1e-6
+    relative. Launches are counted over the sharded calls only."""
+    import torch
+
+    from torchebm_tpu_torch.parallel.mesh import is_dtensor
+
+    calls = _par_sampler_calls(dev)
+    inputs = {label: _on_rows(x, mesh, dim) for label, (_, x, dim) in calls.items()}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = {label: run(inputs[label], torch.Generator(dev).manual_seed(71 + i))
+           for i, (label, (run, _, _)) in enumerate(calls.items())}
+    launches = read_counts(ops, "sharded samplers", PAR_SAMPLER_KERNELS)
+    wall = time.perf_counter() - t0
+    report, bad = [], []
+    for i, (label, (run, x, dim)) in enumerate(calls.items()):
+        want = run(x, torch.Generator(dev).manual_seed(71 + i))
+        outs, stats = got[label]
+        kept = all(not is_dtensor(o) or tuple(o.placements) == tuple(inputs[label].placements)
+                   for o in outs if dim is not None)
+        exact = all(torch.equal(o.full_tensor() if is_dtensor(o) else o, w)
+                    for o, w in zip(outs, want[0]))
+        rel = max((float((v - want[1][k]).abs().max()) / max(1.0, float(want[1][k].abs().max()))
+                   for k, v in stats.items()), default=0.0)
+        report.append(f"{label} {'bitwise' if exact else 'DIFFERS'}"
+                      + (f", statistics {rel:.1e}" if stats else ""))
+        if not (exact and kept and rel <= 1e-6):
+            bad.append(label)
+    print(f"check: parallel, every sampler on a batch sharded over ('data',) = (1,) at its main "
+          f"shape ({N_CHAINS} chains x {N_STEPS} steps for MALA, HMC, PT and gradient "
+          f"descent, PT's {len(PT_TEMPS)}-replica ladder sharded on its chains, AIS "
+          f"{AIS_CHAINS} x {AIS_RUNGS} rungs split over the mesh, the double well "
+          f"{DW_SHAPE[0]}x{DW_SHAPE[1]}, NUTS {NUTS_CHAINS} x {PAR_NUTS_DRAWS} draws, RMHMC "
+          f"{RMHMC_CHAINS} x {PAR_RMHMC_DRAWS}, the HMC warmup {N_CHAINS} x {PAR_WARMUP}) "
+          f"against the unsharded call: " + "; ".join(report)
+          + f"; the sharded calls {wall:.2f} s of wall time | {card}")
+    if bad:
+        raise AssertionError(f"sharded samplers differ from the unsharded calls: {bad}")
+    return launches
+
+
+def _par_offsets(ops, dev, card: str) -> None:
+    """Rows 2-3 and 6-12 as two launches over the halves of the main shape's
+    batch at their chain offsets (the ladder also at its whole chain count)
+    against one launch, bitwise; and the second half at its offset against
+    its plain version over CHECK_STEPS steps from draws of the target (the
+    flip rule of the module docstring for the Metropolis and exchange
+    decisions)."""
+    import torch
+
+    from torchebm_tpu_torch.core import GaussianMixtureEnergy
+
+    mix = GaussianMixtureEnergy.eight_gaussians().to(dev)
+    g = torch.Generator(dev).manual_seed(75)
+    mix_kw = dict(scale=float(mix.scale), log_weights=mix.log_weights, seed=2**40 + 19)
+    x0 = torch.randn((N_CHAINS, 2), generator=g, device=dev)
+    at_target = mix.sample(g, N_CHAINS)
+    ladder = torch.randn((len(PT_TEMPS), N_CHAINS, 2), generator=g, device=dev)
+    ladder_target = torch.stack([mix.sample(g, N_CHAINS) for _ in PT_TEMPS])
+    xdw = 0.5 * torch.randn(DW_SHAPE, generator=g, device=dev)
+    betas = torch.linspace(0.0, 1.0, AIS_RUNGS + 1, device=dev)
+    s0 = AIS_BASE_VAR ** 0.5
+    x_ais = s0 * torch.randn((AIS_CHAINS, 2), generator=g, device=dev)
+    ais_args = (torch.zeros(2, device=dev), s0, mix.means)
+    pt_args = (mix.means, N_STEPS, 0.05, 1.0, tuple(1.0 / t for t in PT_TEMPS), PT_SWAP_EVERY)
+    pt_check = (mix.means, CHECK_STEPS, 0.05, 1.0, tuple(1.0 / t for t in PT_TEMPS),
+                PT_SWAP_EVERY)
+    ais_group = ops.fused_ais.ais_launch_plan(AIS_CHAINS, 2, mix.means.shape[0], False)[0]
+    fl, fm, fh, fp, fa = (ops.fused_langevin, ops.fused_mala, ops.fused_hmc, ops.fused_pt,
+                          ops.fused_ais)
+    # (row, wrapper, whole batch, row dim, per-row elements, args, keywords,
+    #  the offset half's start for the plain check, its args)
+    rows = [
+        ("2", fl.doublewell_langevin_chain, xdw, 0, DW_SHAPE[1], (N_STEPS, 0.01), {},
+         xdw, (CHECK_STEPS, 0.01)),
+        ("3", fl.doublewell_langevin_chain_trajectory, xdw, 0, DW_SHAPE[1], (N_STEPS, 0.01),
+         dict(thin=10), xdw, (CHECK_STEPS, 0.01)),
+        ("6", fm.mixture_mala_chain, x0, 0, 1, (mix.means, N_STEPS, 0.05), {},
+         at_target, (mix.means, CHECK_STEPS, 0.05)),
+        ("7", fm.mixture_mala_chain_trajectory, x0, 0, 1, (mix.means, N_STEPS, 0.05),
+         dict(thin=10), at_target, (mix.means, CHECK_STEPS, 0.05)),
+        ("8", fh.mixture_hmc_chain, x0, 0, 1, (mix.means, N_STEPS, 0.3, HMC_LEAPFROG), {},
+         at_target, (mix.means, CHECK_STEPS, 0.05, HMC_LEAPFROG)),
+        ("9", fh.mixture_hmc_chain_trajectory, x0, 0, 1,
+         (mix.means, N_STEPS, 0.3, HMC_LEAPFROG), dict(thin=10), at_target,
+         (mix.means, CHECK_STEPS, 0.05, HMC_LEAPFROG)),
+        ("10", fp.pt_langevin_chain, ladder, 1, 1, pt_args, {}, ladder_target, pt_check),
+        ("11", fp.pt_langevin_chain_trajectory, ladder, 1, 1, pt_args, dict(thin=10),
+         ladder_target, pt_check),
+        # the AIS plan doubles the group while n G <= 32,768: the halves run at
+        # the whole batch's group, whose summation order they then share
+        ("12", lambda *a, **k: fa._run(*a, group=ais_group, **k)[:3], x_ais, 0, 1,
+         (*ais_args, betas, 0.05), {}, x_ais,
+         (*ais_args, betas[:CHECK_STEPS + 1] / betas[CHECK_STEPS], 0.05)),
+    ]
+    report, errors = [], {}
+    for row, fn, x, dim, per_row, args, kw, x_check, check_args in rows:
+        n = x.shape[dim]
+        name = "mixture_ais_run" if row == "12" else fn.__name__
+        half = n // 2
+        kw = dict(kw, **(dict(seed=2**40 + 19) if row in ("2", "3") else mix_kw))
+        if dim == 1:
+            kw["total_chains"] = n
+        whole = fn(x, *args, **kw)
+        parts = [fn(x.narrow(dim, a, b - a).contiguous(), *args, chain_offset=a * per_row, **kw)
+                 for a, b in ((0, half), (half, n))]
+        whole, *parts = [p if isinstance(p, tuple) else (p,) for p in (whole, *parts)]
+        # a trajectory or a ladder holds the chains on dim 1; the ladder's
+        # 0-d acceptance is a mean over the chains
+        exact = all(torch.equal(torch.cat([a, b], dim=1 if w.ndim == 3 else 0), w)
+                    for w, a, b in zip(whole, *parts) if w.ndim)
+        # the second half at its offset against its plain version
+        xc = x_check.narrow(dim, half, n - half).contiguous()
+        ckw = dict(kw, chain_offset=half * per_row)
+        if row in ("2", "3"):
+            got, want = (fn(xc, *check_args, **ckw),
+                         getattr(fl, name + "_plain")(xc, *check_args, **ckw))
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            errors[name] = max(float((u - v).abs().max()) for u, v in zip(got, want))
+        else:
+            _check_flips(ops, name, (xc, *check_args), ckw, f"offset {half}", errors,
+                         xc.shape[dim])
+        report.append(f"row {row} halves {'bitwise' if exact else 'DIFFER'}, offset half "
+                      f"against plain {errors[name]:.2e}")
+        if not exact or not errors[name] <= TOL:
+            raise AssertionError(f"row {row}: offset halves bitwise {exact}, plain "
+                                 f"{errors[name]}")
+    print(f"check: parallel, rows 2-3 and 6-12 as two launches at chain offsets 0 and n/2 "
+          f"(per element for the double well; the ladder at total_chains n) against one "
+          f"launch at the main shapes, and the offset half against its plain version over "
+          f"{CHECK_STEPS} steps from draws of the target (AIS over {CHECK_STEPS} rungs; tol "
+          f"{TOL}): " + "; ".join(report) + f" | {card}")
+
+
 def path_parallel(ops, dev, card: str) -> dict:
     """The distributed layer on the card: a real NCCL world of one brought up
     by ``init_distributed`` from torchrun's environment and torn down at the
     end, meshes ``("data",) = (1,)`` and ``("data", "fsdp") = (1, 1)``;
-    sharded config 1 (rows 4-5), config 3's CD step under HSDP (row 13) with
-    a DCP round trip, the DiT-768x12 step under HSDP, the Sinkhorn coupling
-    on a sharded batch (row 14). Cross-process behaviour is the CPU tests'
-    (``tests/test_torch_parallel.py``); NCCL takes one rank per card."""
+    sharded config 1 (rows 4-5), every other sampler on a sharded batch at
+    its main shape (rows 2-3 and 6-12, gradient descent through row 4; NUTS,
+    RMHMC and the HMC warmup on their loops), config 3's CD step under HSDP
+    (row 13) with a DCP round trip, the DiT-768x12 step under HSDP, the
+    Sinkhorn coupling on a sharded batch (row 14); then rows 2-3 and 6-12 as
+    two offset launches against one. Cross-process behaviour is the CPU
+    tests' and ``tests/torch_dist_worker.py``'s under ``torchrun``; NCCL
+    takes one rank per card."""
     import os
     import tempfile
 
@@ -3253,10 +3507,12 @@ def path_parallel(ops, dev, card: str) -> dict:
               f"{mesh1} and {mesh2} | {card}")
         with tempfile.TemporaryDirectory() as tmp:
             for part in (_par_langevin(ops, dev, mesh1, card),
+                         _par_samplers(ops, dev, mesh1, card),
                          _par_cd(ops, dev, mesh2, card, tmp),
                          _par_sinkhorn(ops, dev, mesh1, card)):
                 for name, n in part.items():
                     launches[name] += n
+        _par_offsets(ops, dev, card)
         _par_dit(dev, mesh2, card)
     finally:
         if dist.is_initialized():
@@ -3272,13 +3528,16 @@ def path_parallel(ops, dev, card: str) -> dict:
 
 
 def offset_ab(ops, dev, card: str) -> None:
-    """Rows 4, 5 and 13 by device time per call at their main shapes
-    (config 1's 10,000 x 1,000 ring, thin 10 for row 5, the schedule as
-    device tables; config 3's 256 x 2 x 10 steps on MLP(128, 128)) through
-    the public wrappers at their default arguments, against whichever
-    package is imported (an earlier checkout's wrappers take no
-    ``chain_offset``):
-    ``PYTHONPATH=<checkout> python3 -P chip_smoke.py --offset-shape``."""
+    """Rows 2-13 but 1 by device time per call at their main shapes through
+    the public wrappers at their default arguments (no ``chain_offset``: an
+    earlier checkout's wrappers take none), against whichever package is
+    imported: ``PYTHONPATH=<checkout> python3 -P chip_smoke.py
+    --offset-shape``. Rows 2-3: 4,096 x 32 x 1,000 (thin 10), an int seed;
+    4-5: config 1's 10,000 x 1,000 ring (thin 10), the schedule as device
+    tables; 6-9: the ring at 10,000 x 1,000 (HMC 8 leapfrog steps), thin 10;
+    10-11: :func:`pt_main_shape` (thin 10); 12: the ring of
+    :func:`ais_main_shapes`; 13: config 3's 256 x 2 x 10 steps on
+    MLP(128, 128)."""
     import torch
 
     from torchebm_tpu_torch.core import GaussianMixtureEnergy
@@ -3291,13 +3550,28 @@ def offset_ab(ops, dev, card: str) -> None:
     # the schedule as device tables: no pageable copy for the host to wait on
     eta = torch.full((N_STEPS,), 0.05, device=dev)
     one = torch.ones((N_STEPS,), device=dev)
-    fl = ops.fused_langevin
+    fl, fm, fh, fp = ops.fused_langevin, ops.fused_mala, ops.fused_hmc, ops.fused_pt
     layers = _mlp_layers(dev, (2, *CD_HIDDEN), seed=52)
     xm = torch.randn((CD_BATCH, 2), generator=g, device=dev)
+    xdw = 0.5 * torch.randn(DW_SHAPE, generator=g, device=dev)
+    pt_args, pt_kw = pt_main_shape(dev)
+    _, ais_args, ais_kw, _ = ais_main_shapes(dev)[0]
     calls = {
+        "row 2": lambda: fl.doublewell_langevin_chain(xdw, N_STEPS, 0.01, seed=22),
+        "row 3": lambda: fl.doublewell_langevin_chain_trajectory(xdw, N_STEPS, 0.01, thin=10,
+                                                                 seed=22),
         "row 4": lambda: fl.mixture_langevin_chain(x0, mix.means, N_STEPS, eta, one, **kw),
         "row 5": lambda: fl.mixture_langevin_chain_trajectory(x0, mix.means, N_STEPS, eta, one,
                                                               thin=10, **kw),
+        "row 6": lambda: fm.mixture_mala_chain(x0, mix.means, N_STEPS, 0.05, **kw),
+        "row 7": lambda: fm.mixture_mala_chain_trajectory(x0, mix.means, N_STEPS, 0.05,
+                                                          thin=10, **kw),
+        "row 8": lambda: fh.mixture_hmc_chain(x0, mix.means, N_STEPS, 0.3, HMC_LEAPFROG, **kw),
+        "row 9": lambda: fh.mixture_hmc_chain_trajectory(x0, mix.means, N_STEPS, 0.3,
+                                                         HMC_LEAPFROG, thin=10, **kw),
+        "row 10": lambda: fp.pt_langevin_chain(*pt_args, **pt_kw),
+        "row 11": lambda: fp.pt_langevin_chain_trajectory(*pt_args, thin=10, **pt_kw),
+        "row 12": lambda: ops.fused_ais.mixture_ais_run(*ais_args, **ais_kw),
         "row 13": lambda: nops.mlp_langevin_chain(xm, layers, CD_K, CD_STEP, seed=53),
     }
     for name, fn in calls.items():
@@ -3306,7 +3580,7 @@ def offset_ab(ops, dev, card: str) -> None:
         print(f"offset-shape: {name}: device ms per call {statistics.median(dev_ms):.4f} "
               f"(readings of 5 calls queued behind a spin: "
               f"{', '.join(f'{v:.4f}' for v in dev_ms)}), per call with the host's "
-              f"work {call_ms:.4f} | {ops.__file__} | {card}")
+              f"work {call_ms:.4f} | {ops.__file__} | {card}", flush=True)
 
 
 def _dit_family_calls(dev) -> dict:

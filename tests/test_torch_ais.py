@@ -231,6 +231,18 @@ class _CountingCpu:
         monkeypatch.setattr(torch.Tensor, "cpu", cpu)
 
 
+def test_isotropic_gate_ignores_the_default_device():
+    """The gate compares ``cov`` with a multiple of the identity on the
+    host whatever the default device (under ``torch.set_default_device``
+    on a card, as a sharded run's processes set it, the identity was made
+    there and the comparison raised)."""
+    from torchebm_tpu_torch.samplers.langevin import _isotropic_scale
+
+    e = tcore.GaussianEnergy.create(torch.zeros(2), 4.0 * torch.eye(2))
+    with torch.device("meta"):
+        assert _isotropic_scale(e) == pytest.approx(2.0)
+
+
 def test_isotropic_gate_reads_cov_once_per_state(monkeypatch):
     """``_isotropic_scale`` reads ``cov`` on the host once per state of the
     buffer: the same answer twice with no second ``.cpu()``; a new answer

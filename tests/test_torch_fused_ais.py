@@ -300,3 +300,57 @@ def test_group_rule_lives_in_one_place(d, k, gaussian):
     assert tais.ais_groups(d, k, gaussian) == tfl.dispatch_groups(
         d, k, gaussian, split_one_component=True)
     assert thmc.HMC_GROUPS == tfl.DISPATCH_GROUPS == (1, 2, 4, 8)
+
+
+def _ais_halves(x, split, *args, noise=None, uniforms=None, **kw):
+    """The plain version over chains ``[0, split)`` and ``[split, n)``, each
+    at its first chain as ``chain_offset`` with its rows of the injected
+    draws, the outputs concatenated along the chains."""
+    parts = []
+    for a, b in ((0, split), (split, x.shape[0])):
+        inj = {} if noise is None else dict(noise=noise[:, a:b].contiguous(),
+                                             uniforms=uniforms[:, a:b].contiguous())
+        parts.append(tais.mixture_ais_run_plain(x[a:b], *args, chain_offset=a, **inj, **kw))
+    return [torch.cat(p) for p in zip(*parts)]
+
+
+def test_offset_halves_match_jax_interpret_and_its_log_z():
+    """Two blocks of one AIS batch, each at its chain offset with its rows of
+    the injected draws, together equal the JAX kernel on the whole batch; the
+    sampler's statistics of the two blocks' log-weights give the JAX
+    kernel's log Z to 2e-5."""
+    import jax
+
+    n, n_rungs = 37, 8
+    x0, betas, noise, unif = _inputs(21, n, n_rungs, 2)
+    (jm, jlw), (tm, tlw) = _both(MEANS, LOGW)
+    (jx, jmu, jb, jn, ju), (tx, tmu, tb, tn, tu) = _both(x0, MU0, betas, noise, unif)
+    ref = jais.mixture_ais_run(jx, jmu, S0, jm, jb, 0.05, n_transitions=2, noise=jn, uniforms=ju,
+                               interpret=True, scale=0.7, log_weights=jlw)
+    out = _ais_halves(tx, 16, tmu, S0, tm, tb, 0.05, n_transitions=2, noise=tn, uniforms=tu,
+                      scale=0.7, log_weights=tlw)
+    _check(out, ref)
+    base = tcore.GaussianEnergy.create(tmu, S0**2 * torch.eye(2))
+    stats = ts.ais._ais_statistics(base, out[0], out[1], torch.mean(out[2]), n)
+    want = float(base.log_z()) + float(jax.scipy.special.logsumexp(ref[1])) - math.log(n)
+    assert abs(float(stats.log_z) - want) <= 2e-5
+
+
+def test_philox_offset_halves_equal_the_whole_launch():
+    """On the Philox stream two launches at chain offsets 0 and ``split``
+    equal one over every chain, bitwise (an int seed and a 0-d seed tensor
+    alike); a block at offset 0 draws other numbers."""
+    n = 41
+    x0, betas, _, _ = _inputs(22, n, 6, 1)
+    tx, tmu, tb, tm, tlw = (torch.from_numpy(a) for a in (x0, MU0, betas, MEANS, LOGW))
+    args = (tmu, S0, tm, tb, 0.05)
+    for seed in (2**40 + 3, torch.tensor(2**40 + 3)):
+        kw = dict(scale=0.7, log_weights=tlw, seed=seed)
+        whole = tais.mixture_ais_run_plain(tx, *args, **kw)
+        for split in (10, 33):
+            for got, want in zip(_ais_halves(tx, split, *args, **kw), whole):
+                assert torch.equal(got, want)
+    alone = tais.mixture_ais_run_plain(tx[10:], *args, **kw)[0]
+    assert not torch.equal(alone, whole[0][10:])
+    with pytest.raises(ValueError, match="chain_offset"):
+        tais.mixture_ais_run(tx, *args, chain_offset=-2, **kw)

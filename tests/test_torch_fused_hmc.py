@@ -211,3 +211,74 @@ def test_hmc_launch_plan_overrides_only_built_groups():
                                   (2, 1, False, 4)):
         with pytest.raises(ValueError, match="no HMC chain kernel"):
             thmc.hmc_launch_plan(100, d, k, gaussian, group=group)
+
+
+def _halves(fn, x0, split, *args, noise=None, uniforms=None, **kw):
+    """``fn`` over chains ``[0, split)`` and ``[split, n)``, each at its first
+    chain as ``chain_offset`` and with its rows of the injected draws, the
+    outputs concatenated along the chains (a trajectory's dim 1)."""
+    parts = []
+    for a, b in ((0, split), (split, x0.shape[0])):
+        inj = {} if noise is None else dict(noise=noise[:, a:b].contiguous(),
+                                             uniforms=uniforms[:, a:b].contiguous())
+        parts.append(fn(x0[a:b], *args, chain_offset=a, **inj, **kw))
+    return [torch.cat(p, dim=1 if p[0].ndim == 3 else 0) for p in zip(*parts)]
+
+
+def _offset_inputs(seed, d, k, n_draws, precision):
+    rng = np.random.default_rng(seed)
+    x0 = _normal(rng, N_CHAINS, d)
+    means = _normal(rng, k, d, scale=2.5)
+    noise = _normal(rng, n_draws, N_CHAINS, d)
+    unif = rng.uniform(size=(n_draws, N_CHAINS)).astype(np.float32)
+    kw = {"scale": 0.8, "mass": np.array([1.0, 4.0, 0.25][:d], np.float32)}
+    if precision:
+        a = _normal(rng, d, d, scale=0.3)
+        kw["precision"] = (a @ a.T + np.eye(d)).astype(np.float32)
+    return x0, means, noise, unif, kw
+
+
+@pytest.mark.parametrize("trajectory", [False, True], ids=["final", "trajectory"])
+@pytest.mark.parametrize("precision", [False, True], ids=["mixture", "precision"])
+def test_offset_halves_match_jax_interpret(trajectory, precision):
+    """Two shards of one batch, each through the plain version at its chain
+    offset with its rows of the injected draws, together equal the JAX
+    kernel on the whole batch (diagonal mass)."""
+    d, k, n_draws = (3, 1, 6) if precision else (2, 4, 7)
+    x0, means, noise, unif, kw = _offset_inputs(3 + precision, d, k, n_draws, precision)
+    jkw = {key: jnp.asarray(v) if isinstance(v, np.ndarray) else v for key, v in kw.items()}
+    tkw = {key: torch.from_numpy(v) if isinstance(v, np.ndarray) else v for key, v in kw.items()}
+    jargs = (jnp.asarray(x0), jnp.asarray(means), n_draws, 0.3, 3)
+    jinj = dict(noise=jnp.asarray(noise), uniforms=jnp.asarray(unif))
+    if trajectory:
+        ref = jhmc.mixture_hmc_chain_trajectory(*jargs, thin=2, interpret=True, **jinj, **jkw)
+        fn, tkw = thmc.mixture_hmc_chain_trajectory_plain, dict(tkw, thin=2)
+    else:
+        ref = jhmc.mixture_hmc_chain(*jargs, interpret=True, **jinj, **jkw)
+        fn = thmc.mixture_hmc_chain_plain
+    out = _halves(fn, torch.from_numpy(x0), 17, torch.from_numpy(means), n_draws, 0.3, 3,
+                  noise=torch.from_numpy(noise), uniforms=torch.from_numpy(unif), **tkw)
+    assert len(out) == len(ref)
+    for o, r in zip(out, ref):
+        _close(o, r)
+
+
+@pytest.mark.parametrize("trajectory", [False, True], ids=["final", "trajectory"])
+def test_philox_offset_halves_equal_the_whole_launch(trajectory):
+    """On the Philox stream (the plain version's bit-exact int64 twin) two
+    launches at chain offsets 0 and ``split`` equal one over every chain,
+    bitwise; a shard at offset 0 draws other numbers."""
+    x0, means, _, _, kw = _offset_inputs(12, 2, 4, 8, False)
+    tkw = {key: torch.from_numpy(v) if isinstance(v, np.ndarray) else v for key, v in kw.items()}
+    tkw = dict(tkw, seed=2**40 + 9, **({"thin": 3} if trajectory else {}))
+    fn = (thmc.mixture_hmc_chain_trajectory_plain if trajectory
+          else thmc.mixture_hmc_chain_plain)
+    x, m = torch.from_numpy(x0), torch.from_numpy(means)
+    whole = fn(x, m, 8, 0.3, 3, **tkw)
+    for split in (6, 30):
+        for got, want in zip(_halves(fn, x, split, m, 8, 0.3, 3, **tkw), whole):
+            assert torch.equal(got, want)
+    final = fn(x[30:], m, 8, 0.3, 3, **tkw)[-2]
+    assert not torch.equal(final, whole[-2][30:])
+    with pytest.raises(ValueError, match="chain_offset"):
+        fn(x, m, 8, 0.3, 3, chain_offset=-1, **tkw)

@@ -519,3 +519,68 @@ def test_launch_counts_cover_every_kernel_wrapper():
     finally:
         for fn in _build._COUNTED:
             fn.launches = saved[fn.__name__]
+
+
+def _dw_halves(fn, x0, split, *args, noise=None, **kw):
+    """``fn`` over rows ``[0, split)`` and ``[split, n)`` of the state, each at
+    its first element (row times elements per row) as ``chain_offset`` with
+    its rows of the injected normals, concatenated along the rows (a
+    trajectory's dim 1)."""
+    per_row = x0[0].numel()
+    parts = []
+    for a, b in ((0, split), (split, x0.shape[0])):
+        inj = {} if noise is None else dict(noise=noise[:, a:b].contiguous())
+        out = fn(x0[a:b].contiguous(), *args, chain_offset=a * per_row, **inj, **kw)
+        parts.append(out if isinstance(out, tuple) else (out,))
+    return [torch.cat(p, dim=1 if i == 0 and len(p[0].shape) > x0.ndim else 0)
+            for i, p in enumerate(zip(*parts))]
+
+
+@pytest.mark.parametrize("trajectory", [False, True], ids=["final", "trajectory"])
+@pytest.mark.parametrize("shape", [(N_CHAINS, 3), (9, 4, 3)], ids=["2d", "3d"])
+def test_doublewell_offset_halves_match_jax_interpret(trajectory, shape):
+    """Two row shards of one state, each through the plain version at its
+    first element's index with its rows of the injected normals, together
+    equal the JAX kernel on the whole state."""
+    rng = _rng(300 + len(shape))
+    x0 = _normal(rng, *shape)
+    noise = _normal(rng, 13, *shape)
+    kw = dict(barrier_height=1.5, b=0.9, clamp=(-1.4, 1.4))
+    jargs = (jnp.asarray(x0), 13, 0.01, 0.8)
+    if trajectory:
+        ref = jfl.doublewell_langevin_chain_trajectory(*jargs, thin=4, noise=jnp.asarray(noise),
+                                                       interpret=True, **kw)
+        fn, kw = tfl.doublewell_langevin_chain_trajectory_plain, dict(kw, thin=4)
+    else:
+        ref = (jfl.doublewell_langevin_chain(*jargs, noise=jnp.asarray(noise), interpret=True,
+                                             **kw),)
+        fn = tfl.doublewell_langevin_chain_plain
+    out = _dw_halves(fn, torch.from_numpy(x0), 4, 13, 0.01, 0.8,
+                     noise=torch.from_numpy(noise), **kw)
+    for o, r in zip(out, ref):
+        _close(o, r)
+
+
+@pytest.mark.parametrize("trajectory", [False, True], ids=["final", "trajectory"])
+def test_doublewell_philox_offset_halves_equal_the_whole_launch(trajectory):
+    """On the quad stream (:func:`doublewell_normals`, the kernels' bit-exact
+    twin) two row shards at their first elements' indices equal one launch
+    over the whole state, bitwise, with an int seed and a 0-d seed tensor; a
+    shard numbered from 0 draws other numbers."""
+    x0 = torch.from_numpy(_normal(_rng(31), 10, 6))
+    fn = (tfl.doublewell_langevin_chain_trajectory_plain if trajectory
+          else tfl.doublewell_langevin_chain_plain)
+    more = {"thin": 3} if trajectory else {}
+    for seed in (2**40 + 7, torch.tensor(2**40 + 7)):
+        whole = fn(x0, 10, 0.01, 1.0, seed=seed, **more)
+        whole = whole if isinstance(whole, tuple) else (whole,)
+        for split in (3, 7):
+            for got, want in zip(_dw_halves(fn, x0, split, 10, 0.01, 1.0, seed=seed, **more),
+                                 whole):
+                assert torch.equal(got, want)
+    alone = fn(x0[3:].contiguous(), 10, 0.01, 1.0, seed=5, **more)
+    assert not torch.equal(alone[-1] if trajectory else alone,
+                           fn(x0, 10, 0.01, 1.0, seed=5, **more)[-1][3:] if trajectory
+                           else fn(x0, 10, 0.01, 1.0, seed=5)[3:])
+    with pytest.raises(ValueError, match="chain_offset"):
+        fn(x0, 10, 0.01, 1.0, chain_offset=-1, **more)

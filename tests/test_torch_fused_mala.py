@@ -241,3 +241,61 @@ def test_uniform_counters_are_disjoint_from_the_normals():
     for j in range(16):
         normals_words = tfl.philox4x32_10(index, 3, j, index >> 32, seed, 0)
         assert not torch.equal(normals_words[0], words[0])
+
+
+def _halves(fn, x0, split, *args, noise=None, uniforms=None, **kw):
+    """``fn`` over chains ``[0, split)`` and ``[split, n)``, each at its first
+    chain as ``chain_offset`` and with its rows of the injected draws, the
+    outputs concatenated along the chains (a trajectory's dim 1)."""
+    parts = []
+    for a, b in ((0, split), (split, x0.shape[0])):
+        inj = {} if noise is None else dict(noise=noise[:, a:b].contiguous(),
+                                             uniforms=uniforms[:, a:b].contiguous())
+        out = fn(x0[a:b], *args, chain_offset=a, **inj, **kw)
+        parts.append(out)
+    return [torch.cat(p, dim=p[0].ndim - 2 if p[0].ndim == 3 else 0) for p in zip(*parts)]
+
+
+@pytest.mark.parametrize("trajectory", [False, True], ids=["final", "trajectory"])
+@pytest.mark.parametrize("precision", [False, True], ids=["mixture", "precision"])
+def test_offset_halves_match_jax_interpret(trajectory, precision):
+    """Two shards of one batch, each through the plain version at its chain
+    offset with its rows of the injected draws, together equal the JAX
+    kernel on the whole batch."""
+    d, k, n_steps = (3, 1, 6) if precision else (2, 8, 7)
+    x0, means, noise, unif, kw = _inputs(7 + precision, d, k, n_steps, not precision, precision)
+    jkw, tkw = _both(kw)
+    jargs = (jnp.asarray(x0), jnp.asarray(means), n_steps, 0.35)
+    jinj = dict(noise=jnp.asarray(noise), uniforms=jnp.asarray(unif))
+    if trajectory:
+        ref = jmala.mixture_mala_chain_trajectory(*jargs, thin=2, interpret=True, **jinj, **jkw)
+        fn, tkw = tmala.mixture_mala_chain_trajectory_plain, dict(tkw, thin=2)
+    else:
+        ref = jmala.mixture_mala_chain(*jargs, interpret=True, **jinj, **jkw)
+        fn = tmala.mixture_mala_chain_plain
+    out = _halves(fn, torch.from_numpy(x0), 15, torch.from_numpy(means), n_steps, 0.35,
+                  noise=torch.from_numpy(noise), uniforms=torch.from_numpy(unif), **tkw)
+    assert len(out) == len(ref)
+    for o, r in zip(out, ref):
+        _close(o, r)
+
+
+@pytest.mark.parametrize("trajectory", [False, True], ids=["final", "trajectory"])
+def test_philox_offset_halves_equal_the_whole_launch(trajectory):
+    """On the Philox stream (the plain version's bit-exact int64 twin) two
+    launches at chain offsets 0 and ``split`` equal one over every chain,
+    bitwise; a shard at offset 0 draws other numbers."""
+    x0, means, _, _, kw = _inputs(11, 2, 8, 9, True, False)
+    _, tkw = _both(kw)
+    tkw = dict(tkw, seed=2**40 + 5, **({"thin": 3} if trajectory else {}))
+    fn = (tmala.mixture_mala_chain_trajectory_plain if trajectory
+          else tmala.mixture_mala_chain_plain)
+    x, m = torch.from_numpy(x0), torch.from_numpy(means)
+    whole = fn(x, m, 9, 0.2, **tkw)
+    for split in (5, 20):
+        for got, want in zip(_halves(fn, x, split, m, 9, 0.2, **tkw), whole):
+            assert torch.equal(got, want)
+    assert not torch.equal(fn(x[20:], m, 9, 0.2, **tkw)[0], whole[0][..., 20:, :]
+                           if trajectory else whole[0][20:])
+    with pytest.raises(ValueError, match="chain_offset"):
+        fn(x, m, 9, 0.2, chain_offset=-1, **tkw)

@@ -289,3 +289,74 @@ def test_pt_launch_plan_refuses_groups_not_built(n_rep, d, k, gaussian, group):
     """``group=`` takes only a built group that keeps the chain in one warp."""
     with pytest.raises(ValueError, match="no ladder kernel"):
         tpt.pt_launch_plan(100, n_rep, d, k, gaussian, group=group)
+
+
+def _pt_halves(fn, reps, split, *args, noise=None, swap_uniform=None, **kw):
+    """``fn`` over chains ``[0, split)`` and ``[split, n)`` of the ladder, each
+    at its place in the whole ladder (``chain_offset``, ``total_chains``) and
+    with its chains of the injected draws (their chain axis, not dim 0): the
+    trajectories and ladders concatenated along the chains, the per-chain
+    acceptance as the mean over every chain."""
+    n = reps.shape[1]
+    parts = []
+    for a, b in ((0, split), (split, n)):
+        inj = {} if noise is None else dict(noise=noise[:, :, a:b].contiguous(),
+                                             swap_uniform=swap_uniform[:, :, a:b].contiguous())
+        out = fn(reps[:, a:b].contiguous(), *args, chain_offset=a, total_chains=n, **inj, **kw)
+        parts.append((out, b - a))
+    *tensors, acc = zip(*[p for p, _ in parts])
+    pooled = sum(float(a) * m for a, (_, m) in zip(acc, parts)) / n
+    return [torch.cat(t, dim=1) for t in tensors], pooled
+
+
+@pytest.mark.parametrize("trajectory", [False, True], ids=["final", "trajectory"])
+@pytest.mark.parametrize("n_rep", [2, 3])
+def test_offset_halves_match_jax_interpret(trajectory, n_rep):
+    """Two shards of one ladder, each through the plain version at its place
+    in the whole batch with its chains of the injected normals and exchange
+    uniforms, together equal the JAX kernel on the whole ladder."""
+    n, n_steps, swap_every = 33, 12, 4
+    reps, noise, swap_u = _inputs(40 + n_rep, n_rep, n, 2, n_steps, swap_every)
+    betas = tuple(1.6 ** -r for r in range(n_rep))
+    (jm, jlw), (tm, tlw) = _both(MEANS, LOGW)
+    (jr, jn, ju), (tr, tn, tu) = _both(reps, noise, swap_u)
+    common = (n_steps, 0.04, 1.0, betas, swap_every)
+    jkw = dict(scale=SCALE, log_weights=jlw, noise=jn, swap_uniform=ju, interpret=True)
+    if trajectory:
+        ref = jpt.pt_langevin_chain_trajectory(jr, jm, *common, thin=3, **jkw)[:2]
+        fn, kw = tpt.pt_langevin_chain_trajectory_plain, dict(thin=3)
+    else:
+        ref = jpt.pt_langevin_chain(jr, jm, *common, **jkw)[:1]
+        fn, kw = tpt.pt_langevin_chain_plain, {}
+    out, acc = _pt_halves(fn, tr, 14, tm, *common, noise=tn, swap_uniform=tu, scale=SCALE,
+                          log_weights=tlw, **kw)
+    for o, r in zip(out, ref):
+        _close(o, r)
+    whole_acc = fn(tr, tm, *common, noise=tn, swap_uniform=tu, scale=SCALE, log_weights=tlw,
+                   **kw)[-1]
+    assert abs(acc - float(whole_acc)) <= 1e-6
+
+
+@pytest.mark.parametrize("trajectory", [False, True], ids=["final", "trajectory"])
+def test_philox_offset_halves_equal_the_whole_launch(trajectory):
+    """On the Philox stream two launches over chains ``[0, a)`` and ``[a, n)``
+    at ``chain_offset`` a and ``total_chains`` n equal one over every chain,
+    bitwise, exchange uniforms included (index ``r·n + c``, not ``r·n_local +
+    c``); a shard numbered as a whole batch draws other numbers."""
+    n, n_rep = 37, 4
+    reps, _, _ = _inputs(51, n_rep, n, 2, 10, 2)
+    tr, tm, tlw = torch.from_numpy(reps), torch.from_numpy(MEANS), torch.from_numpy(LOGW)
+    betas = tuple(1.6 ** -r for r in range(n_rep))
+    common = (10, 0.04, 1.0, betas, 2)
+    kw = dict(scale=SCALE, log_weights=tlw, seed=2**33 + 1, **({"thin": 2} if trajectory else {}))
+    fn = tpt.pt_langevin_chain_trajectory_plain if trajectory else tpt.pt_langevin_chain_plain
+    whole = fn(tr, tm, *common, **kw)
+    for split in (9, 20):
+        out, acc = _pt_halves(fn, tr, split, tm, *common, **kw)
+        for got, want in zip(out, whole[:-1]):
+            assert torch.equal(got, want)
+        assert abs(acc - float(whole[-1])) <= 1e-6
+    alone = fn(tr[:, 20:].contiguous(), tm, *common, **kw)[-2]
+    assert not torch.equal(alone, whole[-2][:, 20:])
+    with pytest.raises(ValueError, match="total_chains"):
+        fn(tr[:, 20:].contiguous(), tm, *common, chain_offset=20, total_chains=36, **kw)

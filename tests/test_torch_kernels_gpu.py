@@ -747,3 +747,77 @@ def test_sinkhorn_dispatch_on_card(cuda):
     x0 = torch.randn((256, 2), generator=g, device=cuda)
     out = SinkhornCoupling(n_iters=50)(x0, x0 + 2.0, generator=g)
     assert fn.launches == before + 1 and out.x1.shape == (256, 2)
+
+
+def _offset_rows(cuda):
+    """``{row: (wrapper, whole batch, row dim, elements per row, args,
+    keywords)}`` of the chain kernels that take a chain offset beside rows
+    4-5 and 13, on the card: 5,001 chains (4,001 double-well rows of 8)
+    started at draws of the 8-component ring, 30 steps."""
+    rng = _rng(13)
+    k = 8
+    angles = np.arange(k) * 2 * np.pi / k
+    means = torch.from_numpy(np.stack([4 * np.cos(angles), 4 * np.sin(angles)], 1).astype(
+        np.float32)).to(cuda)
+    n = 5001
+
+    def at_target(m):
+        comp = torch.from_numpy(rng.integers(0, k, m)).to(cuda)
+        return (means[comp] + torch.from_numpy(_normal(rng, m, 2, scale=0.4)).to(cuda)).contiguous()
+
+    x0 = at_target(n)
+    ladder = torch.stack([at_target(n) for _ in range(4)])
+    mix = dict(scale=0.4, seed=2**40 + 3)
+    betas = (1.0, 0.625, 0.39, 0.244)
+    ais_betas = torch.linspace(0.0, 1.0, 31, device=cuda)
+    xdw = torch.from_numpy(_normal(rng, 4001, 8, scale=0.5)).to(cuda)
+    return {
+        "2": (tfl.doublewell_langevin_chain, xdw, 0, 8, (30, 0.01), dict(seed=5)),
+        "3": (tfl.doublewell_langevin_chain_trajectory, xdw, 0, 8, (30, 0.01),
+              dict(seed=5, thin=4)),
+        "6": (tmala.mixture_mala_chain, x0, 0, 1, (means, 30, 0.05), mix),
+        "7": (tmala.mixture_mala_chain_trajectory, x0, 0, 1, (means, 30, 0.05),
+              dict(mix, thin=4)),
+        "8": (thmc.mixture_hmc_chain, x0, 0, 1, (means, 30, 0.05, 4), mix),
+        "9": (thmc.mixture_hmc_chain_trajectory, x0, 0, 1, (means, 30, 0.05, 4),
+              dict(mix, thin=4)),
+        "10": (tpt.pt_langevin_chain, ladder, 1, 1, (means, 30, 0.05, 1.0, betas, 3), mix),
+        "11": (tpt.pt_langevin_chain_trajectory, ladder, 1, 1,
+               (means, 30, 0.05, 1.0, betas, 3), dict(mix, thin=4)),
+        # the AIS plan doubles the group while n G <= 32,768: the shards run at
+        # the whole batch's group, whose summation order they then share
+        "12": (lambda *a, **kw: tais._run(*a, group=tais.ais_launch_plan(n, 2, k, False)[0],
+                                          **kw)[:3],
+               3.0 * torch.from_numpy(_normal(rng, n, 2)).to(cuda), 0, 1,
+               (torch.zeros(2, device=cuda), 3.0, means, ais_betas, 0.05), mix),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("row", ["2", "3", "6", "7", "8", "9", "10", "11", "12"])
+def test_chain_kernels_with_a_chain_offset(cuda, row):
+    """A sharded batch's shards: the kernel over chains ``[a, b)`` at
+    ``chain_offset=a`` (the double well's at its first element, the ladder
+    also at ``total_chains``) equals rows ``[a, b)`` of the launch over every
+    chain, bitwise, and its plain version at that offset under the flip
+    rule."""
+    fn, x, dim, per_row, args, kw = _offset_rows(cuda)[row]
+    n = x.shape[dim]
+    if dim == 1:
+        kw = dict(kw, total_chains=n)
+    whole = fn(x, *args, **kw)
+    whole = whole if isinstance(whole, tuple) else (whole,)
+    parts = []
+    for a, b in ((0, 2500), (2500, n)):
+        xs = x.narrow(dim, a, b - a).contiguous()
+        got = fn(xs, *args, chain_offset=a * per_row, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        cpu = fn(xs.cpu(), *[t.cpu() if isinstance(t, torch.Tensor) else t for t in args],
+                 chain_offset=a * per_row, **kw)
+        cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+        flipped = _flipped_chains([g for g in got if g.ndim], [c for c in cpu if c.ndim], b - a)
+        assert flipped <= (b - a) // 1000
+        parts.append(got)
+    for w, a, b in zip(whole, *parts):
+        if w.ndim:  # the ladder's 0-d acceptance is a mean over its chains
+            assert torch.equal(torch.cat([a, b], dim=1 if w.ndim == 3 else 0), w)

@@ -56,6 +56,9 @@ from torchebm_tpu_torch.parallel import (
 )
 from torchebm_tpu_torch.parallel.mesh import _shard_dim, is_dtensor
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_dist_worker as worker  # noqa: E402  (imports no JAX)
+
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_dist_worker.py")
 SPAWN_TIMEOUT = 120
 WORLDS = {"data": 2, "hsdp": 4}
@@ -247,45 +250,66 @@ def test_sharded_langevin_in_a_world_of_one(mesh2d):
         got = s.sample(torch.Generator().manual_seed(2), x=shard_batch(x0, mesh2d), n_steps=10)
         assert tuple(got.placements) == batch_sharding(mesh2d, 2)
         torch.testing.assert_close(got.full_tensor(), want, rtol=0, atol=1e-6)
-    with pytest.raises(ValueError, match="return_diagnostics"):
-        s.sample(torch.Generator(), x=shard_batch(x0, mesh2d), n_steps=3, return_diagnostics=True)
+        got, diag = s.sample(torch.Generator().manual_seed(3), x=shard_batch(x0, mesh2d),
+                             n_steps=6, thin=2, return_diagnostics=True)
+        want, want_diag = s.sample(torch.Generator().manual_seed(3), x=x0, n_steps=6, thin=2,
+                                   return_diagnostics=True)
+        torch.testing.assert_close(got.full_tensor(), want, rtol=0, atol=1e-6)
+        assert sorted(diag) == sorted(want_diag) == ["energy", "mean", "var"]
+        for k, v in want_diag.items():
+            torch.testing.assert_close(diag[k], v, rtol=1e-6, atol=1e-6)
 
 
-def _refusals():
-    corr = tt.GaussianEnergy.create(torch.zeros(2), torch.eye(2))
-    mix = tt.GaussianMixtureEnergy.eight_gaussians()
-    g = torch.Generator
-    return {
-        "mala": lambda x: tt.MetropolisAdjustedLangevin(mix, step_size=0.05).sample(
-            g(), x=x, n_steps=2),
-        "hmc": lambda x: tt.HamiltonianMonteCarlo(mix, step_size=0.1, n_leapfrog_steps=2).sample(
-            g(), x=x, n_steps=2),
-        "pt": lambda x: tt.ParallelTemperingLangevin(mix, step_size=0.05).sample(
-            g(), x=x, n_steps=2),
-        "pt_run_replicas": lambda x: tt.ParallelTemperingLangevin(
-            mix, step_size=0.05, temperatures=(1.0, 2.0)).run_replicas(g(), x, 2),
-        "ais": lambda x: tt.annealed_importance_sampling(g(), mix, base=corr, n_samples=8,
-                                                         n_rungs=2, betas=x[:, 0]),
-        "nuts": lambda x: tt.NoUTurnSampler(corr, step_size=0.1).sample(g(), x=x, n_steps=2),
-        "rmhmc": lambda x: tt.RiemannianManifoldHMC(
-            corr, step_size=0.1, metric_fn=lambda y: torch.eye(2).expand(y.shape[0], 2, 2)
-        ).sample(g(), x=x, n_steps=2),
-        "gradient_descent": lambda x: tt.GradientDescentSampler(mix, step_size=0.05).sample(
-            g(), x=x, n_steps=2),
-        "doublewell_row": lambda x: tt.LangevinDynamics(
-            tt.DoubleWellEnergy(), step_size=0.01, fused="force").sample(g(), x=x, n_steps=2),
-    }
+def _assert_sampler(result, name):
+    """One sampler's :func:`torch_dist_worker.sampler_check`: every output
+    within 1e-6 of the unsharded call's, laid out as the input, every
+    statistic within 1e-6 relative, in each fused mode."""
+    assert "error" not in result, result.get("error")
+    modes = ("None",) if name in ("nuts", "rmhmc") else ("force", "off")
+    assert sorted(result) == sorted(modes)
+    for fused, r in result.items():
+        assert max(r["outputs"].values()) <= 1e-6, (fused, r["outputs"])
+        assert all(r["placements"].values()), (fused, r["placements"])
+        assert r["stat_keys"] and r["stats"], (fused, r["stats"])
+        assert max(r["stats"].values()) <= 1e-6, (fused, r["stats"])
 
 
-@pytest.mark.parametrize("name", sorted(_refusals()))
-def test_samplers_without_a_chain_offset_refuse_a_sharded_batch(mesh2d, name):
-    """Each would run every shard on one copy of the generator's stream: it
-    raises and names the queued chain offset (ROADMAP.md, queue 2, K8)."""
-    x = shard_batch(torch.randn(4, 2, generator=torch.Generator().manual_seed(0)), mesh2d)
-    if name == "pt_run_replicas":
-        x = shard_batch(torch.zeros(2, 4, 2), mesh2d)
-    with pytest.raises(ValueError, match="K8"):
-        _refusals()[name](x)
+@pytest.fixture(scope="module")
+def mesh1(mesh2d):
+    """A ``("data",) = (1,)`` CPU mesh over the world of one of :func:`mesh2d`."""
+    return make_mesh(("data",), devices="cpu")
+
+
+@pytest.mark.parametrize("name", worker.SAMPLERS)
+def test_sharded_sampler_equals_unsharded_in_a_world_of_one(mesh1, name):
+    """Each sampler on a DTensor batch of one shard (AIS on a replicated
+    schedule) gives the unsharded call's values and statistics, with
+    ``fused="force"`` and ``"off"``: the kernels' plain versions at chain
+    offset 0 and the loops' draws of the whole batch."""
+    _assert_sampler(worker.sampler_check(name, mesh1), name)
+
+
+@pytest.mark.parametrize("name", ["hmc", "nuts"])
+def test_sharded_warmup_in_a_world_of_one(mesh1, name):
+    r = worker.warmup_check(name, mesh1)
+    assert r["eps_rel"] <= 1e-6 and r["mass_rel"] <= 1e-6 and r["x"] <= 1e-6 and r["placements"]
+
+
+def test_parallel_tempering_cd_on_a_sharded_batch_in_a_world_of_one(mesh1):
+    _assert_ptcd(worker.ptcd_check(mesh1))
+
+
+def test_flow_sampler_refuses_a_sharded_batch(mesh1):
+    """The one sampler that does not shard: its adaptive integrators' error
+    control reduces over the batch."""
+    sampler = tt.FlowSampler(model=lambda x, t: -x, integrator="euler")
+    with pytest.raises(ValueError, match="sharded"):
+        sampler.sample(torch.Generator(), x=shard_batch(torch.zeros(4, 2), mesh1), n_steps=2)
+
+
+def _assert_ptcd(r):
+    assert r["loss"] <= 1e-6 and r["negatives"] <= 1e-6 and r["negatives_placements"]
+    assert max(r["energies"].values()) <= 1e-6 and r["grads"] <= 1e-5
 
 
 def test_a_sharded_checkpoint_needs_a_template(mesh2d, tmp_path):
@@ -443,3 +467,49 @@ def test_dcp_resume_is_bitwise_and_steps_again(worlds):
 def test_restore_or_init_resumes_a_sharded_run(worlds):
     for r in _check(worlds, "hsdp", "check_dcp"):
         assert r["restore_or_init_step"] == 1 and r["restore_or_init_params"] == 0.0
+
+
+@pytest.mark.parametrize("kind", sorted(WORLDS))
+@pytest.mark.parametrize("name", worker.SAMPLERS)
+def test_sharded_sampler_equals_unsharded_across_processes(worlds, kind, name):
+    """Each sampler on a batch sharded over every process of the world (2
+    and 4 shards; AIS split into as many blocks) gives the unsharded call's
+    values on every rank and its statistics on every rank; the shards ran
+    different rows."""
+    per_rank = [r[name] for r in _check(worlds, kind, "check_samplers")]
+    for r in per_rank:
+        _assert_sampler(r, name)
+    for fused in per_rank[0]:
+        sums = [r[fused]["local_sum"] for r in per_rank]
+        if sums[0] is not None:
+            assert len(set(sums)) == len(sums), (fused, sums)
+
+
+@pytest.mark.parametrize("kind", sorted(WORLDS))
+@pytest.mark.parametrize("name", ["hmc_warmup", "nuts_warmup"])
+def test_sharded_warmup_gives_one_step_size_across_processes(worlds, kind, name):
+    """Dual averaging fed the acceptance over every shard: every rank gets
+    the same step size and mass, within 1e-6 of the unsharded warmup's, and
+    its rows of the unsharded warmed states."""
+    per_rank = [r[name] for r in _check(worlds, kind, "check_sampler_extras")]
+    for r in per_rank:
+        assert "error" not in r, r.get("error")
+        assert r["eps_rel"] <= 1e-6 and r["mass_rel"] <= 1e-6 and r["x"] <= 1e-6
+        assert r["placements"]
+    assert len({r["eps"] for r in per_rank}) == 1
+    assert all(r["mass"] == per_rank[0]["mass"] for r in per_rank)
+
+
+@pytest.mark.parametrize("kind", sorted(WORLDS))
+def test_parallel_tempering_cd_on_a_sharded_batch_across_processes(worlds, kind):
+    for r in _check(worlds, kind, "check_sampler_extras"):
+        assert "error" not in r["ptcd"], r["ptcd"].get("error")
+        _assert_ptcd(r["ptcd"])
+
+
+@pytest.mark.parametrize("name", ["ais", "hmc"])
+def test_samplers_on_a_two_axis_mesh(worlds, name):
+    """AIS split over the four processes of the ``(2, 2)`` mesh, HMC on a
+    batch sharded over ``"data"`` and replicated over ``"fsdp"``."""
+    for r in _check(worlds, "hsdp", "check_mesh2d_samplers"):
+        _assert_sampler(r[name], name)

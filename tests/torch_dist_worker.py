@@ -8,8 +8,12 @@ unsharded computation that every process also runs on its own.
 with torchrun's environment (``MASTER_ADDR``, ``MASTER_PORT``,
 ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``): the world comes up through
 ``init_distributed()``. ``data`` is a 2-process ``("data",)`` world,
-``hsdp`` a 4-process ``("data", "fsdp") = (2, 2)`` one. Each check's result
-(or its traceback) goes to ``OUT_DIR/rank<r>.json``. Imports no JAX.
+``hsdp`` a 4-process ``("data", "fsdp") = (2, 2)`` one; each also runs
+the samplers' checks on a ``("data",)`` mesh over all its processes (2 and 4
+shards), AIS and HMC once more on the ``(2, 2)`` mesh. Each check's result
+(or its traceback) goes to ``OUT_DIR/rank<r>.json``. Imports no JAX; the
+samplers' checks also run in one process, on the world of one that
+``tests/test_torch_parallel.py`` brings up.
 
 Where CUDA is visible each process runs on card ``LOCAL_RANK`` over NCCL
 (the kernels launch where the CPU runs their plain versions), as under
@@ -119,6 +123,205 @@ def check_langevin(mesh) -> dict:
     s = tt.LangevinDynamics(e, step_size=0.01, fused_neural="force")
     out["neural"] = err(s.sample(G(4), x=shard_batch(x0, mesh), n_steps=10),
                         s.sample(G(4), x=x0, n_steps=10))
+    return out
+
+
+# ------------------------------------------------------------ the samplers
+
+
+N_SHARDED = 16  # chains of the samplers' checks: 16, 8 or 4 per shard
+
+
+def rel(a, b) -> float:
+    """``max |a - b|`` over ``max(1, max |b|)``."""
+    a = a.full_tensor() if is_dtensor(a) else torch.as_tensor(a)
+    b = b.full_tensor() if is_dtensor(b) else torch.as_tensor(b)
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def _on_rows(x, mesh, dim):
+    """``x`` split on ``dim`` over the mesh's first axis (replicated over
+    the others), or replicated (``dim`` None)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    if dim is None:
+        return replicate(x, mesh)
+    return distribute_tensor(x, mesh, [Shard(dim)] + [Replicate()] * (mesh.ndim - 1))
+
+
+def _corr():
+    return tt.GaussianEnergy.create(torch.zeros(2), torch.tensor([[1.0, 0.8], [0.8, 1.0]]))
+
+
+def _identity_metric(x):
+    return torch.eye(x.shape[-1], dtype=x.dtype, device=x.device).expand(x.shape[0], -1, -1)
+
+
+def _sampler_case(name):
+    """``(x0, row dim or None, fused modes, run)``: ``run(generator, x,
+    fused)`` returns ``({output: tensor}, {statistic: tensor})`` of the
+    sampler ``name`` on the batch ``x`` (plain or sharded)."""
+    mix = tt.GaussianMixtureEnergy.eight_gaussians()
+    g0 = G(60)
+    x0 = torch.randn(N_SHARDED, 2, generator=g0)
+    both = ("force", "off")
+
+    def chain(make, n_steps=6):
+        def run(g, x, fused):
+            s = make(fused)
+            outs = {"final": s.sample(g, x=x, n_steps=n_steps),
+                    "trajectory": s.sample(g, x=x, n_steps=n_steps, thin=2,
+                                           return_trajectory=True)}
+            last, diag = s.sample(g, x=x, n_steps=4, return_diagnostics=True)
+            outs["diagnosed"] = last
+            return outs, diag
+        return run
+
+    if name == "mala":
+        return x0, 0, both, chain(lambda f: tt.MetropolisAdjustedLangevin(
+            mix, step_size=0.05, fused=f))
+    if name == "hmc":
+        return x0, 0, both, chain(lambda f: tt.HamiltonianMonteCarlo(
+            mix, step_size=0.1, n_leapfrog_steps=3, fused=f))
+    if name == "pt":
+        return x0, 0, both, chain(lambda f: tt.ParallelTemperingLangevin(
+            mix, temperatures=(1.0, 2.0, 4.0), step_size=0.05, swap_every=2, fused=f))
+    if name == "gradient_descent":
+        return x0, 0, both, chain(lambda f: tt.GradientDescentSampler(
+            mix, step_size=0.05, fused=f))
+    if name == "doublewell_row":
+        return torch.randn(N_SHARDED, 3, generator=g0), 0, both, chain(
+            lambda f: tt.LangevinDynamics(tt.DoubleWellEnergy(), step_size=0.01, fused=f))
+    if name == "nuts":
+        return x0, 0, (None,), chain(lambda f: tt.NoUTurnSampler(
+            _corr(), step_size=0.3, max_tree_depth=4), n_steps=3)
+    if name == "rmhmc":
+        return x0, 0, (None,), chain(lambda f: tt.RiemannianManifoldHMC(
+            _corr(), metric_fn=_identity_metric, step_size=0.2, n_leapfrog_steps=3))
+    if name == "pt_run_replicas":
+        def run(g, x, fused):
+            s = tt.ParallelTemperingLangevin(mix, temperatures=(1.0, 2.0, 4.0), step_size=0.05,
+                                             swap_every=2, fused=fused)
+            ladder, acc = s.run_replicas(g, x, 6)
+            return {"ladder": ladder}, {"acceptance": acc}
+        return torch.randn(3, N_SHARDED, 2, generator=g0), 1, both, run
+    if name == "ais":
+        base = tt.GaussianEnergy.create(torch.zeros(2), 9.0 * torch.eye(2))
+
+        def run(g, betas, fused):
+            r = tt.annealed_importance_sampling(g, mix, base=base, n_samples=N_SHARDED,
+                                                step_size=0.05, betas=betas, fused=fused)
+            return ({"samples": r.samples, "log_weights": r.log_weights},
+                    {k: getattr(r, k) for k in ("log_z", "log_z_ratio", "ess",
+                                                "acceptance_rate")})
+        return torch.linspace(0.0, 1.0, 5), None, both, run
+    raise KeyError(name)
+
+
+SAMPLERS = ("ais", "doublewell_row", "gradient_descent", "hmc", "mala", "nuts", "pt",
+            "pt_run_replicas", "rmhmc")
+
+
+def sampler_check(name: str, mesh) -> dict:
+    """``{fused mode: result}`` of sampler ``name`` on a sharded batch
+    against the unsharded call from the same seed: each output's largest
+    difference and whether it kept the input's placements, each statistic's
+    relative difference, and this process's rows of the first output (so that
+    the test sees that the shards ran different rows)."""
+    x0, dim, modes, run = _sampler_case(name)
+    xs = _on_rows(x0, mesh, dim)
+    out = {}
+    for fused in modes:
+        got, got_stats = run(G(61), xs, fused)
+        want, want_stats = run(G(61), x0, fused)
+        first = next(iter(got.values()))
+        out[str(fused)] = {
+            "outputs": {k: err(v, want[k]) for k, v in got.items()},
+            "placements": {k: (not is_dtensor(v) and dim is None)
+                           or placements(v) == placements(xs) for k, v in got.items()},
+            "stats": {k: rel(v, want_stats[k]) for k, v in got_stats.items()},
+            "stat_keys": sorted(got_stats) == sorted(want_stats),
+            "local_sum": float(first.to_local().sum()) if is_dtensor(first) else None,
+        }
+    return out
+
+
+def check_samplers(mesh) -> dict:
+    """:func:`sampler_check` of every sampler, each failing on its own."""
+    out = {}
+    for name in SAMPLERS:
+        try:
+            out[name] = sampler_check(name, mesh)
+        except Exception:  # recorded: that sampler's test fails with the traceback
+            out[name] = {"error": traceback.format_exc()}
+    return out
+
+
+def warmup_check(name: str, mesh) -> dict:
+    """HMC's or NUTS's warmup with a diagonal mass on a sharded batch
+    against the unsharded one: the step size (a float, the same on every
+    process), the mass and the warmed states."""
+    s = (tt.HamiltonianMonteCarlo(_corr(), step_size=0.1, n_leapfrog_steps=3) if name == "hmc"
+         else tt.NoUTurnSampler(_corr(), step_size=0.3, max_tree_depth=4))
+    x0 = torch.randn(N_SHARDED, 2, generator=G(62))
+    xs, eps, mass = s.warmup(G(63), x=shard_batch(x0, mesh), n_warmup=8, adapt_mass=True)
+    x_ref, eps_ref, mass_ref = s.warmup(G(63), x=x0, n_warmup=8, adapt_mass=True)
+    return {"eps": eps, "eps_rel": abs(eps - eps_ref) / eps_ref, "mass": mass.tolist(),
+            "mass_rel": rel(mass, mass_ref), "x": err(xs, x_ref),
+            "placements": placements(xs) == placements(shard_batch(x0, mesh))}
+
+
+def ptcd_check(mesh) -> dict:
+    """A ParallelTemperingCD loss on a sharded batch against the unsharded
+    one: value, energies, negatives and the gradient (the mean of the
+    processes' gradients, as FSDP2 and the trainer take it)."""
+    from torchebm_tpu_torch.parallel import psum_mean
+
+    torch.manual_seed(0)
+    net = tt.MLPEnergy(2, (16, 16))
+    e = tt.core.as_energy(net)
+    loss = tt.ParallelTemperingCD(model=e, sampler=tt.ParallelTemperingLangevin(
+        e, temperatures=(1.0, 2.0, 4.0), step_size=0.01, swap_every=2), k_steps=4)
+    x = torch.randn(N_SHARDED, 2, generator=G(64))
+    out = {}
+    for label, batch in (("sharded", shard_batch(x, mesh)), ("unsharded", x)):
+        net.zero_grad()
+        value, (neg, _), energies = loss.loss_and_energies(None, batch, G(65))
+        value.backward()
+        grads = [p.grad.detach().clone() for p in net.parameters()]
+        if label == "sharded":
+            grads = [psum_mean(gr, "data", mesh=mesh) for gr in grads]
+        out[label] = (value.detach(), neg, energies, grads)
+    (v, n, e_, g), (v0, n0, e0, g0) = out["sharded"], out["unsharded"]
+    return {"loss": rel(v, v0), "negatives": err(n, n0),
+            "negatives_placements": placements(n) == placements(shard_batch(x, mesh)),
+            "energies": {k: rel(e_[k], e0[k]) for k in e0},
+            "grads": max(rel(a, b) for a, b in zip(g, g0))}
+
+
+def check_sampler_extras(mesh) -> dict:
+    """The warmups and the ParallelTemperingCD loss, each failing on its own."""
+    out = {}
+    for name, fn in (("hmc_warmup", functools.partial(warmup_check, "hmc")),
+                     ("nuts_warmup", functools.partial(warmup_check, "nuts")),
+                     ("ptcd", ptcd_check)):
+        try:
+            out[name] = fn(mesh)
+        except Exception:
+            out[name] = {"error": traceback.format_exc()}
+    return out
+
+
+def check_mesh2d_samplers(mesh) -> dict:
+    """AIS split over the four processes of the ``(2, 2)`` mesh, and HMC on
+    a batch sharded over ``"data"`` and replicated over ``"fsdp"``, each
+    failing on its own."""
+    out = {}
+    for name in ("ais", "hmc"):
+        try:
+            out[name] = sampler_check(name, mesh)
+        except Exception:
+            out[name] = {"error": traceback.format_exc()}
     return out
 
 
@@ -380,18 +583,22 @@ def main() -> None:
     results = {"init": {"rank": rank, "world": world, "again": list(init_distributed()),
                         "backend": dist.get_backend(), "device": str(DEV)}}
     torch.set_default_device(DEV)  # the checks' tensors and models
+    flat = make_mesh(("data",), devices=DEV.type)  # every process on the chains' axis
     if kind == "data":
-        mesh = make_mesh(("data",), devices=DEV.type)
+        mesh = flat
         checks = (check_shim, check_langevin, check_diagnostics, check_buffer, check_sinkhorn)
     else:
         mesh = make_mesh(("data", "fsdp"), (2, 2), devices=DEV.type)
         checks = (check_fsdp_placements, check_fsdp_local_batches, check_hsdp_cd, check_dit,
-                  functools.partial(check_dcp, ckpt=os.path.join(out_dir, "ckpt")))
+                  functools.partial(check_dcp, ckpt=os.path.join(out_dir, "ckpt")),
+                  check_mesh2d_samplers)
+    runs = [(check, mesh) for check in checks] + [(check_samplers, flat),
+                                                  (check_sampler_extras, flat)]
     results["mesh"] = {"shape": list(mesh.shape), "names": list(mesh.mesh_dim_names)}
-    for check in checks:
+    for check, on in runs:
         name = getattr(check, "__name__", None) or check.func.__name__
         try:
-            results[name] = check(mesh)
+            results[name] = check(on)
         except Exception:  # recorded: the test of this check fails with the traceback
             results[name] = {"error": traceback.format_exc()}
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:

@@ -20,9 +20,9 @@ metrics.
 A batch sharded on its rows (``x`` a DTensor, from
 :func:`~torchebm_tpu_torch.parallel.shard_batch`) runs on each process's
 rows: the chains start there and run on the unsharded call's streams
-(:class:`~torchebm_tpu_torch.samplers.LangevinDynamics` takes the sharded
-starts), the energies of the local rows and negatives make the loss, and a
-sharded PCD buffer is read and written in its local rows only (the pointer
+(the sampler takes the sharded starts; :class:`ParallelTemperingCD`'s ladder
+is sharded on its chain axis for ``run_replicas``), the energies of the
+local rows and negatives make the loss, and a sharded PCD buffer is read and written in its local rows only (the pointer
 counts local rows). The loss's value and the logged energies are the whole
 batch's (a sum all-reduce); its gradient is the local rows' mean scaled by
 the shard's share, so that the mean over processes that FSDP2 takes, and the
@@ -46,7 +46,7 @@ import torch
 from ..core.energies import Energy
 from ..core.module import warn_once
 from ..parallel.mesh import is_dtensor, like_rows, row_shard, row_shards, sum_over_rows
-from ..samplers.base import BaseSampler, _refuse_sharded
+from ..samplers.base import BaseSampler
 from .base import BaseLoss, inject_params
 
 Tensor = torch.Tensor
@@ -255,14 +255,23 @@ class ContrastiveDivergence(BaseLoss):
         if self.persistent and buffer is not None:
             # the local rows are the DTensor's own storage: the ring write lands in it
             new_buffer = ReplayBuffer(samples=buffer.samples, ptr=local_buffer.push(neg_local).ptr)
-        loss, energies = _cd_loss(model, x_local, neg_local, generator, mk, self.add_noise_to_real,
-                                  self.noise_scale, self.energy_reg_weight, rows=(start, n))
-        b = x_local.shape[0]
-        share = b * row_shards(x) / n
-        whole = sum_over_rows(loss.detach() * b, x) / n
-        loss = loss * share + (whole - loss.detach() * share)
-        energies = {k: sum_over_rows(v * b, x) / n for k, v in energies.items()}
+        loss, energies = _pooled_loss(
+            *_cd_loss(model, x_local, neg_local, generator, mk, self.add_noise_to_real,
+                      self.noise_scale, self.energy_reg_weight, rows=(start, n)), x)
         return loss, (negatives, new_buffer), energies
+
+
+def _pooled_loss(loss: Tensor, energies: Dict[str, Tensor], x) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """The loss and mean energies of a batch sharded on its rows (``x``, a
+    DTensor) from those of this process's rows: the value is the mean over
+    every row, and the gradient this process's share of it (the trainer sums
+    the gradients over the shards)."""
+    n = x.shape[0]
+    b = x.to_local().shape[0]
+    share = b * row_shards(x) / n
+    whole = sum_over_rows(loss.detach() * b, x) / n
+    loss = loss * share + (whole - loss.detach() * share)
+    return loss, {k: sum_over_rows(v * b, x) / n for k, v in energies.items()}
 
 
 def PersistentContrastiveDivergence(*args, **kwargs) -> ContrastiveDivergence:
@@ -359,12 +368,13 @@ class ParallelTemperingCD(BaseLoss):
                           model_kwargs: Optional[Dict[str, Any]] = None):
         """:meth:`__call__`'s result and the loss's mean energies, detached,
         as :meth:`ContrastiveDivergence.loss_and_energies` gives them."""
-        _refuse_sharded("ParallelTemperingCD", x)
         mk = model_kwargs or {}
         model = self._model(params)
         sampler = self.sampler
         if params is not None:
             sampler = sampler.replace(model=inject_params(sampler.model, params))
+        if is_dtensor(x):
+            return self._sharded_loss(model, sampler, x, generator, buffer, mk)
         starts = self._start_ladder(x, buffer, generator)
         with torch.no_grad():
             ladder, _ = sampler.run_replicas(generator, starts, self.k_steps, model_kwargs=mk)
@@ -374,3 +384,30 @@ class ParallelTemperingCD(BaseLoss):
         loss, energies = _cd_loss(model, x, negatives, generator, mk, self.add_noise_to_real,
                                   self.noise_scale, self.energy_reg_weight)
         return loss, (negatives, new_buffer), energies
+
+    def _sharded_loss(self, model, sampler, x, generator, buffer, mk):
+        """:meth:`loss_and_energies` on a batch sharded on its rows, as
+        :meth:`ContrastiveDivergence._sharded_loss` does it: the start ladder
+        of the local rows sharded on its chain axis through ``run_replicas``,
+        the negatives (the cold chain) a DTensor like ``x``, a sharded buffer
+        written in its local rows."""
+        x_local, start, n = row_shard(x)
+        local_buffer = None
+        if buffer is not None:
+            samples = buffer.samples.to_local() if is_dtensor(buffer.samples) else buffer.samples
+            local_buffer = ReplayBuffer(samples=samples, ptr=buffer.ptr)
+        starts = self._start_ladder(x_local, local_buffer, generator)
+        with torch.no_grad():
+            ladder, _ = sampler.run_replicas(generator, like_rows(starts, x, dim=1),
+                                             self.k_steps, model_kwargs=mk)
+        ladder = ladder.to_local()
+        neg_local = ladder[0]
+        new_buffer = None
+        if self.persistent and buffer is not None:
+            # the local rows are the DTensor's own storage: the ring write lands in it
+            new_buffer = ReplayBuffer(samples=buffer.samples,
+                                      ptr=local_buffer.push(ladder.movedim(0, 1)).ptr)
+        loss, energies = _pooled_loss(
+            *_cd_loss(model, x_local, neg_local, generator, mk, self.add_noise_to_real,
+                      self.noise_scale, self.energy_reg_weight, rows=(start, n)), x)
+        return loss, (like_rows(neg_local, x), new_buffer), energies

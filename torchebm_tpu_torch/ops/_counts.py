@@ -29,10 +29,13 @@ lane). MALA's and AIS's bounds at their main shapes (the ring, the ESS
 protocol's 2-D Gaussian, the AIS path's Gaussians) are set by their two
 Philox blocks per step (INT32). The double-well chain needs one normal per
 element-step: a quarter of a Philox block, and its kernel draws one block
-per four steps of an element and uses all four normals. The mixture and
-neural chains' ``chain_offset`` (a sharded batch's first row) is one 64-bit
-add per chain (per tile for the neural chain) outside the step loop, and is
-not counted.
+per four steps of an element and uses all four normals. Every chain
+kernel's ``chain_offset`` (a sharded batch's first row; the double well's
+first element) is one add per chain (per element for the double well, per
+tile for the neural chain; the MALA, HMC and AIS launchers move the
+per-chain pointers back on the host) outside the step loop, and the
+ladder's index ``r·total_chains + c + chain_offset`` one 64-bit
+multiply-add per replica there: none is counted.
 
 :data:`COUNTED_SOURCES` holds the SHA-256 prefix of each source the counts
 were last checked against; a test fails when a source changes, so that an
@@ -45,15 +48,15 @@ __all__ = ["COUNTED_SOURCES", "work"]
 
 #: ``{file under csrc/: sha256 hexdigest[:16]}`` of the sources counted here
 COUNTED_SOURCES = {
-    "fused_ais.cu": "37a6a4cfaa0bb996",
-    "fused_hmc.cu": "72f93febded56462",
-    "fused_langevin.cu": "1866f3f643f9e33e",
-    "fused_mala.cu": "cc395518a0c9ea11",
+    "fused_ais.cu": "a7cacd3f918b0ea8",
+    "fused_hmc.cu": "7828e20ad5034c76",
+    "fused_langevin.cu": "325cefba2cc4636e",
+    "fused_mala.cu": "87808bd546e0a5a9",
     "fused_mlp_langevin.cu": "888d1218c33b7485",
-    "fused_pt.cu": "cc295bb989eccc55",
+    "fused_pt.cu": "b71c6dbdd6dfca51",
     "fused_sinkhorn.cu": "dcc7fb5e563b09c8",
     "fused_step.cu": "45698a16da6ceaad",
-    "tebm_common.cuh": "c0420294bd37e508",
+    "tebm_common.cuh": "678eb63445f8b37b",
 }
 
 # tebm_common.cuh: normals4 (one Philox4x32-10 block, two Box-Muller

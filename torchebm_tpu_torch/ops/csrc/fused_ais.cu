@@ -69,6 +69,13 @@
 // branch on the data or on i < d. The Philox key is (seed_lo, seed_hi), or
 // the two words of the int64 the `seed` pointer holds on the device (no host
 // read of a device seed).
+// The chain's index is its row plus `chain_offset`, formed once before the
+// loop: a launch over rows [a, b) of a batch with chain_offset = a (one
+// rank's shard) draws what those rows draw in the launch over the whole
+// batch. The launcher moves the per-chain arrays back by chain_offset rows
+// (rows_back), so that one index serves the memory and the Philox counter
+// and the step loop is the unsharded kernel's; an index of its own beside
+// the row (two more registers) cost the chain kernels up to 5% on an H100.
 //
 // The beta table stays in device memory, so an anneal of any length runs in
 // one launch; the next rung's beta is loaded a whole rung before its use.
@@ -112,7 +119,7 @@ __global__ void __launch_bounds__(kAisThreads) ais_kernel(
     const float* __restrict__ betas, const float* __restrict__ noise,
     const float* __restrict__ uniforms, const long long* __restrict__ seed, int n, int d, int k,
     int n_rungs, int n_transitions, float inv_var0, float inv_var, float eta, float noise_coef,
-    float four_eta, float log_norm_t, uint32_t seed_lo, uint32_t seed_hi) {
+    float four_eta, float log_norm_t, uint32_t seed_lo, uint32_t seed_hi, int chain_offset) {
   __shared__ float s_a[kMaxParams];
   __shared__ float s_b[kMaxParams];
   // the base mean and a one-component target's mean, zero past d
@@ -128,8 +135,13 @@ __global__ void __launch_bounds__(kAisThreads) ais_kernel(
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if ((lane & ~31) / G >= n) return;
   const int r = threadIdx.x & (G - 1);
-  const int c = lane / G;
-  const bool live = c < n;
+  // the chain's row in the whole batch of which this launch may hold a
+  // shard: its Philox index, and its row of the per-chain arrays, which the
+  // launcher moves back by chain_offset rows (rows_back); unsigned, so that
+  // the compiler knows the counter's high word and the rows' offsets in
+  // memory need no sign
+  const uint32_t c = (uint32_t)(lane / G) + (uint32_t)chain_offset;
+  const bool live = c < (uint32_t)n + (uint32_t)chain_offset;
   if (seed != nullptr) {
     const unsigned long long v = (unsigned long long)__ldg(seed);
     seed_lo = (uint32_t)v;
@@ -329,23 +341,31 @@ extern "C" {
 // ops/fused_ais.py::ais_launch_plan: G = group lanes per chain, picked among
 // the instances built here, and the bucket DMAX >= d. `seed` is a device
 // int64 whose two words key the Philox stream, or null for (seed_lo,
-// seed_hi).
+// seed_hi); `chain_offset` is added to every chain's Philox index (a shard's
+// first row).
 int tebm_mixture_ais_run(const float* x0, float* out, float* logw, float* accept,
                          const float* base_mean, const float* params_a, const float* params_b,
                          const float* betas, const float* noise, const float* uniforms,
                          const long long* seed, int n, int d, int k, int gaussian, int n_rungs,
                          int n_transitions, float inv_var0, float inv_var, float eta,
                          float noise_coef, float four_eta, float log_norm_t, uint32_t seed_lo,
-                         uint32_t seed_hi, int group, int threads, int blocks, void* stream) {
+                         uint32_t seed_hi, int chain_offset, int group, int threads,
+                         int blocks, void* stream) {
   if (threads < 32 || threads > kAisThreads || threads % 32 != 0 || blocks < 1 ||
       (long long)blocks * threads < (long long)n * group)
     return (int)cudaErrorInvalidValue;
+  x0 = rows_back(x0, chain_offset, d);
+  out = rows_back(out, chain_offset, d);
+  logw = rows_back(logw, chain_offset, 1);
+  accept = rows_back(accept, chain_offset, 1);
+  noise = rows_back(noise, chain_offset, d);
+  uniforms = rows_back(uniforms, chain_offset, 1);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TEBM_LAUNCH(DM, GS, G, NJ)                                                             \
   ais_kernel<DM, GS, G, NJ><<<blocks, threads, 0, s>>>(                                        \
       x0, out, logw, accept, base_mean, params_a, params_b, betas, noise, uniforms, seed, n, d, \
       k, n_rungs, n_transitions, inv_var0, inv_var, eta, noise_coef, four_eta, log_norm_t,     \
-      seed_lo, seed_hi)
+      seed_lo, seed_hi, chain_offset)
   TEBM_DISPATCH_GROUPS(TEBM_LAUNCH);
 #undef TEBM_LAUNCH
 }

@@ -24,7 +24,9 @@
 // rank's shard of a sharded batch) draws what those rows draw in the launch
 // over the whole batch. The
 // double-well chain's is (element lo, step / 4, 0, element hi), one block per
-// four steps. Passing `noise` (n_steps, n, d) replaces the generator with
+// four steps, the element's index numbered from `chain_offset` in the same
+// way (a row shard of the state passes its first row times the elements per
+// row). Passing `noise` (n_steps, n, d) replaces the generator with
 // injected normals, as in the JAX signatures.
 
 #include "tebm_common.cuh"
@@ -228,9 +230,12 @@ __global__ void __launch_bounds__(kThreads) doublewell_chain_kernel(
     const float* __restrict__ sched, const float* __restrict__ noise,
     const long long* __restrict__ seed, long long n, int n_steps, int thin, float coef,
     float b2, float eta, float nc, int use_clamp, float lo, float hi, uint32_t seed_lo,
-    uint32_t seed_hi) {
+    uint32_t seed_hi, unsigned long long chain_offset) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
+  // the element's Philox index: its place in the whole state of which this
+  // launch may hold a shard
+  const uint64_t pe = (uint64_t)e + chain_offset;
   if (seed != nullptr) {
     const unsigned long long v = (unsigned long long)__ldg(seed);
     seed_lo = (uint32_t)v;
@@ -257,12 +262,12 @@ __global__ void __launch_bounds__(kThreads) doublewell_chain_kernel(
     for (int t = 0; t < n_steps; ++t, zp += n) step(t, *zp);
   } else {
     float z[4], zn[4];
-    normals4((uint64_t)e, 0, 0, seed_lo, seed_hi, z);
+    normals4(pe, 0, 0, seed_lo, seed_hi, z);
     const int quads = n_steps >> 2;
     int t = 0;
     for (int m = 0; m < quads; ++m, t += 4) {
       // the next quad's normals, ahead of this quad's updates
-      normals4((uint64_t)e, m + 1, 0, seed_lo, seed_hi, zn);
+      normals4(pe, m + 1, 0, seed_lo, seed_hi, zn);
 #pragma unroll
       for (int q = 0; q < 4; ++q) step(t + q, z[q]);
 #pragma unroll
@@ -334,11 +339,12 @@ template <bool TRAJ>
 int launch_doublewell(const float* x0, float* out, float* traj, const float* sched,
                       const float* noise, const long long* seed, long long n, int n_steps,
                       int thin, float coef, float b2, float eta, float nc, int use_clamp,
-                      float lo, float hi, uint32_t seed_lo, uint32_t seed_hi, void* stream) {
+                      float lo, float hi, uint32_t seed_lo, uint32_t seed_hi,
+                      unsigned long long chain_offset, void* stream) {
   const dim3 grid((unsigned)((n + kThreads - 1) / kThreads));
   doublewell_chain_kernel<TRAJ><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       x0, out, traj, sched, noise, seed, n, n_steps, thin, coef, b2, eta, nc, use_clamp, lo, hi,
-      seed_lo, seed_hi);
+      seed_lo, seed_hi, chain_offset);
   return (int)cudaGetLastError();
 }
 
@@ -374,9 +380,10 @@ int tebm_doublewell_langevin_chain(const float* x0, float* out, const float* sch
                                    const float* noise, const long long* seed, long long n,
                                    int n_steps, float coef, float b2, float eta, float nc,
                                    int use_clamp, float lo, float hi, uint32_t seed_lo,
-                                   uint32_t seed_hi, void* stream) {
+                                   uint32_t seed_hi, long long chain_offset, void* stream) {
   return launch_doublewell<false>(x0, out, nullptr, sched, noise, seed, n, n_steps, 1, coef, b2,
-                                  eta, nc, use_clamp, lo, hi, seed_lo, seed_hi, stream);
+                                  eta, nc, use_clamp, lo, hi, seed_lo, seed_hi,
+                                  (unsigned long long)chain_offset, stream);
 }
 
 int tebm_doublewell_langevin_chain_trajectory(const float* x0, float* out, float* traj,
@@ -384,9 +391,11 @@ int tebm_doublewell_langevin_chain_trajectory(const float* x0, float* out, float
                                               const long long* seed, long long n, int n_steps,
                                               int thin, float coef, float b2, float eta, float nc,
                                               int use_clamp, float lo, float hi,
-                                              uint32_t seed_lo, uint32_t seed_hi, void* stream) {
+                                              uint32_t seed_lo, uint32_t seed_hi,
+                                              long long chain_offset, void* stream) {
   return launch_doublewell<true>(x0, out, traj, sched, noise, seed, n, n_steps, thin, coef, b2,
-                                 eta, nc, use_clamp, lo, hi, seed_lo, seed_hi, stream);
+                                 eta, nc, use_clamp, lo, hi, seed_lo, seed_hi,
+                                 (unsigned long long)chain_offset, stream);
 }
 
 const char* tebm_error_string(int code) {

@@ -53,6 +53,13 @@
 // whichever lane draws (normals (chain lo, step, j, chain hi), the uniform at
 // block 0xFFFFFFFF), so the stream is the plain version's. No shuffle sits
 // inside a branch on the data or on i < d.
+// The chain's index is its row plus `chain_offset`, formed once before the
+// loop: a launch over rows [a, b) of a batch with chain_offset = a (one
+// rank's shard) draws what those rows draw in the launch over the whole
+// batch. The launcher moves the per-chain arrays back by chain_offset rows
+// (rows_back), so that one index serves the memory and the Philox counter
+// and the step loop is the unsharded kernel's; an index of its own beside
+// the row (two more registers) cost the chain kernels up to 5% on an H100.
 //
 // Written out in the kernel rather than through helper structs shared with
 // fused_hmc.cu: with the target and the randomness held in such structs both
@@ -80,7 +87,7 @@ __global__ void __launch_bounds__(kMalaThreads) mala_chain_kernel(
     const float* __restrict__ params_b, const float* __restrict__ noise,
     const float* __restrict__ uniforms, int n, int d, int k, int n_steps, int thin,
     float inv_var, float eta, float noise_coef, float four_eta, uint32_t seed_lo,
-    uint32_t seed_hi) {
+    uint32_t seed_hi, int chain_offset) {
   __shared__ float s_a[kMaxParams];
   __shared__ float s_b[kMaxParams];
   stage_target<GAUSS>(s_a, s_b, params_a, params_b, d, k);
@@ -89,8 +96,13 @@ __global__ void __launch_bounds__(kMalaThreads) mala_chain_kernel(
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if ((lane & ~31) / G >= n) return;
   const int r = threadIdx.x & (G - 1);
-  const int c = lane / G;
-  const bool live = c < n;
+  // the chain's row in the whole batch of which this launch may hold a
+  // shard: its Philox index, and its row of the per-chain arrays, which the
+  // launcher moves back by chain_offset rows (rows_back); unsigned, so that
+  // the compiler knows the counter's high word and the rows' offsets in
+  // memory need no sign
+  const uint32_t c = (uint32_t)(lane / G) + (uint32_t)chain_offset;
+  const bool live = c < (uint32_t)n + (uint32_t)chain_offset;
 
   GroupComponents<DMAX, G, NJ> comps;
   if constexpr (!GAUSS && G > 1) comps.load(s_a, s_b, d, k);
@@ -225,8 +237,8 @@ template <bool TRAJ>
 int launch_mala(const float* x0, float* out, float* accept, float* traj, const float* params_a,
                 const float* params_b, const float* noise, const float* uniforms, int n, int d,
                 int k, int gaussian, int n_steps, int thin, float inv_var, float eta,
-                float noise_coef, float four_eta, uint32_t seed_lo, uint32_t seed_hi, int group,
-                int threads, int blocks, void* stream) {
+                float noise_coef, float four_eta, uint32_t seed_lo, uint32_t seed_hi,
+                int chain_offset, int group, int threads, int blocks, void* stream) {
   if (threads < 32 || threads > kMalaThreads || threads % 32 != 0 || blocks < 1 ||
       (long long)blocks * threads < (long long)n * group)
     return (int)cudaErrorInvalidValue;
@@ -234,7 +246,7 @@ int launch_mala(const float* x0, float* out, float* accept, float* traj, const f
 #define TEBM_LAUNCH(DM, GS, G, NJ)                                                            \
   mala_chain_kernel<DM, GS, TRAJ, G, NJ><<<blocks, threads, 0, s>>>(                          \
       x0, out, accept, traj, params_a, params_b, noise, uniforms, n, d, k, n_steps, thin,    \
-      inv_var, eta, noise_coef, four_eta, seed_lo, seed_hi)
+      inv_var, eta, noise_coef, four_eta, seed_lo, seed_hi, chain_offset)
   TEBM_DISPATCH_GROUPS(TEBM_LAUNCH);
 #undef TEBM_LAUNCH
 }
@@ -244,19 +256,28 @@ int launch_mala(const float* x0, float* out, float* accept, float* traj, const f
 extern "C" {
 
 // `traj` null: the chain kernel; otherwise the trajectory kernel at `thin`.
+// `chain_offset` is added to every chain's Philox index (a shard's first row).
 int tebm_mixture_mala_chain(const float* x0, float* out, float* accept, float* traj,
                             const float* params_a, const float* params_b, const float* noise,
                             const float* uniforms, int n, int d, int k, int gaussian,
                             int n_steps, int thin, float inv_var, float eta, float noise_coef,
-                            float four_eta, uint32_t seed_lo, uint32_t seed_hi, int group,
-                            int threads, int blocks, void* stream) {
+                            float four_eta, uint32_t seed_lo, uint32_t seed_hi,
+                            int chain_offset, int group, int threads, int blocks,
+                            void* stream) {
+  const int off = chain_offset;
+  x0 = rows_back(x0, off, d);
+  out = rows_back(out, off, d);
+  accept = rows_back(accept, off, 1);
+  traj = rows_back(traj, off, d);
+  noise = rows_back(noise, off, d);
+  uniforms = rows_back(uniforms, off, 1);
   if (traj == nullptr)
     return launch_mala<false>(x0, out, accept, traj, params_a, params_b, noise, uniforms, n, d,
                               k, gaussian, n_steps, 1, inv_var, eta, noise_coef, four_eta,
-                              seed_lo, seed_hi, group, threads, blocks, stream);
+                              seed_lo, seed_hi, off, group, threads, blocks, stream);
   return launch_mala<true>(x0, out, accept, traj, params_a, params_b, noise, uniforms, n, d, k,
                            gaussian, n_steps, thin, inv_var, eta, noise_coef, four_eta, seed_lo,
-                           seed_hi, group, threads, blocks, stream);
+                           seed_hi, off, group, threads, blocks, stream);
 }
 
 }  // extern "C"

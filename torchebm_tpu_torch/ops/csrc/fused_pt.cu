@@ -68,8 +68,12 @@
 // Injected `noise` (n_steps, R, n, d) and `swap_u` (n_sweeps, R - 1, n) are
 // loaded lane-wise the same way. The counters are the plain version's,
 // whichever lane draws: normals of replica r, chain c, step t at
-// (r n + c, t, j), the exchange uniform of pair r, chain c, sweep s at
-// (r n + c, s, 0xFFFFFFFF) (tebm_common.cuh).
+// (r N + c, t, j), the exchange uniform of pair r, chain c, sweep s at
+// (r N + c, s, 0xFFFFFFFF) (tebm_common.cuh), with N the chain count of the
+// whole batch and c numbered in it: a launch over chains [a, b) of a batch
+// of N (one rank's shard) passes chain_stride = N and chain_offset = a, and
+// draws what those chains draw in the launch over the whole batch (N = n,
+// offset 0). The index is formed once per thread, outside the step loop.
 //
 // Ragged edges: a warp whose chains all lie past the last one leaves after
 // staging; in the last live warp the chains past n, and in every chain the
@@ -93,14 +97,18 @@ constexpr unsigned kFullMask = 0xFFFFFFFFu;
 constexpr int kMaxReplicas = 32;
 constexpr int kPtThreads = 128;  // the largest block the launch plan gives
 
+// At d <= 2 (the main paths' bucket) the ladder asks for 8 resident blocks
+// per SM, at most 64 registers: by default ptxas took 48 there and spilled
+// once the Philox index and the ladder row were both held through the loop.
 template <int DMAX, bool GAUSS, bool TRAJ, int G, int NJ>
-__global__ void __launch_bounds__(kPtThreads) pt_chain_kernel(
+__global__ void __launch_bounds__(kPtThreads, DMAX <= 2 ? 8 : 1) pt_chain_kernel(
     const float* __restrict__ x0, float* __restrict__ out, float* __restrict__ accept,
     float* __restrict__ traj, const float* __restrict__ params_a,
     const float* __restrict__ params_b, const float* __restrict__ ladder,
     const float* __restrict__ noise, const float* __restrict__ swap_u, int n, int d, int k,
     int n_rep, int width, int n_steps, int swap_every, int thin, float inv_var,
-    float noise_coef, int use_clamp, float lo, float hi, uint32_t seed_lo, uint32_t seed_hi) {
+    float noise_coef, int use_clamp, float lo, float hi, uint32_t seed_lo, uint32_t seed_hi,
+    unsigned long long chain_stride, unsigned long long chain_offset) {
   __shared__ float s_a[kMaxParams];
   __shared__ float s_b[kMaxParams];
   stage_target<GAUSS>(s_a, s_b, params_a, params_b, d, k);
@@ -115,8 +123,11 @@ __global__ void __launch_bounds__(kPtThreads) pt_chain_kernel(
   const bool pair = live && r + 1 < n_rep;  // replica r is the lower of a pair
   const float hb = live ? ladder[r] : 0.0f;
   const float db = pair ? ladder[n_rep + r] : 0.0f;
-  // Philox index of (replica, chain), and its row of the (R, n, d) ladder
+  // the row of (replica, chain) in the (R, n, d) ladder, and its Philox
+  // index in the whole batch of which this launch may hold a shard: replica
+  // r's chains are numbered from r * chain_stride, chain c from chain_offset
   const uint64_t row = (uint64_t)r * n + c;
+  const uint64_t prow = (uint64_t)r * chain_stride + c + chain_offset;
 
   GroupComponents<DMAX, G, NJ> comps;
   if constexpr (!GAUSS && G > 1) comps.load(s_a, s_b, d, k);
@@ -169,7 +180,7 @@ __global__ void __launch_bounds__(kPtThreads) pt_chain_kernel(
             z[e] = live && 4 * b + e < d
                        ? noise[(((size_t)t * n_rep + r) * n + c) * d + 4 * b + e] : 0.0f;
         } else {
-          normals4(row, t, b, seed_lo, seed_hi, z);
+          normals4(prow, t, b, seed_lo, seed_hi, z);
         }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -187,12 +198,12 @@ __global__ void __launch_bounds__(kPtThreads) pt_chain_kernel(
           zl[b] = live && i < d ? noise[(((size_t)t * n_rep + r) * n + c) * d + i] : 0.0f;
         }
       } else if constexpr (kBlocks == 1) {
-        if (s == 0) normals4(row, t + j, 0, seed_lo, seed_hi, zs);
+        if (s == 0) normals4(prow, t + j, 0, seed_lo, seed_hi, zs);
       } else {
 #pragma unroll
         for (int b = 0; b < kDraws; ++b) {
           const int jb = j + G * b;
-          if (4 * jb < d) normals4(row, t, jb, seed_lo, seed_hi, zq[b]);
+          if (4 * jb < d) normals4(prow, t, jb, seed_lo, seed_hi, zq[b]);
         }
       }
       // every coordinate's normal from the lane that holds it, with no
@@ -215,7 +226,7 @@ __global__ void __launch_bounds__(kPtThreads) pt_chain_kernel(
         if (inj)
           us = pair && sa < n_sweeps ? swap_u[((size_t)sa * (n_rep - 1) + r) * n + c] : 0.0f;
         else
-          us = uniform01(row, sa, seed_lo, seed_hi);
+          us = uniform01(prow, sa, seed_lo, seed_hi);
       }
       const float u = group_bcast<G>(us, ss);
       const int phase = n_rep > 2 ? (sweep & 1) : 0;
@@ -276,8 +287,9 @@ int launch_pt(const float* x0, float* out, float* accept, float* traj, const flo
               const float* params_b, const float* ladder, const float* noise,
               const float* swap_u, int n, int d, int k, int gaussian, int n_rep, int n_steps,
               int swap_every, int thin, float inv_var, float noise_coef, int use_clamp,
-              float lo, float hi, uint32_t seed_lo, uint32_t seed_hi, int group, int threads,
-              int blocks, void* stream) {
+              float lo, float hi, uint32_t seed_lo, uint32_t seed_hi,
+              unsigned long long chain_stride, unsigned long long chain_offset, int group,
+              int threads, int blocks, void* stream) {
   if (n_rep < 2 || n_rep > kMaxReplicas || group < 1) return (int)cudaErrorInvalidValue;
   int width = 2;
   while (width < n_rep) width *= 2;
@@ -290,7 +302,7 @@ int launch_pt(const float* x0, float* out, float* accept, float* traj, const flo
   pt_chain_kernel<DM, GS, TRAJ, G, NJ><<<blocks, threads, 0, s>>>(                           \
       x0, out, accept, traj, params_a, params_b, ladder, noise, swap_u, n, d, k, n_rep,      \
       width, n_steps, swap_every, thin, inv_var, noise_coef, use_clamp, lo, hi, seed_lo,     \
-      seed_hi)
+      seed_hi, chain_stride, chain_offset)
   TEBM_DISPATCH_GROUPS(TEBM_LAUNCH);
 #undef TEBM_LAUNCH
 }
@@ -300,20 +312,28 @@ int launch_pt(const float* x0, float* out, float* accept, float* traj, const flo
 extern "C" {
 
 // `traj` null: the chain kernel; otherwise the trajectory kernel at `thin`.
+// The Philox index of replica r, chain c is r * chain_stride + c +
+// chain_offset: chain_stride = n and chain_offset = 0 for a whole batch, the
+// whole batch's chain count and the shard's first chain for a shard of it.
 int tebm_pt_langevin_chain(const float* x0, float* out, float* accept, float* traj,
                            const float* params_a, const float* params_b, const float* ladder,
                            const float* noise, const float* swap_u, int n, int d, int k,
                            int gaussian, int n_rep, int n_steps, int swap_every, int thin,
                            float inv_var, float noise_coef, int use_clamp, float lo, float hi,
-                           uint32_t seed_lo, uint32_t seed_hi, int group, int threads,
-                           int blocks, void* stream) {
+                           uint32_t seed_lo, uint32_t seed_hi, long long chain_stride,
+                           long long chain_offset, int group, int threads, int blocks,
+                           void* stream) {
+  const unsigned long long stride = (unsigned long long)chain_stride;
+  const unsigned long long off = (unsigned long long)chain_offset;
   if (traj == nullptr)
     return launch_pt<false>(x0, out, accept, traj, params_a, params_b, ladder, noise, swap_u, n,
                             d, k, gaussian, n_rep, n_steps, swap_every, 1, inv_var, noise_coef,
-                            use_clamp, lo, hi, seed_lo, seed_hi, group, threads, blocks, stream);
+                            use_clamp, lo, hi, seed_lo, seed_hi, stride, off, group, threads,
+                            blocks, stream);
   return launch_pt<true>(x0, out, accept, traj, params_a, params_b, ladder, noise, swap_u, n, d,
                          k, gaussian, n_rep, n_steps, swap_every, thin, inv_var, noise_coef,
-                         use_clamp, lo, hi, seed_lo, seed_hi, group, threads, blocks, stream);
+                         use_clamp, lo, hi, seed_lo, seed_hi, stride, off, group, threads, blocks,
+                         stream);
 }
 
 }  // extern "C"

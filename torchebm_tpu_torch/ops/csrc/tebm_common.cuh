@@ -85,6 +85,16 @@ __device__ __forceinline__ float uniform01(uint64_t idx, int t, uint32_t k0, uin
   return (float)(o.x >> 8) * 0x1p-24f;
 }
 
+// `p` moved back by `rows` rows of `width` elements (null stays null): a
+// shard's per-chain array that a chain kernel indexes by its chains' rows in
+// the whole batch, the same index that numbers their Philox streams.
+template <typename T>
+inline T* rows_back(T* p, long long rows, int width) {
+  if (p == nullptr) return p;
+  return reinterpret_cast<T*>(reinterpret_cast<uintptr_t>(p) -
+                              (uintptr_t)rows * (uintptr_t)width * sizeof(T));
+}
+
 __device__ __forceinline__ float clampf(float v, int use_clamp, float lo, float hi) {
   return use_clamp ? fminf(fmaxf(v, lo), hi) : v;
 }

@@ -31,7 +31,9 @@ launch (the JAX kernel's SMEM table stops at 60,000 rungs).
 (``(n_rungs·n_transitions, n_chains)``) are injected together or not at all;
 without them both come from the Philox stream at ``(chain, rung·n_transitions
 + j)``, keyed by ``seed``: a Python int, or a 0-d int64 tensor on the state's
-device that the kernel reads where it lies (no host sync). A launch splits
+device that the kernel reads where it lies (no host sync); the chains are
+numbered from ``chain_offset`` (a block of a batch split over processes
+passes its first chain). A launch splits
 each chain over a group of lanes of one warp, chosen by
 :func:`ais_launch_plan` from the card's timings. The wrapper's ``launches``
 attribute counts its kernel launches.
@@ -47,6 +49,7 @@ import torch
 from . import _build
 from .fused_langevin import (
     MIXTURE_RESIDENT_THREADS,
+    _chain_offset,
     _check_metropolis,
     _check_tensor,
     _seed_arg,
@@ -63,9 +66,9 @@ __all__ = ["ais_groups", "ais_launch_plan", "mixture_ais_run", "mixture_ais_run_
 #: ``tebm_mixture_ais_run``'s argument types before the stream: x0, out, logw,
 #: accept, base_mean, params_a, params_b, betas, noise, uniforms, seed, n, d,
 #: k, gaussian, n_rungs, n_transitions, inv_var0, inv_var, eta, noise_coef,
-#: four_eta, log_norm_t, seed lo, seed hi, group, threads, blocks
+#: four_eta, log_norm_t, seed lo, seed hi, chain offset, group, threads, blocks
 _SIGNATURE = ((_build.PTR,) * 11 + (_build.INT,) * 6 + (_build.FLOAT,) * 6 + (_build.U32,) * 2
-              + (_build.INT,) * 3)
+              + (_build.INT,) * 4)
 
 #: the AIS kernel's block size (``kAisThreads`` in csrc/fused_ais.cu)
 AIS_THREADS = 128
@@ -112,12 +115,13 @@ def _ais_args(x0, base_mean, base_scale, means, betas, step_size, n_transitions,
 
 
 def _run_plain(x0, base_logp, target_logp, betas, eta, n_transitions, log_norm_t, seed, noise,
-               uniforms):
-    """Plain version of the kernel: the same rung loop, Philox counters and
-    carried endpoint gradients and log-densities; ``(samples, logw, accept)``."""
+               uniforms, chain_offset=0):
+    """Plain version of the kernel: the same rung loop, Philox counters
+    (chains numbered from ``chain_offset``) and carried endpoint gradients and
+    log-densities; ``(samples, logw, accept)``."""
     n, d = x0.shape
     seed = int(seed)
-    index = torch.arange(n, device=x0.device)
+    index = torch.arange(n, device=x0.device) + chain_offset
     noise_coef, four_eta = math.sqrt(2.0 * eta), 4.0 * eta
     x = x0
     g0, lp0 = base_logp(x)
@@ -210,19 +214,19 @@ def ais_launch_plan(n: int, d: int, k: int, gaussian: bool,
 
 def mixture_ais_run_plain(x0, base_mean, base_scale, means, betas, step_size, *,
                           n_transitions=1, scale=1.0, log_weights=None, precision=None, seed=0,
-                          noise=None, uniforms=None,
-                          log_norm_t=None) -> Tuple[Tensor, Tensor, Tensor]:
+                          noise=None, uniforms=None, log_norm_t=None,
+                          chain_offset=0) -> Tuple[Tensor, Tensor, Tensor]:
     """Plain PyTorch version of :func:`mixture_ais_run`, on ``x0``'s device."""
     base_logp, target_logp, *_, betas, eta, log_norm_t = _ais_args(
         x0, base_mean, base_scale, means, betas, step_size, n_transitions, scale, log_weights,
         precision, seed, noise, uniforms, log_norm_t)
     return _run_plain(x0, base_logp, target_logp, betas, eta, int(n_transitions), log_norm_t,
-                      seed, noise, uniforms)
+                      seed, noise, uniforms, _chain_offset(chain_offset, x0.shape[0], 31))
 
 
 def _run(x0, base_mean, base_scale, means, betas, step_size, *, n_transitions=1, scale=1.0,
          log_weights=None, precision=None, seed=0, noise=None, uniforms=None, log_norm_t=None,
-         group=None):
+         group=None, chain_offset=0):
     """The wrapper's body: ``(samples, logw, accept, launched)``. A CPU
     ``x0`` runs the plain version; a CUDA ``x0`` launches the kernel with
     :func:`ais_launch_plan`, whose group ``group`` overrides."""
@@ -230,9 +234,10 @@ def _run(x0, base_mean, base_scale, means, betas, step_size, *, n_transitions=1,
         _ais_args(x0, base_mean, base_scale, means, betas, step_size, n_transitions, scale,
                   log_weights, precision, seed, noise, uniforms, log_norm_t))
     n_tr = int(n_transitions)
+    chain_offset = _chain_offset(chain_offset, x0.shape[0], 31)
     if x0.device.type == "cpu":
         return (*_run_plain(x0, base_logp, target_logp, betas, eta, n_tr, log_norm_t, seed,
-                            noise, uniforms), False)
+                            noise, uniforms, chain_offset), False)
     n, d = x0.shape
     k = means.shape[0]
     plan = ais_launch_plan(n, d, k, bool(gaussian), group)
@@ -245,7 +250,8 @@ def _run(x0, base_mean, base_scale, means, betas, step_size, *, n_transitions=1,
         "mixture_ais_run", _SIGNATURE, x0.device,
         p(x0), p(out), p(logw), p(accept), p(base_mean), p(pa), p(pb), p(betas), p(noise),
         p(uniforms), p(seed_t), n, d, k, gaussian, betas.shape[0] - 1, n_tr, inv_var0,
-        inv_var, eta, math.sqrt(2.0 * eta), 4.0 * eta, log_norm_t, seed_lo, seed_hi, *plan,
+        inv_var, eta, math.sqrt(2.0 * eta), 4.0 * eta, log_norm_t, seed_lo, seed_hi,
+        chain_offset, *plan,
     )
     return out, logw, accept, True
 
@@ -267,6 +273,7 @@ def mixture_ais_run(
     noise: Optional[Tensor] = None,
     uniforms: Optional[Tensor] = None,
     log_norm_t: Optional[float] = None,
+    chain_offset: int = 0,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     r"""Full AIS anneal in one kernel.
 
@@ -276,12 +283,16 @@ def mixture_ais_run(
     ``betas``: the ``(K+1,)`` schedule from 0 to 1; ``seed``: a Python int or
     a 0-d int64 tensor on ``x0``'s device. Returns ``(samples, log_weights,
     accept)`` per chain; ``logsumexp(log_weights) − log n`` estimates
-    :math:`\log Z_1 / Z_0`.
+    :math:`\log Z_1 / Z_0`. ``chain_offset``: the first chain's Philox index,
+    so that a launch over chains ``[a, b)`` of a batch at ``chain_offset=a``
+    draws what those chains draw in the launch over the whole batch
+    (``chain_offset + n_chains`` below 2^31, the chains a launch can hold);
+    injected ``noise`` and ``uniforms`` ignore it.
     """
     out, logw, accept, launched = _run(
         x0, base_mean, base_scale, means, betas, step_size, n_transitions=n_transitions,
         scale=scale, log_weights=log_weights, precision=precision, seed=seed, noise=noise,
-        uniforms=uniforms, log_norm_t=log_norm_t)
+        uniforms=uniforms, log_norm_t=log_norm_t, chain_offset=chain_offset)
     if launched:
         mixture_ais_run.launches += 1
     return out, logw, accept

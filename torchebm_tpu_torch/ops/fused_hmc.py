@@ -17,8 +17,9 @@ is None (unit), a scalar or a ``(d,)`` diagonal mass — the output of
 (``(n_draws, n_chains, d)`` standard-normal momentum draws, scaled by
 :math:`\sqrt{m}` inside) and ``uniforms`` (``(n_draws, n_chains)``) are
 injected together or not at all; without them both come from the
-Philox4x32-10 stream keyed by ``seed``. Each wrapper also returns the
-per-chain mean acceptance probability.
+Philox4x32-10 stream keyed by ``seed``, the chains numbered from
+``chain_offset`` (a shard's first row in a batch sharded on its rows). Each
+wrapper also returns the per-chain mean acceptance probability.
 
 A launch splits each chain over a group of lanes of one warp, chosen by
 :func:`hmc_launch_plan` from the card's timings.
@@ -38,6 +39,7 @@ from . import _build
 from .fused_langevin import (
     DISPATCH_GROUPS,
     MIXTURE_RESIDENT_THREADS,
+    _chain_offset,
     _check_metropolis,
     _check_thin,
     _seed_words,
@@ -61,9 +63,10 @@ __all__ = [
 
 #: ``tebm_mixture_hmc_chain``'s argument types before the stream: x0, out, accept,
 #: traj, params_a, params_b, mass, noise, uniforms, n, d, k, gaussian, n_draws,
-#: thin, n_leapfrog, inv_var, step, seed lo, seed hi, group, threads, blocks
+#: thin, n_leapfrog, inv_var, step, seed lo, seed hi, chain offset, group, threads,
+#: blocks
 _SIGNATURE = ((_build.PTR,) * 9 + (_build.INT,) * 7 + (_build.FLOAT,) * 2 + (_build.U32,) * 2
-              + (_build.INT,) * 3)
+              + (_build.INT,) * 4)
 
 #: the HMC chain kernel's block size (``kHmcThreads`` in csrc/fused_hmc.cu)
 HMC_THREADS = 128
@@ -96,11 +99,13 @@ def _hmc_args(x0, means, n_draws, step_size, n_leapfrog, scale, log_weights, pre
     return grad_logp, pa, pb, gaussian, inv_var, h, _mass_vector(mass, x0.shape[1], x0.device)
 
 
-def _run_plain(x0, grad_logp, h, n_leapfrog, mass, n_draws, seed, noise, uniforms, thin):
+def _run_plain(x0, grad_logp, h, n_leapfrog, mass, n_draws, seed, noise, uniforms, thin,
+               chain_offset=0):
     """Plain version of both kernels: the same draw, force reuse and Philox
-    stream; returns ``(traj or None, final, accept)``."""
+    stream (chains numbered from ``chain_offset``); returns ``(traj or None,
+    final, accept)``."""
     n, d = x0.shape
-    index = torch.arange(n, device=x0.device)
+    index = torch.arange(n, device=x0.device) + chain_offset
     minv = None if mass is None else 1.0 / mass
 
     def kinetic(p):
@@ -187,7 +192,7 @@ def hmc_launch_plan(n: int, d: int, k: int, gaussian: bool,
 
 
 def _run(x0, means, n_draws, step_size, n_leapfrog, *, thin, scale, log_weights, precision,
-         mass, seed, noise, uniforms, group=None):
+         mass, seed, noise, uniforms, group=None, chain_offset=0):
     """The body of both wrappers (``thin=None``: final state only):
     ``(traj, final, accept, launched)``. A CPU ``x0`` runs the plain version;
     a CUDA ``x0`` launches the kernel with :func:`hmc_launch_plan`, whose
@@ -196,9 +201,10 @@ def _run(x0, means, n_draws, step_size, n_leapfrog, *, thin, scale, log_weights,
         x0, means, n_draws, step_size, n_leapfrog, scale, log_weights, precision, mass, noise,
         uniforms, seed,
     )
+    chain_offset = _chain_offset(chain_offset, x0.shape[0], 31)
     if x0.device.type == "cpu":
         return (*_run_plain(x0, grad_logp, h, n_leapfrog, m, n_draws, seed, noise, uniforms,
-                            thin), False)
+                            thin, chain_offset), False)
     n, d = x0.shape
     k = means.shape[0]
     plan = hmc_launch_plan(n, d, k, bool(gaussian), group)
@@ -212,31 +218,32 @@ def _run(x0, means, n_draws, step_size, n_leapfrog, *, thin, scale, log_weights,
         _build.ptr(x0), _build.ptr(out), _build.ptr(accept), _build.ptr(traj), _build.ptr(pa),
         _build.ptr(pb), _build.ptr(m), _build.ptr(noise), _build.ptr(uniforms), n, d, k,
         gaussian, int(n_draws), 1 if thin is None else thin, int(n_leapfrog), inv_var, h,
-        seed_lo, seed_hi, *plan,
+        seed_lo, seed_hi, chain_offset, *plan,
     )
     return traj, out, accept, True
 
 
 def mixture_hmc_chain_plain(x0, means, n_draws, step_size, n_leapfrog=10, *, scale=1.0,
                             log_weights=None, precision=None, mass=None, seed=0, noise=None,
-                            uniforms=None) -> Tuple[Tensor, Tensor]:
+                            uniforms=None, chain_offset=0) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of :func:`mixture_hmc_chain`, on ``x0``'s device."""
     grad_logp, *_, h, m = _hmc_args(x0, means, n_draws, step_size, n_leapfrog, scale,
                                     log_weights, precision, mass, noise, uniforms, seed)
     _, final, accept = _run_plain(x0, grad_logp, h, n_leapfrog, m, n_draws, seed, noise,
-                                  uniforms, None)
+                                  uniforms, None, _chain_offset(chain_offset, x0.shape[0], 31))
     return final, accept
 
 
 def mixture_hmc_chain_trajectory_plain(x0, means, n_draws, step_size, n_leapfrog=10, *, thin=1,
                                        scale=1.0, log_weights=None, precision=None, mass=None,
-                                       seed=0, noise=None,
-                                       uniforms=None) -> Tuple[Tensor, Tensor, Tensor]:
+                                       seed=0, noise=None, uniforms=None,
+                                       chain_offset=0) -> Tuple[Tensor, Tensor, Tensor]:
     """Plain PyTorch version of :func:`mixture_hmc_chain_trajectory`."""
     _check_thin(n_draws, thin)
     grad_logp, *_, h, m = _hmc_args(x0, means, n_draws, step_size, n_leapfrog, scale,
                                     log_weights, precision, mass, noise, uniforms, seed)
-    return _run_plain(x0, grad_logp, h, n_leapfrog, m, n_draws, seed, noise, uniforms, int(thin))
+    return _run_plain(x0, grad_logp, h, n_leapfrog, m, n_draws, seed, noise, uniforms, int(thin),
+                      _chain_offset(chain_offset, x0.shape[0], 31))
 
 
 @_build.counted
@@ -254,17 +261,23 @@ def mixture_hmc_chain(
     seed: int = 0,
     noise: Optional[Tensor] = None,
     uniforms: Optional[Tensor] = None,
+    chain_offset: int = 0,
 ) -> Tuple[Tensor, Tensor]:
     """Full HMC run on a d-dim isotropic Gaussian mixture (or, with
     ``precision``, a full-covariance Gaussian) in one kernel.
 
     ``x0``: ``(n_chains, d)``; ``means``: ``(K, d)``. Returns ``(samples,
     accept)``: the final state and the per-chain mean acceptance probability
-    over all draws.
+    over all draws. ``chain_offset`` numbers the chains' Philox streams from
+    it: a launch over chains ``[a, b)`` of a batch with ``chain_offset=a``
+    draws what rows ``[a, b)`` of the launch over the whole batch draw
+    (``chain_offset + n_chains`` below 2^31, the chains a launch can hold).
+    Injected ``noise`` and ``uniforms`` ignore it.
     """
     _, out, accept, launched = _run(x0, means, n_draws, step_size, n_leapfrog, thin=None,
                                     scale=scale, log_weights=log_weights, precision=precision,
-                                    mass=mass, seed=seed, noise=noise, uniforms=uniforms)
+                                    mass=mass, seed=seed, noise=noise, uniforms=uniforms,
+                                    chain_offset=chain_offset)
     mixture_hmc_chain.launches += launched
     return out, accept
 
@@ -285,6 +298,7 @@ def mixture_hmc_chain_trajectory(
     seed: int = 0,
     noise: Optional[Tensor] = None,
     uniforms: Optional[Tensor] = None,
+    chain_offset: int = 0,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """:func:`mixture_hmc_chain` recording every ``thin``-th post-MH draw.
 
@@ -296,6 +310,6 @@ def mixture_hmc_chain_trajectory(
     traj, out, accept, launched = _run(x0, means, n_draws, step_size, n_leapfrog,
                                        thin=int(thin), scale=scale, log_weights=log_weights,
                                        precision=precision, mass=mass, seed=seed, noise=noise,
-                                       uniforms=uniforms)
+                                       uniforms=uniforms, chain_offset=chain_offset)
     mixture_hmc_chain_trajectory.launches += launched
     return traj, out, accept

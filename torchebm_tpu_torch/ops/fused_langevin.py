@@ -29,7 +29,10 @@ without it they come from the Philox4x32-10 stream keyed by ``seed``, which
 (:func:`philox_normals`; :func:`philox_uniforms` draws the Metropolis
 uniforms of the MALA and HMC kernels from the same stream, and
 :func:`doublewell_normals` the double-well chains' normals, one block per
-four steps of an element). The
+four steps of an element). Every chain wrapper takes ``chain_offset``, the
+index in the whole batch of its first chain (of its first element for the
+double well), so that a launch over one shard of a batch sharded on its
+rows draws that shard's rows of the whole batch's streams. The
 ``*_trajectory`` variants also return every ``thin``-th state as an
 ``(n_steps // thin, *x0.shape)`` tensor; the trailing ``n_steps % thin``
 steps still run and land in ``final``.
@@ -110,9 +113,9 @@ _SIGNATURES = {
     "mixture_langevin_chain": (_P,) * 6 + (_I,) * 5 + (_F, _I, _F, _F, _U, _U, _LL) + (_I,) * 3,
     "mixture_langevin_chain_trajectory":
         (_P,) * 7 + (_I,) * 6 + (_F, _I, _F, _F, _U, _U, _LL) + (_I,) * 3,
-    "doublewell_langevin_chain": (_P,) * 5 + (_LL, _I, _F, _F, _F, _F, _I, _F, _F, _U, _U),
+    "doublewell_langevin_chain": (_P,) * 5 + (_LL, _I, _F, _F, _F, _F, _I, _F, _F, _U, _U, _LL),
     "doublewell_langevin_chain_trajectory":
-        (_P,) * 6 + (_LL, _I, _I, _F, _F, _F, _F, _I, _F, _F, _U, _U),
+        (_P,) * 6 + (_LL, _I, _I, _F, _F, _F, _F, _I, _F, _F, _U, _U, _LL),
     "fused_langevin_step": (_P,) * 4 + (_LL, _F, _F, _I, _F, _F, _U, _U),
 }
 
@@ -407,12 +410,14 @@ def _mixture_args(x0, means, n_steps, step_size, noise_scale, scale, log_weights
     return (lambda x: grad_logp(x)[0]), pa, pb, gaussian, sched, inv_var
 
 
-def _chain_offset(chain_offset: int, n: int) -> int:
+def _chain_offset(chain_offset: int, n: int, bits: int = 63) -> int:
     """``chain_offset`` checked: the Philox index of a launch's last chain
-    must fit the counter's 64 bits."""
+    must fit the kernel's index, 63 bits (the counter's 64), or 31 where a
+    kernel numbers the whole batch's chains as it numbers its own (an
+    ``int``: no launch holds more chains)."""
     chain_offset = int(chain_offset)
-    if not 0 <= chain_offset <= (1 << 63) - 1 - n:
-        raise ValueError(f"chain_offset must be in [0, 2^63 - n_chains), got {chain_offset}")
+    if not 0 <= chain_offset <= (1 << bits) - 1 - n:
+        raise ValueError(f"chain_offset must be in [0, 2^{bits} - n_chains), got {chain_offset}")
     return chain_offset
 
 
@@ -591,27 +596,29 @@ def _doublewell_args(x0, n_steps, barrier_height, b, seed, noise):
 
 
 def _doublewell_plain(x0, n_steps, step_size, noise_scale, thin, barrier_height, b, seed, clamp,
-                      noise):
+                      noise, chain_offset=0):
     """Plain version of both double-well kernels (``thin=None``: final state
     only) on ``x0``'s device: ``(traj, final)`` from the same update and
-    schedule and the stream of :func:`doublewell_normals`."""
+    schedule and the stream of :func:`doublewell_normals`, the elements
+    numbered from ``chain_offset``."""
     coef, b2, _ = _doublewell_args(x0, n_steps, barrier_height, b, seed, noise)
     seed = int(seed)
     sched = _schedule_table(step_size, noise_scale, int(n_steps), x0.device)
-    stream = doublewell_normals(torch.arange(x0.numel(), device=x0.device), n_steps, seed)
+    index = torch.arange(x0.numel(), device=x0.device) + _chain_offset(chain_offset, x0.numel())
+    stream = doublewell_normals(index, n_steps, seed)
     return _run_plain(x0, lambda x: coef * x * (x * x - b2), sched, 1, clamp, seed, noise, thin,
                       normals=lambda t: next(stream).reshape(x0.shape))
 
 
 def _doublewell_run(name, x0, n_steps, step_size, noise_scale, thin, barrier_height, b, seed,
-                    clamp, noise):
+                    clamp, noise, chain_offset=0):
     """The body of both double-well wrappers (``thin=None``: final state
     only): ``(traj, final, launched)``. A CPU ``x0`` runs the plain version; a
     CUDA ``x0`` launches kernel ``name`` with a constant schedule as two
     floats (no table) and a device seed read where it lies."""
     if x0.device.type == "cpu":
         return (*_doublewell_plain(x0, n_steps, step_size, noise_scale, thin, barrier_height, b,
-                                   seed, clamp, noise), False)
+                                   seed, clamp, noise, chain_offset), False)
     coef, b2, (seed_t, seed_lo, seed_hi) = _doublewell_args(
         x0, n_steps, barrier_height, b, seed, noise)
     const = _constant_schedule(step_size, noise_scale)
@@ -627,25 +634,27 @@ def _doublewell_run(name, x0, n_steps, step_size, noise_scale, thin, barrier_hei
         name, x0.device,
         *head, _ptr(sched), _ptr(noise), _ptr(seed_t), x0.numel(), int(n_steps), *tail,
         coef, b2, eta, nc, use_clamp, lo, hi, seed_lo, seed_hi,
+        _chain_offset(chain_offset, x0.numel()),
     )
     return traj, out, True
 
 
 def doublewell_langevin_chain_plain(x0, n_steps, step_size, noise_scale=1.0, *,
                                     barrier_height=2.0, b=1.0, seed=0, clamp=None,
-                                    noise=None) -> Tensor:
+                                    noise=None, chain_offset=0) -> Tensor:
     """Plain PyTorch version of :func:`doublewell_langevin_chain`, on ``x0``'s device."""
     return _doublewell_plain(x0, n_steps, step_size, noise_scale, None, barrier_height, b, seed,
-                             clamp, noise)[1]
+                             clamp, noise, chain_offset)[1]
 
 
 def doublewell_langevin_chain_trajectory_plain(x0, n_steps, step_size, noise_scale=1.0, *,
                                                thin=1, barrier_height=2.0, b=1.0, seed=0,
-                                               clamp=None, noise=None) -> Tuple[Tensor, Tensor]:
+                                               clamp=None, noise=None,
+                                               chain_offset=0) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of :func:`doublewell_langevin_chain_trajectory`."""
     _check_thin(n_steps, thin)
     return _doublewell_plain(x0, n_steps, step_size, noise_scale, int(thin), barrier_height, b,
-                             seed, clamp, noise)
+                             seed, clamp, noise, chain_offset)
 
 
 @_build.counted
@@ -660,14 +669,19 @@ def doublewell_langevin_chain(
     seed: Union[int, Tensor] = 0,
     clamp: Optional[Tuple[float, float]] = None,
     noise: Optional[Tensor] = None,
+    chain_offset: int = 0,
 ) -> Tensor:
     """Full n-step Langevin chain on the double-well energy in one kernel;
     the state may have any shape and is stepped element by element.
     ``seed``: a Python int, or a 0-d int64 tensor on the CPU or on ``x0``'s
-    device (read there by the kernel, with no host sync)."""
+    device (read there by the kernel, with no host sync). ``chain_offset``
+    numbers the elements' Philox streams from it: a launch over rows
+    ``[a, b)`` of a state with ``e`` elements per row, at ``chain_offset =
+    a·e``, draws what those rows draw in the launch over the whole state (a
+    row shard); injected ``noise`` ignores it."""
     _, out, launched = _doublewell_run(
         "doublewell_langevin_chain", x0, n_steps, step_size, noise_scale, None, barrier_height,
-        b, seed, clamp, noise,
+        b, seed, clamp, noise, chain_offset,
     )
     doublewell_langevin_chain.launches += launched
     return out
@@ -686,13 +700,14 @@ def doublewell_langevin_chain_trajectory(
     seed: Union[int, Tensor] = 0,
     clamp: Optional[Tuple[float, float]] = None,
     noise: Optional[Tensor] = None,
+    chain_offset: int = 0,
 ) -> Tuple[Tensor, Tensor]:
     """:func:`doublewell_langevin_chain` recording every ``thin``-th state:
     returns ``(traj, final)`` with ``traj`` ``(n_steps // thin, *x0.shape)``."""
     _check_thin(n_steps, thin)
     traj, out, launched = _doublewell_run(
         "doublewell_langevin_chain_trajectory", x0, n_steps, step_size, noise_scale, int(thin),
-        barrier_height, b, seed, clamp, noise,
+        barrier_height, b, seed, clamp, noise, chain_offset,
     )
     doublewell_langevin_chain_trajectory.launches += launched
     return traj, out

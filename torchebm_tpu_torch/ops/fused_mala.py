@@ -22,6 +22,9 @@ under the caps of :mod:`.fused_langevin`.
 all; without them both come from the Philox4x32-10 stream keyed by ``seed``
 (:func:`~.fused_langevin.philox_normals`, :func:`~.fused_langevin.philox_uniforms`).
 Each wrapper also returns the per-chain mean acceptance probability.
+``chain_offset`` numbers the chains' Philox streams from it, so that a launch
+over a shard of a batch sharded on its rows draws that shard's rows of the
+whole batch's stream.
 
 A launch splits each chain over a group of lanes of one warp, chosen by
 :func:`mala_launch_plan` from the card's timings.
@@ -42,6 +45,7 @@ from . import _build
 from .fused_langevin import (
     MIXTURE_RESIDENT_THREADS,
     _check_metropolis,
+    _chain_offset,
     _check_thin,
     _seed_words,
     _target,
@@ -63,9 +67,10 @@ __all__ = [
 
 #: ``tebm_mixture_mala_chain``'s argument types before the stream: x0, out, accept,
 #: traj, params_a, params_b, noise, uniforms, n, d, k, gaussian, n_steps, thin,
-#: inv_var, eta, noise_coef, four_eta, seed lo, seed hi, group, threads, blocks
+#: inv_var, eta, noise_coef, four_eta, seed lo, seed hi, chain offset, group,
+#: threads, blocks
 _SIGNATURE = ((_build.PTR,) * 8 + (_build.INT,) * 6 + (_build.FLOAT,) * 4 + (_build.U32,) * 2
-              + (_build.INT,) * 3)
+              + (_build.INT,) * 4)
 
 #: the MALA chain kernel's block size (``kMalaThreads`` in csrc/fused_mala.cu)
 MALA_THREADS = 128
@@ -83,11 +88,12 @@ def _mala_args(x0, means, n_steps, step_size, scale, log_weights, precision, noi
     return grad_logp, pa, pb, gaussian, inv_var, eta
 
 
-def _run_plain(x0, grad_logp, eta, n_steps, seed, noise, uniforms, thin):
-    """Plain version of both kernels: the same transition, Philox stream and
-    carried gradient; returns ``(traj or None, final, accept)``."""
+def _run_plain(x0, grad_logp, eta, n_steps, seed, noise, uniforms, thin, chain_offset=0):
+    """Plain version of both kernels: the same transition, Philox stream
+    (chains numbered from ``chain_offset``) and carried gradient; returns
+    ``(traj or None, final, accept)``."""
     n, d = x0.shape
-    index = torch.arange(n, device=x0.device)
+    index = torch.arange(n, device=x0.device) + chain_offset
     noise_coef, four_eta = math.sqrt(2.0 * eta), 4.0 * eta
     x = x0
     g, lp = grad_logp(x)
@@ -166,7 +172,7 @@ def mala_launch_plan(n: int, d: int, k: int, gaussian: bool,
 
 
 def _run(x0, means, n_steps, step_size, *, thin, scale, log_weights, precision, seed, noise,
-         uniforms, group=None):
+         uniforms, group=None, chain_offset=0):
     """The body of both wrappers (``thin=None``: final state only):
     ``(traj, final, accept, launched)``. A CPU ``x0`` runs the plain version;
     a CUDA ``x0`` launches the kernel with :func:`mala_launch_plan`, whose
@@ -174,8 +180,10 @@ def _run(x0, means, n_steps, step_size, *, thin, scale, log_weights, precision, 
     grad_logp, pa, pb, gaussian, inv_var, eta = _mala_args(
         x0, means, n_steps, step_size, scale, log_weights, precision, noise, uniforms, seed
     )
+    chain_offset = _chain_offset(chain_offset, x0.shape[0], 31)
     if x0.device.type == "cpu":
-        return (*_run_plain(x0, grad_logp, eta, n_steps, seed, noise, uniforms, thin), False)
+        return (*_run_plain(x0, grad_logp, eta, n_steps, seed, noise, uniforms, thin,
+                            chain_offset), False)
     n, d = x0.shape
     k = means.shape[0]
     plan = mala_launch_plan(n, d, k, bool(gaussian), group)
@@ -189,29 +197,32 @@ def _run(x0, means, n_steps, step_size, *, thin, scale, log_weights, precision, 
         _build.ptr(x0), _build.ptr(out), _build.ptr(accept), _build.ptr(traj), _build.ptr(pa),
         _build.ptr(pb), _build.ptr(noise), _build.ptr(uniforms), n, d, k, gaussian,
         int(n_steps), 1 if thin is None else thin, inv_var, eta, math.sqrt(2.0 * eta),
-        4.0 * eta, seed_lo, seed_hi, *plan,
+        4.0 * eta, seed_lo, seed_hi, chain_offset, *plan,
     )
     return traj, out, accept, True
 
 
 def mixture_mala_chain_plain(x0, means, n_steps, step_size, *, scale=1.0, log_weights=None,
-                             precision=None, seed=0, noise=None,
-                             uniforms=None) -> Tuple[Tensor, Tensor]:
+                             precision=None, seed=0, noise=None, uniforms=None,
+                             chain_offset=0) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of :func:`mixture_mala_chain`, on ``x0``'s device."""
     grad_logp, *_, eta = _mala_args(x0, means, n_steps, step_size, scale, log_weights,
                                     precision, noise, uniforms, seed)
-    _, final, accept = _run_plain(x0, grad_logp, eta, n_steps, seed, noise, uniforms, None)
+    _, final, accept = _run_plain(x0, grad_logp, eta, n_steps, seed, noise, uniforms, None,
+                                  _chain_offset(chain_offset, x0.shape[0], 31))
     return final, accept
 
 
 def mixture_mala_chain_trajectory_plain(x0, means, n_steps, step_size, *, thin=1, scale=1.0,
                                         log_weights=None, precision=None, seed=0, noise=None,
-                                        uniforms=None) -> Tuple[Tensor, Tensor, Tensor]:
+                                        uniforms=None,
+                                        chain_offset=0) -> Tuple[Tensor, Tensor, Tensor]:
     """Plain PyTorch version of :func:`mixture_mala_chain_trajectory`."""
     _check_thin(n_steps, thin)
     grad_logp, *_, eta = _mala_args(x0, means, n_steps, step_size, scale, log_weights,
                                     precision, noise, uniforms, seed)
-    return _run_plain(x0, grad_logp, eta, n_steps, seed, noise, uniforms, int(thin))
+    return _run_plain(x0, grad_logp, eta, n_steps, seed, noise, uniforms, int(thin),
+                      _chain_offset(chain_offset, x0.shape[0], 31))
 
 
 @_build.counted
@@ -227,16 +238,22 @@ def mixture_mala_chain(
     seed: int = 0,
     noise: Optional[Tensor] = None,
     uniforms: Optional[Tensor] = None,
+    chain_offset: int = 0,
 ) -> Tuple[Tensor, Tensor]:
     """Full n-step MALA chain on a d-dim isotropic Gaussian mixture (or, with
     ``precision``, a full-covariance Gaussian) in one kernel.
 
     ``x0``: ``(n_chains, d)``; ``means``: ``(K, d)``. Returns ``(samples,
     accept)``: the final state and the per-chain mean acceptance probability.
+    ``chain_offset`` numbers the chains' Philox streams from it: a launch over
+    chains ``[a, b)`` of a batch with ``chain_offset=a`` draws what rows
+    ``[a, b)`` of the launch over the whole batch draw (a sharded batch's
+    shard; ``chain_offset + n_chains`` below 2^31, the chains a launch can
+    hold). Injected ``noise`` and ``uniforms`` ignore it.
     """
     _, out, accept, launched = _run(x0, means, n_steps, step_size, thin=None, scale=scale,
                                     log_weights=log_weights, precision=precision, seed=seed,
-                                    noise=noise, uniforms=uniforms)
+                                    noise=noise, uniforms=uniforms, chain_offset=chain_offset)
     mixture_mala_chain.launches += launched
     return out, accept
 
@@ -255,6 +272,7 @@ def mixture_mala_chain_trajectory(
     seed: int = 0,
     noise: Optional[Tensor] = None,
     uniforms: Optional[Tensor] = None,
+    chain_offset: int = 0,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """:func:`mixture_mala_chain` recording every ``thin``-th post-MH state.
 
@@ -267,6 +285,6 @@ def mixture_mala_chain_trajectory(
     traj, out, accept, launched = _run(x0, means, n_steps, step_size, thin=int(thin),
                                        scale=scale, log_weights=log_weights,
                                        precision=precision, seed=seed, noise=noise,
-                                       uniforms=uniforms)
+                                       uniforms=uniforms, chain_offset=chain_offset)
     mixture_mala_chain_trajectory.launches += launched
     return traj, out, accept

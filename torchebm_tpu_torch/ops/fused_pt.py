@@ -21,8 +21,13 @@ it lies on the CPU; any other device raises. The target is that of
 ``noise`` (``(n_steps, R, n_chains, d)``) and ``swap_uniform``
 (``(n_sweeps, R-1, n_chains)``) are injected together or not at all; without
 them the normals of replica r, chain c come from the Philox stream at index
-``r·n_chains + c`` and the exchange uniform of pair r from the uniform stream
-at the same index and the sweep's number.
+``r·N + c`` and the exchange uniform of pair r from the uniform stream at the
+same index and the sweep's number, with N the chain count of the whole batch
+(``total_chains``, by default ``n_chains``) and c numbered in it from
+``chain_offset``: a launch over chains ``[a, b)`` of a ladder of N chains,
+one rank's shard of a ladder sharded on its chain axis, passes
+``chain_offset=a`` and ``total_chains=N`` and draws what those chains draw
+in the launch over the whole ladder.
 
 The acceptance statistic is the mean accept probability over the pairs tried
 in the last sweep, averaged over the real chains (0.0 without a sweep): the
@@ -79,10 +84,10 @@ PT_THREADS = 128
 #: ``tebm_pt_langevin_chain``'s argument types before the stream: x0, out, accept,
 #: traj, params_a, params_b, ladder, noise, swap_u, n, d, k, gaussian, n_rep,
 #: n_steps, swap_every, thin, inv_var, noise_coef, use_clamp, lo, hi, seed lo, seed hi,
-#: group, threads, blocks
+#: chain stride, chain offset, group, threads, blocks
 _SIGNATURE = ((_build.PTR,) * 9 + (_build.INT,) * 8 + (_build.FLOAT,) * 2
               + (_build.INT, _build.FLOAT, _build.FLOAT) + (_build.U32,) * 2
-              + (_build.INT,) * 3)
+              + (_build.I64,) * 2 + (_build.INT,) * 3)
 
 
 def _padded_replicas(n_rep: int) -> int:
@@ -185,15 +190,17 @@ def _pt_args(replicas, means, n_steps, step_size, noise_scale, betas, swap_every
 
 
 def _run_plain(replicas, grad_logp, ladder, noise_coef, n_steps, swap_every, seed, clamp,
-               noise, swap_uniform, thin):
+               noise, swap_uniform, thin, chain_offset=0, total_chains=None):
     """Plain version of both kernels: the same steps, exchange rule, Philox
-    counters and carried gradient; returns ``(traj or None, ladder, per-chain
-    acceptance of the last sweep)``."""
+    counters (replica r's chains at ``r·total_chains``, numbered from
+    ``chain_offset``) and carried gradient; returns ``(traj or None, ladder,
+    per-chain acceptance of the last sweep)``."""
     n_rep, n, d = replicas.shape
     dev = replicas.device
     hb, db = ladder[:n_rep].view(n_rep, 1, 1), ladder[n_rep:]
-    index = torch.arange(n_rep * n, device=dev)
-    chain = torch.arange(n, device=dev)
+    stride = n if total_chains is None else total_chains
+    chain = torch.arange(n, device=dev) + chain_offset
+    index = (torch.arange(n_rep, device=dev)[:, None] * stride + chain).reshape(-1)
 
     def evaluate(x):
         g, lp = grad_logp(x.reshape(n_rep * n, d))
@@ -219,7 +226,7 @@ def _run_plain(replicas, grad_logp, ladder, noise_coef, n_steps, swap_every, see
                 delta = db[r] * (lps[r + 1] - lps[r])
                 p = torch.clamp(torch.exp(torch.clamp(delta, -50.0, 50.0)), max=1.0)
                 u = (swap_uniform[s, r] if swap_uniform is not None
-                     else philox_uniforms(r * n + chain, s, seed))
+                     else philox_uniforms(r * stride + chain, s, seed))
                 take = u < p
                 for v in (xs, gs):
                     lo, hi = v[r], v[r + 1]
@@ -237,7 +244,7 @@ def _run_plain(replicas, grad_logp, ladder, noise_coef, n_steps, swap_every, see
 
 
 def _launch(replicas, traj, pa, pb, gaussian, inv_var, ladder, noise_coef, n_steps, swap_every,
-            thin, seed, clamp, noise, swap_uniform, k, plan):
+            thin, seed, clamp, noise, swap_uniform, k, plan, chain_offset, total_chains):
     n_rep, n, d = replicas.shape
     out = torch.empty_like(replicas)
     accept = torch.empty((n,), dtype=torch.float32, device=replicas.device)
@@ -248,13 +255,28 @@ def _launch(replicas, traj, pa, pb, gaussian, inv_var, ladder, noise_coef, n_ste
         "pt_langevin_chain", _SIGNATURE, replicas.device,
         p(replicas), p(out), p(accept), p(traj), p(pa), p(pb), p(ladder), p(noise),
         p(swap_uniform), n, d, k, gaussian, n_rep, int(n_steps), int(swap_every), int(thin),
-        inv_var, noise_coef, use_clamp, lo, hi, seed_lo, seed_hi, *plan,
+        inv_var, noise_coef, use_clamp, lo, hi, seed_lo, seed_hi, total_chains, chain_offset,
+        *plan,
     )
     return out, accept
 
 
+def _chain_range(chain_offset: int, total_chains: Optional[int], n: int) -> Tuple[int, int]:
+    """``(chain_offset, total_chains)`` checked: the launch's ``n`` chains
+    lie within the whole batch's ``total_chains`` (by default ``n``), whose
+    last Philox index fits the counter's 64 bits."""
+    chain_offset = int(chain_offset)
+    total = n if total_chains is None else int(total_chains)
+    if not (0 <= chain_offset and chain_offset + n <= total
+            and MAX_REPLICAS * total < 1 << 63):
+        raise ValueError(f"chains [{chain_offset}, {chain_offset + n}) do not lie in a batch of "
+                         f"total_chains={total}")
+    return chain_offset, total
+
+
 def _run(replicas, means, n_steps, step_size, noise_scale, betas, swap_every, thin, *, scale,
-         log_weights, precision, seed, clamp, noise, swap_uniform, kernel, group=None):
+         log_weights, precision, seed, clamp, noise, swap_uniform, kernel, group=None,
+         chain_offset=0, total_chains=None):
     """Both wrappers and both plain versions: ``(traj or None, ladder,
     per-chain acceptance)`` from the kernel (``kernel`` True and a CUDA
     ``replicas``, with :func:`pt_launch_plan`, whose group ``group``
@@ -262,9 +284,10 @@ def _run(replicas, means, n_steps, step_size, noise_scale, betas, swap_every, th
     grad_logp, pa, pb, gaussian, inv_var, ladder, noise_coef = _pt_args(
         replicas, means, n_steps, step_size, noise_scale, betas, swap_every, scale,
         log_weights, precision, seed, noise, swap_uniform)
+    chain_offset, total_chains = _chain_range(chain_offset, total_chains, replicas.shape[1])
     if not kernel or replicas.device.type == "cpu":
         return _run_plain(replicas, grad_logp, ladder, noise_coef, n_steps, int(swap_every), seed,
-                          clamp, noise, swap_uniform, thin)
+                          clamp, noise, swap_uniform, thin, chain_offset, total_chains)
     n_rep, n, d = replicas.shape
     plan = pt_launch_plan(n, n_rep, d, means.shape[0], bool(gaussian), group)
     traj = None
@@ -273,31 +296,34 @@ def _run(replicas, means, n_steps, step_size, noise_scale, betas, swap_every, th
                            device=replicas.device)
     out, accept = _launch(replicas, traj, pa, pb, gaussian, inv_var, ladder, noise_coef, n_steps,
                           swap_every, thin or 1, seed, clamp, noise, swap_uniform,
-                          means.shape[0], plan)
+                          means.shape[0], plan, chain_offset, total_chains)
     return traj, out, accept
 
 
 def pt_langevin_chain_plain(replicas, means, n_steps, step_size, noise_scale, betas, swap_every,
                             *, scale=1.0, log_weights=None, precision=None, seed=0, clamp=None,
-                            noise=None, swap_uniform=None) -> Tuple[Tensor, Tensor]:
+                            noise=None, swap_uniform=None, chain_offset=0,
+                            total_chains=None) -> Tuple[Tensor, Tensor]:
     """Plain PyTorch version of :func:`pt_langevin_chain`, on ``replicas``' device."""
     _, ladder, acc = _run(replicas, means, n_steps, step_size, noise_scale, betas, swap_every,
                           None, scale=scale, log_weights=log_weights, precision=precision,
                           seed=seed, clamp=clamp, noise=noise, swap_uniform=swap_uniform,
-                          kernel=False)
+                          kernel=False, chain_offset=chain_offset, total_chains=total_chains)
     return ladder, acc.mean()
 
 
 def pt_langevin_chain_trajectory_plain(replicas, means, n_steps, step_size, noise_scale, betas,
                                        swap_every, *, thin=1, scale=1.0, log_weights=None,
                                        precision=None, seed=0, clamp=None, noise=None,
-                                       swap_uniform=None) -> Tuple[Tensor, Tensor, Tensor]:
+                                       swap_uniform=None, chain_offset=0,
+                                       total_chains=None) -> Tuple[Tensor, Tensor, Tensor]:
     """Plain PyTorch version of :func:`pt_langevin_chain_trajectory`."""
     _check_thin(n_steps, thin)
     traj, ladder, acc = _run(replicas, means, n_steps, step_size, noise_scale, betas,
                              swap_every, int(thin), scale=scale, log_weights=log_weights,
                              precision=precision, seed=seed, clamp=clamp, noise=noise,
-                             swap_uniform=swap_uniform, kernel=False)
+                             swap_uniform=swap_uniform, kernel=False, chain_offset=chain_offset,
+                             total_chains=total_chains)
     return traj, ladder, acc.mean()
 
 
@@ -318,18 +344,23 @@ def pt_langevin_chain(
     clamp: Optional[Tuple[float, float]] = None,
     noise: Optional[Tensor] = None,
     swap_uniform: Optional[Tensor] = None,
+    chain_offset: int = 0,
+    total_chains: Optional[int] = None,
 ) -> Tuple[Tensor, Tensor]:
     """Full n-step parallel-tempered Langevin ladder in one kernel.
 
     ``replicas``: ``(R, n_chains, d)``, replica 0 cold; ``betas``: the R
     inverse temperatures; ``means``: ``(K, d)``. Returns ``(ladder, acc)``:
     the final ``(R, n_chains, d)`` ladder and the 0-d mean accept probability
-    of the last sweep over the real chains.
+    of the last sweep over the real chains. ``chain_offset`` and
+    ``total_chains``: these chains' place in a whole batch of
+    ``total_chains`` (module docstring); injected ``noise`` and
+    ``swap_uniform`` ignore them.
     """
     _, ladder, acc = _run(replicas, means, n_steps, step_size, noise_scale, betas, swap_every,
                           None, scale=scale, log_weights=log_weights, precision=precision,
                           seed=seed, clamp=clamp, noise=noise, swap_uniform=swap_uniform,
-                          kernel=True)
+                          kernel=True, chain_offset=chain_offset, total_chains=total_chains)
     if replicas.device.type == "cuda":
         pt_langevin_chain.launches += 1
     return ladder, acc.mean()
@@ -353,6 +384,8 @@ def pt_langevin_chain_trajectory(
     clamp: Optional[Tuple[float, float]] = None,
     noise: Optional[Tensor] = None,
     swap_uniform: Optional[Tensor] = None,
+    chain_offset: int = 0,
+    total_chains: Optional[int] = None,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """:func:`pt_langevin_chain` recording every ``thin``-th cold state.
 
@@ -364,7 +397,8 @@ def pt_langevin_chain_trajectory(
     traj, ladder, acc = _run(replicas, means, n_steps, step_size, noise_scale, betas,
                              swap_every, int(thin), scale=scale, log_weights=log_weights,
                              precision=precision, seed=seed, clamp=clamp, noise=noise,
-                             swap_uniform=swap_uniform, kernel=True)
+                             swap_uniform=swap_uniform, kernel=True, chain_offset=chain_offset,
+                             total_chains=total_chains)
     if replicas.device.type == "cuda":
         pt_langevin_chain_trajectory.launches += 1
     return traj, ladder, acc.mean()

@@ -21,15 +21,21 @@ What a sharded tensor means at each boundary. XLA runs any function on a
 sharded input and returns the unsharded result; PyTorch compiles nothing, so
 the port decides where a DTensor is taken:
 
-- ``LangevinDynamics.sample(x=DTensor)`` runs each shard with the Philox
-  streams (or, on the generic loop, the generator's draws) of its rows in the
-  whole batch, and returns a DTensor equal to the unsharded call;
-- the CD loss takes a DTensor batch, its negatives run on the local rows;
+- every sampler's ``sample(x=DTensor)`` (``ParallelTemperingLangevin.
+  run_replicas`` on a ladder sharded on its chain axis, the HMC and NUTS
+  warmups) runs each shard with the Philox streams (or, on the generic
+  loops, the generator's draws) of its rows in the whole batch, pools its
+  statistics and the reads that steer it over the shards, and returns a
+  DTensor equal to the unsharded call; ``annealed_importance_sampling``
+  splits its chains over the mesh of its DTensor inputs and returns the
+  unsharded result on every process;
+- the CD losses take a DTensor batch, their negatives run on the local rows;
 - the couplings gather both batches and return the local rows;
 - the R̂ and ESS estimators pool per-chain sums over the sharded axis;
 - the trainer records the parameters' placements, averages the gradients
   of the parameters FSDP2 leaves replicated, and checkpoints sharded state;
-- the other samplers raise on a DTensor batch (``ROADMAP.md``, queue 2, K8).
+- ``FlowSampler`` raises on a DTensor batch (its adaptive integrators'
+  error control reduces over the batch).
 
 The helpers at the end of this module (:func:`row_shard`, :func:`like_rows`,
 :func:`row_shards`, :func:`sum_over_rows`) are what those consumers share.
@@ -295,29 +301,37 @@ def is_dtensor(x: Any) -> bool:
     return isinstance(x, DTensor)
 
 
-def row_shard(x) -> Tuple[Tensor, int, int]:
+def row_shard(x, dim: int = 0) -> Tuple[Tensor, int, int]:
     """``(local rows, their first row in the whole batch, the batch's rows)``
-    of a DTensor split on dim 0 (``Shard(0)`` or ``Replicate()`` on each mesh
-    dimension); any other placement raises ``ValueError``."""
+    of a DTensor split on its row dimension ``dim`` (``Shard(dim)`` or
+    ``Replicate()`` on each mesh dimension; a ladder of replicas has its
+    chains on dim 1); any other placement raises ``ValueError``."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
     for p in x.placements:
-        if not (isinstance(p, Replicate) or (isinstance(p, Shard) and p.dim == 0)):
-            raise ValueError(f"a batch is sharded on its rows only; got placements {x.placements}")
+        if not (isinstance(p, Replicate) or (isinstance(p, Shard) and p.dim == dim)):
+            raise ValueError(f"a batch is sharded on its rows (dim {dim}) only; got placements "
+                             f"{x.placements}")
     _, offset = compute_local_shape_and_global_offset(x.shape, x.device_mesh, x.placements)
-    return x.to_local(), int(offset[0]) if offset else 0, int(x.shape[0])
+    return x.to_local(), int(offset[dim]) if offset else 0, int(x.shape[dim])
 
 
-def like_rows(local: Tensor, like) -> Any:
+def like_rows(local: Tensor, like, dim: int = 0) -> Any:
     """``local``, this process's rows of a batch laid out as ``like`` (a
-    DTensor from :func:`row_shard`), as a DTensor with ``like``'s mesh and
-    placements; its trailing dimensions are ``local``'s own."""
-    from torch.distributed.tensor import DTensor
+    DTensor sharded on its rows, as :func:`row_shard` takes one), as a
+    DTensor with ``like``'s mesh and placements, its rows on ``dim`` (a
+    ladder of replicas holds a batch's rows on dim 1); its other dimensions
+    are ``local``'s own."""
+    from torch.distributed.tensor import DTensor, Shard
 
-    shape = (like.shape[0], *local.shape[1:])
+    rows = next(p.dim for p in like.placements if isinstance(p, Shard)) if any(
+        isinstance(p, Shard) for p in like.placements) else dim
+    shape = list(local.shape)
+    shape[dim] = like.shape[rows]
     stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
-    return DTensor.from_local(local.contiguous(), like.device_mesh, like.placements,
+    placements = [Shard(dim) if isinstance(p, Shard) else p for p in like.placements]
+    return DTensor.from_local(local.contiguous(), like.device_mesh, placements,
                               run_check=False, shape=torch.Size(shape), stride=stride)
 
 

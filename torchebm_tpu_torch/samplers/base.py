@@ -19,14 +19,22 @@ autograd for their gradient enable it locally.
 Subclasses implement ``init_carry`` / ``step`` / ``extra_diagnostics`` and
 inherit the loop :func:`_sample_impl`.
 
-A batch sharded on its rows (a DTensor ``x``) is taken by
-:class:`~torchebm_tpu_torch.samplers.LangevinDynamics` only; every other
-sampler raises ``ValueError`` on one (:func:`_refuse_sharded`).
+A batch sharded on its rows (a DTensor ``x``, e.g. from
+:func:`~torchebm_tpu_torch.parallel.shard_batch`) gives a DTensor of the same
+placement holding the unsharded call's values: each process runs its rows
+(:class:`_Rows`), a whole-chain kernel with ``chain_offset`` at the shard's
+first row (the Philox streams of those rows in the whole batch), a loop with
+each step's draws made for the whole batch and cut to the shard's rows
+(:class:`_RowDraws`: O(global batch) draws per process, from generators in
+one state on every process). Diagnostics, acceptance rates and the host's
+reads that steer a loop (NUTS's any-tree-growing flag) are reduced over every
+shard, so every process gets the unsharded call's numbers and takes the same
+steps. :meth:`BaseSampler.sample` takes the DTensor and hands the local rows
+to ``_run``, which samplers with kernels override.
 """
 
 from __future__ import annotations
 
-import copy
 import dataclasses
 import itertools
 from typing import Any, Dict, Optional, Tuple, Union
@@ -34,7 +42,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from ..parallel.mesh import is_dtensor
+from ..parallel.mesh import is_dtensor, like_rows, row_shard, sum_over_rows
 
 Tensor = torch.Tensor
 
@@ -122,47 +130,109 @@ def _kernel_seed(generator: torch.Generator) -> int:
     return int(_kernel_seed_tensor(generator))
 
 
-def _refuse_sharded(what: str, *tensors) -> None:
-    """Raise ``ValueError`` when one of ``tensors`` is a DTensor: ``what``
-    would run each shard on its own copy of the generator's stream, so the
-    shards of one seed would draw alike."""
-    if any(is_dtensor(t) for t in tensors):
-        raise ValueError(
-            f"{what} does not take a sharded (DTensor) chain batch yet: its shards would draw "
-            "the same noise. Only LangevinDynamics runs a shard on the unsharded call's "
-            "stream; a chain offset for the other samplers' kernels is queued in ROADMAP.md "
-            "(queue 2, K8). Pass x.full_tensor() to sample the whole batch on every process."
-        )
+class _Rows:
+    """Rows ``[start, start + n)`` of a batch of ``n_global`` rows sharded as
+    the DTensor ``like`` (its rows on dim ``dim``): what one process of a
+    sharded call holds, and the sums over the processes that hold the rest."""
+
+    def __init__(self, like, dim: int = 0):
+        self.local, self.start, self.n_global = row_shard(like, dim)
+        self.n = self.local.shape[dim]
+        self.like, self.dim = like, dim
+
+    def cut(self, whole: Tensor, dim: int = 0) -> Tensor:
+        """This process's rows of ``whole``, a tensor of the whole batch's
+        rows on ``dim``."""
+        return whole.narrow(dim, self.start, self.n)
+
+    def total(self, t: Tensor) -> Tensor:
+        """``t``, a sum over this process's rows, summed over every row."""
+        return sum_over_rows(t, self.like)
+
+    def mean(self, t: Tensor, dim: int = 0) -> Tensor:
+        """The mean over every row of ``t``, which holds this process's rows on ``dim``."""
+        return self.total(torch.sum(t, dim=dim)) / self.n_global
+
+    def pool(self, local_mean: Tensor) -> Tensor:
+        """The mean over every row, from ``local_mean``, the mean over this process's."""
+        return self.total(local_mean * self.n) / self.n_global
+
+    def whole(self, t: Tensor) -> Tensor:
+        """The whole batch of ``t`` (this process's rows on dim 0) on every
+        process: the rows written into zeros and summed over the shards (adding
+        zeros is exact), so that a reduction over it has the unsharded call's
+        bits. O(whole batch) to move: for the few values that feed back into
+        the chains (a warmup's step size and mass)."""
+        out = torch.zeros((self.n_global, *t.shape[1:]), dtype=t.dtype, device=t.device)
+        out[self.start:self.start + self.n] = t
+        return self.total(out)
+
+    def like_this(self, local: Tensor) -> Any:
+        """``local`` (this process's rows) as a DTensor laid out as the input."""
+        return like_rows(local, self.like, self.dim)
 
 
-class _RowsOfGlobalNoise:
-    """An SDE integrator whose step draws the normals of the whole batch,
-    ``n_global`` rows, from the generator and keeps rows ``[start, start +
-    len(x))``: a shard then draws what its rows draw in the unsharded call
-    (O(n_global) draws on every process)."""
+class _RowDraws:
+    """The generator of a sharded call's loop: :func:`_randn` and
+    :func:`_rand` draw from it the numbers of the whole batch and keep this
+    process's rows, so that a shard draws what its rows draw in the
+    unsharded call (O(whole batch) draws on every process, from generators in
+    one state on every process)."""
 
-    def __init__(self, integrator, start: int, n_global: int):
-        self.integrator, self.start, self.n_global = integrator, start, n_global
+    def __init__(self, generator: torch.Generator, rows: _Rows):
+        self.generator, self.rows = generator, rows
 
-    def step(self, state, step_size, **kwargs):
-        g = kwargs.get("generator")
-        if kwargs.get("noise") is None and g is not None:
-            x = state["x"]
-            whole = torch.randn((self.n_global, *x.shape[1:]), generator=g, device=x.device,
-                                dtype=x.dtype)
-            kwargs["noise"] = whole[self.start:self.start + x.shape[0]]
-        return self.integrator.step(state, step_size, **kwargs)
-
-    def __getattr__(self, name):
-        return getattr(self.integrator, name)
+    @property
+    def device(self) -> torch.device:
+        return self.generator.device
 
 
-def _with_global_noise(sampler, start: int, n_global: int):
-    """A shallow copy of ``sampler`` whose integrator draws
-    :class:`_RowsOfGlobalNoise`."""
-    out = copy.copy(sampler)
-    out.integrator = _RowsOfGlobalNoise(sampler.integrator, start, n_global)
-    return out
+def _row_draws(generator, rows: Optional[_Rows]):
+    """``generator``, wrapped in :class:`_RowDraws` when ``rows`` is given."""
+    return generator if rows is None else _RowDraws(generator, rows)
+
+
+def _draw(fn, generator, shape, device, dtype, chain_dim: int) -> Tensor:
+    shape = tuple(shape)
+    if isinstance(generator, _RowDraws):
+        rows = generator.rows
+        whole = shape[:chain_dim] + (rows.n_global,) + shape[chain_dim + 1:]
+        return rows.cut(fn(whole, generator=generator.generator, device=device, dtype=dtype),
+                        chain_dim)
+    return fn(shape, generator=generator, device=device, dtype=dtype)
+
+
+def _randn(generator, shape, *, device, dtype, chain_dim: int = 0) -> Tensor:
+    """Standard normals of ``shape``, its chains on ``chain_dim``, from a
+    ``torch.Generator`` or a :class:`_RowDraws`."""
+    return _draw(torch.randn, generator, shape, device, dtype, chain_dim)
+
+
+def _rand(generator, shape, *, device, dtype, chain_dim: int = 0) -> Tensor:
+    """Uniforms in [0, 1) of ``shape``, as :func:`_randn` draws normals."""
+    return _draw(torch.rand, generator, shape, device, dtype, chain_dim)
+
+
+def _any_chain(flag: Tensor, generator) -> bool:
+    """Whether any chain's ``flag`` is set, over every shard of a
+    :class:`_RowDraws` call (read on the host, the same on every process)."""
+    if isinstance(generator, _RowDraws):
+        return bool(generator.rows.total(torch.sum(flag, dtype=torch.int64)) > 0)
+    return bool(flag.any())
+
+
+def _chain_stats(x: Tensor, energy: Tensor, rows: Optional[_Rows], dim: int = 0):
+    """``{"mean", "var", "energy"}`` over the chains (``dim``) of states ``x``
+    and their energies: the unsharded call's reductions, or with ``rows`` the
+    means over every shard's chains (the variance in two passes)."""
+    if rows is None:
+        mean, var = torch.mean(x, dim=dim), torch.var(x, dim=dim, correction=0)
+        energy = torch.mean(energy, dim=dim)
+    else:
+        mean = rows.mean(x, dim)
+        var = rows.mean(torch.square(x - mean.unsqueeze(dim)), dim)
+        energy = rows.mean(energy, dim)
+    return {"mean": mean, "var": torch.clamp(var, 1e-10, 1e10), "energy": energy}
 
 
 def _sample_impl(
@@ -174,14 +244,19 @@ def _sample_impl(
     return_trajectory: bool,
     return_diagnostics: bool,
     model_kwargs: Dict[str, Any],
+    rows: Optional[_Rows] = None,
 ):
     """The shared sampling loop.
 
     ``n_steps // thin`` kept slots of ``thin`` transition steps each, then
     the ``n_steps % thin`` remainder steps (they run but are not recorded).
     Step index ``i`` drives the schedulers. The carry keeps the dtypes it
-    started with.
+    started with. With ``rows`` (a shard of a sharded batch) the steps draw
+    through :class:`_RowDraws` and the diagnostics are the means over every
+    shard's chains; a sampler's extras are means over chains and are pooled
+    as such.
     """
+    generator = _row_draws(generator, rows)
     n_kept = n_steps // thin
     carry = sampler.init_carry(x0, generator, model_kwargs)
     dtypes = {k: v.dtype for k, v in carry.items()}
@@ -198,12 +273,9 @@ def _sample_impl(
         if return_trajectory:
             traj.append(x)
         if return_diagnostics:
-            d = {
-                "mean": torch.mean(x, dim=0),
-                "var": torch.clamp(torch.var(x, dim=0, correction=0), 1e-10, 1e10),
-                "energy": torch.mean(sampler.energy_of(x, model_kwargs)),
-            }
-            d.update(sampler.extra_diagnostics(carry, model_kwargs))
+            d = _chain_stats(x, sampler.energy_of(x, model_kwargs), rows)
+            extra = sampler.extra_diagnostics(carry, model_kwargs)
+            d.update(extra if rows is None else {k: rows.pool(v) for k, v in extra.items()})
             diags.append(d)
     for i in range(n_kept * thin, n_steps):
         carry = one_step(i, carry)
@@ -266,8 +338,12 @@ class BaseSampler:
         dim: Optional[Union[int, Tuple[int, ...]]],
         n_samples: int,
     ) -> Tensor:
-        """``x`` as given (on the generator's device), or ``N(0, I)`` draws."""
-        _refuse_sharded(type(self).__name__, x)
+        """``x`` as given (on the generator's device), or ``N(0, I)`` draws.
+        A DTensor reaches here only through an entry point that does not
+        shard (``sample`` takes one before it), and raises."""
+        if is_dtensor(x):
+            raise ValueError(f"{type(self).__name__} does not take a sharded (DTensor) batch "
+                             "here; pass x.full_tensor()")
         if x is not None:
             x = torch.as_tensor(x)
             if not _same_device(x.device, generator.device):
@@ -308,9 +384,28 @@ class BaseSampler:
         *,
         model_kwargs: Optional[Dict[str, Any]] = None,
     ):
-        """Run the chain. See the module docstring for the shape contract."""
+        """Run the chain. See the module docstring for the shape contract. A
+        DTensor ``x``, a batch sharded on its rows (every process's generator
+        in the same state), gives a DTensor of the same placement holding the
+        unsharded call's values, and the unsharded call's diagnostics on
+        every process (module docstring)."""
+        rows = None
+        if is_dtensor(x):
+            rows = _Rows(x)
+            x, dim, n_samples = rows.local, None, 1
         x0 = self._start(generator, x, dim, n_samples, n_steps, thin)
-        return _sample_impl(
-            self, x0, generator, n_steps, thin,
-            bool(return_trajectory), bool(return_diagnostics), model_kwargs or {},
-        )
+        out = self._run(generator, x0, n_steps, thin, bool(return_trajectory),
+                        bool(return_diagnostics), model_kwargs or {}, rows)
+        if rows is None:
+            return out
+        if return_diagnostics:
+            return rows.like_this(out[0]), out[1]
+        return rows.like_this(out)
+
+    def _run(self, generator, x0, n_steps, thin, return_trajectory, return_diagnostics,
+             model_kwargs, rows=None):
+        """:meth:`sample` from the state ``x0``; ``rows``: ``x0`` holds the
+        rows of a sharded batch that :class:`_Rows` names. Samplers with
+        whole-chain kernels override it."""
+        return _sample_impl(self, x0, generator, n_steps, thin, return_trajectory,
+                            return_diagnostics, model_kwargs, rows)

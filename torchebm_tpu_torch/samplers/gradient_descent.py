@@ -6,7 +6,7 @@ Counterpart of :mod:`torchebm_tpu.samplers.gradient_descent`.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import Union
 
 import torch
 
@@ -45,25 +45,13 @@ class GradientDescentSampler(BaseSampler):
         x = carry["x"]
         return {"x": x - eta * self.gradient_of(x, model_kwargs, step=i)}
 
-    @torch.no_grad()
-    def sample(
-        self,
-        generator: torch.Generator,
-        x: Optional[Tensor] = None,
-        dim=None,
-        n_steps: int = 100,
-        n_samples: int = 1,
-        thin: int = 1,
-        return_trajectory: bool = False,
-        return_diagnostics: bool = False,
-        *,
-        model_kwargs=None,
-    ):
+    def _run(self, generator, x0, n_steps, thin, return_trajectory, return_diagnostics,
+             model_kwargs, rows=None):
         """Run the descent: a Langevin dispatch row's kernel at noise 0 where
-        one claims the call, the generic loop otherwise."""
+        one claims the call, the generic loop otherwise; a sharded batch
+        (:mod:`.base`) runs its rows and pools the diagnostics."""
         from .langevin import _call_fused_row, _claiming_row, _fused_gates_ok, _sched_table_arg
 
-        x0 = self._start(generator, x, dim, n_samples, n_steps, thin)
         row = None
         if _fused_gates_ok(self, generator.device, model_kwargs, schedulables=(self.step_size,)):
             row = _claiming_row(self)
@@ -82,12 +70,11 @@ class GradientDescentSampler(BaseSampler):
                     noise_scale=0.0,
                     seed=0,
                     clamp=None,
+                    rows=rows,
                 )
             # unsupported state shape or dtype, or n_steps < thin: the loop takes the call
-        return _sample_impl(
-            self, x0, generator, n_steps, thin,
-            bool(return_trajectory), bool(return_diagnostics), model_kwargs or {},
-        )
+        return _sample_impl(self, x0, generator, n_steps, thin, return_trajectory,
+                            return_diagnostics, model_kwargs, rows)
 
 
 @dataclass(eq=False)

@@ -16,7 +16,9 @@ Calls on a Gaussian mixture or a full-covariance Gaussian, with a unit,
 scalar or ``(d,)`` diagonal mass, run as one whole-run CUDA kernel
 (:mod:`torchebm_tpu_torch.ops.fused_hmc`) when the generator lives on a CUDA
 device (``fused="auto"``); ``fused="force"`` sends CPU calls to the kernels'
-plain versions, ``fused="off"`` always takes the generic loop.
+plain versions, ``fused="off"`` always takes the generic loop. A sharded
+batch (:mod:`.base`) runs the kernel at its ``chain_offset`` or the loop on
+the whole batch's draws, and pools ``acceptance_rate`` over every shard.
 """
 
 from __future__ import annotations
@@ -30,7 +32,17 @@ import torch
 from ..core.energies import Energy
 from ..core.schedulers import BaseScheduler, sched_init, sched_value
 from ..integrators import LeapfrogIntegrator, resolve_integrator
-from .base import BaseSampler, _kernel_seed, _metropolis_target, _sample_impl
+from ..parallel.mesh import is_dtensor
+from .base import (
+    BaseSampler,
+    _kernel_seed,
+    _metropolis_target,
+    _rand,
+    _randn,
+    _row_draws,
+    _Rows,
+    _sample_impl,
+)
 
 Tensor = torch.Tensor
 
@@ -115,7 +127,7 @@ class HamiltonianMonteCarlo(BaseSampler):
         return mass if mass.ndim == 0 else mass.reshape((1,) * (x.ndim - 1) + (-1,))
 
     def _momentum(self, generator: torch.Generator, x: Tensor) -> Tensor:
-        p = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+        p = _randn(generator, x.shape, device=x.device, dtype=x.dtype)
         return p if self.mass is None else p * torch.sqrt(self._mass_like(x))
 
     def _kinetic(self, p: Tensor) -> Tensor:
@@ -129,7 +141,7 @@ class HamiltonianMonteCarlo(BaseSampler):
 
     def _transition(self, x: Tensor, generator: torch.Generator, eps,
                     model_kwargs) -> Tuple[Tensor, Tensor]:
-        """One MH proposal; returns ``(new_x, mean acceptance probability)``."""
+        """One MH proposal; returns ``(new_x, each chain's acceptance probability)``."""
         p = self._momentum(generator, x)
         cur_h = (torch.clamp(self.energy_of(x, model_kwargs), -1e10, 1e10)
                  + torch.clamp(self._kinetic(p), 0.0, 1e10))
@@ -140,10 +152,9 @@ class HamiltonianMonteCarlo(BaseSampler):
         prop_h = (torch.clamp(self.energy_of(proposed["x"], model_kwargs), -1e10, 1e10)
                   + torch.clamp(self._kinetic(proposed["p"]), 0.0, 1e10))
         accept_prob = torch.clamp(torch.exp(torch.clamp(cur_h - prop_h, -50.0, 50.0)), max=1.0)
-        u = torch.rand(accept_prob.shape, generator=generator, device=x.device,
-                       dtype=accept_prob.dtype)
+        u = _rand(generator, accept_prob.shape, device=x.device, dtype=accept_prob.dtype)
         mask = (u < accept_prob).reshape((-1,) + (1,) * (x.ndim - 1))
-        return torch.where(mask, proposed["x"], x), torch.mean(accept_prob)
+        return torch.where(mask, proposed["x"], x), accept_prob
 
     # ---------------------------------------------------------------- hooks
 
@@ -153,7 +164,7 @@ class HamiltonianMonteCarlo(BaseSampler):
     def step(self, carry, i, generator, model_kwargs):
         x_new, acc = self._transition(carry["x"], generator, sched_value(self.step_size, i),
                                       model_kwargs)
-        return {"x": x_new, "accept_rate": acc}
+        return {"x": x_new, "accept_rate": torch.mean(acc)}
 
     def extra_diagnostics(self, carry, model_kwargs):
         return {"acceptance_rate": carry["accept_rate"]}
@@ -174,24 +185,12 @@ class HamiltonianMonteCarlo(BaseSampler):
             return None
         return target
 
-    @torch.no_grad()
-    def sample(
-        self,
-        generator: torch.Generator,
-        x: Optional[Tensor] = None,
-        dim=None,
-        n_steps: int = 100,
-        n_samples: int = 1,
-        thin: int = 1,
-        return_trajectory: bool = False,
-        return_diagnostics: bool = False,
-        *,
-        model_kwargs=None,
-    ):
+    def _run(self, generator, x0, n_steps, thin, return_trajectory, return_diagnostics,
+             model_kwargs, rows=None):
         """Run the chain (``n_steps`` draws): the whole-run kernel where
-        :meth:`_fused_target` claims the call, the generic loop otherwise. The
-        kernel's Philox seed is drawn from ``generator`` after the initial state."""
-        x0 = self._start(generator, x, dim, n_samples, n_steps, thin)
+        :meth:`_fused_target` claims the call (at the shard's ``chain_offset``
+        for ``rows``), the generic loop otherwise. The kernel's Philox seed is
+        drawn from ``generator`` after the initial state."""
         target = self._fused_target(generator.device, return_diagnostics, model_kwargs)
         if target is not None:
             means, target_kw = target
@@ -200,6 +199,8 @@ class HamiltonianMonteCarlo(BaseSampler):
                 from ..ops import fused_hmc as ops
 
                 kw = dict(mass=self.mass, seed=_kernel_seed(generator), **target_kw)
+                if rows is not None:
+                    kw["chain_offset"] = rows.start
                 args = (x0.contiguous(), means, n_steps, float(self.step_size),
                         self.n_leapfrog_steps)
                 if return_trajectory:
@@ -207,10 +208,8 @@ class HamiltonianMonteCarlo(BaseSampler):
                     return traj.movedim(0, 1)
                 return ops.mixture_hmc_chain(*args, **kw)[0]
             # unsupported state shape or dtype, or n_steps < thin: the loop takes the call
-        return _sample_impl(
-            self, x0, generator, n_steps, thin,
-            bool(return_trajectory), bool(return_diagnostics), model_kwargs or {},
-        )
+        return _sample_impl(self, x0, generator, n_steps, thin, return_trajectory,
+                            return_diagnostics, model_kwargs, rows)
 
     # ---------------------------------------------------------------- warmup
 
@@ -235,31 +234,60 @@ class HamiltonianMonteCarlo(BaseSampler):
 
         ``adapt_mass=True`` also estimates a diagonal mass, the inverse of the
         per-dimension variance pooled over all chains and the second half of
-        warmup, and returns ``(warmed x, step_size, mass)``.
+        warmup, and returns ``(warmed x, step_size, mass)``. A sharded ``x``
+        (:mod:`.base`) is warmed shard by shard on the whole batch's draws,
+        dual averaging fed the acceptance over every shard's chains: the warmed
+        ``x`` comes back sharded alike, and every process gets the unsharded
+        call's step size and mass.
         """
-        if int(n_warmup) < 1:
-            raise ValueError("n_warmup must be >= 1")
-        model_kwargs = model_kwargs or {}
-        x = self._start(generator, x, dim, n_samples, 1, 1)
-        eps0 = sched_init(self.step_size)
-        mu = torch.tensor(math.log(10.0 * eps0), dtype=torch.float32, device=x.device)
-        da = DualAveragingState.init(eps0, x.device)
-        collect_from = int(n_warmup) // 2  # skip the transient for the variance window
-        flat_d = x.reshape(x.shape[0], -1).shape[-1]
-        s1 = torch.zeros(flat_d, dtype=x.dtype, device=x.device)
-        s2 = torch.zeros(flat_d, dtype=x.dtype, device=x.device)
-        count = 0
-        for i in range(int(n_warmup)):
-            x, acc = self._transition(x, generator, torch.exp(da.log_eps), model_kwargs)
-            da = dual_averaging_update(da, acc, self.target_accept, mu)
-            if i >= collect_from:
-                flat = x.reshape(x.shape[0], -1)
-                s1 = s1 + torch.sum(flat, dim=0)
-                s2 = s2 + torch.sum(flat * flat, dim=0)
-                count += flat.shape[0]
-        eps = float(torch.exp(da.log_eps_bar))
-        if not adapt_mass:
-            return x, eps
-        n = float(max(count, 2))
-        var = s2 / n - torch.square(s1 / n)
-        return x, eps, 1.0 / torch.clamp(var.reshape(x.shape[1:]), 1e-8, 1e8)
+        return _dual_averaging_warmup(self, self._transition, generator, x, dim, n_warmup,
+                                     n_samples, adapt_mass, model_kwargs)
+
+
+def _dual_averaging_warmup(sampler, transition, generator, x, dim, n_warmup, n_samples,
+                          adapt_mass, model_kwargs):
+    """The warmup of :meth:`HamiltonianMonteCarlo.warmup` and
+    :meth:`~torchebm_tpu_torch.samplers.NoUTurnSampler.warmup` around one
+    ``transition(x, generator, eps, model_kwargs) -> (x, each chain's
+    acceptance)``: dual averaging of the step size toward
+    ``sampler.target_accept`` from ``sampler.step_size``, fed the mean
+    acceptance over the chains, and with ``adapt_mass`` the diagonal mass
+    from the second half's per-dimension variance over all chains. A DTensor
+    ``x`` is run shard by shard; the acceptance and the collected states are
+    gathered whole (:meth:`~.base._Rows.whole`) before they are reduced, for
+    dual averaging multiplies a rounding of the mean acceptance by up to
+    ``√t / 0.05``: every process gets the unsharded call's bits."""
+    if int(n_warmup) < 1:
+        raise ValueError("n_warmup must be >= 1")
+    model_kwargs = model_kwargs or {}
+    rows = _Rows(x) if is_dtensor(x) else None
+    if rows is not None:
+        x, dim, n_samples = rows.local, None, 1
+    x = sampler._start(generator, x, dim, n_samples, 1, 1)
+    draws = _row_draws(generator, rows)
+    eps0 = sched_init(sampler.step_size)
+    mu = torch.tensor(math.log(10.0 * eps0), dtype=torch.float32, device=x.device)
+    da = DualAveragingState.init(eps0, x.device)
+    collect_from = int(n_warmup) // 2  # skip the transient for the variance window
+    flat_d = x.reshape(x.shape[0], -1).shape[-1]
+    s1 = torch.zeros(flat_d, dtype=x.dtype, device=x.device)
+    s2 = torch.zeros(flat_d, dtype=x.dtype, device=x.device)
+    count = 0
+    for i in range(int(n_warmup)):
+        x, acc = transition(x, draws, torch.exp(da.log_eps), model_kwargs)
+        acc = torch.mean(acc if rows is None else rows.whole(acc))
+        da = dual_averaging_update(da, acc, sampler.target_accept, mu)
+        if i >= collect_from and adapt_mass:
+            flat = x.reshape(x.shape[0], -1)
+            if rows is not None:
+                flat = rows.whole(flat)
+            s1 = s1 + torch.sum(flat, dim=0)
+            s2 = s2 + torch.sum(flat * flat, dim=0)
+            count += flat.shape[0]
+    eps = float(torch.exp(da.log_eps_bar))
+    x_out = x if rows is None else rows.like_this(x)
+    if not adapt_mass:
+        return x_out, eps
+    n = float(max(count, 2))
+    var = s2 / n - torch.square(s1 / n)
+    return x_out, eps, 1.0 / torch.clamp(var.reshape(x.shape[1:]), 1e-8, 1e8)

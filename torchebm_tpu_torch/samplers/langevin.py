@@ -26,13 +26,14 @@ CUDA state, ``"force"`` its plain version on the CPU as well.
 
 A chain batch sharded on its rows (``x`` a DTensor, e.g. from
 :func:`~torchebm_tpu_torch.parallel.shard_batch`) gives a DTensor of the
-same placement and the values of the unsharded call: each process runs its
-rows, the kernel rows and the neural row with ``chain_offset`` at the
-shard's first row (the Philox streams of those rows in the whole batch;
-under FSDP2 the neural row gathers the net's weights once per call), the
-generic loop with each step's normals drawn for the whole batch and cut to
-the shard's rows (O(global batch) draws per process). The double-well row
-and ``return_diagnostics`` refuse a sharded batch.
+same placement and the values of the unsharded call (:mod:`.base`): each
+process runs its rows, the kernel rows and the neural row with
+``chain_offset`` at the shard's first row (the double well's at that row
+times the elements per row, its stream being per element; under FSDP2 the
+neural row gathers the net's weights once per call), the generic loop with
+each step's normals drawn for the whole batch and cut to the shard's rows.
+``return_diagnostics`` gives the unsharded call's means over every shard's
+chains on every process.
 """
 
 from __future__ import annotations
@@ -52,15 +53,17 @@ from ..core.energies import (
 from ..core.module import tensor_memo
 from ..core.schedulers import BaseScheduler, sched_value
 from ..integrators import EulerMaruyamaIntegrator, resolve_integrator
-from ..parallel.mesh import is_dtensor, like_rows, row_shard
+from ..parallel.mesh import is_dtensor
 from .base import (
     BaseSampler,
+    _chain_stats,
     _concrete_scalar,
     _gaussian_target,
     _kernel_seed,
     _kernel_seed_tensor,
+    _randn,
+    _RowDraws,
     _sample_impl,
-    _with_global_noise,
 )
 
 Tensor = torch.Tensor
@@ -113,8 +116,8 @@ def _covariance_scale(cov: Tensor) -> Optional[float]:
     """σ if ``cov`` is σ²I, else None (read on the host)."""
     cov = cov.detach().cpu()
     var = float(cov[0, 0])
-    if var <= 0 or not torch.allclose(cov, var * torch.eye(cov.shape[0], dtype=cov.dtype),
-                                      atol=1e-12):
+    eye = torch.eye(cov.shape[0], dtype=cov.dtype, device=cov.device)
+    if var <= 0 or not torch.allclose(cov, var * eye, atol=1e-12):
         return None
     return var**0.5
 
@@ -189,27 +192,27 @@ def _fused_gates_ok(sampler, device: torch.device, model_kwargs, *, schedulables
 
 
 def _call_fused_row(row, x0, model, *, n_steps, thin, return_trajectory,
-                    return_diagnostics, kargs, step_size, noise_scale, seed, clamp,
-                    chain_offset=0):
+                    return_diagnostics, kargs, step_size, noise_scale, seed, clamp, rows=None):
     """Invoke a dispatch row's chain/trajectory kernel and package outputs in
-    the loop's shapes; diagnostics come from the kernel's trajectory."""
+    the loop's shapes; diagnostics come from the kernel's trajectory. With
+    ``rows`` (a shard of a sharded batch) the kernel runs at the shard's
+    ``chain_offset`` (per element for the double well) and the diagnostics
+    are pooled over every shard."""
     from ..ops import fused_langevin as ops
 
     common = dict(
         n_steps=int(n_steps), step_size=step_size, noise_scale=noise_scale,
         seed=seed, clamp=clamp,
     )
-    if chain_offset:
-        common["chain_offset"] = chain_offset
+    if rows is not None:
+        per_row = x0[0].numel() if row.name == "doublewell" else 1
+        common["chain_offset"] = rows.start * per_row
     if return_trajectory or return_diagnostics:
         traj, final = getattr(ops, row.trajectory)(x0, thin=int(thin), **kargs, **common)
         out = traj.movedim(0, 1) if return_trajectory else final
         if not return_diagnostics:
             return out
-        mean = torch.mean(traj, dim=1)
-        var = torch.clamp(torch.var(traj, dim=1, correction=0), 1e-10, 1e10)
-        energy = torch.func.vmap(lambda xk: torch.mean(model.energy(xk)))(traj)
-        return out, {"mean": mean, "var": var, "energy": energy}
+        return out, _chain_stats(traj, torch.func.vmap(model.energy)(traj), rows, dim=1)
     return getattr(ops, row.chain)(x0, **kargs, **common)
 
 
@@ -272,12 +275,18 @@ class LangevinDynamics(BaseSampler):
         )
 
     def step(self, carry, i, generator, model_kwargs):
+        kw = {}
+        if isinstance(generator, _RowDraws):  # a shard: its rows of the whole batch's normals
+            x = carry["x"]
+            kw["noise"] = _randn(generator, x.shape, device=x.device, dtype=x.dtype)
+            generator = generator.generator
         out = self.integrator.step(
             {"x": carry["x"]},
             sched_value(self.step_size, i),
             drift=lambda x_, t_: -self.gradient_of(x_, model_kwargs, step=i),
             generator=generator,
             noise_scale=sched_value(self.noise_scale, i),
+            **kw,
         )
         x = out["x"]
         if self.clamp is not None:
@@ -332,46 +341,14 @@ class LangevinDynamics(BaseSampler):
             return None
         return _claiming_row(self)
 
-    @torch.no_grad()
-    def sample(
-        self,
-        generator: torch.Generator,
-        x: Optional[Tensor] = None,
-        dim=None,
-        n_steps: int = 100,
-        n_samples: int = 1,
-        thin: int = 1,
-        return_trajectory: bool = False,
-        return_diagnostics: bool = False,
-        *,
-        model_kwargs=None,
-    ):
-        """Run the chain: the neural chain kernel for a tagged SiLU-MLP energy
-        under ``fused_neural``, a whole-chain kernel where a dispatch row
-        claims the call, the generic loop otherwise. A kernel's Philox seed is
-        drawn from ``generator`` after the initial state. A DTensor ``x``
-        (a batch sharded on its rows; every process's generator in the same
-        state) gives a DTensor of the unsharded call's values (module
-        docstring)."""
-        if is_dtensor(x):
-            local, start, n = row_shard(x)
-            if return_diagnostics:
-                raise ValueError("return_diagnostics reduces over every chain; it does not take "
-                                 "a sharded batch (summarize a sharded trajectory with "
-                                 "samplers.summarize_chains)")
-            x0 = self._start(generator, local, None, 1, n_steps, thin)
-            out = self._run(generator, x0, n_steps, thin, return_trajectory, False,
-                            model_kwargs, rows=(start, n))
-            return like_rows(out, x)
-        x0 = self._start(generator, x, dim, n_samples, n_steps, thin)
-        return self._run(generator, x0, n_steps, thin, return_trajectory, return_diagnostics,
-                         model_kwargs)
-
     def _run(self, generator, x0, n_steps, thin, return_trajectory, return_diagnostics,
              model_kwargs, rows=None):
-        """:meth:`sample` from the state ``x0``; ``rows=(start, n)``: ``x0``
-        holds rows ``[start, start + len(x0))`` of a batch of ``n``."""
-        chain_offset = 0 if rows is None else rows[0]
+        """Run the chain from ``x0``: the neural chain kernel for a tagged
+        SiLU-MLP energy under ``fused_neural``, a whole-chain kernel where a
+        dispatch row claims the call, the generic loop otherwise. A kernel's
+        Philox seed is drawn from ``generator`` after the initial state.
+        ``rows``: ``x0`` is a shard of a sharded batch (:mod:`.base`)."""
+        chain_offset = 0 if rows is None else rows.start
         if self._neural_fusable(generator.device, return_trajectory, return_diagnostics, thin,
                                 model_kwargs):
             layers = self._neural_layers(x0)
@@ -385,13 +362,6 @@ class LangevinDynamics(BaseSampler):
                 )
             # unsupported state, widths or depth: the loop takes the call
         row = self._dispatch_row(generator.device, model_kwargs)
-        if row is not None and row.name == "doublewell" and rows is not None:
-            raise ValueError(
-                "LangevinDynamics' double-well row does not take a sharded (DTensor) chain batch "
-                "yet: its kernel has no chain offset, so the shards would draw the same noise "
-                "(ROADMAP.md, queue 2, K8). Pass fused='off' for the generic loop, which takes "
-                "one, or x.full_tensor()."
-            )
         if row is not None:
             kargs = row.kernel_kwargs(self, x0) if x0.dtype == torch.float32 else None
             if kargs is not None and (
@@ -406,11 +376,8 @@ class LangevinDynamics(BaseSampler):
                     step_size=_sched_table_arg(self.step_size, n_steps, x0.device),
                     noise_scale=_sched_table_arg(self.noise_scale, n_steps, x0.device),
                     seed=(_kernel_seed_tensor if row.device_seed else _kernel_seed)(generator),
-                    clamp=self.clamp, chain_offset=chain_offset,
+                    clamp=self.clamp, rows=rows,
                 )
             # unsupported state shape or dtype, or n_steps < thin: the loop takes the call
-        sampler = self if rows is None else _with_global_noise(self, *rows)
-        return _sample_impl(
-            sampler, x0, generator, n_steps, thin,
-            bool(return_trajectory), bool(return_diagnostics), model_kwargs or {},
-        )
+        return _sample_impl(self, x0, generator, n_steps, thin, return_trajectory,
+                            return_diagnostics, model_kwargs, rows)

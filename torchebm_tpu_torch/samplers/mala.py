@@ -12,19 +12,21 @@ sampler. Calls on a Gaussian mixture or a full-covariance Gaussian run as one
 whole-chain CUDA kernel (:mod:`torchebm_tpu_torch.ops.fused_mala`) when the
 generator lives on a CUDA device (``fused="auto"``); ``fused="force"`` sends
 CPU calls to the kernels' plain versions, ``fused="off"`` always takes the
-generic loop.
+generic loop. A sharded batch (:mod:`.base`) runs the kernel at its
+``chain_offset`` or the loop on the whole batch's draws, and pools
+``acceptance_rate`` over every shard.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, Tuple, Union
 
 import torch
 
 from ..core.energies import Energy
 from ..core.schedulers import BaseScheduler, sched_value
-from .base import BaseSampler, _kernel_seed, _metropolis_target, _sample_impl
+from .base import BaseSampler, _kernel_seed, _metropolis_target, _rand, _randn, _sample_impl
 
 Tensor = torch.Tensor
 
@@ -57,15 +59,14 @@ class MetropolisAdjustedLangevin(BaseSampler):
                     model_kwargs) -> Tuple[Tensor, Tensor]:
         """One MH proposal; returns ``(new_x, mean acceptance probability)``."""
         grad_x = self.gradient_of(x, model_kwargs)
-        eps = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+        eps = _randn(generator, x.shape, device=x.device, dtype=x.dtype)
         y = x - eta * grad_x + torch.sqrt(2.0 * eta) * eps
         grad_y = self.gradient_of(y, model_kwargs)
         u_x = torch.clamp(self.energy_of(x, model_kwargs), -1e10, 1e10)
         u_y = torch.clamp(self.energy_of(y, model_kwargs), -1e10, 1e10)
         log_ratio = u_x - u_y + self._log_q(x, y, grad_y, eta) - self._log_q(y, x, grad_x, eta)
         accept_prob = torch.clamp(torch.exp(torch.clamp(log_ratio, -50.0, 50.0)), max=1.0)
-        u = torch.rand(accept_prob.shape, generator=generator, device=x.device,
-                       dtype=accept_prob.dtype)
+        u = _rand(generator, accept_prob.shape, device=x.device, dtype=accept_prob.dtype)
         mask = (u < accept_prob).reshape((-1,) + (1,) * (x.ndim - 1))
         return torch.where(mask, y, x), torch.mean(accept_prob)
 
@@ -84,24 +85,12 @@ class MetropolisAdjustedLangevin(BaseSampler):
 
     # -------------------------------------------------------- fused fast path
 
-    @torch.no_grad()
-    def sample(
-        self,
-        generator: torch.Generator,
-        x: Optional[Tensor] = None,
-        dim=None,
-        n_steps: int = 100,
-        n_samples: int = 1,
-        thin: int = 1,
-        return_trajectory: bool = False,
-        return_diagnostics: bool = False,
-        *,
-        model_kwargs=None,
-    ):
+    def _run(self, generator, x0, n_steps, thin, return_trajectory, return_diagnostics,
+             model_kwargs, rows=None):
         """Run the chain: the whole-chain kernel where :func:`_metropolis_target`
-        claims the call, the generic loop otherwise. The kernel's Philox seed
-        is drawn from ``generator`` after the initial state."""
-        x0 = self._start(generator, x, dim, n_samples, n_steps, thin)
+        claims the call (at the shard's ``chain_offset`` for ``rows``), the
+        generic loop otherwise. The kernel's Philox seed is drawn from
+        ``generator`` after the initial state."""
         target = _metropolis_target(self, generator.device, return_diagnostics, model_kwargs)
         if target is not None:
             means, target_kw = target
@@ -110,6 +99,8 @@ class MetropolisAdjustedLangevin(BaseSampler):
                 from ..ops import fused_mala as ops
 
                 kw = dict(seed=_kernel_seed(generator), **target_kw)
+                if rows is not None:
+                    kw["chain_offset"] = rows.start
                 if return_trajectory:
                     traj, _, _ = ops.mixture_mala_chain_trajectory(
                         x0.contiguous(), means, n_steps, float(self.step_size), thin=thin, **kw
@@ -119,7 +110,5 @@ class MetropolisAdjustedLangevin(BaseSampler):
                     x0.contiguous(), means, n_steps, float(self.step_size), **kw
                 )[0]
             # unsupported state shape or dtype, or n_steps < thin: the loop takes the call
-        return _sample_impl(
-            self, x0, generator, n_steps, thin,
-            bool(return_trajectory), bool(return_diagnostics), model_kwargs or {},
-        )
+        return _sample_impl(self, x0, generator, n_steps, thin, return_trajectory,
+                            return_diagnostics, model_kwargs, rows)

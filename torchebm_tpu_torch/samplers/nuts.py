@@ -27,6 +27,10 @@ uniform per leaf. The private ``_transition`` takes them injected instead.
 dimension is the chain count is already aligned with the chains, and a
 batch-shared leaf is seen whole by every chain. ``shared_kwargs`` keeps the
 JAX signature and must name keys of ``model_kwargs``.
+
+A sharded batch (:mod:`.base`) draws each of these for the whole batch and
+keeps its rows, reads the flag over every shard (one all-reduce per doubling
+after the first), and pools the diagnostics and the warmup's acceptance.
 """
 
 from __future__ import annotations
@@ -38,9 +42,9 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 
 from ..core.energies import Energy
-from ..core.schedulers import BaseScheduler, sched_init, sched_value
-from .base import BaseSampler
-from .hmc import DualAveragingState, dual_averaging_update
+from ..core.schedulers import BaseScheduler, sched_value
+from .base import BaseSampler, _any_chain, _rand, _randn
+from .hmc import _dual_averaging_warmup
 
 Tensor = torch.Tensor
 
@@ -174,7 +178,7 @@ class NoUTurnSampler(BaseSampler):
         dev, dt = x.device, x.dtype
         m = self._mass_like(x)
         if draws is None:
-            z = torch.randn((n, d), generator=generator, device=dev, dtype=dt)
+            z = _randn(generator, (n, d), device=dev, dtype=dt)
         else:
             z = draws["momentum"]
         r0 = z if m is None else z * torch.sqrt(m)
@@ -191,11 +195,12 @@ class NoUTurnSampler(BaseSampler):
         diverging = torch.zeros((n,), dtype=torch.bool, device=dev)
         active = torch.ones((n,), dtype=torch.bool, device=dev)
         for j in range(self.max_tree_depth):
-            # the transition's only host read: is any tree still growing?
-            if j and not bool(active.any()):
+            # the transition's only host read: is any tree still growing? (on
+            # a sharded batch, in any shard: every shard takes the same doublings)
+            if j and not _any_chain(active, generator):
                 break
             if draws is None:
-                u = torch.rand((n, 2 + 2 ** j), generator=generator, device=dev, dtype=dt)
+                u = _rand(generator, (n, 2 + 2 ** j), device=dev, dtype=dt)
                 go_right, merge_u, leaf_u = u[:, 0] < 0.5, u[:, 1], u[:, 2:]
             else:
                 go_right = draws["direction"][:, j]
@@ -227,15 +232,18 @@ class NoUTurnSampler(BaseSampler):
         accept_stat = acc_sum / torch.clamp(n_leaves, min=1.0)
         return x_prop, accept_stat, depth, diverging
 
-    def _transition_batch(self, x: Tensor, generator, eps, model_kwargs, draws=None):
-        """One transition; ``(x_new, mean accept statistic, mean depth,
-        divergence rate)``, the means over chains."""
+    def _check_shared_kwargs(self, model_kwargs) -> None:
         unknown = set(self.shared_kwargs).difference(model_kwargs)
         if unknown:
             raise ValueError(
                 f"shared_kwargs names {sorted(unknown)} not present in "
                 f"model_kwargs {sorted(model_kwargs)}"
             )
+
+    def _transition_batch(self, x: Tensor, generator, eps, model_kwargs, draws=None):
+        """One transition; ``(x_new, mean accept statistic, mean depth,
+        divergence rate)``, the means over chains."""
+        self._check_shared_kwargs(model_kwargs)
         x_new, acc, depth, div = self._transition(x, generator, eps, model_kwargs, draws)
         return x_new, torch.mean(acc), torch.mean(depth), torch.mean(div.to(acc.dtype))
 
@@ -280,30 +288,7 @@ class NoUTurnSampler(BaseSampler):
             x, eps, mass = nuts.warmup(g, dim=2, n_samples=64, adapt_mass=True)
             tuned = nuts.replace(step_size=eps, mass=mass)
         """
-        if int(n_warmup) < 1:
-            raise ValueError("n_warmup must be >= 1")
-        model_kwargs = model_kwargs or {}
-        x = self._start(generator, x, dim, n_samples, 1, 1)
-        eps0 = sched_init(self.step_size)
-        mu = torch.tensor(math.log(10.0 * eps0), dtype=torch.float32, device=x.device)
-        da = DualAveragingState.init(eps0, x.device)
-        collect_from = int(n_warmup) // 2  # skip the transient for the variance window
-        flat_d = x.reshape(x.shape[0], -1).shape[-1]
-        s1 = torch.zeros(flat_d, dtype=x.dtype, device=x.device)
-        s2 = torch.zeros(flat_d, dtype=x.dtype, device=x.device)
-        count = 0
-        for i in range(int(n_warmup)):
-            x, acc, _, _ = self._transition_batch(x, generator, torch.exp(da.log_eps),
-                                                  model_kwargs)
-            da = dual_averaging_update(da, acc, self.target_accept, mu)
-            if i >= collect_from:
-                flat = x.reshape(x.shape[0], -1)
-                s1 = s1 + torch.sum(flat, dim=0)
-                s2 = s2 + torch.sum(flat * flat, dim=0)
-                count += flat.shape[0]
-        eps = float(torch.exp(da.log_eps_bar))
-        if not adapt_mass:
-            return x, eps
-        n = float(max(count, 2))
-        var = s2 / n - torch.square(s1 / n)
-        return x, eps, 1.0 / torch.clamp(var.reshape(x.shape[1:]), 1e-8, 1e8)
+        self._check_shared_kwargs(model_kwargs or {})
+        return _dual_averaging_warmup(
+            self, lambda x_, g_, eps, mk: self._transition(x_, g_, eps, mk)[:2],
+            generator, x, dim, n_warmup, n_samples, adapt_mass, model_kwargs)

@@ -22,6 +22,12 @@ device (``fused="auto"``); ``fused="force"`` sends CPU calls to the kernels'
 plain versions, ``fused="off"`` always takes the generic loop. Diagnostics,
 schedules, conditioning, the double well and ladders of more than 32
 replicas take the loop.
+
+A batch sharded on its rows (``sample``), or a ladder sharded on its chain
+axis (``run_replicas``), runs its chains with the kernel at their place in
+the whole batch (``chain_offset`` and ``total_chains``) or the loop on the
+whole batch's normals and exchange uniforms, and pools the swap acceptance
+over every shard (:mod:`.base`).
 """
 
 from __future__ import annotations
@@ -33,12 +39,16 @@ import torch
 
 from ..core.energies import Energy
 from ..core.schedulers import BaseScheduler, sched_value
+from ..parallel.mesh import is_dtensor
 from .base import (
     BaseSampler,
     _check_model_device,
     _concrete_scalar,
     _kernel_seed,
-    _refuse_sharded,
+    _rand,
+    _randn,
+    _row_draws,
+    _Rows,
     _same_device,
     _sample_impl,
 )
@@ -104,8 +114,8 @@ class ParallelTemperingLangevin(BaseSampler):
         grad = self._flat(lambda x: self.gradient_of(x, model_kwargs, step=i), replicas)
         betas = torch.tensor(self._betas(), dtype=replicas.dtype, device=replicas.device)
         betas = betas.reshape((-1,) + (1,) * (replicas.ndim - 1))
-        noise = torch.randn(replicas.shape, generator=generator, device=replicas.device,
-                            dtype=replicas.dtype)
+        noise = _randn(generator, replicas.shape, device=replicas.device, dtype=replicas.dtype,
+                       chain_dim=1)
         new = replicas - eta * betas * grad + ns * torch.sqrt(2.0 * eta) * noise
         if self.clamp is not None:
             new = torch.clamp(new, self.clamp[0], self.clamp[1])
@@ -120,8 +130,7 @@ class ParallelTemperingLangevin(BaseSampler):
         betas = self._betas()
         reps, es, accs = list(replicas), list(energies), []
         for r in range(self.n_replicas - 1):
-            u = torch.rand(es[r].shape, generator=generator, device=replicas.device,
-                           dtype=energies.dtype)
+            u = _rand(generator, es[r].shape, device=replicas.device, dtype=energies.dtype)
             if r % 2 != phase:
                 continue
             delta = (betas[r] - betas[r + 1]) * (es[r] - es[r + 1])
@@ -181,9 +190,15 @@ class ParallelTemperingLangevin(BaseSampler):
             return None
         return self._fused_row()
 
-    def _kernel_call(self, name: str, replicas: Tensor, kargs: dict, generator, n_steps, **kw):
+    def _kernel_call(self, name: str, replicas: Tensor, kargs: dict, generator, n_steps, rows,
+                     **kw):
+        """Kernel ``name`` on the ladder ``replicas``; with ``rows`` (a shard
+        of a ladder sharded on its chains) at the shard's place in the whole
+        batch."""
         from ..ops import fused_pt
 
+        if rows is not None:
+            kw.update(chain_offset=rows.start, total_chains=rows.n_global)
         return getattr(fused_pt, name)(
             replicas.contiguous(), n_steps=int(n_steps), step_size=float(self.step_size),
             noise_scale=float(self.noise_scale), betas=self._betas(),
@@ -191,25 +206,13 @@ class ParallelTemperingLangevin(BaseSampler):
             **kargs, **kw,
         )
 
-    @torch.no_grad()
-    def sample(
-        self,
-        generator: torch.Generator,
-        x: Optional[Tensor] = None,
-        dim=None,
-        n_steps: int = 100,
-        n_samples: int = 1,
-        thin: int = 1,
-        return_trajectory: bool = False,
-        return_diagnostics: bool = False,
-        *,
-        model_kwargs=None,
-    ):
+    def _run(self, generator, x0, n_steps, thin, return_trajectory, return_diagnostics,
+             model_kwargs, rows=None):
         """Run the ladder and return the cold chain: the ladder kernel (its
         trajectory variant for ``return_trajectory``) where a row claims the
-        call, the generic loop otherwise. The kernel's Philox seed is drawn
-        from ``generator`` after the initial state."""
-        x0 = self._start(generator, x, dim, n_samples, n_steps, thin)
+        call, the generic loop otherwise; ``rows``: a shard of a sharded batch
+        (:mod:`.base`). The kernel's Philox seed is drawn from ``generator``
+        after the initial state."""
         row = self._dispatch_row(generator.device, return_diagnostics, model_kwargs)
         if row is not None:
             kargs = row.kernel_kwargs(self, x0) if x0.dtype == torch.float32 else None
@@ -217,15 +220,14 @@ class ParallelTemperingLangevin(BaseSampler):
                 replicas = x0[None].expand((self.n_replicas,) + tuple(x0.shape))
                 if return_trajectory:
                     traj, _, _ = self._kernel_call("pt_langevin_chain_trajectory", replicas,
-                                                   kargs, generator, n_steps, thin=int(thin))
+                                                   kargs, generator, n_steps, rows,
+                                                   thin=int(thin))
                     return traj.movedim(0, 1)
                 return self._kernel_call("pt_langevin_chain", replicas, kargs, generator,
-                                         n_steps)[0][0]
+                                         n_steps, rows)[0][0]
             # unsupported state shape or dtype, or n_steps < thin: the loop takes the call
-        return _sample_impl(
-            self, x0, generator, n_steps, thin,
-            bool(return_trajectory), bool(return_diagnostics), model_kwargs or {},
-        )
+        return _sample_impl(self, x0, generator, n_steps, thin, return_trajectory,
+                            return_diagnostics, model_kwargs, rows)
 
     # ------------------------------------------------------------- replicas
 
@@ -236,10 +238,16 @@ class ParallelTemperingLangevin(BaseSampler):
         steps: the persistence entry point of tempered contrastive divergence.
         Returns ``(new_replicas, acceptance of the last sweep)``; the ladder
         kernel takes a float32 ``(R, B, d)`` ladder under the gates of
-        :meth:`sample`."""
+        :meth:`sample`. A ladder sharded on its chain axis (a DTensor split on
+        dim 1; any other placement raises) gives a DTensor laid out alike with
+        the unsharded call's values, and the acceptance over every shard's
+        chains."""
         if not isinstance(generator, torch.Generator):
             raise TypeError(f"run_replicas needs a torch.Generator, got {type(generator).__name__}")
-        _refuse_sharded("ParallelTemperingLangevin.run_replicas", replicas)
+        rows = None
+        if is_dtensor(replicas):
+            rows = _Rows(replicas, dim=1)
+            replicas = rows.local
         replicas = torch.as_tensor(replicas)
         if replicas.ndim < 2 or replicas.shape[0] != self.n_replicas:
             raise ValueError(
@@ -250,13 +258,23 @@ class ParallelTemperingLangevin(BaseSampler):
             raise ValueError(
                 f"replicas is on {replicas.device} but the generator is on {generator.device}")
         _check_model_device(self.model, generator.device)
+        ladder, acc = self._replicas(generator, replicas, n_steps, model_kwargs or {}, rows)
+        if rows is None:
+            return ladder, acc
+        return rows.like_this(ladder), rows.pool(acc)
+
+    def _replicas(self, generator, replicas: Tensor, n_steps: int, model_kwargs, rows):
+        """:meth:`run_replicas` on a plain ladder (``rows``: its chains are a
+        shard of a sharded ladder's): ``(ladder, this ladder's acceptance)``."""
         row = self._dispatch_row(generator.device, False, model_kwargs)
         if row is not None and replicas.ndim == 3 and replicas.dtype == torch.float32:
             kargs = row.kernel_kwargs(self, replicas[0])
             if kargs is not None:
-                return self._kernel_call("pt_langevin_chain", replicas, kargs, generator, n_steps)
+                return self._kernel_call("pt_langevin_chain", replicas, kargs, generator,
+                                         n_steps, rows)
+        draws = _row_draws(generator, rows)
         carry = {"x": replicas[0], "replicas": replicas,
                  "swap_accept": torch.zeros((), dtype=torch.float32, device=replicas.device)}
         for i in range(int(n_steps)):
-            carry = self.step(carry, i, generator, model_kwargs or {})
+            carry = self.step(carry, i, draws, model_kwargs)
         return carry["replicas"], carry["swap_accept"]

@@ -26,7 +26,9 @@ every Picard iterate of the momentum: :math:`\nabla U`, :math:`G` with its
 graph and :math:`G^{-1}` are computed once per position, and each momentum
 costs two small matrix products and one backward pass through
 ``metric_fn``. A metric that does not depend on :math:`x` adds nothing, and
-the force is HMC's. NaN and Inf proposals are rejected outright.
+the force is HMC's. NaN and Inf proposals are rejected outright. A sharded
+batch (:mod:`.base`) draws the momentum's normals and the Metropolis
+uniforms for the whole batch and keeps its rows.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ import torch
 from ..core.energies import Energy
 from ..core.schedulers import BaseScheduler, sched_value
 from ..integrators import resolve_integrator
-from .base import BaseSampler
+from .base import BaseSampler, _rand, _randn
 
 Tensor = torch.Tensor
 
@@ -145,7 +147,7 @@ class RiemannianManifoldHMC(BaseSampler):
         Metropolis uniforms ``uniforms`` (one per chain) are drawn from
         ``generator`` in that order, or injected."""
         if noise is None:
-            noise = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+            noise = _randn(generator, x.shape, device=x.device, dtype=x.dtype)
         p = self._momentum(noise, x)
         cur_h = torch.clamp(self._hamiltonian(x, p, model_kwargs), -1e10, 1e10)
         # the integrator asks for the force at one position for several
@@ -170,8 +172,8 @@ class RiemannianManifoldHMC(BaseSampler):
         accept_prob = torch.where(finite, torch.clamp(torch.exp(diff), max=1.0),
                                   torch.zeros_like(diff))
         if uniforms is None:
-            uniforms = torch.rand(accept_prob.shape, generator=generator, device=x.device,
-                                  dtype=accept_prob.dtype)
+            uniforms = _rand(generator, accept_prob.shape, device=x.device,
+                             dtype=accept_prob.dtype)
         mask = (uniforms < accept_prob).reshape((-1,) + (1,) * (x.ndim - 1))
         return torch.where(mask, x_prop, x), torch.mean(accept_prob)
 
