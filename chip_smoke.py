@@ -17,7 +17,10 @@ take); ``--ais`` runs only the build and row 12's checks, timings, plan
 sweep and sync count; ``--dit`` only the build and the DiT family's and score
 matching's profile lines and paths; ``--mcmc`` only the build, the RMHMC,
 NUTS and NUTS->HMC handoff paths and their sync counts; ``--parallel`` only
-the build and the distributed layer's path; ``--offset-shape`` times rows
+the build and the distributed layer's path; ``--gaps`` only the build, the
+paths of BASELINE config 4, Energy Matching, the other couplings, the CD
+variants and the flow modes, and ``FlowSampler`` sharded on a NCCL world of
+one; ``--offset-shape`` times rows
 2-13 but 1 (every kernel with a chain offset) at their main shapes through
 the public wrappers, against whichever package is imported, as
 ``--ess-shape`` does.)
@@ -161,6 +164,30 @@ not 0:
      steps through the neural chain kernel (one launch, nearer held-out
      data than the untrained energy's), and ms per DSM, SSM and exact-SM
      step;
+   - PCD on ``ConvEnergy2D(channels=(32, 64, 64))`` (BASELINE config 4,
+     ``benchmarks/headline.py:502-546``): 28 x 28, batch 64, k = 40 at step
+     10 clamped to (-1, 1), buffer 4,096, Adam 1e-4, through the trainer and
+     the generic loop, in float32 and bf16 end to end (buffer and data
+     bf16), on the reference's normal data and on rendered two-moons images:
+     ms per step, device busy time, idle share and host syncs per step, the
+     buffer's dtype and clamp kept; the energy and input gradient of a fixed
+     batch on the card against the CPU port (1e-4 in f32, the bf16 band in
+     bf16) and one f32 train step from injected starts: its loss and
+     parameter gradients to 1e-4, its negatives after 40 steps to 1e-5 and
+     the parameters after Adam to 1e-5 of the CPU port's;
+   - EnergyMatchingLoss on config 5's batch through the trainer with the
+     auction (``"ot"``, its host syncs per step) and with config 5's
+     SinkhornCoupling (one row-14 launch per step), the flow term against
+     the CPU port on injected draws; UnbalancedSinkhornCoupling through row
+     14 damped (against ``fused="off"``), the auction and greedy
+     permutations equal to the CPU port's, ReflowCoupling through config
+     5's field against the CPU port; PersistentContrastiveDivergence (one
+     row-13 launch per step) and ParallelTemperingCD (persistent ladders,
+     swap acceptance) on config 3's net; generation from config 5's field
+     through heun, midpoint, rk4, bosh3, adaptive_heun and dopri8 and its
+     ``log_prob``, each against the CPU port; SDE generation and
+     ``log_prob`` (exact and Hutchinson) on the exact velocity of config 5's
+     data law, against its ODE mean and its density;
    - the distributed layer (``torchebm_tpu_torch.parallel``) on a real NCCL
      world of one brought up by ``init_distributed`` from torchrun's
      variables, meshes ``("data",) = (1,)`` and ``("data", "fsdp") = (1,
@@ -174,6 +201,8 @@ not 0:
      pooled statistics to 1e-6; rows 2-3 and 6-12 as two launches at chain
      offsets 0 and n/2 against one, bitwise, the second half against its
      plain version (the flip rule for Metropolis and exchange decisions);
+     ``FlowSampler`` (Euler, dopri5, SDE, ``log_prob`` exact and
+     Hutchinson) and ``ReflowCoupling`` on a sharded batch, bitwise;
      config 3's
      CD step under HSDP (weights from the flax layout) for 20 steps against
      the unsharded trainer to 1e-6, row 13 split the same way, both steps
@@ -247,6 +276,7 @@ before it runs anything.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -415,10 +445,14 @@ PCD_BUFFER, PCD_INIT_STEPS, PCD_CHUNK, PCD_STEPS = 10_000, 100, 1024, 20
 #: then Euler generation of 4,096 samples in 50 steps
 FLOW_HIDDEN, FLOW_BATCH, FLOW_ITERS, FLOW_REG, FLOW_TOL = (128, 128, 128), 256, 50, 0.05, 1e-3
 FLOW_LR, FLOW_STEPS, GEN_SAMPLES, GEN_STEPS = 1e-3, 300, 4096, 50
-#: config 5 runs through the kernel and through the loop once per seed
-#: (weights and draws): the two sets' means of the last FLOW_TAIL steps' loss
-#: agree within CD_SIGMAS standard errors of their difference
+#: config 5 runs through the kernel once per seed of FLOW_SEEDS and through the
+#: loop once per seed of FLOW_LOOP_SEEDS (weights and draws), disjoint seeds, so
+#: that the two sides' pairs are independent draws (on shared seeds both sides
+#: drew the same pairs and read 0.00 standard errors apart: a gate that could
+#: not fail): the two sets' means of the last FLOW_TAIL steps' loss agree
+#: within CD_SIGMAS standard errors of their difference
 FLOW_SEEDS, FLOW_TAIL = tuple(range(1, 9)), 100
+FLOW_LOOP_SEEDS = tuple(s + 100 for s in FLOW_SEEDS)
 #: the flow quality gate: the JAX e2e recipe
 #: (tests/e2e/test_training_quality.py:139-188): 8 Gaussians, batch 512, Adam
 #: 2e-3, 800 steps, coupling "sinkhorn" (reg 0.05, 100 iterations, tol 1e-3);
@@ -2395,9 +2429,10 @@ def path_flow(ops, dev, card: str) -> dict:
     """EqM training and generation (BASELINE config 5) through the trainer and
     FlowSampler: FLOW_STEPS train steps with the coupling's ``fused="auto"``,
     exactly one Sinkhorn kernel launch per step, and the same with ``"off"``,
-    none; both once per seed of FLOW_SEEDS, and the kernel's tail losses held
-    to the loop's; Euler and dopri5 generation from the trained field; the
-    quality gate through the kernel and through the loop."""
+    none; the kernel once per seed of FLOW_SEEDS, the loop once per seed of
+    FLOW_LOOP_SEEDS, and the kernel's tail losses held to the loop's; Euler
+    and dopri5 generation from the trained field; the quality gate through
+    the kernel and through the loop."""
     import torch
 
     from torchebm_tpu_torch.samplers import FlowSampler
@@ -2425,7 +2460,7 @@ def path_flow(ops, dev, card: str) -> dict:
         raise AssertionError(f"euler and dopri5 generation disagree in the mean by {gap}")
 
     ops.reset_launch_counts()
-    loop_runs = [_flow_run(dev, "off", FLOW_STEPS, s)[1:] for s in FLOW_SEEDS]
+    loop_runs = [_flow_run(dev, "off", FLOW_STEPS, s)[1:] for s in FLOW_LOOP_SEEDS]
     off = ops.launch_counts()["sinkhorn_log_fused"]
     kernel_runs = [(loss0, ms)] + [_flow_run(dev, "auto", FLOW_STEPS, s)[1:]
                                    for s in FLOW_SEEDS[1:]]
@@ -2442,7 +2477,8 @@ def path_flow(ops, dev, card: str) -> dict:
           f"{ms:.3f} ms per train step with the kernel (launches "
           f"{launches['sinkhorn_log_fused']}), {loop_runs[0][1]:.3f} ms on the loop (launches "
           f"{off}), first step included; mean loss of the last {FLOW_TAIL} steps over "
-          f"{len(FLOW_SEEDS)} seeds: kernel {float(kern.mean()):.5f} (sd {float(kern.std()):.5f}), "
+          f"{len(FLOW_SEEDS)} seeds each way (the loop's disjoint from the kernel's): kernel "
+          f"{float(kern.mean()):.5f} (sd {float(kern.std()):.5f}), "
           f"loop {float(loop.mean()):.5f} (sd {float(loop.std()):.5f}); kernel - loop {diff:.5f} = "
           f"{diff / max(se, 1e-12):.2f} standard errors (bound {CD_SIGMAS:g}) | {card}")
     if not abs(diff) <= CD_SIGMAS * se:
@@ -2650,10 +2686,10 @@ def path_dit(ops, dev, card: str) -> dict:
     return {}
 
 
-def _moons_images(dev, n: int, seed: int):
-    """``n`` structured 1 x 32 x 32 images in [-1, 1]: each a blob (standard
-    deviation 1.5 pixels) at a two-moons point mapped onto the central
-    24 x 24 pixels."""
+def _moons_images(dev, n: int, seed: int, size: int = DIT_KW["input_size"]):
+    """``n`` structured 1 x ``size`` x ``size`` images in [-1, 1]: each a blob
+    (standard deviation 1.5 pixels) at a two-moons point mapped onto the
+    central 3/4 of the pixels (24 x 24 of 32 x 32)."""
     import torch
 
     from torchebm_tpu_torch.datasets import make_two_moons
@@ -2661,8 +2697,8 @@ def _moons_images(dev, n: int, seed: int):
     pts = make_two_moons(torch.Generator(dev).manual_seed(seed), n)
     lo = torch.tensor([-1.25, -0.75], device=dev)
     hi = torch.tensor([2.25, 1.25], device=dev)
-    centres = 4.0 + 24.0 * (pts - lo) / (hi - lo)
-    axis = torch.arange(DIT_KW["input_size"], dtype=torch.float32, device=dev)
+    centres = size / 8 + 0.75 * size * (pts - lo) / (hi - lo)
+    axis = torch.arange(size, dtype=torch.float32, device=dev)
     dx = axis[None, None, :] - centres[:, 0, None, None]
     dy = axis[None, :, None] - centres[:, 1, None, None]
     return (2.0 * torch.exp(-(dx**2 + dy**2) / (2 * 1.5**2)) - 1.0)[:, None]
@@ -2930,6 +2966,567 @@ def path_score(ops, dev, card: str) -> dict:
         raise AssertionError(f"the DSM energy's samples ({ed_trained}) are not nearer the data "
                              f"than the untrained energy's ({ed_base})")
     return launches
+
+
+# ------------------------------------------------ the paths of the last slice
+
+#: BASELINE config 4 (benchmarks/headline.py:502-546 through _cd_step_factory,
+#: :400-437): PCD k=40 on ConvEnergy2D(channels=(32, 64, 64)) over 1 x 28 x 28,
+#: batch 64, a 4,096-sample buffer with no warm-up (init_steps=0), Langevin step
+#: 10.0 with the state clamped to (-1, 1), Adam 1e-4, one fixed batch of N(0, I)
+#: data (the reference's jax.random.normal draws); in float32 and in bf16 end to
+#: end (net, chain state, buffer and data, :422-428); through the trainer and
+#: the generic loop (no row claims a conv energy). CONV_STEPS steps timed on the
+#: host clock after CONV_WARMUP
+CONV_CHANNELS, CONV_SHAPE, CONV_BATCH, CONV_K, CONV_BUFFER = (32, 64, 64), (1, 28, 28), 64, 40, 4096
+CONV_STEP, CONV_CLAMP, CONV_LR, CONV_WARMUP, CONV_STEPS = 10.0, (-1.0, 1.0), 1e-4, 2, 10
+#: the card against the CPU port: the energy and input gradient of the data
+#: batch within CONV_RTOL of the largest entry in float32 (bf16 against the
+#: CPU's float32 within [BF16_FLOOR, BF16_RTOL], the DiT's rule), and one
+#: float32 train step at noise 0 from a buffer of the batch's size (its rows
+#: the chains' starts, so every draw of the step is injected): the loss's
+#: gradients before Adam (whose first update is about lr * sign(g), so the
+#: parameters alone check little more than the gradients' signs) and the loss
+#: within CONV_RTOL, the negatives after 40 steps at step 10 within
+#: CONV_NEG_TOL (read 0.95e-6-1.2e-6 on an H100), the parameters within
+#: CONV_PARAM_TOL
+CONV_RTOL, CONV_PARAM_TOL, CONV_NEG_TOL = 1e-4, 1e-5, 1e-5
+#: Energy Matching on config 5's batch and Adam 1e-3, config 3's net as the
+#: potential, the loss's defaults (200 Langevin steps per population,
+#: lambda_cd 2): EM_STEPS train steps with the default "ot" coupling (the
+#: auction) and with config 5's SinkhornCoupling
+EM_STEPS = 3
+#: the flow modes: config 5's EqM field through the other ODE integrators and
+#: log_prob, each from one start on the card and on the CPU port; SDE
+#: generation and log_prob's known answer on the exact velocity of the linear
+#: path from N(0, I) to config 5's data law N((2, 0), I): an EqM field is not a
+#: flow's velocity, and the SDE, which turns the velocity into a score,
+#: diverges on it (a CPU run: mean -131 after 250 steps), while score fields
+#: trained on config 5's one batch put their ODE and SDE means 0.1 to 0.6 apart
+#: by the training run (CPU runs). The SDE takes SDE_STEPS Euler-Maruyama
+#: steps: at the default 250 they are not stable near t = 1 for this law (a
+#: CPU run: standard deviation 3.5 against 1; 0.96 at 1,000). LOGP_RTOL:
+#: log_prob of the exact field against log N(x; (2, 0), I), relative to
+#: max(1, |log p|), after LOGP_STEPS RK4 steps
+FLOW_MODE_INTEGRATORS = ("heun", "midpoint", "rk4", "bosh3", "adaptive_heun", "dopri8")
+SDE_STEPS, LOGP_STEPS, LOGP_SAMPLES, LOGP_RTOL = 1000, 100, 1024, 1e-3
+#: the CD variants on config 3's net and batches: PersistentContrastiveDivergence
+#: and ParallelTemperingCD (PT_TEMPS, swap every PT_SWAP_EVERY), each with a
+#: PCD_BUFFER buffer of noise (no warm-up), CDV_STEPS train steps
+CDV_STEPS = 10
+
+
+@functools.lru_cache(maxsize=None)
+def _config5_field(dev):
+    """Config 5's EqM field of ``path_flow``, trained FLOW_STEPS steps through
+    the Sinkhorn kernel from FLOW_SEEDS[0]; cached for the paths that share it."""
+    return _flow_run(dev, "auto", FLOW_STEPS, FLOW_SEEDS[0])[0]
+
+
+def _gauss_velocity(dev):
+    """The exact velocity E[x1 - x0 | x_t = x] of the linear path x_t = t x1 +
+    (1 - t) x0 from x0 ~ N(0, I) to config 5's data law x1 ~ N(m, I), m = (2,
+    0): m + (x - t m)(2t - 1) / (t^2 + (1 - t)^2); and ``log p(x)`` of the data
+    law, the answer that ``log_prob`` of its flow must give."""
+    import torch
+
+    m = torch.tensor([2.0, 0.0], device=dev)
+
+    def field(x, t):
+        s = t[:, None]
+        return m + (x - s * m) * (2 * s - 1) / (s**2 + (1 - s) ** 2)
+
+    def log_p(x):
+        return -math.log(2 * math.pi) - 0.5 * torch.sum(torch.square(x - m), dim=-1)
+
+    return field, log_p
+
+
+def _on_cpu(module):
+    import copy
+
+    return copy.deepcopy(module).cpu()
+
+
+def _conv_trainer(dev, dtype, seed: int, **cd_kw):
+    """``(trainer, net)``: config 4's ContrastiveDivergenceTrainer around a
+    fresh ConvEnergy2D computing in ``dtype`` on ``dev``, its float32 weights
+    from ``seed``; ``cd_kw`` overrides the loss's fields, ``noise_scale`` the
+    sampler's."""
+    import torch
+
+    from torchebm_tpu_torch.core import as_energy
+    from torchebm_tpu_torch.core.trainer import ContrastiveDivergenceTrainer
+    from torchebm_tpu_torch.losses import PersistentContrastiveDivergence
+    from torchebm_tpu_torch.models import ConvEnergy2D
+    from torchebm_tpu_torch.samplers import LangevinDynamics
+
+    torch.manual_seed(seed)
+    net = ConvEnergy2D(in_channels=CONV_SHAPE[0], image_size=CONV_SHAPE[1:],
+                       channels=CONV_CHANNELS, dtype=dtype).to(dev)
+    energy = as_energy(net)
+    kw = dict(dict(k_steps=CONV_K, buffer_size=CONV_BUFFER, init_steps=0), **cd_kw)
+    sampler = LangevinDynamics(energy, step_size=CONV_STEP, clamp=CONV_CLAMP,
+                               noise_scale=kw.pop("noise_scale", 1.0))
+    cd = PersistentContrastiveDivergence(model=energy, sampler=sampler, **kw)
+    return ContrastiveDivergenceTrainer(cd, learning_rate=CONV_LR), net
+
+
+def _conv_data(dev, kind: str, dtype):
+    """Config 4's one batch: the reference's N(0, I) draws (``"normal"``), or
+    two-moons blobs rendered at 28 x 28 (``"moons"``); in ``dtype``."""
+    import torch
+
+    if kind == "normal":
+        x = torch.randn((CONV_BATCH, *CONV_SHAPE), generator=torch.Generator(dev).manual_seed(0),
+                        device=dev)
+    else:
+        x = _moons_images(dev, CONV_BATCH, 61, size=CONV_SHAPE[-1])
+    return x.to(dtype)
+
+
+def _conv_parity(dev, card: str) -> None:
+    """Config 4's net on the card against the CPU port: the data batch's
+    energies and input gradients in float32 (CONV_RTOL) and in bf16 (against
+    the CPU's float32, within [BF16_FLOOR, BF16_RTOL]); one float32 train step
+    from injected starts at noise 0: the loss and its parameter gradients
+    within CONV_RTOL, the negatives within CONV_NEG_TOL, the parameters after
+    Adam within CONV_PARAM_TOL."""
+    import torch
+
+    from torchebm_tpu_torch.losses import ReplayBuffer
+    from torchebm_tpu_torch.models import ConvEnergy2D
+
+    def energy_and_grad(net, x):
+        x = x.detach().requires_grad_(True)
+        e = net(x)
+        (g,) = torch.autograd.grad(e.sum(), x)
+        return e.detach().float().cpu(), g.float().cpu()
+
+    _, net = _conv_trainer(dev, torch.float32, seed=53)
+    x = _conv_data(dev, "normal", torch.float32)
+    e_cpu, g_cpu = energy_and_grad(_on_cpu(net), x.cpu())
+    errs = {}
+    e_card, g_card = energy_and_grad(net, x)
+    errs["f32"] = (_rel(e_card, e_cpu), _rel(g_card, g_cpu))
+    bf16 = ConvEnergy2D(in_channels=CONV_SHAPE[0], image_size=CONV_SHAPE[1:],
+                        channels=CONV_CHANNELS, dtype=torch.bfloat16).to(dev)
+    bf16.load_state_dict(net.state_dict())
+    e_b, g_b = energy_and_grad(bf16, x.to(torch.bfloat16))
+    errs["bf16"] = (_rel(e_b, e_cpu), _rel(g_b, g_cpu))
+
+    cpu = torch.device("cpu")
+    starts = torch.rand((CONV_BATCH, *CONV_SHAPE), generator=torch.Generator().manual_seed(55))
+    data = _conv_data(cpu, "normal", torch.float32)
+    steps = []
+    for where in (dev, cpu):
+        trainer, tnet = _conv_trainer(where, torch.float32, seed=54, noise_scale=0.0,
+                                      buffer_size=CONV_BATCH, new_sample_ratio=0.0)
+        buf = ReplayBuffer(samples=(2.0 * starts - 1.0).to(where))
+        state = trainer.init_state(tnet, torch.Generator(where).manual_seed(56), loss_state=buf)
+        # the step's parameter gradients, as its backward pass hands them on
+        grads = {}
+        hooks = [p.register_hook(lambda gr, i=i: grads.__setitem__(i, gr.detach().cpu()))
+                 for i, p in enumerate(tnet.parameters())]
+        state, m = trainer.train_step(state, data.to(where))
+        for h in hooks:
+            h.remove()
+        steps.append((float(m["loss"]), state.loss_state.samples.cpu(),
+                      [p.detach().cpu() for p in tnet.parameters()],
+                      [grads[i] for i in range(len(grads))]))
+    (loss_c, neg_c, par_c, grad_c), (loss_h, neg_h, par_h, grad_h) = steps
+    par_err = max(float((a - b).abs().max()) for a, b in zip(par_c, par_h))
+    # of the largest entry of every gradient (the head's bias gradient is a
+    # difference of two means, near 0)
+    grad_err = (max(float((a - b).abs().max()) for a, b in zip(grad_c, grad_h))
+                / max(float(b.abs().max()) for b in grad_h))
+    loss_err = abs(loss_c - loss_h) / max(1.0, abs(loss_h))
+    neg_err = float((neg_c - neg_h).abs().max())
+    print(f"check: config 4 ConvEnergy2D{CONV_CHANNELS} on the card against the CPU port, batch "
+          f"{CONV_BATCH}: f32 energy {errs['f32'][0]:.3e}, input gradient {errs['f32'][1]:.3e} "
+          f"(of the largest entry, tol {CONV_RTOL:g}); bf16 against the CPU's f32 energy "
+          f"{errs['bf16'][0]:.3e}, input gradient {errs['bf16'][1]:.3e} (within "
+          f"[{BF16_FLOOR:g}, {BF16_RTOL:g}]); one f32 train step from injected starts at noise 0 "
+          f"(k {CONV_K}, step {CONV_STEP}, clamp {CONV_CLAMP}): negatives {neg_err:.3e} (tol "
+          f"{CONV_NEG_TOL:g}), loss {loss_c:.6f} / {loss_h:.6f} ({loss_err:.3e}, tol "
+          f"{CONV_RTOL:g}), parameter gradients {grad_err:.3e} of their largest entry "
+          f"(tol {CONV_RTOL:g}), parameters after Adam {par_err:.3e} (tol {CONV_PARAM_TOL:g}) "
+          f"| {card}")
+    if not max(errs["f32"]) <= CONV_RTOL:
+        raise AssertionError(f"config 4's f32 energy on the card differs from the CPU: {errs}")
+    if not all(BF16_FLOOR <= e <= BF16_RTOL for e in errs["bf16"]):
+        raise AssertionError(f"config 4's bf16 energy is outside the bf16 band: {errs}")
+    if not (neg_err <= CONV_NEG_TOL and loss_err <= CONV_RTOL and grad_err <= CONV_RTOL
+            and par_err <= CONV_PARAM_TOL):
+        raise AssertionError(f"config 4's train step on the card differs from the CPU: negatives "
+                             f"{neg_err}, loss {loss_err}, gradients {grad_err}, parameters "
+                             f"{par_err}")
+
+
+def path_pcd_conv(ops, dev, card: str) -> dict:
+    """BASELINE config 4 (CONV_*) through ``PersistentContrastiveDivergence``
+    and the trainer, in float32 and bf16 end to end, on the reference's
+    normal data and on rendered two-moons images: ms per step, and on the
+    normal data the device busy time, idle share (``profile_calls``) and host
+    syncs per step; the buffer keeps its dtype and the clamp, the losses are
+    finite; then the card-against-CPU gates (:func:`_conv_parity`)."""
+    import torch
+
+    from torchebm_tpu_torch.losses import ReplayBuffer
+
+    ops.reset_launch_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for kind in ("normal", "moons"):
+            trainer, net = _conv_trainer(dev, dtype, seed=51)
+            g = torch.Generator(dev).manual_seed(52)
+            buf = trainer.loss_fn.init_buffer(g, CONV_SHAPE)
+            state = trainer.init_state(net, g, loss_state=ReplayBuffer(
+                samples=buf.samples.to(dtype)))
+            x = _conv_data(dev, kind, dtype)
+            losses = []
+            for _ in range(CONV_WARMUP):
+                state, m = trainer.train_step(state, x)
+                losses.append(m["loss"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(CONV_STEPS):
+                state, m = trainer.train_step(state, x)
+                losses.append(m["loss"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / CONV_STEPS
+            label = (f"config 4 PCD train step, ConvEnergy2D{CONV_CHANNELS} {name}, batch "
+                     f"{CONV_BATCH}, k {CONV_K}, {kind} data")
+            extra = ""
+            if kind == "normal":
+                wall, busy = profile_calls({label: lambda: trainer.train_step(state, x)}, card,
+                                           require_events=True)[label]
+                syncs = sync_sites(lambda: trainer.train_step(state, x))
+                extra = (f"; profiled: wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+                         f"{1.0 - busy / wall:.3f}; host syncs per step {len(syncs)} {syncs}")
+            samples = state.loss_state.samples
+            curve = torch.stack(losses).float().tolist()
+            print(f"main path: {label} (step {CONV_STEP}, clamp {CONV_CLAMP}, buffer "
+                  f"{CONV_BUFFER} {str(samples.dtype).split('.')[-1]}, Adam {CONV_LR}): "
+                  f"{ms:.3f} ms per train step (host clock, {CONV_STEPS} steps after "
+                  f"{CONV_WARMUP}){extra}; loss first {curve[0]:.5f}, last {curve[-1]:.5f}; "
+                  f"buffer pointer {state.loss_state.ptr} | {card}")
+            if samples.dtype != dtype or not bool(torch.isfinite(samples.float()).all()):
+                raise AssertionError(f"config 4 ({name}) buffer: {samples.dtype}")
+            lo, hi = float(samples.min()), float(samples.max())
+            if not (lo >= CONV_CLAMP[0] and hi <= CONV_CLAMP[1]):
+                raise AssertionError(f"config 4 ({name}) buffer left the clamp: {lo}, {hi}")
+            if not all(math.isfinite(v) for v in curve):
+                raise AssertionError(f"config 4 ({name}, {kind}) losses are not finite: {curve}")
+            del trainer, net, state, buf
+    launches = read_counts(ops, "config 4", [])
+    if any(launches.values()):
+        raise AssertionError(f"config 4 launched a kernel: {launches}")
+    _release()
+    _conv_parity(dev, card)
+    _release()
+    return launches
+
+
+def _em_trainer(dev, coupling, seed: int, **kw):
+    """``(trainer, net)``: BaseTrainer with config 5's Adam around an
+    EnergyMatchingLoss of a fresh MLPEnergy(2, CD_HIDDEN) on ``dev``, its
+    weights from ``seed``."""
+    import torch
+
+    from torchebm_tpu_torch.core import as_energy
+    from torchebm_tpu_torch.core.trainer import BaseTrainer
+    from torchebm_tpu_torch.losses import EnergyMatchingLoss
+    from torchebm_tpu_torch.models import MLPEnergy
+
+    torch.manual_seed(seed)
+    net = MLPEnergy(2, CD_HIDDEN).to(dev)
+    loss = EnergyMatchingLoss(model=as_energy(net), coupling=coupling, **kw)
+    return BaseTrainer(loss, functools.partial(torch.optim.Adam, lr=FLOW_LR)), net
+
+
+def path_em(ops, dev, card: str) -> dict:
+    """EnergyMatchingLoss through BaseTrainer on config 5's batch, EM_STEPS
+    steps with the default ``"ot"`` coupling (the auction: no kernel, one
+    host sync per bidding round) and with config 5's SinkhornCoupling
+    (exactly one row-14 launch per step): ms per step, host syncs in one more
+    step, finite losses; then the loss's flow term and its parameter
+    gradients on the card against the CPU port on injected ``x0`` and times
+    (the identity pairing, sigma 0, lambda_cd 0: every draw injected)."""
+    import torch
+
+    data = _flow_batch(dev)
+    launches = {name: 0 for name in KERNELS}
+    for label, coupling in (("ot (auction)", "ot"), ("sinkhorn", _config5_coupling("auto"))):
+        trainer, net = _em_trainer(dev, coupling, seed=111)
+        state = trainer.init_state(net, torch.Generator(dev).manual_seed(112))
+        ops.reset_launch_counts()
+        losses = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(EM_STEPS):
+            state, m = trainer.train_step(state, data)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / EM_STEPS
+        counts = read_counts(ops, f"EM, {label}", [] if coupling == "ot" else
+                             ["sinkhorn_log_fused"])
+        syncs = count_syncs(lambda: trainer.train_step(state, data))
+        curve = torch.stack(losses).tolist()
+        print(f"main path: EnergyMatchingLoss, MLPEnergy{CD_HIDDEN} on config 5's batch of "
+              f"{FLOW_BATCH}, coupling {label}, lambda_cd 2, 200 Langevin steps per population, "
+              f"Adam {FLOW_LR}: {ms:.3f} ms per train step (host clock, {EM_STEPS} steps, first "
+              f"included); sinkhorn_log_fused launches {counts['sinkhorn_log_fused']}; host "
+              f"syncs in one more step {syncs}; losses {[round(v, 5) for v in curve]} | {card}")
+        want = 0 if coupling == "ot" else EM_STEPS
+        if counts["sinkhorn_log_fused"] != want:
+            raise AssertionError(f"EM ({label}): {counts['sinkhorn_log_fused']} Sinkhorn launches "
+                                 f"in {EM_STEPS} steps, expected {want}")
+        if not all(math.isfinite(v) for v in curve):
+            raise AssertionError(f"EM ({label}) losses are not finite: {curve}")
+        for name, n in counts.items():
+            launches[name] += n
+
+    g = torch.Generator().manual_seed(113)
+    x0 = torch.randn((FLOW_BATCH, 2), generator=g)
+    t = torch.rand((FLOW_BATCH,), generator=g)
+    out = []
+    for where in (dev, torch.device("cpu")):
+        trainer, net = _em_trainer(where, "independent", seed=114, sigma=0.0, lambda_cd=0.0)
+        loss = trainer.loss_fn(None, data.to(where), torch.Generator(where).manual_seed(0),
+                               x0=x0.to(where), t=t.to(where))
+        loss.backward()
+        # the flow term reads the potential's input gradient: the output bias gets none
+        out.append((loss.detach().cpu(),
+                    [p.grad.cpu() for p in net.parameters() if p.grad is not None]))
+    (loss_card, grads_card), (loss_cpu, grads_cpu) = out
+    loss_err = _rel(loss_card, loss_cpu)
+    grad_err = max(_rel(a, b) for a, b in zip(grads_card, grads_cpu))
+    print(f"check: EnergyMatchingLoss flow term on the card against the CPU port on injected x0 "
+          f"and times (identity pairing, sigma 0, lambda_cd 0): loss {float(loss_card):.6f} / "
+          f"{float(loss_cpu):.6f} ({loss_err:.3e} relative, tol {PARITY_FWD_RTOL:g}), "
+          f"parameter gradients {grad_err:.3e} (tol {PARITY_GRAD_RTOL:g}) | {card}")
+    if not (loss_err <= PARITY_FWD_RTOL and grad_err <= PARITY_GRAD_RTOL):
+        raise AssertionError(f"EM on the card differs from the CPU: {loss_err}, {grad_err}")
+    return launches
+
+
+def path_couplings(ops, dev, card: str) -> dict:
+    """The other couplings on config 5's batch (a (FLOW_BATCH, FLOW_BATCH)
+    cost matrix): UnbalancedSinkhornCoupling through row 14 in damped mode
+    (one launch per call, its log plan within TOL of ``fused="off"``'s),
+    the auction and the greedy assignment (ExactOTCoupling's and
+    GreedyCoupling's solvers) equal to the CPU port's permutations on the
+    same cost, and ReflowCoupling through config 5's trained field within
+    TOL of the CPU port's from the same x0."""
+    import torch
+
+    from torchebm_tpu_torch.couplings import (
+        ExactOTCoupling,
+        GreedyCoupling,
+        ReflowCoupling,
+        UnbalancedSinkhornCoupling,
+        auction_assignment,
+        greedy_assignment,
+        unbalanced_sinkhorn_log,
+    )
+    from torchebm_tpu_torch.samplers import FlowSampler
+
+    g = torch.Generator(dev).manual_seed(121)
+    x1 = _flow_batch(dev)
+    x0 = torch.randn(x1.shape, generator=g, device=dev)
+    unb = UnbalancedSinkhornCoupling(reg=FLOW_REG, n_iters=FLOW_ITERS)
+    cost = unb.compute_cost(x0, x1).contiguous()
+    ops.reset_launch_counts()
+    res = unb(x0, x1, generator=g)
+    launches = read_counts(ops, "UnbalancedSinkhornCoupling", ["sinkhorn_log_fused"])
+    kw = dict(reg=unb.reg, reg_marginal=unb.reg_marginal, n_iters=unb.n_iters, tol=unb.tol)
+    plan_err = max_err(unbalanced_sinkhorn_log(cost, fused="auto", **kw),
+                       unbalanced_sinkhorn_log(cost, fused="off", **kw))
+    weights = res.weights
+    timings = {}
+    perms = {}
+    for name, solve, cls in (("auction", functools.partial(auction_assignment,
+                                                           tol=ExactOTCoupling().tol),
+                              ExactOTCoupling),
+                             ("greedy", greedy_assignment, GreedyCoupling)):
+        card_perm, ms = _timed(lambda: solve(cost))
+        perms[name] = (card_perm.cpu(), solve(cost.cpu()))
+        coupled = cls()(x0, x1)
+        timings[name] = ms
+        if not torch.equal(coupled.x1, x1[card_perm]):
+            raise AssertionError(f"{cls.__name__} does not pair by its solver's permutation")
+    field = _config5_field(dev)
+    reflow = ReflowCoupling(model=FlowSampler(model=field, negate_velocity=True))
+    got = reflow(x0, generator=g).x1
+    want = ReflowCoupling(model=FlowSampler(model=_on_cpu(field), negate_velocity=True))(
+        x0.cpu(), generator=torch.Generator()).x1
+    reflow_err = max_err(got.cpu(), want)
+    same = {k: bool(torch.equal(a, b)) for k, (a, b) in perms.items()}
+    print(f"check: couplings on config 5's batch ({FLOW_BATCH}x{FLOW_BATCH} cost): "
+          f"UnbalancedSinkhornCoupling (reg {FLOW_REG}, rho {unb.reg_marginal}, damping "
+          f"{unb.reg_marginal / (unb.reg_marginal + unb.reg):.4f}) "
+          f"{launches['sinkhorn_log_fused']} row-14 launch, log plan against fused='off' "
+          f"{plan_err:.3e} (tol {TOL}), weights mean {float(weights.mean()):.4f} range "
+          f"{float(weights.min()):.4f}..{float(weights.max()):.4f}; "
+          f"auction permutation equal to the CPU port's: {same['auction']} "
+          f"({timings['auction']:.1f} ms on the card), greedy: {same['greedy']} "
+          f"({timings['greedy']:.1f} ms); ReflowCoupling through config 5's EqM field (dopri5) "
+          f"against the CPU port {reflow_err:.3e} (tol {TOL}) | {card}")
+    if launches["sinkhorn_log_fused"] != 1 or not plan_err <= TOL:
+        raise AssertionError("the unbalanced coupling missed row 14 or its plan differs")
+    if not all(same.values()):
+        raise AssertionError(f"the card's permutations differ from the CPU port's: {same}")
+    if not reflow_err <= TOL:
+        raise AssertionError(f"ReflowCoupling on the card differs from the CPU by {reflow_err}")
+    return launches
+
+
+def path_cd_variants(ops, dev, card: str) -> dict:
+    """PersistentContrastiveDivergence and ParallelTemperingCD on config 3's
+    net and batches, CDV_STEPS steps each: PCD through row 13 (one launch per
+    step), PT-CD on its persistent ladders through the generic loop (no
+    launch), its swap acceptance over a run of its sampler from the buffer's
+    ladders; finite losses."""
+    import torch
+
+    from torchebm_tpu_torch.core import as_energy
+    from torchebm_tpu_torch.core.trainer import ContrastiveDivergenceTrainer
+    from torchebm_tpu_torch.losses import ParallelTemperingCD, PersistentContrastiveDivergence
+    from torchebm_tpu_torch.models import MLPEnergy
+    from torchebm_tpu_torch.samplers import LangevinDynamics, ParallelTemperingLangevin
+
+    launches = {name: 0 for name in KERNELS}
+    report = []
+    for label in ("PersistentContrastiveDivergence", "ParallelTemperingCD"):
+        torch.manual_seed(131)
+        net = MLPEnergy(2, CD_HIDDEN).to(dev)
+        energy = as_energy(net)
+        if label == "ParallelTemperingCD":
+            sampler = ParallelTemperingLangevin(energy, temperatures=PT_TEMPS, step_size=CD_STEP,
+                                                swap_every=PT_SWAP_EVERY)
+            loss = ParallelTemperingCD(model=energy, sampler=sampler, k_steps=CD_K,
+                                       persistent=True, buffer_size=PCD_BUFFER, init_steps=0)
+        else:
+            sampler = LangevinDynamics(energy, step_size=CD_STEP, fused_neural="auto")
+            loss = PersistentContrastiveDivergence(model=energy, sampler=sampler, k_steps=CD_K,
+                                                   buffer_size=PCD_BUFFER, init_steps=0)
+        trainer = ContrastiveDivergenceTrainer(loss, learning_rate=CD_LR)
+        g = torch.Generator(dev).manual_seed(132)
+        batches = _cd_batches(dev, g, CDV_STEPS, seed=133)
+        state = trainer.init_state(net, g, loss_state=loss.init_buffer(g, (2,)))
+        ops.reset_launch_counts()
+        losses = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            state, m = trainer.train_step(state, b)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / CDV_STEPS
+        counts = read_counts(ops, label, ["mlp_langevin_chain"] if label.startswith("Pers") else [])
+        curve = torch.stack(losses).tolist()
+        line = (f"{label} {ms:.3f} ms per step, mlp_langevin_chain launches "
+                f"{counts['mlp_langevin_chain']}, buffer pointer {state.loss_state.ptr}, loss "
+                f"last {curve[-1]:.5f}")
+        if label == "ParallelTemperingCD":
+            ladder = state.loss_state.samples[:CD_BATCH].movedim(0, 1).contiguous()
+            _, acc = sampler.run_replicas(g, ladder, CD_K)
+            line += (f", last-sweep swap acceptance over {CD_K} steps of {CD_BATCH} ladders "
+                     f"from the buffer {float(acc):.4f}")
+            if any(counts.values()) or tuple(state.loss_state.samples.shape) != (
+                    PCD_BUFFER, len(PT_TEMPS), 2):
+                raise AssertionError(f"PT-CD: launches {counts}, buffer "
+                                     f"{tuple(state.loss_state.samples.shape)}")
+        elif counts["mlp_langevin_chain"] != CDV_STEPS:
+            raise AssertionError(f"PCD: {counts['mlp_langevin_chain']} neural chain launches in "
+                                 f"{CDV_STEPS} steps")
+        if not all(math.isfinite(v) for v in curve):
+            raise AssertionError(f"{label} losses are not finite: {curve}")
+        report.append(line)
+        for name, n in counts.items():
+            launches[name] += n
+    print(f"main path: CD variants on config 3 (MLPEnergy{CD_HIDDEN}, batch {CD_BATCH}, CD-{CD_K} "
+          f"at {CD_STEP}, buffer {PCD_BUFFER} of noise, PT temperatures {PT_TEMPS} swapping every "
+          f"{PT_SWAP_EVERY}), {CDV_STEPS} steps each: " + "; ".join(report) + f" | {card}")
+    return launches
+
+
+def path_flow_modes(ops, dev, card: str) -> dict:
+    """Generation at GEN_SAMPLES samples, each from one start: config 5's EqM
+    field through FLOW_MODE_INTEGRATORS (GEN_STEPS steps, or the controller
+    from that grid) on the card and on the CPU port, within TOL, and its
+    ``log_prob`` at LOGP_SAMPLES samples, exact, card against the CPU port
+    within TOL relative to max(1, |log p|); on the exact Gaussian velocity
+    (:func:`_gauss_velocity`), SDE generation (SDE_STEPS Euler-Maruyama steps) with
+    its mean within 0.2 (config 5's gate) of its dopri5 ODE mean and of the
+    data's, and ``log_prob`` exact (within LOGP_RTOL of the data law's
+    density) and Hutchinson (2 probes)."""
+    import torch
+
+    from torchebm_tpu_torch.samplers import FlowSampler
+
+    eqm = _config5_field(dev)
+    eqm_cpu = _on_cpu(eqm)
+    g = torch.Generator(dev).manual_seed(141)
+    x0 = torch.randn((GEN_SAMPLES, 2), generator=g, device=dev)
+    report, bad = [], []
+    for name in FLOW_MODE_INTEGRATORS:
+        def run(model, x, name=name):
+            return FlowSampler(model=model, negate_velocity=True, integrator=name).sample(
+                torch.Generator(x.device), x=x, n_steps=GEN_STEPS)
+        got, ms = _timed(lambda: run(eqm, x0))
+        err = max_err(got.cpu(), run(eqm_cpu, x0.cpu()))
+        report.append(f"{name} {err:.3e} ({ms:.1f} ms)")
+        if not err <= TOL:
+            bad.append(name)
+    xs = x0[:LOGP_SAMPLES]
+    lp, lp_ms = _timed(lambda: FlowSampler(model=eqm, negate_velocity=True).log_prob(
+        xs, n_steps=LOGP_STEPS))
+    lp_cpu = FlowSampler(model=eqm_cpu, negate_velocity=True).log_prob(xs.cpu(),
+                                                                       n_steps=LOGP_STEPS)
+    lp_err = float((lp.cpu() - lp_cpu).abs().max()) / max(1.0, float(lp_cpu.abs().max()))
+
+    field, log_p = _gauss_velocity(dev)
+    ode = FlowSampler(model=field)
+    x_ode = ode.sample(g, x=x0, n_steps=GEN_STEPS)
+    x_sde, sde_ms = _timed(lambda: FlowSampler(model=field, mode="sde").sample(
+        g, x=x0, n_steps=SDE_STEPS))
+    data_mean = torch.tensor([2.0, 0.0], device=dev)
+    gap = float((x_sde.mean(0) - x_ode.mean(0)).norm())
+    gap_data = float((x_sde.mean(0) - data_mean).norm())
+    xg = x_ode[:LOGP_SAMPLES]
+    want = log_p(xg)
+    exact = ode.log_prob(xg, n_steps=LOGP_STEPS)
+    exact_err = float((exact - want).abs().max()) / max(1.0, float(want.abs().max()))
+    hut = ode.log_prob(xg, generator=g, n_steps=LOGP_STEPS, hutchinson=True, n_probes=2)
+    print(f"main path: FlowSampler from config 5's EqM field, {GEN_SAMPLES} x {GEN_STEPS} steps, "
+          f"card against the CPU port from one start (tol {TOL}): " + ", ".join(report)
+          + f"; its log_prob of {LOGP_SAMPLES} samples ({LOGP_STEPS} RK4 steps, {lp_ms:.1f} ms) "
+          f"mean {float(lp.mean()):.4f}, card against the CPU port {lp_err:.3e} relative (tol "
+          f"{TOL}) | {card}")
+    print(f"main path: FlowSampler on the exact velocity to N((2, 0), I): SDE ({SDE_STEPS} steps, "
+          f"{sde_ms:.1f} ms) mean {[round(v, 4) for v in x_sde.mean(0).tolist()]}, std "
+          f"{[round(v, 4) for v in x_sde.std(0).tolist()]}, against the ODE's (dopri5) mean "
+          f"{[round(v, 4) for v in x_ode.mean(0).tolist()]}: {gap:.4f} apart, {gap_data:.4f} "
+          f"from the data's (gate 0.2 each); log_prob of {LOGP_SAMPLES} ODE samples against "
+          f"log N(x; (2, 0), I): exact {exact_err:.3e} relative (tol {LOGP_RTOL:g}), Hutchinson "
+          f"(2 probes) mean |hutchinson - exact| {float((hut - exact).abs().mean()):.4f} "
+          f"| {card}")
+    if bad:
+        raise AssertionError(f"the card's generation differs from the CPU port's: {bad}")
+    if not lp_err <= TOL:
+        raise AssertionError(f"log_prob on the card differs from the CPU port by {lp_err}")
+    if not (bool(torch.isfinite(x_sde).all()) and gap < 0.2 and gap_data < 0.2):
+        raise AssertionError(f"SDE generation misses its ODE's and the data's means: {gap}, "
+                             f"{gap_data}")
+    if not (exact_err <= LOGP_RTOL and bool(torch.isfinite(hut).all())):
+        raise AssertionError(f"log_prob misses the data law's density by {exact_err}")
+    return {}
+
+
+#: the last slice's paths, in the order they run (``--gaps``)
+GAP_PATHS = (path_pcd_conv, path_em, path_couplings, path_cd_variants, path_flow_modes)
 
 
 def _free_port() -> int:
@@ -3471,49 +4068,74 @@ def _par_offsets(ops, dev, card: str) -> None:
           f"{TOL}): " + "; ".join(report) + f" | {card}")
 
 
-def path_parallel(ops, dev, card: str) -> dict:
-    """The distributed layer on the card: a real NCCL world of one brought up
-    by ``init_distributed`` from torchrun's environment and torn down at the
-    end, meshes ``("data",) = (1,)`` and ``("data", "fsdp") = (1, 1)``;
-    sharded config 1 (rows 4-5), every other sampler on a sharded batch at
-    its main shape (rows 2-3 and 6-12, gradient descent through row 4; NUTS,
-    RMHMC and the HMC warmup on their loops), config 3's CD step under HSDP
-    (row 13) with a DCP round trip, the DiT-768x12 step under HSDP, the
-    Sinkhorn coupling on a sharded batch (row 14); then rows 2-3 and 6-12 as
-    two offset launches against one. Cross-process behaviour is the CPU
-    tests' and ``tests/torch_dist_worker.py``'s under ``torchrun``; NCCL
-    takes one rank per card."""
+def _par_flow(ops, dev, mesh, card: str) -> dict:
+    """``FlowSampler`` on a batch of GEN_SAMPLES sharded over ``mesh`` against
+    the unsharded call from the same seed, bitwise: Euler and dopri5
+    generation from config 5's EqM field, SDE generation and ``log_prob``
+    (exact and Hutchinson, LOGP_SAMPLES samples) from the exact Gaussian
+    velocity, and ReflowCoupling through the EqM field; the outputs laid out
+    as the input."""
+    import torch
+
+    from torchebm_tpu_torch.couplings import ReflowCoupling
+    from torchebm_tpu_torch.parallel import shard_batch
+    from torchebm_tpu_torch.samplers import FlowSampler
+
+    eqm, ode = _config5_field(dev), FlowSampler(model=_gauss_velocity(dev)[0])
+    x0 = torch.randn((GEN_SAMPLES, 2), generator=torch.Generator(dev).manual_seed(151),
+                     device=dev)
+    cases = {
+        "euler": (x0, lambda x, g: FlowSampler(model=eqm, negate_velocity=True, integrator="euler")
+                  .sample(g, x=x, n_steps=GEN_STEPS)),
+        "dopri5": (x0, lambda x, g: FlowSampler(model=eqm, negate_velocity=True).sample(
+            g, x=x, n_steps=GEN_STEPS)),
+        "sde": (x0, lambda x, g: FlowSampler(model=ode.model, mode="sde").sample(
+            g, x=x, n_steps=SDE_STEPS)),
+        "log_prob": (x0[:LOGP_SAMPLES], lambda x, g: ode.log_prob(x, n_steps=LOGP_STEPS)),
+        "log_prob hutchinson": (x0[:LOGP_SAMPLES], lambda x, g: ode.log_prob(
+            x, generator=g, n_steps=LOGP_STEPS, hutchinson=True, n_probes=2)),
+        "reflow": (x0, lambda x, g: ReflowCoupling(model=FlowSampler(
+            model=eqm, negate_velocity=True))(x, generator=g).x1),
+    }
+    report, bad = [], []
+    for i, (label, (x, run)) in enumerate(cases.items()):
+        xs = shard_batch(x, mesh)
+        got = run(xs, torch.Generator(dev).manual_seed(152 + i))
+        want = run(x, torch.Generator(dev).manual_seed(152 + i))
+        exact = torch.equal(got.full_tensor(), want)
+        kept = tuple(got.placements) == tuple(xs.placements)
+        report.append(f"{label} {'bitwise' if exact else 'DIFFERS'}"
+                      + ("" if kept else f", placements {tuple(got.placements)}"))
+        if not (exact and kept):
+            bad.append(label)
+    print(f"check: parallel, FlowSampler on a batch of {GEN_SAMPLES} ({LOGP_SAMPLES} for log_prob) "
+          f"sharded over ('data',) = (1,) against the unsharded call: " + "; ".join(report)
+          + f" | {card}")
+    if bad:
+        raise AssertionError(f"sharded FlowSampler calls differ from the unsharded ones: {bad}")
+    return {}
+
+
+@contextlib.contextmanager
+def _world_of_one():
+    """A real NCCL world of one, brought up by ``init_distributed`` from
+    torchrun's variables (set for the world's lifetime) and torn down after."""
     import os
-    import tempfile
 
     import torch.distributed as dist
 
-    from torchebm_tpu_torch.parallel import init_distributed, is_distributed, make_mesh
+    from torchebm_tpu_torch.parallel import init_distributed, is_distributed
 
-    t0 = time.perf_counter()
     env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()), WORLD_SIZE="1", RANK="0",
                LOCAL_RANK="0")
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
-    launches = {name: 0 for name in KERNELS}
     try:
         rank_world = init_distributed()
         backend = dist.get_backend()
         if rank_world != (0, 1) or backend != "nccl" or is_distributed():
             raise AssertionError(f"init_distributed gave {rank_world} on {backend}")
-        mesh1 = make_mesh(("data",))
-        mesh2 = make_mesh(("data", "fsdp"), (1, 1))
-        print(f"main path: parallel: NCCL world of one by init_distributed, meshes "
-              f"{mesh1} and {mesh2} | {card}")
-        with tempfile.TemporaryDirectory() as tmp:
-            for part in (_par_langevin(ops, dev, mesh1, card),
-                         _par_samplers(ops, dev, mesh1, card),
-                         _par_cd(ops, dev, mesh2, card, tmp),
-                         _par_sinkhorn(ops, dev, mesh1, card)):
-                for name, n in part.items():
-                    launches[name] += n
-        _par_offsets(ops, dev, card)
-        _par_dit(dev, mesh2, card)
+        yield
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -3522,6 +4144,42 @@ def path_parallel(ops, dev, card: str) -> dict:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def path_parallel(ops, dev, card: str) -> dict:
+    """The distributed layer on the card: a real NCCL world of one brought up
+    by ``init_distributed`` from torchrun's environment and torn down at the
+    end, meshes ``("data",) = (1,)`` and ``("data", "fsdp") = (1, 1)``;
+    sharded config 1 (rows 4-5), every other sampler on a sharded batch at
+    its main shape (rows 2-3 and 6-12, gradient descent through row 4; NUTS,
+    RMHMC and the HMC warmup on their loops), config 3's CD step under HSDP
+    (row 13) with a DCP round trip, the DiT-768x12 step under HSDP, the
+    Sinkhorn coupling on a sharded batch (row 14), ``FlowSampler`` and
+    ``ReflowCoupling`` on a sharded batch; then rows 2-3 and 6-12 as two
+    offset launches against one. Cross-process behaviour is the CPU tests'
+    and ``tests/torch_dist_worker.py``'s under ``torchrun``; NCCL takes one
+    rank per card."""
+    import tempfile
+
+    from torchebm_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    launches = {name: 0 for name in KERNELS}
+    with _world_of_one():
+        mesh1 = make_mesh(("data",))
+        mesh2 = make_mesh(("data", "fsdp"), (1, 1))
+        print(f"main path: parallel: NCCL world of one by init_distributed, meshes "
+              f"{mesh1} and {mesh2} | {card}")
+        with tempfile.TemporaryDirectory() as tmp:
+            for part in (_par_langevin(ops, dev, mesh1, card),
+                         _par_samplers(ops, dev, mesh1, card),
+                         _par_cd(ops, dev, mesh2, card, tmp),
+                         _par_sinkhorn(ops, dev, mesh1, card),
+                         _par_flow(ops, dev, mesh1, card)):
+                for name, n in part.items():
+                    launches[name] += n
+        _par_offsets(ops, dev, card)
+        _par_dit(dev, mesh2, card)
     print(f"main path: parallel: {time.perf_counter() - t0:.1f} s of wall time, launches "
           f"{ {k: v for k, v in launches.items() if v} } | {card}")
     return launches
@@ -4290,6 +4948,13 @@ def phase_timing(ops, dev, card: str) -> dict:
     # (warm-up, repetitions)): the plain MALA, HMC, PT and AIS versions take
     # seconds per call, so one repetition
     chain_updates, fast, slow = (N_CHAINS * N_STEPS, "chain-updates"), (1, 3), (1, 1)
+    last = [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        print(f"phase: timing: {part} in {now - last[0]:.1f} s", flush=True)
+        last[0] = now
+
     calls = {
         "mixture_langevin_chain": (mix_args, mix_kw, chain_updates, fast),
         "mixture_langevin_chain_trajectory": (mix_args, dict(mix_kw, thin=1), chain_updates,
@@ -4334,6 +4999,7 @@ def phase_timing(ops, dev, card: str) -> dict:
               f"{plain_ms:.3f} ms ({updates / plain_ms * 1e3:.4e} {unit}/s; warm-up "
               f"{plain_reps[0]}, repetitions {plain_reps[1]}) | {card}")
 
+    lap("the chain kernels against their plain versions")
     # rows 4-5 at the main shape for each group of lanes per chain the
     # kernel is built for: per call (one call per reading, the wrapper's host
     # work inside, as the rows' "ms") and the device time per call
@@ -4374,6 +5040,7 @@ def phase_timing(ops, dev, card: str) -> dict:
               f"{times[name]['ms'] / N_STEPS * 1e3:.3f} us per ladder step | {card}")
     print(f"timing: mixture_ais_run {AIS_CHAINS} chains: "
           f"{times['mixture_ais_run']['ms'] / AIS_RUNGS * 1e3:.3f} us per rung | {card}")
+    lap("rows 4-5 by group, the plan shapes, the group timings and plan sweeps")
     # the step op and torch.add as device time per call (STEP_REPS: batches
     # queued behind a spin) and, below, per call with the host's launch work
     lib_times = cuda_times(lambda: torch.add(big_x, big_g, alpha=-0.05), *STEP_REPS)
@@ -4399,6 +5066,7 @@ def phase_timing(ops, dev, card: str) -> dict:
               f"{nbytes / med / 1e6:.1f} GB/s (bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
               f"at 3.35 TB/s); {host:.4f} ms with the host's launch work | {card}")
 
+    lap("the step op")
     # the neural chain at the knee of the JAX batch study: 4,096 chains
     knee = (torch.randn((4096, 2), generator=g, device=dev), mlp_layers, CD_K, CD_STEP, 1.0)
     mlp = ops.fused_mlp_langevin
@@ -4427,6 +5095,7 @@ def phase_timing(ops, dev, card: str) -> dict:
               f"per step (slope), {intercept:.2f} us per call besides (intercept); host "
               f"{host:.4f} ms per call up to its return (device seed) | {card}")
     mlp_plan_sweep(mlp, dev, card)
+    lap("the neural chain and its plan sweep")
     # the Sinkhorn kernel as the flow path calls it (gated at FLOW_TOL), with
     # the iterations it ran and its bound for that work; and what the loop
     # pays: no single PyTorch call runs the fixed point, 2 x FLOW_ITERS
@@ -4456,6 +5125,7 @@ def phase_timing(ops, dev, card: str) -> dict:
           f"{fixed[-1]:.4f} ms; {2 * FLOW_ITERS} torch.logsumexp calls over the same matrix "
           f"{lse_ms:.3f} ms | {card}")
     sinkhorn_cluster_sweep(sk, dev, card)
+    lap("the Sinkhorn kernel and its cluster sweep")
     # the EqM train step (config 5): kernel, loop and identity pairing (the
     # floor without any coupling work): host clock over 50 steps after 10
     from torchebm_tpu_torch.couplings import IndependentCoupling
@@ -4500,6 +5170,7 @@ def phase_timing(ops, dev, card: str) -> dict:
         print(f"timing: CD train step config 3 {path}: {ms:.4f} ms per step (50 steps after 10 "
               f"warm-up) | {card}")
 
+    lap("the train steps")
     # the sampler paths, kernel against generic loop
     pt = ParallelTemperingLangevin(mix, temperatures=PT_TEMPS, step_size=0.05,
                                    swap_every=PT_SWAP_EVERY)
@@ -4532,6 +5203,7 @@ def phase_timing(ops, dev, card: str) -> dict:
         lambda: hmc.warmup(g, dim=2, n_warmup=200, n_samples=N_CHAINS), 1, 1))
     print(f"timing: HMC warmup (generic loop, dual averaging) {N_CHAINS} chains x 200: "
           f"{ms:.3f} ms, one repetition | {card}")
+    lap("the sampler paths")
     return times
 
 
@@ -5036,6 +5708,18 @@ def main() -> None:
         path_parallel(ops, dev, card)
         done("path_parallel")
         return
+    if sys.argv[1:] == ["--gaps"]:
+        from torchebm_tpu_torch.parallel import make_mesh
+
+        check_instances(phase_build(_build))
+        done("build")
+        for path in GAP_PATHS:
+            path(ops, dev, card)
+            done(path.__name__)
+        with _world_of_one():
+            _par_flow(ops, dev, make_mesh(("data",)), card)
+        done("_par_flow")
+        return
     if sys.argv[1:] == ["--dit"]:
         check_instances(phase_build(_build))
         done("build")
@@ -5051,17 +5735,16 @@ def main() -> None:
     done("build")
     errors: dict = {}
     phase_check(ops.fused_langevin, dev, errors)
-    phase_check_metropolis(ops, dev, errors)
-    phase_check_groups(ops, dev, errors)
-    phase_check_tempering(ops, dev, errors)
-    phase_check_mlp(ops, dev, errors)
-    phase_check_sinkhorn(ops, dev, errors)
     done("check")
+    for check in (phase_check_metropolis, phase_check_groups, phase_check_tempering,
+                  phase_check_mlp, phase_check_sinkhorn):
+        check(ops, dev, errors)
+        done(check.__name__.removeprefix("phase_"))
     phase_profile(dev, card)
     done("profile")
     launches = {name: 0 for name in KERNELS}
     for path in (path_langevin, path_hmc, *MCMC_PATHS, path_mala, path_gradient_descent, path_pt,
-                 path_ais, path_step, path_cd, path_flow, *DIT_PATHS, path_parallel):
+                 path_ais, path_step, path_cd, path_flow, *DIT_PATHS, *GAP_PATHS, path_parallel):
         for name, n in path(ops, dev, card).items():
             launches[name] += n
         done(path.__name__)

@@ -11,6 +11,17 @@
   gradients moves them by far less). The port's metrics are the loss's own
   mean energies, at the parameters before each update; they are held to the
   JAX model's energies at those parameters.
+- A PCD train step of BASELINE config 4's recipe (step 10, clamp (-1, 1))
+  on a narrow ``ConvEnergy2D`` (channels (4, 8, 8), 28 x 28): at
+  ``noise_scale=0``, ``new_sample_ratio=0`` and a buffer the size of the
+  batch, the buffer's rows are the chains' starts in both packages, so three
+  steps (the ring fed back) agree: negatives, buffer, loss, energies and
+  parameters. Tolerances: negatives and buffer atol 5e-5 (the ring fed
+  back makes three steps one chain of 120 steps at step size 10, which
+  carries the convolutions' rounding, of order 1e-7 per step: 3e-7 after the
+  first step, 1.4e-5 after the third on this CPU), the rest as the MLP
+  trainer's. In bf16 (the reference's end-to-end bf16 recipe) the chain
+  state and the buffer stay bf16 through the step.
 - ``ReplayBuffer.push`` wraps around exactly as JAX's.
 - The PCD and PT-CD contracts mirror tests/losses/test_contrastive_divergence.py.
 - ``init_buffer`` lets a failing warm-up sampler raise, where the JAX
@@ -31,6 +42,7 @@ from torchebm_tpu.core import as_energy as jax_as_energy
 from torchebm_tpu.core.trainer import ContrastiveDivergenceTrainer as JaxCDTrainer
 from torchebm_tpu.losses import ContrastiveDivergence as JaxCD
 from torchebm_tpu.losses import ReplayBuffer as JaxReplayBuffer
+from torchebm_tpu.models import ConvEnergy2D as JaxConv
 from torchebm_tpu.models import MLPEnergy as JaxMLP
 from torchebm_tpu.samplers import LangevinDynamics as JaxLangevin
 from torchebm_tpu_torch import core as tcore
@@ -42,9 +54,9 @@ from torchebm_tpu_torch.losses import (
     PersistentContrastiveDivergence,
     ReplayBuffer,
 )
-from torchebm_tpu_torch.models import MLPEnergy
+from torchebm_tpu_torch.models import ConvEnergy2D, MLPEnergy
 from torchebm_tpu_torch.samplers import LangevinDynamics, ParallelTemperingLangevin
-from torchebm_tpu_torch.utils import mlp_energy_from_flax
+from torchebm_tpu_torch.utils import conv_energy_from_flax, mlp_energy_from_flax
 
 torch.set_num_threads(1)
 
@@ -120,6 +132,90 @@ def test_deterministic_cd_trainer_matches_jax_after_three_adam_steps():
     want = mlp_energy_from_flax(jax.device_get(jstate.params))
     for (name, p), (_, w) in zip(port.named_parameters(), want.named_parameters()):
         torch.testing.assert_close(p.detach(), w.detach(), rtol=0, atol=1e-6, msg=name)
+
+
+#: BASELINE config 4's chain (benchmarks/headline.py:502-518) at a narrow width
+CONV_CHANNELS, CONV_BATCH, CONV_K, CONV_STEP, CONV_CLAMP = (4, 8, 8), 8, 40, 10.0, (-1.0, 1.0)
+
+
+def _conv_pcd_pair():
+    """Config 4's PCD loss in both packages on one flax ``ConvEnergy2D``, at
+    noise 0 with a buffer of the batch's size and no fresh rows: every
+    draw of the step is then determined by the buffer. Returns the JAX
+    params, loss and buffer, the port's net, loss and buffer, and three data
+    batches."""
+    net = JaxConv(channels=CONV_CHANNELS, dense_dim=16)
+    params = jax.jit(net.init)(jax.random.PRNGKey(3), jnp.zeros((1, 1, 28, 28)))
+    kw = dict(k_steps=CONV_K, buffer_size=CONV_BATCH, new_sample_ratio=0.0, init_steps=0)
+    je = jax_as_energy(net, params)
+    jcd = JaxCD(model=je, sampler=JaxLangevin(je, step_size=CONV_STEP, noise_scale=0.0,
+                                              clamp=CONV_CLAMP), persistent=True, **kw)
+    port = conv_energy_from_flax(params)
+    te = tcore.as_energy(port)
+    tcd = PersistentContrastiveDivergence(
+        model=te, sampler=LangevinDynamics(te, step_size=CONV_STEP, noise_scale=0.0,
+                                           clamp=CONV_CLAMP), **kw)
+    rng = np.random.default_rng(3)
+    buf = rng.uniform(-1.0, 1.0, (CONV_BATCH, 1, 28, 28)).astype(np.float32)
+    data = rng.standard_normal((3, CONV_BATCH, 1, 28, 28)).astype(np.float32)
+    jbuf = JaxReplayBuffer(samples=jnp.asarray(buf), ptr=jnp.int32(0))
+    return params, jcd, jbuf, port, tcd, ReplayBuffer(samples=torch.tensor(buf)), data
+
+
+def test_pcd_conv_train_steps_match_jax():
+    params, jcd, jbuf, port, tcd, buf, data = _conv_pcd_pair()
+    jt = JaxCDTrainer(jcd, learning_rate=1e-3)
+    jstate = jt.init_state(params, jax.random.PRNGKey(4), loss_state=jbuf)
+    trainer = ContrastiveDivergenceTrainer(tcd, learning_rate=1e-3)
+    state = trainer.init_state(port, _g(4), loss_state=buf)
+    mean_energy = jax.jit(lambda p, x: jnp.mean(jcd._model(p).energy(x)))
+    for batch in data:
+        jx = jnp.asarray(batch)
+        # the step donates the parameters' buffers: the energies read a copy
+        before = jax.tree_util.tree_map(jnp.copy, jstate.params)
+        jstate, jm = jt.train_step(jstate, jx)
+        # the ring is the batch's size: after the step it holds the negatives
+        jneg = jstate.loss_state.samples
+        want = {"loss": jm["loss"], "pos_energy": mean_energy(before, jx),
+                "neg_energy": mean_energy(before, jneg)}
+        state, m = trainer.train_step(state, torch.tensor(batch))
+        for k in ("loss", "pos_energy", "neg_energy"):
+            np.testing.assert_allclose(float(m[k]), float(want[k]), rtol=1e-5, atol=1e-6)
+        got = state.loss_state.samples.numpy()
+        assert got.min() >= CONV_CLAMP[0] and got.max() <= CONV_CLAMP[1]
+        np.testing.assert_allclose(got, np.asarray(jneg), rtol=0, atol=5e-5)
+        assert state.loss_state.ptr == int(jstate.loss_state.ptr) == 0
+    assert state.step == 3
+    want = conv_energy_from_flax(jax.device_get(jstate.params))
+    for (name, p), (_, w) in zip(port.named_parameters(), want.named_parameters()):
+        torch.testing.assert_close(p.detach(), w.detach(), rtol=0, atol=1e-6, msg=name)
+
+
+def test_pcd_conv_keeps_a_bf16_chain_state_and_buffer():
+    """Config 4 in bf16 end to end (``headline.py:422-428``): a bf16 net, a
+    bf16 buffer and bf16 data; the train step's chains run in bf16 and the
+    ring keeps its dtype, the parameters and the loss stay float32."""
+    torch.manual_seed(0)
+    net = ConvEnergy2D(channels=CONV_CHANNELS, dense_dim=16, dtype=torch.bfloat16)
+    e = tcore.as_energy(net)
+    cd = PersistentContrastiveDivergence(
+        model=e, sampler=LangevinDynamics(e, step_size=CONV_STEP, clamp=CONV_CLAMP),
+        k_steps=5, buffer_size=4 * CONV_BATCH, init_steps=0)
+    g = _g(5)
+    buf = cd.init_buffer(g, (1, 28, 28))
+    buf = ReplayBuffer(samples=buf.samples.to(torch.bfloat16), ptr=buf.ptr)
+    trainer = ContrastiveDivergenceTrainer(cd, learning_rate=1e-4)
+    state = trainer.init_state(net, g, loss_state=buf)
+    x = torch.randn((CONV_BATCH, 1, 28, 28), generator=g).to(torch.bfloat16)
+    _, (neg, _) = cd(None, x, _g(6), ReplayBuffer(samples=buf.samples.clone(), ptr=0))
+    assert neg.dtype == torch.bfloat16
+    assert float(neg.min()) >= CONV_CLAMP[0] and float(neg.max()) <= CONV_CLAMP[1]
+    for _ in range(2):
+        state, m = trainer.train_step(state, x)
+    assert state.loss_state.samples.dtype == torch.bfloat16 and state.loss_state.ptr == 16
+    assert torch.isfinite(state.loss_state.samples.float()).all()
+    assert all(p.dtype == torch.float32 for p in net.parameters())
+    assert all(np.isfinite(float(v)) for v in m.values())
 
 
 @pytest.mark.parametrize("ptr, n", [(90, 64), (0, 100), (99, 1), (30, 30)])

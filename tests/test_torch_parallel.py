@@ -14,12 +14,13 @@ consumes it) on the CPU: the counterpart of ``tests/parallel/test_mesh.py``,
   its 8-device CPU mesh.
 
 Tolerances: the sharded paths draw the same numbers in the same order; the
-samplers and couplings agree to 1e-6 (the CPU's products may round by batch
-size), the checkpoints bitwise; the pooled R̂ and ESS sum in another order
-(1e-5 relative); the HSDP CD step differs from the replicated one by the
-order of the gradient's sum over shards, which Adam (lr 1e-2) carries into
-the parameters: 1e-5 on the loss and 1e-4 on the parameters, as the JAX
-test allows.
+samplers, ``FlowSampler`` and couplings agree to 1e-6 (the CPU's products may
+round by batch size; ``log_prob`` relative to max(1, |value|)), dopri5 with
+its attempted and accepted steps equal, the checkpoints bitwise; the pooled
+R̂ and ESS sum in another order (1e-5 relative); the HSDP CD step differs
+from the replicated one by the order of the gradient's sum over shards,
+which Adam (lr 1e-2) carries into the parameters: 1e-5 on the loss and 1e-4
+on the parameters, as the JAX test allows.
 """
 
 from __future__ import annotations
@@ -265,7 +266,7 @@ def _assert_sampler(result, name):
     within 1e-6 of the unsharded call's, laid out as the input, every
     statistic within 1e-6 relative, in each fused mode."""
     assert "error" not in result, result.get("error")
-    modes = ("None",) if name in ("nuts", "rmhmc") else ("force", "off")
+    modes = ("None",) if name in ("nuts", "rmhmc", "rmhmc_picard") else ("force", "off")
     assert sorted(result) == sorted(modes)
     for fused, r in result.items():
         assert max(r["outputs"].values()) <= 1e-6, (fused, r["outputs"])
@@ -299,12 +300,30 @@ def test_parallel_tempering_cd_on_a_sharded_batch_in_a_world_of_one(mesh1):
     _assert_ptcd(worker.ptcd_check(mesh1))
 
 
-def test_flow_sampler_refuses_a_sharded_batch(mesh1):
-    """The one sampler that does not shard: its adaptive integrators' error
-    control reduces over the batch."""
-    sampler = tt.FlowSampler(model=lambda x, t: -x, integrator="euler")
-    with pytest.raises(ValueError, match="sharded"):
-        sampler.sample(torch.Generator(), x=shard_batch(torch.zeros(4, 2), mesh1), n_steps=2)
+def _assert_flow(r, name):
+    """One :func:`torch_dist_worker.flow_check` case: every output within
+    1e-6 of the unsharded call's (the log-densities relative to max(1,
+    |value|): the CPU's products round by batch size, and six RK4 steps of a
+    divergence carry it), laid out as the input, the diagnostics within 1e-6
+    relative; dopri5's controller attempted and accepted as many
+    steps with the rows pooled as without, and rejected some."""
+    assert "error" not in r, r.get("error")
+    assert max(r["outputs"].values()) <= 1e-6, r["outputs"]
+    assert all(r["placements"].values()), r["placements"]
+    if name in ("euler", "dopri5", "backward_euler", "sde"):
+        assert r["stat_keys"] and r["stats"] and max(r["stats"].values()) <= 1e-6, r["stats"]
+    if name == "dopri5":
+        (att, acc), want = r["counts"]["sharded"], r["counts"]["unsharded"]
+        assert [att, acc] == want and att > acc, r["counts"]
+
+
+@pytest.mark.parametrize("name", worker.FLOW_CASES)
+def test_sharded_flow_sampler_equals_unsharded_in_a_world_of_one(mesh1, name):
+    """``FlowSampler`` on a DTensor batch of one shard: Euler, dopri5 (the
+    controller's pooled error norm), the implicit Euler's pooled Picard
+    residual, SDE generation (the whole batch's normals), ``log_prob`` exact
+    and Hutchinson (the whole batch's probes) and ``ReflowCoupling``."""
+    _assert_flow(worker.flow_check(name, mesh1), name)
 
 
 def _assert_ptcd(r):
@@ -505,6 +524,19 @@ def test_parallel_tempering_cd_on_a_sharded_batch_across_processes(worlds, kind)
     for r in _check(worlds, kind, "check_sampler_extras"):
         assert "error" not in r["ptcd"], r["ptcd"].get("error")
         _assert_ptcd(r["ptcd"])
+
+
+@pytest.mark.parametrize("kind", sorted(WORLDS))
+@pytest.mark.parametrize("name", worker.FLOW_CASES)
+def test_sharded_flow_sampler_equals_unsharded_across_processes(worlds, kind, name):
+    """``FlowSampler`` (and ``ReflowCoupling``) on a batch sharded over 2 and
+    4 processes gives the unsharded call's values on every rank, and dopri5
+    its attempted and accepted steps; the shards ran different rows."""
+    per_rank = [r[name] for r in _check(worlds, kind, "check_flow")]
+    for r in per_rank:
+        _assert_flow(r, name)
+    sums = [r["local_sum"] for r in per_rank]
+    assert len(set(sums)) == len(sums), sums
 
 
 @pytest.mark.parametrize("name", ["ais", "hmc"])

@@ -9,11 +9,11 @@ with torchrun's environment (``MASTER_ADDR``, ``MASTER_PORT``,
 ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``): the world comes up through
 ``init_distributed()``. ``data`` is a 2-process ``("data",)`` world,
 ``hsdp`` a 4-process ``("data", "fsdp") = (2, 2)`` one; each also runs
-the samplers' checks on a ``("data",)`` mesh over all its processes (2 and 4
-shards), AIS and HMC once more on the ``(2, 2)`` mesh. Each check's result
-(or its traceback) goes to ``OUT_DIR/rank<r>.json``. Imports no JAX; the
-samplers' checks also run in one process, on the world of one that
-``tests/test_torch_parallel.py`` brings up.
+the samplers' and ``FlowSampler``'s checks on a ``("data",)`` mesh over all
+its processes (2 and 4 shards), AIS and HMC once more on the ``(2, 2)`` mesh.
+Each check's result (or its traceback) goes to ``OUT_DIR/rank<r>.json``. Imports no JAX; the
+samplers' and ``FlowSampler``'s checks also run in one process, on the world
+of one that ``tests/test_torch_parallel.py`` brings up.
 
 Where CUDA is visible each process runs on card ``LOCAL_RANK`` over NCCL
 (the kernels launch where the CPU runs their plain versions), as under
@@ -157,6 +157,11 @@ def _identity_metric(x):
     return torch.eye(x.shape[-1], dtype=x.dtype, device=x.device).expand(x.shape[0], -1, -1)
 
 
+def _radial_metric(x):
+    """G(x) = (1 + |x|^2) I: the generalised leapfrog's stages iterate."""
+    return (1.0 + torch.sum(x * x, -1))[:, None, None] * _identity_metric(x)
+
+
 def _sampler_case(name):
     """``(x0, row dim or None, fused modes, run)``: ``run(generator, x,
     fused)`` returns ``({output: tensor}, {statistic: tensor})`` of the
@@ -189,6 +194,12 @@ def _sampler_case(name):
     if name == "gradient_descent":
         return x0, 0, both, chain(lambda f: tt.GradientDescentSampler(
             mix, step_size=0.05, fused=f))
+    if name == "langevin_implicit":
+        # no row takes another integrator: the loop, its Picard residual over
+        # every shard (at tol 1e-2 one shard's residual alone stops elsewhere)
+        return x0, 0, both, chain(lambda f: tt.LangevinDynamics(
+            mix, step_size=0.05, fused=f, integrator=tt.get_integrator(
+                "backward_euler", solver_check_every=1, solver_tol=1e-2)))
     if name == "doublewell_row":
         return torch.randn(N_SHARDED, 3, generator=g0), 0, both, chain(
             lambda f: tt.LangevinDynamics(tt.DoubleWellEnergy(), step_size=0.01, fused=f))
@@ -198,6 +209,14 @@ def _sampler_case(name):
     if name == "rmhmc":
         return x0, 0, (None,), chain(lambda f: tt.RiemannianManifoldHMC(
             _corr(), metric_fn=_identity_metric, step_size=0.2, n_leapfrog_steps=3))
+    if name == "rmhmc_picard":
+        # a metric that depends on x, the Picard stop checked at every update
+        # on the residual over every shard (at tol 1e-3 one shard's residual
+        # alone stops elsewhere)
+        return x0, 0, (None,), chain(lambda f: tt.RiemannianManifoldHMC(
+            _corr(), metric_fn=_radial_metric, step_size=0.2, n_leapfrog_steps=3,
+            integrator=tt.get_integrator("generalised_leapfrog", solver_check_every=1,
+                                         solver_tol=1e-3)))
     if name == "pt_run_replicas":
         def run(g, x, fused):
             s = tt.ParallelTemperingLangevin(mix, temperatures=(1.0, 2.0, 4.0), step_size=0.05,
@@ -218,8 +237,8 @@ def _sampler_case(name):
     raise KeyError(name)
 
 
-SAMPLERS = ("ais", "doublewell_row", "gradient_descent", "hmc", "mala", "nuts", "pt",
-            "pt_run_replicas", "rmhmc")
+SAMPLERS = ("ais", "doublewell_row", "gradient_descent", "hmc", "langevin_implicit", "mala",
+            "nuts", "pt", "pt_run_replicas", "rmhmc", "rmhmc_picard")
 
 
 def sampler_check(name: str, mesh) -> dict:
@@ -308,6 +327,91 @@ def check_sampler_extras(mesh) -> dict:
         try:
             out[name] = fn(mesh)
         except Exception:
+            out[name] = {"error": traceback.format_exc()}
+    return out
+
+
+FLOW_CASES = ("euler", "dopri5", "backward_euler", "sde", "log_prob", "log_prob_hutchinson",
+              "reflow")
+
+
+def _flow_field():
+    """The exact velocity of the linear path from N(0, I) to N((2, 0), I / 4)
+    plus a small random SiLU MLP: its SDE is stable at the default 250
+    steps, and dopri5 rejects steps at tight tolerances."""
+    torch.manual_seed(0)
+    net = tt.MLPVelocityField(2, (16, 16))
+    with torch.no_grad():
+        net.layers[0].weight.mul_(4.0)
+    m = torch.tensor([2.0, 0.0])
+
+    def field(x, t):
+        s = t[:, None]
+        exact = m + (x - s * m) * (0.25 * s - (1 - s)) / (0.25 * s**2 + (1 - s) ** 2)
+        return exact + 0.05 * net(x, t)
+
+    return field
+
+
+def flow_check(name: str, mesh) -> dict:
+    """``FlowSampler`` case ``name`` on a batch sharded over the mesh's first
+    axis against the unsharded call from the same seed: each output's
+    largest difference (the log-densities' relative to max(1, |value|)) and
+    whether it kept the input's placement, the
+    diagnostics' relative differences, and for ``dopri5`` (tolerances tight
+    enough to reject steps) the attempted and accepted counts of the
+    integrator's controller with the rows pooled and without."""
+    from torchebm_tpu_torch.samplers.base import _Rows
+
+    net = _flow_field()
+    x0 = torch.randn(N_SHARDED, 2, generator=G(70))
+    xs = shard_batch(x0, mesh)
+    out = {"stats": {}, "counts": {}}
+    if name in ("log_prob", "log_prob_hutchinson"):
+        s = tt.FlowSampler(model=net, integrator="euler")
+        kw = dict(n_steps=6, hutchinson=name == "log_prob_hutchinson", n_probes=2)
+        got, want = s.log_prob(xs, generator=G(71), **kw), s.log_prob(x0, generator=G(71), **kw)
+        outs = {"log_prob": (got, want)}
+    elif name == "reflow":
+        c = tt.ReflowCoupling(model=tt.FlowSampler(model=net, mode="sde"))
+        got, want = c(xs, generator=G(71)), c(x0, generator=G(71))
+        outs = {"x1": (got.x1, want.x1), "x0": (got.x0, want.x0)}
+    else:
+        integ = {"euler": "euler", "sde": None,
+                 "dopri5": tt.get_integrator("dopri5", atol=1e-7, rtol=1e-7),
+                 "backward_euler": tt.get_integrator("backward_euler", solver_check_every=1,
+                                                     solver_tol=1e-4)}[name]
+        s = tt.FlowSampler(model=net, mode="sde" if name == "sde" else "ode", integrator=integ)
+        adaptive = name == "dopri5"
+        kw = dict(n_steps={"dopri5": 2, "sde": 250}.get(name, 6), thin=1 if adaptive else 2,
+                  return_trajectory=not adaptive, return_diagnostics=True)
+        (got, diag), (want, want_diag) = s.sample(G(71), x=xs, **kw), s.sample(G(71), x=x0, **kw)
+        outs = {"samples": (got, want)}
+        out["stats"] = {k: rel(v, want_diag[k]) for k, v in diag.items()}
+        out["stat_keys"] = sorted(diag) == sorted(want_diag)
+        if adaptive:
+            drift = s._get_drift({})
+            with torch.no_grad():
+                for label, x, norm in (("sharded", xs.to_local(), _Rows(xs).rms_norm),
+                                       ("unsharded", x0, None)):
+                    _, st = s.integrator.integrate({"x": x}, 0.5, 2, drift=drift, norm=norm,
+                                                   return_stats=True)
+                    out["counts"][label] = [int(st.n_attempted), int(st.n_accepted)]
+    # log-densities of order 5 to 10: their difference relative to max(1, |value|)
+    out["outputs"] = {k: (rel if k == "log_prob" else err)(a, b) for k, (a, b) in outs.items()}
+    out["placements"] = {k: placements(a) == placements(xs) for k, (a, _) in outs.items()}
+    first = next(iter(outs.values()))[0]
+    out["local_sum"] = float(first.to_local().sum())
+    return out
+
+
+def check_flow(mesh) -> dict:
+    """:func:`flow_check` of every case, each failing on its own."""
+    out = {}
+    for name in FLOW_CASES:
+        try:
+            out[name] = flow_check(name, mesh)
+        except Exception:  # recorded: that case's test fails with the traceback
             out[name] = {"error": traceback.format_exc()}
     return out
 
@@ -593,7 +697,8 @@ def main() -> None:
                   functools.partial(check_dcp, ckpt=os.path.join(out_dir, "ckpt")),
                   check_mesh2d_samplers)
     runs = [(check, mesh) for check in checks] + [(check_samplers, flat),
-                                                  (check_sampler_extras, flat)]
+                                                  (check_sampler_extras, flat),
+                                                  (check_flow, flat)]
     results["mesh"] = {"shape": list(mesh.shape), "names": list(mesh.mesh_dim_names)}
     for check, on in runs:
         name = getattr(check, "__name__", None) or check.func.__name__

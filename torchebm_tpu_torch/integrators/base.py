@@ -13,6 +13,12 @@ is a ``torch.where``. A DIRK stage is solved by Picard iteration: a fixed
 count of drift calls by default, or with ``solver_check_every > 0`` until the
 RMS residual drops below ``solver_tol`` (one sync per check).
 
+The controller's error norm and the Picard residual are the RMS of a
+tensor's entries, or what ``norm=`` returns for it. A state that holds one
+process's rows of a batch sharded on dim 0 takes a ``norm`` that pools the
+sum of squares over every shard, so that every process takes the same accept
+or reject, step size and stop, as the unsharded call does.
+
 State is a plain dict: ``{"x": position}`` (and ``"p"``, the momentum, for the
 symplectic family).
 """
@@ -27,6 +33,7 @@ import torch
 Tensor = torch.Tensor
 State = Dict[str, Tensor]
 DriftFn = Callable[[Tensor, Tensor], Tensor]  # f(x, t) -> dx/dt
+NormFn = Callable[[Tensor], Tensor]  # the RMS of a tensor's entries (module docstring)
 
 __all__ = [
     "BaseIntegrator",
@@ -105,16 +112,18 @@ class BaseRungeKuttaIntegrator(BaseIntegrator):
     def n_stages(self) -> int:
         return len(self.tableau_c)
 
-    def _solve_implicit_stage(self, base: Tensor, t, h, a_ii: float, drift: DriftFn) -> Tensor:
+    def _solve_implicit_stage(self, base: Tensor, t, h, a_ii: float, drift: DriftFn,
+                              norm: Optional[NormFn] = None) -> Tensor:
         r"""Solve :math:`k = f(\text{base} + h a_{ii} k, t)` by Picard iteration:
         ``solver_max_iter`` drift calls in all, or fewer once the RMS change
-        of ``k`` is at most ``solver_tol`` (``solver_check_every > 0``)."""
+        of ``k`` (``norm``'s, if given) is at most ``solver_tol``
+        (``solver_check_every > 0``)."""
         coef = h * a_ii
         k = drift(base, t)
         for _ in range(self.solver_max_iter - 1):
             k_next = drift(base + coef * k, t)
             if self.solver_check_every > 0:
-                resid = float(_rms_norm(k_next - k))
+                resid = float((norm or _rms_norm)(k_next - k))
                 k = k_next
                 if not resid > self.solver_tol:
                     break
@@ -123,7 +132,7 @@ class BaseRungeKuttaIntegrator(BaseIntegrator):
         return k
 
     def _evaluate_stages(self, x: Tensor, t, h, drift: DriftFn,
-                         k0: Optional[Tensor] = None) -> list:
+                         k0: Optional[Tensor] = None, norm: Optional[NormFn] = None) -> list:
         """All stages, a list of ``s`` tensors; ``k0`` replaces the first (FSAL)."""
         a, c = self.tableau_a, self.tableau_c
         ks: list = []
@@ -138,7 +147,7 @@ class BaseRungeKuttaIntegrator(BaseIntegrator):
                     x_stage = x_stage + (h * row[j]) * ks[j]
             t_stage = t + c[i] * h
             if len(row) > i and row[i] != 0.0:  # DIRK diagonal entry
-                ks.append(self._solve_implicit_stage(x_stage, t_stage, h, row[i], drift))
+                ks.append(self._solve_implicit_stage(x_stage, t_stage, h, row[i], drift, norm))
             else:
                 ks.append(drift(x_stage, t_stage))
         return ks
@@ -153,15 +162,19 @@ class BaseRungeKuttaIntegrator(BaseIntegrator):
             return x
         return x + h * acc
 
-    def _deterministic_step(self, x: Tensor, h, drift: DriftFn, t) -> Tensor:
-        return self._combine(x, h, self._evaluate_stages(x, t, h, drift), self.tableau_b)
+    def _deterministic_step(self, x: Tensor, h, drift: DriftFn, t,
+                            norm: Optional[NormFn] = None) -> Tensor:
+        return self._combine(x, h, self._evaluate_stages(x, t, h, drift, norm=norm),
+                             self.tableau_b)
 
-    def step(self, state: State, step_size, *, drift: DriftFn, t=None, **_) -> State:
-        """One deterministic RK step of size ``step_size``."""
+    def step(self, state: State, step_size, *, drift: DriftFn, t=None,
+             norm: Optional[NormFn] = None, **_) -> State:
+        """One deterministic RK step of size ``step_size``; ``norm`` as in
+        the module docstring."""
         x = state["x"]
         t = torch.as_tensor(0.0 if t is None else t, dtype=x.dtype)
         h = torch.as_tensor(step_size, dtype=x.dtype)
-        return {"x": self._deterministic_step(x, h, drift, t)}
+        return {"x": self._deterministic_step(x, h, drift, t, norm)}
 
     def _build_time_grid(self, x: Tensor, step_size, n_steps: Optional[int], t) -> Tensor:
         if t is None:
@@ -176,13 +189,14 @@ class BaseRungeKuttaIntegrator(BaseIntegrator):
 
     def integrate(self, state: State, step_size, n_steps: Optional[int] = None, *,
                   drift: DriftFn, t: Optional[Tensor] = None, adaptive: Optional[bool] = None,
-                  return_stats: bool = False,
+                  return_stats: bool = False, norm: Optional[NormFn] = None,
                   **_) -> Union[State, Tuple[State, AdaptiveStats]]:
         """Integrate an ODE over a time grid.
 
         Fixed mode is a Python loop over the grid; adaptive mode (the default
         when the method defines an embedded pair) runs the step-size
-        controller from ``t[0]`` to ``t[-1]``.
+        controller from ``t[0]`` to ``t[-1]``. ``norm``: the error norm
+        (module docstring).
         """
         if adaptive is None:
             adaptive = self.error_weights is not None
@@ -190,7 +204,7 @@ class BaseRungeKuttaIntegrator(BaseIntegrator):
         if not adaptive:
             grid = self._build_time_grid(x, step_size, n_steps, t)
             for i in range(grid.shape[0] - 1):
-                x = self._deterministic_step(x, grid[i + 1] - grid[i], drift, grid[i])
+                x = self._deterministic_step(x, grid[i + 1] - grid[i], drift, grid[i], norm)
             return {"x": x}
 
         if self.error_weights is None or self.order is None:
@@ -204,21 +218,23 @@ class BaseRungeKuttaIntegrator(BaseIntegrator):
         else:
             t_start = 0.0
             t_end = torch.as_tensor(float(n_steps)) * torch.as_tensor(step_size)
-        x_final, stats = self._adaptive_integrate(x, drift, t_start, t_end, step_size)
+        x_final, stats = self._adaptive_integrate(x, drift, t_start, t_end, step_size, norm)
         out: State = {"x": x_final}
         if return_stats:
             return out, stats
         return out
 
     def _adaptive_integrate(self, x: Tensor, drift: DriftFn, t_start, t_end,
-                            h0) -> Tuple[Tensor, AdaptiveStats]:
+                            h0, norm: Optional[NormFn] = None) -> Tuple[Tensor, AdaptiveStats]:
         r"""Embedded-pair adaptive loop.
 
         Standard controller: accept iff ``err_ratio <= 1``; then
         ``h *= clamp(safety * err^{-1/p}, min_factor, max_factor)``, with FSAL
         first-stage reuse. State, time and step size are tensors on the
         state's device and accept/reject a ``torch.where``; the host reads
-        only the loop condition, once per attempted step.
+        only the loop condition, once per attempted step. ``err_ratio`` is
+        ``norm``'s; one pooled over every shard gives every process the same
+        condition.
         """
         dtype, dev = x.dtype, x.device
 
@@ -240,7 +256,7 @@ class BaseRungeKuttaIntegrator(BaseIntegrator):
         n_att = 0
         while n_att < self.max_steps and bool(t_cur < t_end - tiny):
             h = torch.minimum(torch.minimum(h, t_end - t_cur), max_h)
-            ks = self._evaluate_stages(x, t_cur, h, drift, k0=k1 if is_fsal else None)
+            ks = self._evaluate_stages(x, t_cur, h, drift, k0=k1 if is_fsal else None, norm=norm)
             y_new = self._combine(x, h, ks, self.tableau_b)
             if is_fsal:
                 # the tableaus store the s "real" stages (dopri5: 6); this
@@ -253,7 +269,7 @@ class BaseRungeKuttaIntegrator(BaseIntegrator):
                 ks_err = ks
             err_vec = self._combine(torch.zeros_like(x), h, ks_err, e)
             scale = self.atol + self.rtol * torch.maximum(torch.abs(x), torch.abs(y_new))
-            err_ratio = _rms_norm(err_vec / scale)
+            err_ratio = (norm or _rms_norm)(err_vec / scale)
 
             accept = err_ratio <= 1.0
             x = torch.where(accept, y_new, x)
@@ -295,11 +311,14 @@ class BaseSDERungeKuttaIntegrator(BaseRungeKuttaIntegrator):
 
     def step(self, state: State, step_size, *, drift: DriftFn,
              generator: Optional[torch.Generator] = None, noise_scale=1.0,
-             diffusion=None, t=None, noise: Optional[Tensor] = None, **_) -> State:
+             diffusion=None, t=None, noise: Optional[Tensor] = None,
+             norm: Optional[NormFn] = None, **_) -> State:
+        """One step; ``noise`` injects the normals (a shard's rows of the
+        whole batch's draws), ``norm`` an implicit stage's residual norm."""
         x = state["x"]
         t = torch.as_tensor(0.0 if t is None else t, dtype=x.dtype)
         h = torch.as_tensor(step_size, dtype=x.dtype)
-        x_det = self._deterministic_step(x, h, drift, t)
+        x_det = self._deterministic_step(x, h, drift, t, norm)
         if noise is None:
             if generator is None:
                 raise ValueError("SDE step requires a torch.Generator (or explicit `noise`).")

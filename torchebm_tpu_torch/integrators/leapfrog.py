@@ -15,7 +15,7 @@ from typing import Callable, ClassVar, Optional
 
 import torch
 
-from .base import BaseSymplecticIntegrator, State
+from .base import BaseSymplecticIntegrator, NormFn, State, _rms_norm
 
 Tensor = torch.Tensor
 DriftFn = Callable[[Tensor, Tensor], Tensor]
@@ -98,7 +98,8 @@ class GeneralisedLeapfrogIntegrator(BaseSymplecticIntegrator):
 
     Both implicit stages are Picard-iterated: ``solver_max_iter`` updates, or
     with ``solver_check_every > 0`` until the RMS change over the whole batch
-    is at most ``solver_tol``. That stop is kept on the device: every update
+    (``norm=``'s, if given: one pooled over the shards of a sharded batch) is
+    at most ``solver_tol``. That stop is kept on the device: every update
     runs, and the iterate is frozen once a flag says the loop has stopped,
     which gives the JAX ``while_loop``'s result without a host read.
     Registry names ``"generalised_leapfrog"`` and ``"generalized_leapfrog"``.
@@ -114,7 +115,8 @@ class GeneralisedLeapfrogIntegrator(BaseSymplecticIntegrator):
         if self.solver_max_iter < 1:
             raise ValueError("solver_max_iter must be >= 1")
 
-    def _picard(self, init: Tensor, update: Callable[[Tensor], Tensor]) -> Tensor:
+    def _picard(self, init: Tensor, update: Callable[[Tensor], Tensor],
+                norm: Optional[NormFn] = None) -> Tensor:
         y = update(init)
         if self.solver_check_every <= 0:
             for _ in range(self.solver_max_iter - 1):
@@ -123,15 +125,16 @@ class GeneralisedLeapfrogIntegrator(BaseSymplecticIntegrator):
         done = torch.zeros((), dtype=torch.bool, device=y.device)
         for _ in range(self.solver_max_iter - 1):
             y_next = update(y)
-            resid = torch.sqrt(torch.mean(torch.square(y_next - y)))
+            resid = (norm or _rms_norm)(y_next - y)
             y = torch.where(done, y, y_next)
             # the loop goes on while resid > tol, so a NaN residual stops it
             done = done | ~(resid > self.solver_tol)
         return y
 
     def step(self, state: State, step_size, *, force: HamiltonField, velocity: HamiltonField,
-             safe: bool = False, **_) -> State:
-        """One generalised leapfrog step; returns ``{"x", "p"}``."""
+             safe: bool = False, norm: Optional[NormFn] = None, **_) -> State:
+        """One generalised leapfrog step; returns ``{"x", "p"}``. ``norm``: the
+        Picard residual's (class docstring)."""
         x, p = state["x"], state["p"]
         # 0-d scalars left where they are: a CPU scalar enters CUDA ops as a
         # number, so a host step size is never copied to the device
@@ -142,11 +145,12 @@ class GeneralisedLeapfrogIntegrator(BaseSymplecticIntegrator):
             return self._safe_clamp(v) if safe else v
 
         # implicit momentum half-step: p½ = p + h/2 · force(x, p½)
-        p_half = self._picard(p, lambda ph: p + half_h * clamp(force(x, ph, t)))
+        p_half = self._picard(p, lambda ph: p + half_h * clamp(force(x, ph, t)), norm)
         # implicit trapezoidal position step:
         # x' = x + h/2 · [velocity(x, p½) + velocity(x', p½)]
         v0 = clamp(velocity(x, p_half, t))
-        x_new = self._picard(x, lambda xn: x + half_h * (v0 + clamp(velocity(xn, p_half, t))))
+        x_new = self._picard(x, lambda xn: x + half_h * (v0 + clamp(velocity(xn, p_half, t))),
+                             norm)
         # explicit momentum half-step
         p_new = p_half + half_h * clamp(force(x_new, p_half, t))
         if safe:
@@ -156,11 +160,12 @@ class GeneralisedLeapfrogIntegrator(BaseSymplecticIntegrator):
         return {"x": x_new, "p": p_new}
 
     def integrate(self, state: State, step_size, n_steps: int, *, force: HamiltonField,
-                  velocity: HamiltonField, safe: bool = False, **_) -> State:
+                  velocity: HamiltonField, safe: bool = False, norm: Optional[NormFn] = None,
+                  **_) -> State:
         """``n_steps`` generalised leapfrog steps."""
         if n_steps is None or n_steps <= 0:
             raise ValueError("n_steps must be positive")
         out = {"x": state["x"], "p": state["p"]}
         for _ in range(int(n_steps)):
-            out = self.step(out, step_size, force=force, velocity=velocity, safe=safe)
+            out = self.step(out, step_size, force=force, velocity=velocity, safe=safe, norm=norm)
         return out

@@ -77,6 +77,12 @@ class ScoreMatching(BaseScoreMatching):
     ``vmap`` trace). ``"approx"``: a finite-difference probe along a normal
     draw (ε = 1e-5), the trace divided by the data dimension; ``noise=``
     hands in that draw.
+
+    The ``"approx"`` quotient cancels in float32: it divides a difference
+    of two scores by ε = 1e-5, so a rounding of 1e-7 in the score reaches
+    the trace term as 1e-2. The computation is kept as the JAX package's.
+    Where float32 matters use ``hessian_method="exact"`` or
+    :class:`DenoisingScoreMatching`.
     """
 
     model: Any = None

@@ -34,8 +34,9 @@ the port decides where a DTensor is taken:
 - the R̂ and ESS estimators pool per-chain sums over the sharded axis;
 - the trainer records the parameters' placements, averages the gradients
   of the parameters FSDP2 leaves replicated, and checkpoints sharded state;
-- ``FlowSampler`` raises on a DTensor batch (its adaptive integrators'
-  error control reduces over the batch).
+- ``FlowSampler`` integrates the local rows; its adaptive integrators'
+  error norm is pooled over the shards, so every process takes the same
+  steps, and ``ReflowCoupling`` shards through it.
 
 The helpers at the end of this module (:func:`row_shard`, :func:`like_rows`,
 :func:`row_shards`, :func:`sum_over_rows`) are what those consumers share.

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -156,6 +157,16 @@ class _Rows:
     def pool(self, local_mean: Tensor) -> Tensor:
         """The mean over every row, from ``local_mean``, the mean over this process's."""
         return self.total(local_mean * self.n) / self.n_global
+
+    def rms_norm(self, t: Tensor) -> Tensor:
+        """The root mean square of the entries of ``t`` (this process's rows on
+        dim 0) over every row: the sums of squares pooled over the shards over
+        the whole batch's count; a shard that holds every row (a world of
+        one) reduces as the unsharded call does."""
+        if self.n == self.n_global:
+            return torch.sqrt(torch.mean(torch.square(t)))
+        sq = self.total(torch.sum(torch.square(t)))
+        return torch.sqrt(sq / (self.n_global * math.prod(t.shape[1:])))
 
     def whole(self, t: Tensor) -> Tensor:
         """The whole batch of ``t`` (this process's rows on dim 0) on every

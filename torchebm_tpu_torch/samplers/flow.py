@@ -19,11 +19,20 @@ last-step correction.
   step 0.
 - Sampling runs under ``torch.no_grad()``. :meth:`FlowSampler.log_prob`
   takes the divergence of the drift by forward-mode ``torch.func.jvp``.
+- A batch sharded on its rows (a DTensor ``x``, as
+  :meth:`~torchebm_tpu_torch.samplers.base.BaseSampler.sample` takes one)
+  gives a DTensor of the same placement holding the unsharded call's values:
+  each process integrates its rows; the SDE's normals and the Hutchinson
+  probes are drawn for the whole batch and cut to the rows; the adaptive
+  controller's error norm (and an implicit stage's residual) is pooled over
+  every shard, so every process takes the unsharded call's steps; the
+  diagnostics' moments are pooled too.
 """
 
 from __future__ import annotations
 
 import enum
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple, Union
@@ -40,7 +49,8 @@ from ..interpolants import (
     expand_t_like_x,
     resolve_interpolant,
 )
-from .base import BaseSampler
+from ..parallel.mesh import is_dtensor
+from .base import BaseSampler, _draw, _randn, _row_draws, _Rows
 
 Tensor = torch.Tensor
 
@@ -83,8 +93,15 @@ def _batch_t(t, x: Tensor) -> Tensor:
     return torch.as_tensor(t, dtype=x.dtype).to(x.device).expand(x.shape[0])
 
 
-def _moments(x: Tensor) -> Tuple[Tensor, Tensor]:
-    return torch.mean(x, dim=0), torch.clamp(torch.var(x, dim=0, correction=0), 1e-10, 1e10)
+def _moments(x: Tensor, rows: Optional[_Rows] = None) -> Tuple[Tensor, Tensor]:
+    """Mean and variance over the samples (dim 0); with ``rows`` over every
+    shard's (the variance in two passes)."""
+    if rows is None:
+        mean, var = torch.mean(x, dim=0), torch.var(x, dim=0, correction=0)
+    else:
+        mean = rows.mean(x)
+        var = rows.mean(torch.square(x - mean))
+    return mean, torch.clamp(var, 1e-10, 1e10)
 
 
 @dataclass(eq=False)
@@ -304,6 +321,10 @@ class FlowSampler(BaseSampler):
         rows do not interact, i.e. row i of the output depends on row i of
         the input alone (no batch statistics, no attention across samples).
         Every field of the library meets that, the DiT included.
+
+        A DTensor ``x`` sharded on its rows gives its rows' log-densities
+        laid out as ``x``: the probes are drawn for the whole batch and cut
+        to the rows, so the values are the unsharded call's.
         """
         if self.mode != "ode":
             raise ValueError("log_prob requires mode='ode' (probability-flow ODE)")
@@ -314,8 +335,10 @@ class FlowSampler(BaseSampler):
             hutchinson = d > 8
         if hutchinson and generator is None:
             raise ValueError("hutchinson divergence estimation requires generator=")
-        return _flow_logprob_impl(self, x, generator, int(n_steps), bool(hutchinson),
-                                  int(n_probes), model_kwargs or {})
+        rows = _Rows(x) if is_dtensor(x) else None
+        out = _flow_logprob_impl(self, x if rows is None else rows.local, generator, int(n_steps),
+                                 bool(hutchinson), int(n_probes), model_kwargs or {}, rows)
+        return out if rows is None else rows.like_this(out)
 
     # ---------------------------------------------------------------- sample
 
@@ -338,28 +361,35 @@ class FlowSampler(BaseSampler):
 
         Adaptive integrators (``dopri5``, ``dopri8``, ...) return only the
         final state; ``thin`` and ``return_trajectory`` need a fixed-step
-        integrator.
+        integrator. A DTensor ``x`` sharded on its rows gives a DTensor laid
+        out as ``x`` holding the unsharded call's values (module docstring).
         """
         if n_steps is None:
             n_steps = self.default_n_steps
         if n_steps <= 0:
             raise ValueError("n_steps must be positive")
-        x0 = self._start(generator, x, dim, n_samples, n_steps, thin)
-        adaptive = self.integrator.error_weights is not None
-        if adaptive and (return_trajectory or thin != 1):
+        return super().sample(generator, x, dim, n_steps, n_samples, thin, return_trajectory,
+                              return_diagnostics, model_kwargs=model_kwargs)
+
+    def _run(self, generator, x0, n_steps, thin, return_trajectory, return_diagnostics,
+             model_kwargs, rows=None):
+        if self.integrator.error_weights is not None and (return_trajectory or thin != 1):
             raise NotImplementedError(
                 "return_trajectory/thin require a fixed-step integrator; "
                 f"adaptive {type(self.integrator).__name__} returns only the "
                 "final state. Construct FlowSampler(integrator='euler') or "
                 "another fixed-step method."
             )
-        return _flow_sample_impl(self, x0, generator, n_steps, thin, bool(return_trajectory),
-                                 bool(return_diagnostics), model_kwargs or {})
+        return _flow_sample_impl(self, x0, generator, n_steps, thin, return_trajectory,
+                                 return_diagnostics, model_kwargs, rows)
 
 
 def _flow_sample_impl(sampler: FlowSampler, x0: Tensor, generator: torch.Generator,
                       n_steps: int, thin: int, return_trajectory: bool,
-                      return_diagnostics: bool, model_kwargs: Dict[str, Any]):
+                      return_diagnostics: bool, model_kwargs: Dict[str, Any],
+                      rows: Optional[_Rows] = None):
+    """The generation loop from ``x0``; ``rows``: ``x0`` holds one shard's
+    rows (module docstring)."""
     sde = sampler.mode == "sde"
     integ = sampler.integrator
     t0, t1 = sampler._check_interval()
@@ -380,22 +410,29 @@ def _flow_sample_impl(sampler: FlowSampler, x0: Tensor, generator: torch.Generat
             drift = base_drift
             grid = t_phys
 
+    # the error norm and an implicit stage's residual, over every shard's rows
+    norm = None if rows is None else rows.rms_norm
     if integ.error_weights is not None:
-        x = integ.integrate({"x": x0}, grid[1] - grid[0], n_steps, drift=drift, t=grid)["x"]
+        x = integ.integrate({"x": x0}, grid[1] - grid[0], n_steps, drift=drift, t=grid,
+                            norm=norm)["x"]
         if not return_diagnostics:
             return x
-        mean, var = _moments(x)
+        mean, var = _moments(x, rows)
         return x, {"mean": mean[None], "var": var[None], "t": t_phys[-1:]}
+
+    draws = _row_draws(generator, rows)
 
     def one_step(i, xc):
         dt, ti = grid[i + 1] - grid[i], grid[i]
         if sde:
+            noise = _randn(draws, xc.shape, device=xc.device, dtype=xc.dtype)
             return integ.step({"x": xc}, dt, drift=drift, diffusion=diffusion_fn(xc, ti), t=ti,
-                              generator=generator)["x"]
+                              noise=noise, norm=norm)["x"]
         if integ.family == "sde":
             # an SDE integrator in ODE mode: the deterministic part, noise zeroed
-            return integ.step({"x": xc}, dt, drift=drift, t=ti, noise=torch.zeros_like(xc))["x"]
-        return integ.step({"x": xc}, dt, drift=drift, t=ti)["x"]
+            return integ.step({"x": xc}, dt, drift=drift, t=ti, noise=torch.zeros_like(xc),
+                              norm=norm)["x"]
+        return integ.step({"x": xc}, dt, drift=drift, t=ti, norm=norm)["x"]
 
     n_kept = n_steps // thin
     x = x0
@@ -406,7 +443,7 @@ def _flow_sample_impl(sampler: FlowSampler, x0: Tensor, generator: torch.Generat
         if return_trajectory:
             outs["traj"].append(x)
         if return_diagnostics:
-            mean, var = _moments(x)
+            mean, var = _moments(x, rows)
             outs["mean"].append(mean)
             outs["var"].append(var)
             outs["t"].append(t_phys[(k + 1) * thin])
@@ -420,7 +457,7 @@ def _flow_sample_impl(sampler: FlowSampler, x0: Tensor, generator: torch.Generat
             if return_trajectory:
                 outs["traj"][-1] = x
             if return_diagnostics:
-                outs["mean"][-1], outs["var"][-1] = _moments(x)
+                outs["mean"][-1], outs["var"][-1] = _moments(x, rows)
                 outs["t"][-1] = t_phys[-1] + sampler.last_step_size
 
     output = torch.stack(outs["traj"], dim=1) if return_trajectory and n_kept > 0 else x
@@ -432,16 +469,19 @@ def _flow_sample_impl(sampler: FlowSampler, x0: Tensor, generator: torch.Generat
 
 @torch.no_grad()
 def _flow_logprob_impl(sampler: FlowSampler, x: Tensor, generator, n_steps: int,
-                       hutchinson: bool, n_probes: int, model_kwargs: Dict[str, Any]) -> Tensor:
+                       hutchinson: bool, n_probes: int, model_kwargs: Dict[str, Any],
+                       rows: Optional[_Rows] = None) -> Tensor:
     t0, t1 = sampler._check_interval()
     drift = sampler._get_drift(model_kwargs)
     batch = x.shape[0]
     d = math.prod(x.shape[1:])
 
     if hutchinson:
-        # Rademacher probes, fixed along the whole trajectory
-        probes = torch.randint(0, 2, (n_probes, *x.shape), generator=generator,
-                               device=x.device).to(x.dtype) * 2.0 - 1.0
+        # Rademacher probes, fixed along the whole trajectory; a shard's rows
+        # of the whole batch's (its rows on dim 1)
+        bits = _draw(functools.partial(torch.randint, 0, 2), _row_draws(generator, rows),
+                     (n_probes, *x.shape), x.device, torch.int64, chain_dim=1)
+        probes = bits.to(x.dtype) * 2.0 - 1.0
         scale = 1.0 / n_probes
     else:
         # the unit vectors: batch rows are independent, so probing every

@@ -279,6 +279,7 @@ class LangevinDynamics(BaseSampler):
         if isinstance(generator, _RowDraws):  # a shard: its rows of the whole batch's normals
             x = carry["x"]
             kw["noise"] = _randn(generator, x.shape, device=x.device, dtype=x.dtype)
+            kw["norm"] = generator.rows.rms_norm  # an implicit stage's residual, every shard's
             generator = generator.generator
         out = self.integrator.step(
             {"x": carry["x"]},

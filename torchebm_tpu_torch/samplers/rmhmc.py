@@ -41,7 +41,7 @@ import torch
 from ..core.energies import Energy
 from ..core.schedulers import BaseScheduler, sched_value
 from ..integrators import resolve_integrator
-from .base import BaseSampler, _rand, _randn
+from .base import BaseSampler, _rand, _randn, _RowDraws
 
 Tensor = torch.Tensor
 
@@ -163,6 +163,7 @@ class RiemannianManifoldHMC(BaseSampler):
         proposed = self.integrator.integrate(
             {"x": x, "p": p}, eps, self.n_leapfrog_steps, force=force,
             velocity=lambda x_, p_, t_: self._velocity(x_, p_),
+            norm=generator.rows.rms_norm if isinstance(generator, _RowDraws) else None,
         )
         x_prop, p_prop = proposed["x"], proposed["p"]
         prop_h = self._hamiltonian(x_prop, p_prop, model_kwargs)
