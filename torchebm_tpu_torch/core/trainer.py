@@ -55,6 +55,7 @@ from torch import nn
 from ..losses.contrastive_divergence import ContrastiveDivergence
 from ..parallel.mesh import is_dtensor, row_shards, sum_over_rows
 from ..parallel.shim import broadcast_object, psum_mean
+from ..utils.profiling import count, span
 from ..utils.training import latest_checkpoint_step, load_checkpoint, save_checkpoint, update_ema
 
 Tensor = torch.Tensor
@@ -260,24 +261,35 @@ class BaseTrainer:
 
     def train_step(self, state: TrainState, batch) -> Tuple[TrainState, Dict[str, Tensor]]:
         """One optimisation step (or one micro-batch of an accumulated one),
-        in place; returns ``(state, metrics)`` with device-resident metrics."""
-        x, mk = _split_batch(batch)
-        shardings = self._param_shardings(state.params)
-        loss, aux, new_loss_state = self._loss(x, state.generator, state.loss_state, mk)
-        loss.backward()
-        if shardings is not None or is_dtensor(x):
-            self._mean_replicated_grads(state.model, x)
-        self._optimizer_step(state)
-        params = self._constrain(state.params, shardings)
-        if any(params[n] is not p for n, p in state.params.items()):
-            raise RuntimeError("the optimizer step moved a parameter off its placements")
-        if self.ema_decay is not None:
-            update_ema(state.ema_params, params, self.ema_decay)
-            state.ema_params = self._constrain(state.ema_params, shardings)
-        with torch.no_grad():
-            metrics = self.compute_metrics(loss.detach(), aux, state.model, x, mk)
-        state.loss_state = new_loss_state
-        state.step += 1
+        in place; returns ``(state, metrics)`` with device-resident metrics.
+
+        The step is the span ``trainer.train_step``, its phases
+        ``trainer.forward`` (the loss), ``trainer.backward`` (the gradients)
+        and ``trainer.optimizer`` (the update, the EMA and the metrics), each
+        timed on the batch's CUDA device as well
+        (:func:`~torchebm_tpu_torch.utils.profiling.span`)."""
+        with span("trainer.train_step"):
+            x, mk = _split_batch(batch)
+            device = x.device
+            shardings = self._param_shardings(state.params)
+            with span("trainer.forward", device):
+                loss, aux, new_loss_state = self._loss(x, state.generator, state.loss_state, mk)
+            with span("trainer.backward", device):
+                loss.backward()
+                if shardings is not None or is_dtensor(x):
+                    self._mean_replicated_grads(state.model, x)
+            with span("trainer.optimizer", device):
+                self._optimizer_step(state)
+                params = self._constrain(state.params, shardings)
+                if any(params[n] is not p for n, p in state.params.items()):
+                    raise RuntimeError("the optimizer step moved a parameter off its placements")
+                if self.ema_decay is not None:
+                    update_ema(state.ema_params, params, self.ema_decay)
+                    state.ema_params = self._constrain(state.ema_params, shardings)
+                with torch.no_grad():
+                    metrics = self.compute_metrics(loss.detach(), aux, state.model, x, mk)
+            state.loss_state = new_loss_state
+            state.step += 1
         return state, metrics
 
     # ------------------------------------------------------------------
@@ -294,6 +306,7 @@ class BaseTrainer:
         if not accum:
             return {}
         means = torch.stack([torch.stack(v).float().mean() for v in accum.values()])
+        count("host_reads")
         return dict(zip(accum, means.tolist()))
 
     def train_epoch(self, state: TrainState,

@@ -23,6 +23,7 @@ import torch
 
 from ..ops import fused_sinkhorn as _fs
 from ..parallel.mesh import is_dtensor
+from ..utils.profiling import count
 from .base import BaseCostCoupling, BaseCoupling, BaseModelCoupling, CouplingResult
 
 Tensor = torch.Tensor
@@ -136,6 +137,7 @@ def auction_assignment(cost: Tensor, tol: float = 1e-4, scale_factor: float = 8.
         return torch.zeros(1, dtype=torch.int64, device=dev)
     benefit = -cost.to(torch.float32)
     eps_final = torch.tensor(tol / n, dtype=torch.float32)
+    count("host_reads")
     spread = torch.maximum((torch.max(benefit) - torch.min(benefit)).cpu(), eps_final)
     eps = torch.maximum(spread / 4.0, eps_final)
     if max_rounds <= 0:
@@ -150,7 +152,10 @@ def auction_assignment(cost: Tensor, tol: float = 1e-4, scale_factor: float = 8.
         a_row = torch.full((n,), -1, dtype=torch.int64, device=dev)
         a_col = torch.full((n,), -1, dtype=torch.int64, device=dev)
         e = float(eps)
-        while rounds <= max_rounds and bool(torch.any(a_row < 0)):
+        while rounds <= max_rounds:
+            count("host_reads")
+            if not bool(torch.any(a_row < 0)):
+                break
             unassigned = a_row < 0
             top2_vals, top2_idx = torch.topk(benefit - prices[None, :], 2, dim=1)
             best_col = top2_idx[:, 0]
@@ -196,7 +201,10 @@ def greedy_assignment(cost: Tensor) -> Tensor:
     c = cost.to(torch.float32).clone()
     perm = torch.full((n,), -1, dtype=torch.int64, device=dev)
     rounds = 0
-    while rounds < n and bool(torch.any(perm < 0)):
+    while rounds < n:
+        count("host_reads")
+        if not bool(torch.any(perm < 0)):
+            break
         rmin = torch.argmin(c, dim=1)  # cheapest free column per row
         cmin = torch.argmin(c, dim=0)  # cheapest free row per column
         dominant = (perm < 0) & (cmin[rmin] == iota) & torch.isfinite(c[iota, rmin])

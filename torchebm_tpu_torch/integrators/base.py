@@ -30,6 +30,8 @@ from typing import Callable, ClassVar, Dict, Optional, Tuple, Union
 
 import torch
 
+from ..utils.profiling import count
+
 Tensor = torch.Tensor
 State = Dict[str, Tensor]
 DriftFn = Callable[[Tensor, Tensor], Tensor]  # f(x, t) -> dx/dt
@@ -254,7 +256,10 @@ class BaseRungeKuttaIntegrator(BaseIntegrator):
         k1 = drift(x, t_cur) if is_fsal else torch.zeros_like(x)
         n_acc = torch.zeros((), dtype=torch.int32, device=dev)
         n_att = 0
-        while n_att < self.max_steps and bool(t_cur < t_end - tiny):
+        while n_att < self.max_steps:
+            count("host_reads")
+            if not bool(t_cur < t_end - tiny):
+                break
             h = torch.minimum(torch.minimum(h, t_end - t_cur), max_h)
             ks = self._evaluate_stages(x, t_cur, h, drift, k0=k1 if is_fsal else None, norm=norm)
             y_new = self._combine(x, h, ks, self.tableau_b)

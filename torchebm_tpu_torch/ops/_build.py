@@ -12,8 +12,10 @@ rebuilt and an unchanged tree is loaded as it is. The library is loaded with
 :func:`launch` calls one C entry point on a device's current stream, with
 the argument types its kernel module declares. :func:`counted` registers a
 kernel wrapper, whose ``launches`` attribute the wrapper raises by one each
-time it launches its kernel; :func:`launch_counts` and
-:func:`reset_launch_counts` read and clear every registered wrapper's count.
+time it launches its kernel, and runs each call of it inside the span
+``ops.<wrapper name>`` (:func:`~torchebm_tpu_torch.utils.profiling.span`);
+:func:`launch_counts` and :func:`reset_launch_counts` read and clear every
+registered wrapper's count.
 
 A missing ``nvcc`` or a failed build raises :class:`RuntimeError` with the
 compiler's output. Nothing here runs at import time.
@@ -29,6 +31,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Optional
+
+from ..utils.profiling import span
 
 __all__ = [
     "BUILD_DIR", "build_library", "counted", "find_nvcc", "launch", "launch_counts",
@@ -53,10 +57,18 @@ _COUNTED: list = []
 
 
 def counted(fn):
-    """Register the kernel wrapper ``fn`` with a ``launches`` count of 0."""
-    fn.launches = 0
-    _COUNTED.append(fn)
-    return fn
+    """Register the kernel wrapper ``fn`` with a ``launches`` count of 0; its
+    calls run inside the span ``ops.<name>``."""
+    name = f"ops.{fn.__name__}"
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with span(name):
+            return fn(*args, **kwargs)
+
+    wrapper.launches = 0
+    _COUNTED.append(wrapper)
+    return wrapper
 
 
 def launch_counts() -> dict:

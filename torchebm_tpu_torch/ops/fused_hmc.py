@@ -35,6 +35,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from ..utils.profiling import count
 from . import _build
 from .fused_langevin import (
     DISPATCH_GROUPS,
@@ -76,9 +77,12 @@ HMC_GROUPS = DISPATCH_GROUPS
 
 def _mass_vector(mass: Mass, d: int, device: torch.device) -> Optional[Tensor]:
     """``mass`` as a contiguous float32 ``(d,)`` tensor on ``device`` (None
-    stays None); a scalar broadcasts, as in the JAX wrappers."""
+    stays None); a scalar broadcasts, as in the JAX wrappers. A copy from the
+    host is counted in ``host_reads``: on a card it waits for the stream."""
     if mass is None:
         return None
+    if not (isinstance(mass, Tensor) and mass.device == torch.device(device)):
+        count("host_reads")
     m = torch.as_tensor(mass, dtype=torch.float32, device=device)
     if m.ndim > 1 or (m.ndim == 1 and m.shape[0] != d):
         raise ValueError(f"mass must be a scalar or a ({d},) diagonal, got shape {tuple(m.shape)}")

@@ -49,6 +49,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from ..utils.profiling import count
 from . import _build
 from ._build import ptr as _ptr
 
@@ -215,9 +216,12 @@ def _schedule_table(step_size: Schedule, noise_scale: Schedule, n_steps: int,
     """The ``(2, n_steps)`` float32 table ``[η_t, noise_scale_t·√(2η_t)]``.
     A pair of Python numbers gives a constant table
     (:func:`_constant_schedule`); a ``(n_steps,)`` schedule on either side
-    gives the per-step table, scalars broadcast."""
+    gives the per-step table, scalars broadcast. Each copy of host numbers
+    to ``device`` is counted in ``host_reads``: on a card it waits for the
+    stream."""
     const = _constant_schedule(step_size, noise_scale)
     if const is not None:
+        count("host_reads")
         col = torch.tensor([[const[0]], [const[1]]], dtype=torch.float32, device=device)
         return col.expand(2, n_steps).contiguous()
     for name, p in (("step_size", step_size), ("noise_scale", noise_scale)):
@@ -226,6 +230,8 @@ def _schedule_table(step_size: Schedule, noise_scale: Schedule, n_steps: int,
             raise ValueError(
                 f"{name} must be a scalar or a ({n_steps},) per-step schedule, got shape {shape}"
             )
+        if not (isinstance(p, Tensor) and p.device == torch.device(device)):
+            count("host_reads")
     h = torch.as_tensor(step_size, dtype=torch.float32, device=device).broadcast_to((n_steps,))
     ns = torch.as_tensor(noise_scale, dtype=torch.float32, device=device).broadcast_to((n_steps,))
     return torch.stack([h, ns * torch.sqrt(2.0 * h)])

@@ -41,6 +41,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from ..utils.profiling import count
 from . import _build
 
 Tensor = torch.Tensor
@@ -207,6 +208,7 @@ def _run_plain(C: Tensor, reg: float, n_iters: int, tol: float, damping: float):
         f = f_new
         it += 1
         if recent and (len(recent) == CHECK_EVERY or it == n_iters):
+            count("host_reads")
             errs = torch.stack([e for _, _, e in recent]).tolist()
             met = next((k for k, e in enumerate(errs) if not e > tol), None)
             if met is not None:

@@ -45,7 +45,9 @@ import torch.distributed as dist
 from ..core.energies import Energy, GaussianEnergy, GaussianMixtureEnergy
 from ..core.module import tensor_memo
 from ..parallel.mesh import is_dtensor
-from .base import _check_model_device, _kernel_seed_tensor, _rand, _randn, _row_draws, _Rows
+from ..utils.profiling import count
+from .base import (_check_model_device, _kernel_seed_tensor, _rand, _randn, _read_float,
+                   _row_draws, _Rows)
 from .langevin import _isotropic_scale
 
 Tensor = torch.Tensor
@@ -134,6 +136,7 @@ def _ais_impl(target: Energy, base: GaussianEnergy, generator: torch.Generator, 
 
     logw = torch.zeros(x.shape[0], dtype=x.dtype, device=dev)
     acc = torch.zeros((), dtype=torch.float32, device=dev)
+    count("host_reads")
     schedule = betas.tolist()
     for beta_prev, beta in zip(schedule[:-1], schedule[1:]):
         logw = logw + (beta - beta_prev) * (base.energy(x) - target.energy(x))
@@ -166,7 +169,7 @@ def _fused_target_kwargs(target: Energy) -> Optional[dict]:
         k, d = target.means.shape
         if d > 64 or k * d > 1024:
             return None
-        scale = tensor_memo(target.scale, float)
+        scale = tensor_memo(target.scale, _read_float)
         return dict(means=target.means, scale=scale, log_weights=target.log_weights,
                     log_norm_t=d * math.log(scale) + 0.5 * d * math.log(2 * math.pi))
     if type(target) is GaussianEnergy and target.mean.ndim == 1:

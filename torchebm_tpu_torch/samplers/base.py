@@ -44,6 +44,7 @@ import torch
 from torch import nn
 
 from ..parallel.mesh import is_dtensor, like_rows, row_shard, sum_over_rows
+from ..utils.profiling import count, span
 
 Tensor = torch.Tensor
 
@@ -115,20 +116,33 @@ def _metropolis_target(sampler, device: torch.device, return_diagnostics: bool, 
     if d > 64 or k * d > 1024:
         return None
     return sampler.model.means, dict(
-        scale=float(sampler.model.scale), log_weights=sampler.model.log_weights
+        scale=_read_float(sampler.model.scale), log_weights=sampler.model.log_weights
     )
+
+
+def _read_float(t: Tensor) -> float:
+    """``float(t)``, counted as a host read."""
+    count("host_reads")
+    return float(t)
+
+
+def _draw_seed(generator: torch.Generator) -> Tensor:
+    return torch.randint(0, 2**63 - 1, (), generator=generator, device=generator.device)
 
 
 def _kernel_seed_tensor(generator: torch.Generator) -> Tensor:
     """The Philox seed of a whole-chain kernel, drawn from ``generator``: a
     0-d int64 tensor on the generator's device, which a kernel that takes a
     device seed reads there (no host sync)."""
-    return torch.randint(0, 2**63 - 1, (), generator=generator, device=generator.device)
+    with span("sampler.seed"):
+        return _draw_seed(generator)
 
 
 def _kernel_seed(generator: torch.Generator) -> int:
     """:func:`_kernel_seed_tensor`'s draw, read on the host."""
-    return int(_kernel_seed_tensor(generator))
+    with span("sampler.seed"):
+        count("host_reads")
+        return int(_draw_seed(generator))
 
 
 class _Rows:
@@ -227,6 +241,7 @@ def _rand(generator, shape, *, device, dtype, chain_dim: int = 0) -> Tensor:
 def _any_chain(flag: Tensor, generator) -> bool:
     """Whether any chain's ``flag`` is set, over every shard of a
     :class:`_RowDraws` call (read on the host, the same on every process)."""
+    count("host_reads")
     if isinstance(generator, _RowDraws):
         return bool(generator.rows.total(torch.sum(flag, dtype=torch.int64)) > 0)
     return bool(flag.any())
@@ -399,19 +414,23 @@ class BaseSampler:
         DTensor ``x``, a batch sharded on its rows (every process's generator
         in the same state), gives a DTensor of the same placement holding the
         unsharded call's values, and the unsharded call's diagnostics on
-        every process (module docstring)."""
-        rows = None
-        if is_dtensor(x):
-            rows = _Rows(x)
-            x, dim, n_samples = rows.local, None, 1
-        x0 = self._start(generator, x, dim, n_samples, n_steps, thin)
-        out = self._run(generator, x0, n_steps, thin, bool(return_trajectory),
-                        bool(return_diagnostics), model_kwargs or {}, rows)
-        if rows is None:
-            return out
-        if return_diagnostics:
-            return rows.like_this(out[0]), out[1]
-        return rows.like_this(out)
+        every process (module docstring). The call is the span
+        ``sampler.sample``, its validation and initial state ``sampler.start``
+        (:func:`~torchebm_tpu_torch.utils.profiling.span`)."""
+        with span("sampler.sample"):
+            with span("sampler.start"):
+                rows = None
+                if is_dtensor(x):
+                    rows = _Rows(x)
+                    x, dim, n_samples = rows.local, None, 1
+                x0 = self._start(generator, x, dim, n_samples, n_steps, thin)
+            out = self._run(generator, x0, n_steps, thin, bool(return_trajectory),
+                            bool(return_diagnostics), model_kwargs or {}, rows)
+            if rows is None:
+                return out
+            if return_diagnostics:
+                return rows.like_this(out[0]), out[1]
+            return rows.like_this(out)
 
     def _run(self, generator, x0, n_steps, thin, return_trajectory, return_diagnostics,
              model_kwargs, rows=None):

@@ -33,6 +33,7 @@ from ..core.energies import Energy
 from ..core.schedulers import BaseScheduler, sched_init, sched_value
 from ..integrators import LeapfrogIntegrator, resolve_integrator
 from ..parallel.mesh import is_dtensor
+from ..utils.profiling import count, span
 from .base import (
     BaseSampler,
     _kernel_seed,
@@ -190,24 +191,30 @@ class HamiltonianMonteCarlo(BaseSampler):
         """Run the chain (``n_steps`` draws): the whole-run kernel where
         :meth:`_fused_target` claims the call (at the shard's ``chain_offset``
         for ``rows``), the generic loop otherwise. The kernel's Philox seed is
-        drawn from ``generator`` after the initial state."""
-        target = self._fused_target(generator.device, return_diagnostics, model_kwargs)
+        drawn from ``generator`` after the initial state. The gate and the
+        kernel's arguments are the span ``sampler.dispatch``."""
+        with span("sampler.dispatch"):
+            target = self._fused_target(generator.device, return_diagnostics, model_kwargs)
+            if target is not None:
+                means, target_kw = target
+                if (x0.dtype == torch.float32 and x0.ndim == 2
+                        and x0.shape[-1] == means.shape[-1]
+                        and (not return_trajectory or n_steps // thin >= 1)):
+                    args = (x0.contiguous(), means, n_steps, float(self.step_size),
+                            self.n_leapfrog_steps)
+                else:
+                    # unsupported state shape or dtype, or n_steps < thin: the loop
+                    target = None
         if target is not None:
-            means, target_kw = target
-            if (x0.dtype == torch.float32 and x0.ndim == 2 and x0.shape[-1] == means.shape[-1]
-                    and (not return_trajectory or n_steps // thin >= 1)):
-                from ..ops import fused_hmc as ops
+            from ..ops import fused_hmc as ops
 
-                kw = dict(mass=self.mass, seed=_kernel_seed(generator), **target_kw)
-                if rows is not None:
-                    kw["chain_offset"] = rows.start
-                args = (x0.contiguous(), means, n_steps, float(self.step_size),
-                        self.n_leapfrog_steps)
-                if return_trajectory:
-                    traj, _, _ = ops.mixture_hmc_chain_trajectory(*args, thin=thin, **kw)
-                    return traj.movedim(0, 1)
-                return ops.mixture_hmc_chain(*args, **kw)[0]
-            # unsupported state shape or dtype, or n_steps < thin: the loop takes the call
+            kw = dict(mass=self.mass, seed=_kernel_seed(generator), **target_kw)
+            if rows is not None:
+                kw["chain_offset"] = rows.start
+            if return_trajectory:
+                traj, _, _ = ops.mixture_hmc_chain_trajectory(*args, thin=thin, **kw)
+                return traj.movedim(0, 1)
+            return ops.mixture_hmc_chain(*args, **kw)[0]
         return _sample_impl(self, x0, generator, n_steps, thin, return_trajectory,
                             return_diagnostics, model_kwargs, rows)
 
@@ -272,7 +279,7 @@ def _dual_averaging_warmup(sampler, transition, generator, x, dim, n_warmup, n_s
     flat_d = x.reshape(x.shape[0], -1).shape[-1]
     s1 = torch.zeros(flat_d, dtype=x.dtype, device=x.device)
     s2 = torch.zeros(flat_d, dtype=x.dtype, device=x.device)
-    count = 0
+    n_collected = 0
     for i in range(int(n_warmup)):
         x, acc = transition(x, draws, torch.exp(da.log_eps), model_kwargs)
         acc = torch.mean(acc if rows is None else rows.whole(acc))
@@ -283,11 +290,12 @@ def _dual_averaging_warmup(sampler, transition, generator, x, dim, n_warmup, n_s
                 flat = rows.whole(flat)
             s1 = s1 + torch.sum(flat, dim=0)
             s2 = s2 + torch.sum(flat * flat, dim=0)
-            count += flat.shape[0]
+            n_collected += flat.shape[0]
+    count("host_reads")
     eps = float(torch.exp(da.log_eps_bar))
     x_out = x if rows is None else rows.like_this(x)
     if not adapt_mass:
         return x_out, eps
-    n = float(max(count, 2))
+    n = float(max(n_collected, 2))
     var = s2 / n - torch.square(s1 / n)
     return x_out, eps, 1.0 / torch.clamp(var.reshape(x.shape[1:]), 1e-8, 1e8)

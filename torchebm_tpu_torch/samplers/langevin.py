@@ -54,6 +54,7 @@ from ..core.module import tensor_memo
 from ..core.schedulers import BaseScheduler, sched_value
 from ..integrators import EulerMaruyamaIntegrator, resolve_integrator
 from ..parallel.mesh import is_dtensor
+from ..utils.profiling import count, span
 from .base import (
     BaseSampler,
     _chain_stats,
@@ -62,6 +63,7 @@ from .base import (
     _kernel_seed,
     _kernel_seed_tensor,
     _randn,
+    _read_float,
     _RowDraws,
     _sample_impl,
 )
@@ -114,6 +116,7 @@ class _FusedRow(NamedTuple):
 
 def _covariance_scale(cov: Tensor) -> Optional[float]:
     """σ if ``cov`` is σ²I, else None (read on the host)."""
+    count("host_reads")
     cov = cov.detach().cpu()
     var = float(cov[0, 0])
     eye = torch.eye(cov.shape[0], dtype=cov.dtype, device=cov.device)
@@ -164,7 +167,7 @@ def _mixture_kwargs(s: "LangevinDynamics", x0: Tensor) -> Optional[dict]:
     m = s.model
     if x0.ndim != 2 or x0.shape[-1] != m.means.shape[-1]:
         return None
-    return dict(means=m.means, scale=float(m.scale), log_weights=m.log_weights)
+    return dict(means=m.means, scale=_read_float(m.scale), log_weights=m.log_weights)
 
 
 def _claiming_row(sampler) -> Optional[_FusedRow]:
@@ -348,37 +351,43 @@ class LangevinDynamics(BaseSampler):
         SiLU-MLP energy under ``fused_neural``, a whole-chain kernel where a
         dispatch row claims the call, the generic loop otherwise. A kernel's
         Philox seed is drawn from ``generator`` after the initial state.
-        ``rows``: ``x0`` is a shard of a sharded batch (:mod:`.base`)."""
+        ``rows``: ``x0`` is a shard of a sharded batch (:mod:`.base`). The
+        gates and the kernel's arguments are the span ``sampler.dispatch``."""
         chain_offset = 0 if rows is None else rows.start
-        if self._neural_fusable(generator.device, return_trajectory, return_diagnostics, thin,
-                                model_kwargs):
-            layers = self._neural_layers(x0)
-            if layers is not None:
-                from ..ops.fused_mlp_langevin import mlp_langevin_chain
-
-                return mlp_langevin_chain(
-                    x0.contiguous(), layers, int(n_steps), float(self.step_size),
-                    float(self.noise_scale), seed=_kernel_seed_tensor(generator),
-                    clamp=self.clamp, chain_offset=chain_offset,
-                )
-            # unsupported state, widths or depth: the loop takes the call
-        row = self._dispatch_row(generator.device, model_kwargs)
-        if row is not None:
-            kargs = row.kernel_kwargs(self, x0) if x0.dtype == torch.float32 else None
-            if kargs is not None and (
+        layers = row = kargs = None
+        with span("sampler.dispatch"):
+            if self._neural_fusable(generator.device, return_trajectory, return_diagnostics,
+                                    thin, model_kwargs):
+                # None (unsupported state, widths or depth): the loop takes the call
+                layers = self._neural_layers(x0)
+            if layers is None:
+                row = self._dispatch_row(generator.device, model_kwargs)
+            if row is not None and x0.dtype == torch.float32 and (
                 not (return_trajectory or return_diagnostics) or n_steps // thin >= 1
             ):
-                return _call_fused_row(
-                    row, x0.contiguous(), self.model,
-                    n_steps=n_steps, thin=thin,
-                    return_trajectory=return_trajectory,
-                    return_diagnostics=return_diagnostics,
-                    kargs=kargs,
-                    step_size=_sched_table_arg(self.step_size, n_steps, x0.device),
-                    noise_scale=_sched_table_arg(self.noise_scale, n_steps, x0.device),
-                    seed=(_kernel_seed_tensor if row.device_seed else _kernel_seed)(generator),
-                    clamp=self.clamp, rows=rows,
-                )
-            # unsupported state shape or dtype, or n_steps < thin: the loop takes the call
+                # None (unsupported state shape): the loop takes the call
+                kargs = row.kernel_kwargs(self, x0)
+            if layers is not None or kargs is not None:
+                x0 = x0.contiguous()
+            if kargs is not None:
+                step_size = _sched_table_arg(self.step_size, n_steps, x0.device)
+                noise_scale = _sched_table_arg(self.noise_scale, n_steps, x0.device)
+        if layers is not None:
+            from ..ops.fused_mlp_langevin import mlp_langevin_chain
+
+            return mlp_langevin_chain(
+                x0, layers, int(n_steps), float(self.step_size), float(self.noise_scale),
+                seed=_kernel_seed_tensor(generator), clamp=self.clamp, chain_offset=chain_offset,
+            )
+        if kargs is not None:
+            return _call_fused_row(
+                row, x0, self.model,
+                n_steps=n_steps, thin=thin,
+                return_trajectory=return_trajectory,
+                return_diagnostics=return_diagnostics,
+                kargs=kargs, step_size=step_size, noise_scale=noise_scale,
+                seed=(_kernel_seed_tensor if row.device_seed else _kernel_seed)(generator),
+                clamp=self.clamp, rows=rows,
+            )
         return _sample_impl(self, x0, generator, n_steps, thin, return_trajectory,
                             return_diagnostics, model_kwargs, rows)

@@ -22,6 +22,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from ..utils.profiling import count
 from .hmc import HamiltonianMonteCarlo
 from .nuts import NoUTurnSampler
 
@@ -90,6 +91,7 @@ def tune_trajectory_length(
 
     x1, diag = nuts.sample(generator, x=x0, n_steps=n_pilot, return_diagnostics=True,
                            model_kwargs=model_kwargs)
+    count("host_reads")
     depth = float(torch.mean(diag["tree_depth"]))
     n_leapfrog = max(2, int(round(2.0 ** depth)))
 

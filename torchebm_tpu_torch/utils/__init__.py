@@ -1,6 +1,6 @@
 """Utilities (counterpart of ``torchebm_tpu.utils``): conversion from the
 JAX package, EMA and checkpoints, precision policies, batch stacking and
-prefetch, profiling."""
+prefetch, profiling and the library's spans and counters."""
 
 from .convert import (
     conditional_transformer_2d_from_flax,
@@ -14,7 +14,17 @@ from .convert import (
 )
 from .data import prefetch_to_device, stack_batches
 from .precision import Policy, bf16_policy, cast_floating, f32_policy
-from .profiling import benchmark_fn, profile_context, record_function
+from .profiling import (
+    SpanRecord,
+    benchmark_fn,
+    clear_spans,
+    count,
+    counters,
+    profile_context,
+    record_function,
+    span,
+    spans,
+)
 from .training import (
     freeze_mask,
     latest_checkpoint_step,
@@ -42,6 +52,12 @@ __all__ = [
     "profile_context",
     "record_function",
     "benchmark_fn",
+    "span",
+    "spans",
+    "clear_spans",
+    "SpanRecord",
+    "count",
+    "counters",
     "Policy",
     "bf16_policy",
     "f32_policy",
