@@ -531,6 +531,30 @@ DSM_CHAINS, DSM_SAMPLE_STEPS, DSM_SAMPLE_STEP = 10_000, 1_000, 0.005
 #: the barriers around them are compared too; CD_K steps stay inside one
 MLP_LONG_STEPS = 100
 
+#: the adaLN-Zero kernels (ops/fused_adaln.py), timed at DiT-B/2's token
+#: stream (B, N, D) = (256, 256, 768): the benchmark's train step and each
+#: of its CFG generation's forwards (batch 256 both), in bf16 and in float32
+ADALN_SHAPE = (256, 256, 768)
+ADALN_DTYPES = ("bfloat16", "float32")
+#: and at a batch below the card's multiprocessors, where the backward
+#: kernels split each sample's tokens over blocks and a second pass adds
+#: their partial sums (``fused_adaln.launch_plan``'s ``chunks``), in bf16
+ADALN_CHUNKED_SHAPE = (8, 256, 768)
+#: wrapper -> (CUDA source, what it replaces) of the adaLN kernels' rows in
+#: the summary: no TPU kernel (XLA fuses the chain in the JAX package)
+ADALN_KERNELS = {
+    "adaln_modulate": (_CSRC + "fused_adaln.cu", "none (XLA fusion)"),
+    "gated_residual": (_CSRC + "fused_gated_residual.cu", "none (XLA fusion)"),
+    "adaln_modulate_backward": (_CSRC + "fused_adaln.cu", "none (XLA fusion)"),
+    "gated_residual_backward": (_CSRC + "fused_gated_residual.cu", "none (XLA fusion)"),
+}
+#: adaLN launches of a DiT-768x12 forward (12 blocks x 2 modulations and the
+#: head's; 12 x 2 gated residuals) and of a train step (forward and backward)
+DIT_ADALN_FORWARD = {"adaln_modulate": 25, "gated_residual": 24,
+                     "adaln_modulate_backward": 0, "gated_residual_backward": 0}
+DIT_ADALN_STEP = {"adaln_modulate": 25, "gated_residual": 24,
+                  "adaln_modulate_backward": 25, "gated_residual_backward": 24}
+
 #: the distributed layer on the card (PR 17): a real NCCL world of one,
 #: meshes ("data",) = (1,) and ("data", "fsdp") = (1, 1); config 3's CD step
 #: under HSDP for PAR_CD_STEPS steps against the unsharded trainer (loss and
@@ -635,9 +659,15 @@ def phase_build(build_mod) -> dict:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             k = re.search(r"((?:mixture|doublewell|mala|hmc|pt|mlp)_chain_kernel|ais_kernel"
-                          r"|langevin_step_kernel|sinkhorn_kernel)I(\w*?)EEv", m.group(1))
-            entry = f"{k.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', k.group(2)))}>" \
-                if k else m.group(1)
+                          r"|langevin_step_kernel|sinkhorn_kernel|adaln_modulate_kernel"
+                          r"|adaln_modulate_backward_kernel|gated_residual_kernel"
+                          r"|gated_residual_backward_kernel|column_sums_kernel)I(\w*?)EEv",
+                          m.group(1))
+            args = re.findall(r"L[ib](\d+)E", k.group(2)) if k else []
+            if k and k.group(1) in ADALN_INSTANCES:  # the storage type first
+                args = ["bf16" if "bfloat16" in k.group(2) else
+                        "f16" if "__half" in k.group(2) else "f32", *args]
+            entry = f"{k.group(1)}<{','.join(args)}>" if k else m.group(1)
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
@@ -648,6 +678,14 @@ def phase_build(build_mod) -> dict:
             instances[entry] = (int(m.group(1)), int(spills) if spills.isdigit() else -1)
             entry, spills = None, "?"
     return instances
+
+
+#: the adaLN kernels' instances (storage type, values a pack, pack items a
+#: lane); those at DiT-B/2's width (D = 768: 3 items of 8 bf16, 6 of 4 f32)
+#: may not spill
+ADALN_INSTANCES = ("adaln_modulate_kernel", "adaln_modulate_backward_kernel",
+                   "gated_residual_kernel", "gated_residual_backward_kernel", "column_sums_kernel")
+ADALN_MAIN = ("<bf16,8,3>", "<f32,4,6>", "<bf16,8>", "<f32,4>", "<bf16>", "<f32>")
 
 
 def check_instances(instances: dict) -> None:
@@ -678,6 +716,17 @@ def check_instances(instances: dict) -> None:
           f"{ {n: v[1] for n, v in mlp.items() if v[1] != 0} or 'none'}")
     if any(v[1] != 0 for v in mlp.values()):
         raise AssertionError("an mlp_chain_kernel instance spills")
+    for kernel in ADALN_INSTANCES:
+        found = {n: v for n, v in instances.items() if n.startswith(f"{kernel}<")}
+        main = {n: v for n, v in found.items() if n.endswith(ADALN_MAIN)}
+        spilled = {n: v[1] for n, v in found.items() if v[1] != 0}
+        print(f"build: {len(found)} {kernel} instances, at most "
+              f"{max(v[0] for v in found.values())} registers; at D = 768 "
+              + ", ".join(f"{n} {r} registers, {sp} bytes spill stores"
+                          for n, (r, sp) in sorted(main.items()))
+              + f"; instances that spill: {spilled or 'none'}")
+        if not main or any(v[1] != 0 for v in main.values()):
+            raise AssertionError(f"a {kernel} instance at D = 768 spills or is missing: {main}")
 
 
 #: SASS opcodes counted in each double-well instance: Philox's multiplies
@@ -2650,9 +2699,12 @@ def path_dit(ops, dev, card: str) -> dict:
     """The JAX headline's DiT train step (``benchmarks/headline.py:547-606``)
     in float32, then bfloat16 (the first model released before the second):
     ms per step, peak memory, counted FLOPs and their share of the card's
-    dense peak; then the card against the CPU port."""
+    dense peak; the adaLN kernels' launches in one more train step and
+    forward (DIT_ADALN_STEP, DIT_ADALN_FORWARD); then the card against the
+    CPU port."""
     import torch
 
+    launches = dict.fromkeys(ops.launch_counts(), 0)
     for dtype_name in ("float32", "bfloat16"):
         _release()
         torch.cuda.reset_peak_memory_stats()
@@ -2664,6 +2716,18 @@ def path_dit(ops, dev, card: str) -> dict:
             fwd = _counted_flops(lambda: model(x, cond))
             out = model(x, cond)
         loss = float(step())
+        ops.reset_launch_counts()
+        step()
+        with torch.no_grad():
+            model(x, cond)
+        counts = read_counts(ops, f"DiT {dtype_name}", list(ADALN_KERNELS))
+        adaln = {k: counts[k] for k in ADALN_KERNELS}
+        want = {k: DIT_ADALN_STEP[k] + DIT_ADALN_FORWARD[k] for k in ADALN_KERNELS}
+        if adaln != want:
+            raise AssertionError(f"DiT {dtype_name}: adaLN launches {adaln} in a train step and "
+                                 f"a forward, expected {want}")
+        for name, n in counts.items():
+            launches[name] += n
         rate = train / (ms * 1e-3)
         precision = (f"; float32 matmul precision {torch.get_float32_matmul_precision()!r}"
                      if dtype_name == "float32" else "")
@@ -2674,7 +2738,8 @@ def path_dit(ops, dev, card: str) -> dict:
               f"{fwd / 1e12:.4f} TFLOP per forward, {train / 1e12:.4f} per train step "
               f"(torch.utils.flop_counter): {rate / 1e12:.2f} TFLOP/s, "
               f"{rate / DIT_PEAK_FLOPS[dtype_name]:.3f} of the dense {dtype_name} peak "
-              f"{DIT_PEAK_FLOPS[dtype_name] / 1e12:g} TFLOP/s{precision}; loss {loss:.5f} | {card}")
+              f"{DIT_PEAK_FLOPS[dtype_name] / 1e12:g} TFLOP/s{precision}; loss {loss:.5f}; adaLN "
+              f"launches in a train step and a forward {adaln} | {card}")
         if tuple(out.shape) != tuple(x.shape) or out.dtype != torch.float32:
             raise AssertionError(f"DiT output {tuple(out.shape)} {out.dtype}")
         if not math.isfinite(loss):
@@ -2683,7 +2748,7 @@ def path_dit(ops, dev, card: str) -> dict:
     _release()
     _dit_parity(dev, card)
     _release()
-    return {}
+    return launches
 
 
 def _moons_images(dev, n: int, seed: int, size: int = DIT_KW["input_size"]):
@@ -3256,7 +3321,7 @@ def path_em(ops, dev, card: str) -> dict:
     import torch
 
     data = _flow_batch(dev)
-    launches = {name: 0 for name in KERNELS}
+    launches = dict.fromkeys(ops.launch_counts(), 0)
     for label, coupling in (("ot (auction)", "ot"), ("sinkhorn", _config5_coupling("auto"))):
         trainer, net = _em_trainer(dev, coupling, seed=111)
         state = trainer.init_state(net, torch.Generator(dev).manual_seed(112))
@@ -3396,7 +3461,7 @@ def path_cd_variants(ops, dev, card: str) -> dict:
     from torchebm_tpu_torch.models import MLPEnergy
     from torchebm_tpu_torch.samplers import LangevinDynamics, ParallelTemperingLangevin
 
-    launches = {name: 0 for name in KERNELS}
+    launches = dict.fromkeys(ops.launch_counts(), 0)
     report = []
     for label in ("PersistentContrastiveDivergence", "ParallelTemperingCD"):
         torch.manual_seed(131)
@@ -4164,7 +4229,7 @@ def path_parallel(ops, dev, card: str) -> dict:
     from torchebm_tpu_torch.parallel import make_mesh
 
     t0 = time.perf_counter()
-    launches = {name: 0 for name in KERNELS}
+    launches = dict.fromkeys(ops.launch_counts(), 0)
     with _world_of_one():
         mesh1 = make_mesh(("data",))
         mesh2 = make_mesh(("data", "fsdp"), (1, 1))
@@ -4905,6 +4970,103 @@ def mlp_plan_sweep(mlp, dev, card: str) -> None:
               + f" | {card}", flush=True)
     print(f"mlp sweep: the plan's pick is the fastest at {hits} of {len(MLP_SWEEP)} shapes | "
           f"{card}")
+
+
+def phase_adaln(ops, dev, card: str) -> dict:
+    """Each adaLN kernel, forward and backward, at ADALN_SHAPE in each of
+    ADALN_DTYPES and at ADALN_CHUNKED_SHAPE in bf16: device ms per call
+    (``device_ms``; a chunked backward's second pass included), its bound
+    (bytes over HBM_BYTES_PER_S, ``ops._counts.work``, which leaves out the
+    chunks' partial sums), its plain version's time, and the eager
+    operations it replaces (the block's composite: LayerNorm and modulate,
+    or the gate's multiply and add; their autograd backward, the residual's
+    add included); each kernel is checked against its plain version and
+    must beat it. Returns the summary's readings at ADALN_SHAPE in bf16:
+    ``{wrapper: {ms, plain_ms, library_ms (the eager operations), bound_ms,
+    bound_by, max_abs_err}}``."""
+    import torch
+    import torch.nn.functional as F
+
+    from torchebm_tpu_torch.ops import fused_adaln as fa
+    from torchebm_tpu_torch.ops._counts import work
+
+    clock = max_sm_clock_mhz()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    readings = {}
+    for shape, dtype_name in [*((ADALN_SHAPE, t) for t in ADALN_DTYPES),
+                              (ADALN_CHUNKED_SHAPE, "bfloat16")]:
+        b, n, d = shape
+        dtype = getattr(torch, dtype_name)
+        g = torch.Generator(dev).manual_seed(81)
+
+        def r(*size, scale=1.0):
+            return (scale * torch.randn(size, generator=g, device=dev)).to(dtype)
+
+        x, y, dz, dres = r(b, n, d, scale=2.0), r(b, n, d), r(b, n, d), r(b, n, d)
+        mod = r(b, 6 * d, scale=0.3)
+        shift, scale, gate = mod[:, :d], mod[:, d:2 * d], mod[:, 2 * d:3 * d]
+        _, mean, rstd = fa.adaln_modulate(x, shift, scale, 1e-6)
+
+        def composite_backward(fn, inputs, grads):
+            leaves = [t.detach().requires_grad_() for t in inputs]
+            out = fn(*leaves)
+            return lambda: torch.autograd.grad(out, leaves, grads, retain_graph=True)
+
+        def eager_modulate(x, shift, scale):
+            return (F.layer_norm(x, (d,), eps=1e-6) * (1 + scale[:, None, :])
+                    + shift[:, None, :])
+
+        def eager_modulate_backward():
+            grad = composite_backward(eager_modulate, (x, shift, scale), dz)
+            return lambda: (grad(), dz + dres)  # the residual's separate add
+
+        cases = {
+            "adaln_modulate": ((x, shift, scale, 1e-6), fa.adaln_modulate_plain,
+                               lambda: eager_modulate(x, shift, scale)),
+            "adaln_modulate_backward": ((dz, x, mean, rstd, scale, dres),
+                                        fa.adaln_modulate_backward_plain,
+                                        eager_modulate_backward()),
+            "gated_residual": ((x, gate, y), fa.gated_residual_plain,
+                               lambda: x + gate[:, None, :] * y),
+            "gated_residual_backward": ((dz, gate, y), fa.gated_residual_backward_plain,
+                                        composite_backward(
+                                            lambda x, gate, y: x + gate[:, None, :] * y,
+                                            (x, gate, y), dz)),
+        }
+        for name, (args, plain, eager) in cases.items():
+            kernel = getattr(fa, name)
+            got, want = kernel(*args), plain(*args)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            errs = [float((a.float() - c.float()).norm() / c.float().norm())
+                    for a, c in zip(got, want) if a is not None]
+            abs_err = max(float((a.float() - c.float()).abs().max())
+                          for a, c in zip(got, want) if a is not None)
+            gate_err = 1e-5 if dtype == torch.float32 else 1e-2
+            ms = device_ms(lambda: kernel(*args))
+            plain_ms = device_ms(lambda: plain(*args))
+            eager_ms = device_ms(eager)
+            bound_ms, bound_by = bound_of(work(name, args, {}, kernel(*args)), clock)
+            chunks = fa.launch_plan(b, n, d, x.element_size(), backward=True, sms=sms).chunks
+            print(f"adaln: {name} {dtype_name} {shape} ({chunks} chunks a sample in the "
+                  f"backward): kernel {ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by} at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
+                  f"{bound_ms / ms:.3f} of the bound's rate; plain version {plain_ms:.4f} ms; "
+                  f"the eager operations it replaces {eager_ms:.4f} ms; relative error "
+                  f"against the plain version {max(errs):.2e} (gate {gate_err:g}) | {card}",
+                  flush=True)
+            if not max(errs) <= gate_err:
+                raise AssertionError(f"{name} {dtype_name} {shape} differs from its plain "
+                                     f"version: {errs}")
+            if not ms < plain_ms:
+                raise AssertionError(f"{name} {dtype_name} {shape} is not faster than its plain "
+                                     f"version: {ms:.4f} >= {plain_ms:.4f} ms")
+            if shape == ADALN_SHAPE and dtype == torch.bfloat16:
+                readings[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=eager_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by, max_abs_err=abs_err)
+        del x, y, dz, dres, mod, mean, rstd, cases
+        _release()
+    return readings
 
 
 def phase_timing(ops, dev, card: str) -> dict:
@@ -5723,11 +5885,19 @@ def main() -> None:
     if sys.argv[1:] == ["--dit"]:
         check_instances(phase_build(_build))
         done("build")
+        phase_adaln(ops, dev, card)
+        done("adaln")
         profile_calls(_dit_family_calls(dev), card, require_events=True)
         done("profile")
         for path in DIT_PATHS:
             path(ops, dev, card)
             done(path.__name__)
+        return
+    if sys.argv[1:] == ["--adaln"]:
+        check_instances(phase_build(_build))
+        done("build")
+        phase_adaln(ops, dev, card)
+        done("adaln")
         return
 
     check_instances(phase_build(_build))
@@ -5742,7 +5912,7 @@ def main() -> None:
         done(check.__name__.removeprefix("phase_"))
     phase_profile(dev, card)
     done("profile")
-    launches = {name: 0 for name in KERNELS}
+    launches = dict.fromkeys(ops.launch_counts(), 0)
     for path in (path_langevin, path_hmc, *MCMC_PATHS, path_mala, path_gradient_descent, path_pt,
                  path_ais, path_step, path_cd, path_flow, *DIT_PATHS, *GAP_PATHS, path_parallel):
         for name, n in path(ops, dev, card).items():
@@ -5750,6 +5920,8 @@ def main() -> None:
         done(path.__name__)
     times = phase_timing(ops, dev, card)
     done("timing")
+    adaln = phase_adaln(ops, dev, card)
+    done("adaln")
     phase_syncs(ops, dev, card)
     done("syncs")
 
@@ -5769,6 +5941,15 @@ def main() -> None:
                      "launches": launches[name], "max_abs_err": errors[name],
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": t["library_ms"]})
+    for name, (source, replaces) in ADALN_KERNELS.items():
+        t = adaln[name]
+        print(f"bound: {name}: {t['bound_ms']:.4f} ms by {t['bound_by']} at {ADALN_SHAPE} "
+              f"bfloat16; kernel {t['ms']:.4f} ms, {t['bound_ms'] / t['ms']:.3f} of the bound's "
+              f"rate | {card}")
+        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launches[name], "max_abs_err": t["max_abs_err"],
+                     "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     summary = {"kernels": rows}
     print(f"chip_smoke.py: {time.perf_counter() - started:.1f} s in all, the build included")
     print(card)

@@ -9,6 +9,13 @@ import torch
 from torchebm_tpu_torch import ops
 from torchebm_tpu_torch.ops import _build, _counts
 
+#: the kernels that draw Philox numbers
+CHAIN_KERNELS = {
+    "mixture_langevin_chain", "mixture_langevin_chain_trajectory", "doublewell_langevin_chain",
+    "doublewell_langevin_chain_trajectory", "mixture_mala_chain", "mixture_mala_chain_trajectory",
+    "mixture_hmc_chain", "mixture_hmc_chain_trajectory", "pt_langevin_chain",
+    "pt_langevin_chain_trajectory", "mixture_ais_run", "fused_langevin_step", "mlp_langevin_chain",
+}
 SOURCES = sorted(p.name for p in _build.CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
 
 
@@ -30,6 +37,7 @@ def _calls():
     g = torch.Generator().manual_seed(0)
     x0, means = torch.randn(4, 2, generator=g), torch.randn(3, 2, generator=g)
     ladder = torch.randn(2, 4, 2, generator=g)
+    stream, row = torch.randn(2, 5, 24, generator=g), torch.randn(2, 24, generator=g)
     mix = dict(scale=0.5, seed=1)
     return {
         "mixture_langevin_chain": ((x0, means, 5, 0.05), mix),
@@ -51,6 +59,11 @@ def _calls():
                                      (torch.randn(8, 1, generator=g), torch.zeros(1))], 5, 0.01),
                                dict(seed=1)),
         "sinkhorn_log_fused": ((torch.rand(6, 9, generator=g), 0.05, 7), dict(tol=0.0)),
+        "adaln_modulate": ((stream, row, row), {}),
+        "adaln_modulate_backward":
+            ((stream, stream, torch.zeros(2, 5), torch.ones(2, 5), row), dict(dres=stream)),
+        "gated_residual": ((stream, row, stream), {}),
+        "gated_residual_backward": ((stream, row, stream), {}),
     }
 
 
@@ -63,8 +76,9 @@ def test_every_kernel_has_work_counts(name):
     work = _counts.work(name, args, kw, result)
     assert set(work["ops"]) == {"fp32", "int32", "sfu", "tf32"}
     assert work["ops"]["fp32"] > 0 and work["bytes"] > 0
-    # every chain kernel draws Philox numbers on these calls; Sinkhorn draws none
-    assert (work["ops"]["int32"] > 0) == (name != "sinkhorn_log_fused")
+    # every chain kernel draws Philox numbers on these calls; Sinkhorn and the
+    # adaLN kernels draw none
+    assert (work["ops"]["int32"] > 0) == (name in CHAIN_KERNELS)
 
 
 def test_work_scales_with_the_chain_length():

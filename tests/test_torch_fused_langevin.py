@@ -486,8 +486,9 @@ def test_library_path_follows_every_source_and_header(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "CSRC", csrc)
     before = _build.library_path()
     assert sorted(p.name for p in _build._sources()) == [
-        "fused_ais.cu", "fused_hmc.cu", "fused_langevin.cu", "fused_mala.cu",
-        "fused_mlp_langevin.cu", "fused_pt.cu", "fused_sinkhorn.cu", "fused_step.cu"]
+        "fused_adaln.cu", "fused_ais.cu", "fused_gated_residual.cu", "fused_hmc.cu",
+        "fused_langevin.cu", "fused_mala.cu", "fused_mlp_langevin.cu", "fused_pt.cu",
+        "fused_sinkhorn.cu", "fused_step.cu"]
     (csrc / "notes.txt").write_text("not a source")
     assert _build.library_path() == before
     header = csrc / "tebm_common.cuh"
@@ -508,6 +509,7 @@ def test_launch_counts_cover_every_kernel_wrapper():
         "mixture_hmc_chain", "mixture_hmc_chain_trajectory",
         "pt_langevin_chain", "pt_langevin_chain_trajectory", "mixture_ais_run",
         "fused_langevin_step", "mlp_langevin_chain", "sinkhorn_log_fused",
+        "adaln_modulate", "adaln_modulate_backward", "gated_residual", "gated_residual_backward",
     }
     saved = ops.launch_counts()
     try:

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from torchebm_tpu_torch.ops import fused_adaln as tadaln
 from torchebm_tpu_torch.ops import fused_ais as tais
 from torchebm_tpu_torch.ops import fused_hmc as thmc
 from torchebm_tpu_torch.ops import fused_langevin as tfl
@@ -821,3 +822,178 @@ def test_chain_kernels_with_a_chain_offset(cuda, row):
     for w, a, b in zip(whole, *parts):
         if w.ndim:  # the ladder's 0-d acceptance is a mean over its chains
             assert torch.equal(torch.cat([a, b], dim=1 if w.ndim == 3 else 0), w)
+
+
+#: (B, N, D) of the adaLN kernels' checks: DiT-B/2's stream at batch 256,
+#: then ragged shapes: D = 72, 200, 768 and 1,152 (12 packs a lane in
+#: float32), D = 100 (one value a pack in 16-bit types), N = 1 and 17, and
+#: a sample's tokens split over several blocks (small B) in the backward
+ADALN_SHAPES = [(256, 256, 768), (3, 17, 72), (2, 1, 200), (5, 17, 768), (4, 33, 100),
+                (2, 256, 1152)]
+ADALN_KERNELS = ("adaln_modulate", "gated_residual", "adaln_modulate_backward",
+                 "gated_residual_backward")
+
+
+def _adaln_launches():
+    return [getattr(tadaln, k).launches for k in ADALN_KERNELS]
+
+
+def _rel_norm(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ADALN_SHAPES)
+def test_adaln_kernels_against_their_plain_versions(cuda, dtype, shape):
+    """Each adaLN kernel, forward and backward, against its plain version on
+    the same inputs on the card (float32 arithmetic in both): float32 within
+    1e-5 relative; bfloat16 outputs within 2^-6 relative (a few bf16 ulps:
+    both round one float32 value, summed in another order) and gradients
+    within 1e-2 of their norms. The parameters are strided chunks of one
+    modulation output, as in the block. A second backward repeats bit for
+    bit (no atomics)."""
+    b, n, d = shape
+    g = torch.Generator(device=cuda).manual_seed(b * n + d)
+
+    def r(*size, scale=1.0, shift=0.0):
+        return (scale * torch.randn(*size, generator=g, device=cuda) + shift).to(dtype)
+
+    x = r(b, n, d, scale=2.0, shift=0.5)
+    mod = r(b, 6 * d, scale=0.3)
+    shift, scale, gate = mod[:, :d], mod[:, d:2 * d], mod[:, 2 * d:3 * d]
+    y, dz, dres = r(b, n, d), r(b, n, d), r(b, n, d)
+    before = _adaln_launches()
+    z, mean, rstd = tadaln.adaln_modulate(x, shift, scale, 1e-6)
+    out = tadaln.gated_residual(x, gate, y)
+    back = tadaln.adaln_modulate_backward(dz, x, mean, rstd, scale, dres)
+    gback = tadaln.gated_residual_backward(dz, gate, y)
+    torch.cuda.synchronize()
+    assert [a - c for a, c in zip(_adaln_launches(), before)] == [1, 1, 1, 1]
+    zp, mp, rp = tadaln.adaln_modulate_plain(x, shift, scale, 1e-6)
+    outp = tadaln.gated_residual_plain(x, gate, y)
+    backp = tadaln.adaln_modulate_backward_plain(dz, x, mp, rp, scale, dres)
+    gbackp = tadaln.gated_residual_backward_plain(dz, gate, y)
+    torch.testing.assert_close(mean, mp, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(rstd, rp, rtol=1e-5, atol=0.0)
+    pairs = [(z, zp, "z"), (out, outp, "out")]
+    grads = [*zip(back, backp, ("dx", "dshift", "dscale")), *zip(gback, gbackp, ("dy", "dgate"))]
+    for got, want, name in pairs + grads:
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        assert torch.isfinite(got).all(), name
+    if dtype == torch.float32:
+        for got, want, name in pairs + grads:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()),
+                                       msg=name)
+    else:
+        for got, want, name in pairs:
+            torch.testing.assert_close(got.float(), want.float(), rtol=2**-6,
+                                       atol=2**-16 * float(want.abs().max().float()), msg=name)
+        for got, want, name in grads:
+            assert _rel_norm(got, want) <= 1e-2, (name, _rel_norm(got, want))
+    again = tadaln.adaln_modulate_backward(dz, x, mean, rstd, scale, dres)
+    for a, c in zip(again + tadaln.gated_residual_backward(dz, gate, y), back + gback):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+def test_adaln_block_on_the_kernels_against_the_composite(cuda, monkeypatch):
+    """A float32 DiT-B/2 block on the kernels against the same block on the
+    plain operations, both on the card: output within 1e-5 and every
+    gradient within 1e-4 of its largest entry."""
+    from torchebm_tpu_torch.models.components import AdaLNZeroBlock
+    from torchebm_tpu_torch.models.components import transformer as tr
+
+    torch.manual_seed(0)
+    with torch.device(cuda):
+        block = AdaLNZeroBlock(768, 12)
+        with torch.no_grad():
+            block.modulation.weight.normal_(0.0, 0.02)
+            block.modulation.bias.normal_(0.0, 0.2)
+        x = torch.randn(4, 256, 768).requires_grad_()
+        cond = torch.randn(4, 768)
+    params = [x, *block.parameters()]
+    runs = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(tr, "_plain_ops", lambda *ts: True)
+        before = _adaln_launches()
+        out = block(x, cond)
+        grads = torch.autograd.grad(out.square().mean(), params)
+        launched = [a - c for a, c in zip(_adaln_launches(), before)]
+        assert launched == ([0, 0, 0, 0] if plain else [2, 2, 2, 2])
+        runs.append((out.detach(), grads))
+    (out, grads), (want, want_grads) = runs
+    assert float((out - want).abs().max() / want.abs().max()) <= 1e-5
+    for a, c in zip(grads, want_grads):
+        assert float((a - c).abs().max() / c.abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_adaln_block_takes_the_gradient_of_a_sum(cuda, monkeypatch):
+    """The gradient of a sum reaches a float32 block on the card as a
+    broadcast view: the backward kernels run on it (launches 2 of each) and
+    every gradient matches the composite's within 1e-4 of its largest
+    entry."""
+    from torchebm_tpu_torch.models.components import AdaLNZeroBlock
+    from torchebm_tpu_torch.models.components import transformer as tr
+
+    torch.manual_seed(1)
+    with torch.device(cuda):
+        block = AdaLNZeroBlock(768, 12)
+        with torch.no_grad():
+            block.modulation.weight.normal_(0.0, 0.02)
+            block.modulation.bias.normal_(0.0, 0.2)
+        x = torch.randn(2, 64, 768).requires_grad_()
+        cond = torch.randn(2, 768)
+    params = [x, *block.parameters()]
+    before = _adaln_launches()
+    grads = torch.autograd.grad(block(x, cond).sum(), params)
+    assert [a - c for a, c in zip(_adaln_launches(), before)] == [2, 2, 2, 2]
+    monkeypatch.setattr(tr, "_plain_ops", lambda *ts: True)
+    for a, c in zip(grads, torch.autograd.grad(block(x, cond).sum(), params)):
+        assert float((a - c).abs().max() / c.abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_dit_b2_launches_the_adaln_kernels(cuda):
+    """DiT-B/2 in bf16 on the card: 25 modulations (12 blocks x 2 and the
+    head) and 24 gated residuals a forward, their backward kernels as many
+    times a backward; in float32, a torch.func transform, forward-mode AD
+    and a create_graph backward launch no adaLN kernel of their own (a bf16
+    LayerNorm's forward-mode derivative on the card is float32, which the
+    bf16 model's next product refuses, with or without these kernels)."""
+    import torch.autograd.forward_ad as fwAD
+
+    from torchebm_tpu_torch.models import ConditionalTransformer2D
+
+    def dit_b2(dtype):
+        torch.manual_seed(0)
+        with torch.device(cuda):
+            return ConditionalTransformer2D(in_channels=4, out_channels=4, input_size=32,
+                                            patch_size=2, embed_dim=768, depth=12, num_heads=12,
+                                            cond_dim=768, dtype=dtype)
+
+    net = dit_b2(torch.bfloat16)
+    x = torch.randn(2, 4, 32, 32, device=cuda)
+    cond = torch.randn(2, 768, device=cuda)
+
+    def launched(fn):
+        before = _adaln_launches()
+        fn()
+        torch.cuda.synchronize()
+        return [a - c for a, c in zip(_adaln_launches(), before)]
+
+    with torch.no_grad():
+        assert launched(lambda: net(x, cond)) == [25, 24, 0, 0]
+    holder = {}
+    assert launched(lambda: holder.update(out=net(x, cond))) == [25, 24, 0, 0]
+    assert launched(lambda: holder["out"].square().mean().backward()) == [0, 0, 25, 24]
+    net = dit_b2(torch.float32)
+    v = torch.ones_like(x)
+    assert launched(lambda: torch.func.jvp(lambda x: net(x, cond), (x,), (v,))) == [0] * 4
+    with fwAD.dual_level():
+        assert launched(lambda: net(fwAD.make_dual(x, v), cond)) == [0] * 4
+    x2 = x.clone().requires_grad_()
+    out = net(x2, cond)
+    assert launched(lambda: torch.autograd.grad(out.sum(), x2, create_graph=True)) == [0] * 4

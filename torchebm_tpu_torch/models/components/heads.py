@@ -11,7 +11,7 @@ from torch import nn
 
 from ..nets import _linear
 from .patch import unpatchify2d
-from .transformer import _layer_norm, _zero_linear, modulate
+from .transformer import _adaln, _zero_linear
 
 Tensor = torch.Tensor
 
@@ -37,6 +37,6 @@ class AdaLNZeroPatchHead(nn.Module):
 
     def forward(self, tokens: Tensor, cond: Tensor) -> Tensor:
         shift, scale = _linear(self.modulation, F.silu(cond).to(self.dtype)).chunk(2, dim=1)
-        tokens = modulate(_layer_norm(tokens, self.eps), shift, scale)
+        tokens, _ = _adaln(tokens, shift, scale, self.eps)
         patches = _linear(self.proj, tokens.to(self.dtype))
         return unpatchify2d(patches, self.patch_size, out_channels=self.out_channels)

@@ -12,11 +12,18 @@ a backward asked to be differentiable (``create_graph=True``), it runs the
 JAX package's einsum form instead (``_attention``). Callers need not know:
 losses that differentiate a model twice use it as it is. The adaLN
 modulation is zero-initialised, so every block starts as the identity.
+
+The adaLN-Zero conditioning around each branch (LayerNorm, scale and shift
+before it; gate and residual after it) runs on the card as two hand-written
+kernels with kernel backwards (:mod:`~torchebm_tpu_torch.ops.fused_adaln`),
+one pass over the token stream a side of each branch, with the same rule as
+attention: the plain operations on the CPU, under a ``torch.func`` transform
+or forward-mode AD, and in a ``create_graph=True`` backward.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.autograd.forward_ad as fwAD
@@ -40,6 +47,15 @@ def _zero_linear(in_features: int, out_features: int) -> nn.Linear:
     nn.init.zeros_(layer.weight)
     nn.init.zeros_(layer.bias)
     return layer
+
+
+def _transformed(*ts: Tensor) -> bool:
+    """Whether a ``torch.func`` transform is active or a tensor of ``ts``
+    carries a forward-mode tangent: the fused kernels have no such
+    derivatives. Tangents are looked for only inside a dual level: each
+    look is an operator call."""
+    return torch._C._are_functorch_transforms_active() or (
+        fwAD._current_level >= 0 and any(fwAD.unpack_dual(t).tangent is not None for t in ts))
 
 
 def _einsum_attention(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
@@ -88,8 +104,7 @@ def _attention(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
     On an H100 80GB HBM3 at 700 W the fused kernels take a DiT-768x12 train
     step at batch 256 from 45.4 ms to 41.9 in bf16 and from 210.2 ms to
     205.5 in f32, against the einsum form (``scripts/time_dit_attention.py``)."""
-    if torch._C._are_functorch_transforms_active() or any(
-            fwAD.unpack_dual(t).tangent is not None for t in (q, k, v)):
+    if _transformed(q, k, v):
         return _einsum_attention(q, k, v)
     if not (torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)):
         return F.scaled_dot_product_attention(q, k, v)
@@ -99,6 +114,118 @@ def _attention(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
 def _layer_norm(x: Tensor, eps: float) -> Tensor:
     """LayerNorm over the last axis with no scale and no bias."""
     return F.layer_norm(x, x.shape[-1:], eps=eps)
+
+
+def _plain_ops(*ts: Tensor) -> bool:
+    """Whether the adaLN conditioning runs as plain operations: off the card,
+    or :func:`_transformed`."""
+    return not ts[0].is_cuda or _transformed(*ts)
+
+
+def _differentiable_grads(fn, inputs, grads):
+    """The gradients of ``fn(*inputs)`` at ``grads``, themselves
+    differentiable (a ``create_graph=True`` backward), through fresh nodes:
+    one input may lie on another's path."""
+    with torch.enable_grad():
+        leaves = tuple(t.view_as(t) if t.requires_grad else t.detach().requires_grad_()
+                       for t in inputs)
+        return torch.autograd.grad(fn(*leaves), leaves, grads, create_graph=True,
+                                   allow_unused=True)
+
+
+class _AdaLNModulate(torch.autograd.Function):
+    """``modulate(LayerNorm(x))`` by :func:`~torchebm_tpu_torch.ops.
+    fused_adaln.adaln_modulate`, returning ``(z, x)``: the stream passes
+    through, so that the residual's gradient reaches this node and its
+    backward kernel adds it to ``dx`` in the same pass. A ``create_graph``
+    backward differentiates the plain operations instead."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, shift: Tensor, scale: Tensor, eps: float):
+        from ...ops import fused_adaln
+
+        z, mean, rstd = fused_adaln.adaln_modulate(x, shift, scale, eps)
+        ctx.eps = eps
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, shift, scale, mean, rstd)
+        return z, x
+
+    @staticmethod
+    def backward(ctx, dz: Optional[Tensor], dres: Optional[Tensor]):
+        x, shift, scale, mean, rstd = ctx.saved_tensors
+        if dz is None:
+            return dres, None, None, None
+        if torch.is_grad_enabled():
+            dx, dshift, dscale = _differentiable_grads(
+                lambda x, shift, scale: modulate(_layer_norm(x, ctx.eps), shift, scale),
+                (x, shift, scale), dz)
+            return dx if dres is None else dx + dres, dshift, dscale, None
+        from ...ops import fused_adaln
+
+        # the forward checked x, shift and scale, and autograd gives the
+        # gradients their outputs' shapes and types; a gradient may be a
+        # broadcast view (the gradient of a sum)
+        dx, dshift, dscale = fused_adaln._modulate_backward(
+            dz.contiguous(), x, mean, rstd, scale, None if dres is None else dres.contiguous())
+        return dx, dshift, dscale, None
+
+
+class _GatedResidual(torch.autograd.Function):
+    """``x + gate[:, None, :]·y`` by :func:`~torchebm_tpu_torch.ops.
+    fused_adaln.gated_residual`; the backward kernel gives ``y``'s and
+    ``gate``'s gradients and ``x``'s is the incoming one. A ``create_graph``
+    backward differentiates the plain operations instead."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, gate: Tensor, y: Tensor):
+        from ...ops import fused_adaln
+
+        ctx.save_for_backward(gate, y)
+        return fused_adaln.gated_residual(x, gate, y)
+
+    @staticmethod
+    def backward(ctx, dout: Tensor):
+        gate, y = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            _, dgate, dy = _differentiable_grads(lambda x, gate, y: x + gate[:, None, :] * y,
+                                                 (dout, gate, y), dout)
+            return dout, dgate, dy
+        from ...ops import fused_adaln
+
+        dy, dgate = fused_adaln._gated_backward(dout.contiguous(), gate, y)
+        return dout, dgate, dy
+
+
+def _needs_grad(a: Tensor, b: Tensor, c: Tensor) -> bool:
+    return torch.is_grad_enabled() and (a.requires_grad or b.requires_grad or c.requires_grad)
+
+
+def _adaln(x: Tensor, shift: Tensor, scale: Tensor, eps: float) -> Tuple[Tensor, Tensor]:
+    """``(modulate(LayerNorm(x), shift, scale), x)``: on the card by the
+    kernel, through :class:`_AdaLNModulate` (whose ``x`` carries the
+    residual's gradient back into its kernel) where a gradient is taken and
+    directly where none is (an autograd function's call costs the host as
+    much as the kernel's own); else by the plain operations."""
+    if _plain_ops(x, shift, scale):
+        return modulate(_layer_norm(x, eps), shift, scale), x
+    if _needs_grad(x, shift, scale):
+        return _AdaLNModulate.apply(x, shift, scale, eps)
+    from ...ops import fused_adaln
+
+    return fused_adaln.adaln_modulate(x, shift, scale, eps, stats=False)[0], x
+
+
+def _gated_residual(x: Tensor, gate: Tensor, y: Tensor) -> Tensor:
+    """``x + gate[:, None, :]·y``: on the card by the kernel, through
+    :class:`_GatedResidual` where a gradient is taken; else by the plain
+    operations."""
+    if _plain_ops(x, gate, y):
+        return x + gate[:, None, :] * y
+    if _needs_grad(x, gate, y):
+        return _GatedResidual.apply(x, gate, y)
+    from ...ops import fused_adaln
+
+    return fused_adaln.gated_residual(x, gate, y)
 
 
 class MultiheadSelfAttention(nn.Module):
@@ -162,6 +289,7 @@ class AdaLNZeroBlock(nn.Module):
     def forward(self, x: Tensor, cond: Tensor) -> Tensor:
         mod = _linear(self.modulation, F.silu(cond).to(self.dtype))
         shift1, scale1, gate1, shift2, scale2, gate2 = mod.chunk(6, dim=1)
-        x = x + gate1[:, None, :] * self.attn(modulate(_layer_norm(x, self.eps), shift1, scale1))
-        x = x + gate2[:, None, :] * self.mlp(modulate(_layer_norm(x, self.eps), shift2, scale2))
-        return x
+        h, x = _adaln(x, shift1, scale1, self.eps)
+        x = _gated_residual(x, gate1, self.attn(h))
+        h, x = _adaln(x, shift2, scale2, self.eps)
+        return _gated_residual(x, gate2, self.mlp(h))

@@ -6,6 +6,7 @@ kernels' plain PyTorch versions.
 """
 
 from . import (
+    fused_adaln,
     fused_ais,
     fused_hmc,
     fused_langevin,
@@ -15,6 +16,12 @@ from . import (
     fused_sinkhorn,
 )
 from ._build import launch_counts, reset_launch_counts
+from .fused_adaln import (
+    adaln_modulate,
+    adaln_modulate_backward,
+    gated_residual,
+    gated_residual_backward,
+)
 from .fused_ais import mixture_ais_run
 from .fused_hmc import mixture_hmc_chain, mixture_hmc_chain_trajectory
 from .fused_langevin import (
@@ -46,6 +53,10 @@ __all__ = [
     "extract_mlp_layers",
     "sinkhorn_log_fused",
     "fits_fused_sinkhorn",
+    "adaln_modulate",
+    "adaln_modulate_backward",
+    "gated_residual",
+    "gated_residual_backward",
     "launch_counts",
     "reset_launch_counts",
 ]

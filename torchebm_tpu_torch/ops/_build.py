@@ -23,6 +23,7 @@ compiler's output. Nothing here runs at import time.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -177,13 +178,15 @@ def _entry(name: str, argtypes: tuple):
 def launch(name: str, argtypes: tuple, device, *args) -> None:
     """Call C entry ``tebm_<name>``, whose arguments have the ctypes
     ``argtypes`` (every entry then takes the stream and returns
-    ``cudaGetLastError()`` as an int), on ``device``'s current stream; raise
+    ``cudaGetLastError()`` as an int), on ``device``'s current stream, with
+    ``device`` made the current device for the call where it is not; raise
     on a non-zero return."""
     import torch
 
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _entry(name, argtypes)(*args, stream)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    with contextlib.nullcontext() if index == current else torch.cuda.device(index):
+        rc = _entry(name, argtypes)(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         msg = load_library().tebm_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA kernel launch failed with error {rc} ({msg})")

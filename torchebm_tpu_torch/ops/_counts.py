@@ -48,6 +48,7 @@ __all__ = ["COUNTED_SOURCES", "work"]
 
 #: ``{file under csrc/: sha256 hexdigest[:16]}`` of the sources counted here
 COUNTED_SOURCES = {
+    "fused_adaln.cu": "2babbb7de9382af3",
     "fused_ais.cu": "a7cacd3f918b0ea8",
     "fused_hmc.cu": "7828e20ad5034c76",
     "fused_langevin.cu": "325cefba2cc4636e",
@@ -55,7 +56,9 @@ COUNTED_SOURCES = {
     "fused_mlp_langevin.cu": "888d1218c33b7485",
     "fused_pt.cu": "b71c6dbdd6dfca51",
     "fused_sinkhorn.cu": "dcc7fb5e563b09c8",
+    "fused_gated_residual.cu": "b1341345116bf936",
     "fused_step.cu": "45698a16da6ceaad",
+    "tebm_adaln.cuh": "b9620210d09473c0",
     "tebm_common.cuh": "678eb63445f8b37b",
 }
 
@@ -65,6 +68,23 @@ COUNTED_SOURCES = {
 _NORMALS4 = {"int32": 84, "fp32": 60, "sfu": 12}
 _NORMAL = {k: v / 4 for k, v in _NORMALS4.items()}
 _UNIFORM = {"int32": 84, "fp32": 2, "sfu": 1}
+
+
+# the adaLN kernels, per value of the (B, N, D) stream and per token row (the
+# per-sample loads of shift, scale and gate, and the column sums' block and
+# chunk merges, are per sample and not counted). adaln_modulate: the mean's
+# add, the deviation and its square-add, (x - mean)·rstd and the FMA with
+# 1 + scale and shift; a row's rsqrt. Its backward: x^ (a subtract and a
+# multiply), dscale's FMA and dshift's add, g = dz (1 + scale), the two row
+# sums' add and FMA, dx's two subtracts, multiply and FMA with dres.
+# gated_residual: one FMA; its backward dgate's FMA and dy's multiply. A
+# row's warp shuffles (5 adds per sum) in each
+_ADALN = {
+    "adaln_modulate": ({"fp32": 6}, {"fp32": 12, "sfu": 1}),
+    "adaln_modulate_backward": ({"fp32": 11}, {"fp32": 12}),
+    "gated_residual": ({"fp32": 1}, {}),
+    "gated_residual_backward": ({"fp32": 2}, {}),
+}
 
 
 def _add(*parts, times=1) -> dict:
@@ -201,6 +221,10 @@ def work(name: str, args, kw, result) -> dict:
         # C read once and the plan written once from device memory; what an
         # iteration re-reads comes from shared memory or L2
         moved = 2 * 4 * n * m
+    elif name in _ADALN:  # fused_adaln.cu, fused_gated_residual.cu, per value of the stream
+        x = args[0]
+        per_value, per_row = _ADALN[name]
+        ops = _add(_add(per_value, times=x.numel()), _add(per_row, times=x.numel() // x.shape[-1]))
     else:
         raise KeyError(f"no instruction counts for kernel {name!r}")
     return {"ops": ops, "bytes": moved}
