@@ -117,6 +117,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     ((4, 30, 100, 2, False), (False, 4, 30, 1)),
     ((4, 30, 1152, 4, True), (True, 12, 8, 4)),
     ((4, 30, 4096, 2, False), (True, 16, 30, 1)),
+    # SD3-medium's image and text streams at batch 32: 4 chunks, 128 blocks
+    # for 132 multiprocessors (5 chunks would start a second wave of 28)
+    ((32, 256, 1536, 2, True), (True, 6, 64, 4)),
+    ((32, 154, 1536, 2, True), (True, 6, 39, 4)),
+    ((100, 64, 768, 2, True), (True, 3, 64, 1)),
 ])
 def test_launch_plan(case, want):
     b, n, d, itemsize, backward = case

@@ -826,10 +826,12 @@ def test_chain_kernels_with_a_chain_offset(cuda, row):
 
 #: (B, N, D) of the adaLN kernels' checks: DiT-B/2's stream at batch 256,
 #: then ragged shapes: D = 72, 200, 768 and 1,152 (12 packs a lane in
-#: float32), D = 100 (one value a pack in 16-bit types), N = 1 and 17, and
-#: a sample's tokens split over several blocks (small B) in the backward
+#: float32), D = 100 (one value a pack in 16-bit types), N = 1 and 17, a
+#: sample's tokens split over several blocks (small B) in the backward, and
+#: SD3-medium's two streams at batch 32 (D = 1,536: 6 packs a lane in bf16,
+#: 256 image and 154 text tokens)
 ADALN_SHAPES = [(256, 256, 768), (3, 17, 72), (2, 1, 200), (5, 17, 768), (4, 33, 100),
-                (2, 256, 1152)]
+                (2, 256, 1152), (32, 256, 1536), (32, 154, 1536)]
 ADALN_KERNELS = ("adaln_modulate", "gated_residual", "adaln_modulate_backward",
                  "gated_residual_backward")
 

@@ -153,6 +153,7 @@ _LAZY_SYMBOLS = {
     "FeedForward": "models",
     "AdaLNZeroBlock": "models",
     "AdaLNZeroPatchHead": "models",
+    "JointTransformer2D": "models",
     # datasets
     "DATASET_REGISTRY": "datasets",
     "load_mnist": "datasets",

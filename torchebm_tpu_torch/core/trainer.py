@@ -16,6 +16,10 @@ parameters by the optimizer, the buffer by its ring write) and returns it, so
   their mean in one optimizer step, as ``optax.MultiSteps`` does; the
   parameters stay put in between.
 - Metrics stay on the device per step and are reduced once per epoch.
+- ``cuda_graph=True`` replays each micro-batch's loss and gradients from a
+  pair of CUDA graphs (:class:`_GraphedStep`) where they apply: a large
+  model at a small batch otherwise leaves the card waiting on the host's
+  thousands of launches a step. The optimizer and the EMA run as they are.
 - Callbacks: ``on_train_start/end``, ``on_epoch_start/end``,
   ``on_batch_start/end``.
 
@@ -114,6 +118,97 @@ def _leading(batches) -> int:
     return batches.shape[0]
 
 
+class _GraphedStep:
+    """The loss of one micro-batch and its parameters' gradients, replayed
+    from a pair of CUDA graphs: the forward, then the backward, captured at
+    the first step with each key and replayed in order on the current
+    stream, with the batch copied into the captured inputs first. The key
+    holds the batch's shapes, dtypes and device, the module's ``training``,
+    each parameter's storage and ``requires_grad`` and the generator, so a
+    replaced parameter (``module.to``, a restore that assigns) or another
+    generator captures anew. The draws come from the generator as an eager
+    step would take them, each replay advancing it as much.
+
+    The captured loss and gradients live in the graphs' memory and are
+    overwritten by the next replay: :meth:`forward` returns a copy of the
+    loss, and :meth:`backward` hands the gradients to the parameters as
+    their ``.grad`` (a copy, or added to one already there, when gradients
+    accumulate), which the optimizer consumes before the next replay."""
+
+    #: eager passes on the capture stream before a capture (cuBLAS and
+    #: autograd set themselves up outside the graph)
+    WARMUP = 3
+
+    def __init__(self):
+        self.release()
+
+    def release(self) -> None:
+        """Drop the graphs and what lives in their memory."""
+        self.key = self.generator = self.graphs = None
+        self.x = self.mk = self.loss = self.grads = self.params = None
+
+    @staticmethod
+    def _key(model: nn.Module, params: Dict[str, Tensor], x: Tensor,
+             mk: Dict[str, Tensor]) -> tuple:
+        return ((x.shape, x.dtype, x.device),
+                tuple((k, v.shape, v.dtype, v.device) for k, v in sorted(mk.items())),
+                model.training,
+                tuple((p.data_ptr(), p.requires_grad) for p in params.values()))
+
+    def _capture(self, loss_of, params: Dict[str, Tensor], x: Tensor, mk: Dict[str, Tensor],
+                 generator: torch.Generator) -> None:
+        if self.graphs is not None:
+            self.release()
+            torch.cuda.empty_cache()
+        device = x.device
+        self.params = [p for p in params.values() if p.requires_grad]
+        self.x, self.mk = x.detach().clone(), {k: v.detach().clone() for k, v in mk.items()}
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        scratch = torch.Generator(device).manual_seed(0)
+        with torch.cuda.stream(stream):
+            for _ in range(self.WARMUP):
+                torch.autograd.grad(loss_of(self.x, scratch, self.mk), self.params,
+                                    allow_unused=True)
+        torch.cuda.current_stream(device).wait_stream(stream)
+        forward, backward = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        if generator is not torch.cuda.default_generators[device.index]:
+            forward.register_generator_state(generator)  # the default one is already
+        with torch.cuda.graph(forward, stream=stream):
+            self.loss = loss_of(self.x, generator, self.mk)
+        with torch.cuda.graph(backward, pool=forward.pool(), stream=stream):
+            self.grads = torch.autograd.grad(self.loss, self.params, allow_unused=True)
+        self.graphs = (forward, backward)
+        self.generator = generator
+
+    def forward(self, loss_of, model: nn.Module, params: Dict[str, Tensor], x: Tensor,
+                mk: Dict[str, Tensor], generator: torch.Generator) -> Tensor:
+        """The micro-batch's loss (a copy), capturing first where the key
+        or the generator changed; ``params`` are ``model``'s, by name."""
+        key = self._key(model, params, x, mk)
+        if key != self.key or generator is not self.generator:
+            self._capture(loss_of, params, x, mk, generator)
+            self.key = key
+        self.x.copy_(x)
+        for k, v in mk.items():
+            self.mk[k].copy_(v)
+        self.graphs[0].replay()
+        return self.loss.detach().clone()
+
+    def backward(self, accumulating: bool) -> None:
+        """The gradients of the last :meth:`forward`, into each parameter's
+        ``.grad``."""
+        self.graphs[1].replay()
+        with torch.no_grad():
+            for p, g in zip(self.params, self.grads):
+                if g is None:
+                    continue
+                if p.grad is not None:
+                    p.grad.add_(g)
+                else:
+                    p.grad = g.clone() if accumulating else g
+
+
 def _loss_state_tree(loss_state: Any) -> Any:
     """A dataclass loss state (the replay buffer) as a plain dict, for the
     checkpoint; anything else as it is."""
@@ -135,11 +230,18 @@ class BaseTrainer:
         ema_decay: Keep an EMA copy of the parameters when set.
         grad_accum_steps: Apply the mean gradient of this many micro-batches.
         callbacks: Objects with any of ``on_{train,epoch,batch}_{start,end}``.
+        cuda_graph: Replay each micro-batch's loss and gradients from CUDA
+            graphs (:class:`_GraphedStep`) where that applies: a loss without
+            state, on a batch and model kwargs of CUDA tensors, parameters
+            that are not DTensors and a CUDA generator. Elsewhere the step
+            runs eagerly. The loss must make no host read (a capture raises
+            on one), and its metrics are the loss alone.
     """
 
     def __init__(self, loss_fn: Any, optimizer: Callable[..., torch.optim.Optimizer], *,
                  ema_decay: Optional[float] = None, grad_accum_steps: int = 1,
-                 callbacks: Iterable[Any] = (), stateful_loss: Optional[bool] = None):
+                 callbacks: Iterable[Any] = (), stateful_loss: Optional[bool] = None,
+                 cuda_graph: bool = False):
         if grad_accum_steps < 1:
             raise ValueError("grad_accum_steps must be >= 1")
         self.loss_fn = loss_fn
@@ -150,6 +252,8 @@ class BaseTrainer:
         if stateful_loss is None:
             stateful_loss = isinstance(loss_fn, ContrastiveDivergence)
         self.stateful_loss = stateful_loss
+        self.cuda_graph = bool(cuda_graph)
+        self._graphed = _GraphedStep() if cuda_graph else None
 
     # ------------------------------------------------------------------
 
@@ -245,6 +349,15 @@ class BaseTrainer:
             return loss, aux, new_loss_state
         return self.loss_fn(None, x, generator, model_kwargs=mk), None, loss_state
 
+    def _graph_applies(self, state: TrainState, x, mk, shardings) -> bool:
+        """Whether the step replays from CUDA graphs; ``shardings`` is None
+        where no parameter is a DTensor."""
+        return (self._graphed is not None and shardings is None and not self.stateful_loss
+                and isinstance(x, Tensor) and x.is_cuda and not is_dtensor(x)
+                and state.generator.device.type == "cuda" and torch.is_grad_enabled()
+                and all(isinstance(v, Tensor) and v.is_cuda for v in mk.values())
+                and hasattr(torch.cuda.CUDAGraph, "register_generator_state"))
+
     def _optimizer_step(self, state: TrainState) -> None:
         """Apply the mean of the accumulated gradients every
         ``grad_accum_steps`` micro-batches."""
@@ -271,11 +384,24 @@ class BaseTrainer:
         with span("trainer.train_step"):
             x, mk = _split_batch(batch)
             device = x.device
-            shardings = self._param_shardings(state.params)
+            # one walk of the module a step: the card waits for the host here
+            params = state.params
+            shardings = self._param_shardings(params)
+            graphed = self._graph_applies(state, x, mk, shardings)
             with span("trainer.forward", device):
-                loss, aux, new_loss_state = self._loss(x, state.generator, state.loss_state, mk)
+                if graphed:
+                    loss = self._graphed.forward(
+                        lambda x_, g, mk_: self._loss(x_, g, None, mk_)[0], state.model, params,
+                        x, mk, state.generator)
+                    aux, new_loss_state = None, state.loss_state
+                else:
+                    loss, aux, new_loss_state = self._loss(x, state.generator, state.loss_state,
+                                                           mk)
             with span("trainer.backward", device):
-                loss.backward()
+                if graphed:
+                    self._graphed.backward(self.grad_accum_steps > 1)
+                else:
+                    loss.backward()
                 if shardings is not None or is_dtensor(x):
                     self._mean_replicated_grads(state.model, x)
             with span("trainer.optimizer", device):

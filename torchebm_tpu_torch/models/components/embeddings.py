@@ -1,5 +1,6 @@
-r"""Timestep and label embedders (counterpart of
-:mod:`torchebm_tpu.models.components.embeddings`)."""
+r"""Timestep, label and pooled-text embedders (counterpart of
+:mod:`torchebm_tpu.models.components.embeddings`; the pooled-text embedder
+is the port's own)."""
 
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from torch import nn
 
 Tensor = torch.Tensor
 
-__all__ = ["MLPTimestepEmbedder", "LabelEmbedder"]
+__all__ = ["MLPTimestepEmbedder", "LabelEmbedder", "PooledTextEmbedder"]
 
 
 class MLPTimestepEmbedder(nn.Module):
@@ -96,3 +97,24 @@ class LabelEmbedder(nn.Module):
                 drop = force_drop_mask.to(torch.bool)
             labels = torch.where(drop, torch.full_like(labels, self.null_label_id), labels)
         return self.embed(labels)
+
+
+class PooledTextEmbedder(nn.Module):
+    """A pooled text vector through ``Linear``, SiLU, ``Linear``, ``(B,
+    in_dim) -> (B, out_dim)`` (SD3's ``text_embedder``), computed in
+    ``dtype`` over float32 parameters; the output is in ``dtype``."""
+
+    def __init__(self, in_dim: int, out_dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        from ..nets import _lecun_init
+
+        self.dtype = dtype
+        self.layers = nn.ModuleList([
+            _lecun_init(nn.Linear(int(in_dim), int(out_dim))),
+            _lecun_init(nn.Linear(int(out_dim), int(out_dim))),
+        ])
+
+    def forward(self, pooled: Tensor) -> Tensor:
+        from ..nets import _linear
+
+        return _linear(self.layers[1], F.silu(_linear(self.layers[0], pooled.to(self.dtype))))

@@ -19,6 +19,11 @@ kernels with kernel backwards (:mod:`~torchebm_tpu_torch.ops.fused_adaln`),
 one pass over the token stream a side of each branch, with the same rule as
 attention: the plain operations on the CPU, under a ``torch.func`` transform
 or forward-mode AD, and in a ``create_graph=True`` backward.
+
+The joint (MMDiT) block of SD3 (:class:`JointAdaLNZeroBlock`) keeps two
+token streams, image and text, each with its own adaLN-Zero, QKV, output
+projection and MLP, that meet in one softmax attention over the joined
+sequence (:class:`JointSelfAttention`); it is built from the same pieces.
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ from ..nets import _lecun_init, _linear
 
 Tensor = torch.Tensor
 
-__all__ = ["modulate", "MultiheadSelfAttention", "FeedForward", "AdaLNZeroBlock"]
+__all__ = ["modulate", "MultiheadSelfAttention", "FeedForward", "AdaLNZeroBlock",
+           "JointSelfAttention", "JointAdaLNZeroBlock"]
 
 
 def modulate(x: Tensor, shift: Tensor, scale: Tensor) -> Tensor:
@@ -293,3 +299,106 @@ class AdaLNZeroBlock(nn.Module):
         x = _gated_residual(x, gate1, self.attn(h))
         h, x = _adaln(x, shift2, scale2, self.eps)
         return _gated_residual(x, gate2, self.mlp(h))
+
+
+class JointSelfAttention(nn.Module):
+    """SD3's joint attention: each stream's fused QKV projection (``x_qkv``
+    for the image tokens, ``c_qkv`` for the text tokens, columns ordered (3,
+    H, hd)), one softmax attention over the joined sequence (image tokens
+    first) by :func:`_attention`, split back, and each stream's output
+    projection. ``forward(x, c) -> (x_out, c_out)``, ``(B, Nx, D)`` and
+    ``(B, Nc, D)``. With ``context_pre_only`` the text tokens give keys and
+    values alone: only the image tokens query, and ``c_out`` is None (the
+    text stream's output is discarded after the last block).
+
+    The joining, attending and splitting run inside the span
+    ``models.joint_attention`` (:func:`~torchebm_tpu_torch.utils.profiling.
+    span`), timed on the card while a profiler runs."""
+
+    def __init__(self, embed_dim: int, num_heads: int, context_pre_only: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if embed_dim % num_heads != 0:
+            raise ValueError(
+                f"embed_dim ({embed_dim}) must be divisible by num_heads ({num_heads})"
+            )
+        self.embed_dim = int(embed_dim)
+        self.num_heads = int(num_heads)
+        self.context_pre_only = bool(context_pre_only)
+        self.dtype = dtype
+        self.x_qkv = _lecun_init(nn.Linear(self.embed_dim, 3 * self.embed_dim))
+        self.x_out_proj = _lecun_init(nn.Linear(self.embed_dim, self.embed_dim))
+        self.c_qkv = _lecun_init(nn.Linear(self.embed_dim, 3 * self.embed_dim))
+        self.c_out_proj = (None if self.context_pre_only
+                           else _lecun_init(nn.Linear(self.embed_dim, self.embed_dim)))
+
+    def _heads(self, layer: nn.Linear, h: Tensor) -> Tensor:
+        b, n, d = h.shape
+        return _linear(layer, h.to(self.dtype)).reshape(b, n, 3, self.num_heads,
+                                                        d // self.num_heads)
+
+    def forward(self, x: Tensor, c: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
+        from ...utils.profiling import span
+
+        b, nx, d = x.shape
+        qkv_x, qkv_c = self._heads(self.x_qkv, x), self._heads(self.c_qkv, c)
+        with span("models.joint_attention", x.device):
+            qkv = torch.cat([qkv_x, qkv_c], dim=1).permute(2, 0, 3, 1, 4)  # (3, B, H, N, hd)
+            q, k, v = qkv.unbind(0)
+            if self.context_pre_only:
+                q = q[:, :, :nx]
+            y = _attention(q, k, v).transpose(1, 2)
+            y = y.reshape(b, y.shape[1], d)
+            y_x, y_c = y[:, :nx], y[:, nx:]
+        out_x = _linear(self.x_out_proj, y_x)
+        return out_x, (None if self.context_pre_only else _linear(self.c_out_proj, y_c))
+
+
+class JointAdaLNZeroBlock(nn.Module):
+    """SD3's MMDiT block: two token streams, image ``x`` and text ``c``,
+    each with its own adaLN-Zero (``x_modulation``, ``c_modulation``:
+    shift, scale and gate of the attention branch, then of the MLP branch,
+    on ``silu(cond)``) and MLP (``x_mlp``, ``c_mlp``), meeting in
+    :class:`JointSelfAttention` (``attn``). ``forward(x, c, cond) -> (x,
+    c)``.
+
+    With ``context_pre_only`` (the last block) the text stream only feeds
+    the attention its keys and values, through a continuous adaLN:
+    ``c_modulation`` gives scale and shift (in that order, diffusers'
+    ``AdaLayerNormContinuous``) and no gate; it has no output projection and
+    no MLP, and ``c`` comes back as None."""
+
+    def __init__(self, embed_dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 context_pre_only: bool = False, eps: float = 1e-6,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.eps = float(eps)
+        self.dtype = dtype
+        self.context_pre_only = bool(context_pre_only)
+        self.x_modulation = _zero_linear(embed_dim, 6 * embed_dim)
+        self.c_modulation = _zero_linear(embed_dim, (2 if context_pre_only else 6) * embed_dim)
+        self.attn = JointSelfAttention(embed_dim, num_heads, context_pre_only, dtype=dtype)
+        self.x_mlp = FeedForward(embed_dim, mlp_ratio, dtype=dtype)
+        self.c_mlp = None if context_pre_only else FeedForward(embed_dim, mlp_ratio, dtype=dtype)
+
+    def forward(self, x: Tensor, c: Tensor, cond: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
+        sc = F.silu(cond).to(self.dtype)
+        shift1, scale1, gate1, shift2, scale2, gate2 = _linear(self.x_modulation,
+                                                               sc).chunk(6, dim=1)
+        mod_c = _linear(self.c_modulation, sc)
+        hx, x = _adaln(x, shift1, scale1, self.eps)
+        if self.context_pre_only:
+            c_scale, c_shift = mod_c.chunk(2, dim=1)
+            hc, _ = _adaln(c, c_shift, c_scale, self.eps)
+        else:
+            c_shift1, c_scale1, c_gate1, c_shift2, c_scale2, c_gate2 = mod_c.chunk(6, dim=1)
+            hc, c = _adaln(c, c_shift1, c_scale1, self.eps)
+        ax, ac = self.attn(hx, hc)
+        x = _gated_residual(x, gate1, ax)
+        hx, x = _adaln(x, shift2, scale2, self.eps)
+        x = _gated_residual(x, gate2, self.x_mlp(hx))
+        if self.context_pre_only:
+            return x, None
+        c = _gated_residual(c, c_gate1, ac)
+        hc, c = _adaln(c, c_shift2, c_scale2, self.eps)
+        return x, _gated_residual(c, c_gate2, self.c_mlp(hc))

@@ -33,8 +33,8 @@ any length. Each wrapper runs its kernel on CUDA tensors and its plain
 PyTorch version (``*_plain``, the same formulas, in float32 or wider) on CPU
 tensors; any other device raises. A wrapper's ``launches`` attribute counts
 its calls that launched its kernel. A backward call whose samples' tokens
-span several blocks (:class:`LaunchPlan` ``chunks`` above 1: at fewer
-samples than the card has multiprocessors) launches a second, small kernel
+span several blocks (:class:`LaunchPlan` ``chunks`` above 1: at half as many
+samples as the card has multiprocessors or fewer) launches a second, small kernel
 that adds the blocks' partial sums; it is counted with the call, not apart.
 """
 
@@ -61,9 +61,9 @@ ITEMS = (1, 2, 3, 4, 6, 8, 12, 16)
 WARPS = 8
 #: token rows a block of the forward kernels walks (8 a warp)
 FORWARD_ROWS = 64
-#: the backward kernels split a sample's tokens over blocks until the launch
-#: holds this many blocks a streaming multiprocessor (their registers hold
-#: one block of 8 warps a multiprocessor at DiT-B/2's width in bf16)
+#: the backward kernels split a sample's tokens over as many blocks as fit
+#: one wave of this many blocks a streaming multiprocessor (their registers
+#: hold one block of 8 warps a multiprocessor from DiT-B/2's width in bf16)
 BLOCKS_PER_SM = 1
 #: a launch's samples are its grid's second dimension
 MAX_SAMPLES = 65_535
@@ -105,8 +105,10 @@ def launch_plan(n_samples: int, n_tokens: int, d: int, itemsize: int, *, backwar
     Packs are 16 bytes where ``d`` is a multiple of their values and every
     stream's address is 16-byte ``aligned``. The forward kernels give a
     block :data:`FORWARD_ROWS` rows; the backward kernels split a sample's
-    tokens into the fewest chunks that give :data:`BLOCKS_PER_SM` blocks a
-    multiprocessor, no chunk under a row a warp."""
+    tokens into the most chunks whose blocks run as one wave of
+    :data:`BLOCKS_PER_SM` a multiprocessor (one chunk where the samples
+    alone fill it), no chunk under a row a warp: a second, part-filled wave
+    would take as long as the first."""
     if n_samples < 1 or n_tokens < 1 or d < 1:
         raise ValueError(f"an empty stream ({n_samples}, {n_tokens}, {d}) has no launch plan")
     if n_samples > MAX_SAMPLES:
@@ -121,7 +123,7 @@ def launch_plan(n_samples: int, n_tokens: int, d: int, itemsize: int, *, backwar
                          f"{ITEMS[-1]} a lane)")
     items = next(i for i in ITEMS if i >= need)
     if backward:
-        chunks = min(-(-BLOCKS_PER_SM * sms // n_samples), -(-n_tokens // WARPS))
+        chunks = min(max(1, BLOCKS_PER_SM * sms // n_samples), -(-n_tokens // WARPS))
         rows = -(-n_tokens // max(chunks, 1))
     else:
         rows = min(FORWARD_ROWS, n_tokens)

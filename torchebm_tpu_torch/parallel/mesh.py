@@ -44,6 +44,7 @@ The helpers at the end of this module (:func:`row_shard`, :func:`like_rows`,
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from typing import Any, Optional, Sequence, Tuple
@@ -294,12 +295,18 @@ def local_shard_bounds(global_batch: int, process_index: Optional[int] = None) -
 # ---------------------------------------------------------------------------
 
 
-def is_dtensor(x: Any) -> bool:
+@functools.lru_cache(maxsize=None)
+def _dtensor_type() -> Optional[type]:
     if not dist.is_available():
-        return False
+        return None
     from torch.distributed.tensor import DTensor
 
-    return isinstance(x, DTensor)
+    return DTensor
+
+
+def is_dtensor(x: Any) -> bool:
+    t = _dtensor_type()
+    return t is not None and isinstance(x, t)
 
 
 def row_shard(x, dim: int = 0) -> Tuple[Tensor, int, int]:

@@ -228,11 +228,18 @@ def span(name: str, device=None):
     While a ``torch.profiler`` session runs it records a :class:`SpanRecord`;
     a span opened inside another also enters a profiler annotation of
     ``name``. On a CUDA ``device`` it also times the span on the card. With
-    no profiler running it does nothing.
+    no profiler running, or while a CUDA graph is being captured, it does
+    nothing.
     """
-    if not _autograd_profiler._is_profiler_enabled:
+    if not _autograd_profiler._is_profiler_enabled or _capturing():
         return _OFF
     return SpanRecord(name, device=device)
+
+
+def _capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph, whose replays
+    run no Python: a span there would record the capture, not the work."""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
 
 
 def spans() -> List[SpanRecord]:
